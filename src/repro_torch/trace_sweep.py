@@ -1,0 +1,75 @@
+"""Where one tick of the sweep goes on the card: a torch.profiler trace.
+
+    PYTHONPATH=src python -m repro_torch.trace_sweep [--ticks 50]
+
+Runs the standard 10-scenario grid on the paper's Fig 2 site
+(``FBSite()``) on the CUDA device, warms up, then profiles ``--ticks``
+ticks and prints, per tick: wall time, device-busy time (the sum of
+kernel times, so the idle share is 1 - busy/wall), launches, and the
+kernels that take the most device time, as one JSON object. Needs a
+CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch.core import prng
+from repro_torch.core import simulator as S
+from repro_torch.kernels import lcdc_switch
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--ticks", type=int, default=50)
+    ap.add_argument("--warmup", type=int, default=20)
+    args = ap.parse_args()
+    dev = S.resolve_device(None)
+    batch = S.sweep_grid()
+    scen = S.Scenario(*(x.to(dev) for x in batch.scen))
+    state = S._init_state(batch.hull, scen, prng.key(batch.seeds,
+                                                     device=dev))
+    step = S.make_sim_step(batch.hull, scen)
+    for _ in range(args.warmup):
+        state = step(state)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.ticks):
+            state = step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    n = args.ticks
+    # kernels only (the CPU ops' device totals would count them twice)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    switch = [e for e in events if "switch_step_kernel" in e.key]
+    out = {
+        "device": torch.cuda.get_device_name(0),
+        "scenarios": len(batch), "ticks": n,
+        "wall_ms_per_tick": wall * 1e3 / n,
+        "device_busy_ms_per_tick": busy_us / 1e3 / n,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "kernel_launches_per_tick": launches / n,
+        "switch_step_launches_per_tick": sum(e.count for e in switch) / n,
+        "switch_step_device_us_per_tick":
+            sum(e.self_device_time_total for e in switch) / n,
+        "top_kernels": [{"name": e.key[:80], "calls_per_tick": e.count / n,
+                         "device_us_per_tick": e.self_device_time_total / n}
+                        for e in top],
+        "wrapper_launch_count": lcdc_switch.LAUNCHES,
+    }
+    print(json.dumps(out, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -6,16 +6,36 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases (one line each; any failure exits non-zero and prints no result):
 
-1. the card's name and power limit (nvidia-smi), then the build of every
-   CUDA source of the port with nvcc (timed, as set-up);
-2. the switch_step kernel against its plain PyTorch version on the
-   card, at the simulator's two tier shapes and at odd switch counts;
-3. the committed golden results (tests/data/preflow_golden.json,
-   "results") reproduced by ``run_sweep`` on the card;
-4. the full-size main path: the paper's Fig 2 site (``FBSite()``,
-   6,144 servers) under the standard 10-scenario grid, with the
-   kernel's launch count and the single fold fetch checked, plus
-   per-launch kernel times beside the plain version and the bound.
+1. ``build``: the card's name and power limit (nvidia-smi), then every
+   CUDA source of the port built with nvcc, one process per source, all
+   started together (timed, as set-up);
+2. ``kernel``: each kernel against its plain PyTorch version on the
+   card, at the shapes its path gives it: switch_step at the
+   simulator's two tier shapes and at odd switch counts;
+   flash_attention at the serve shapes of qwen3-8b (and one
+   sliding-window and one float32 case); wkv at the serve shapes of
+   rwkv6-7b (prefill, decode T = 1, a ragged T, float32);
+3. ``golden``: the committed golden results
+   (tests/data/preflow_golden.json, "results") reproduced by
+   ``run_sweep`` on the card;
+4. ``main``: the sweep path at full size, the paper's Fig 2 site
+   (``FBSite()``, 6,144 servers) under the standard 10-scenario grid,
+   with the switch kernel's launch count and the single fold fetch
+   checked, plus its per-launch times beside the plain version and the
+   bound;
+5. ``serve-qwen3-8b`` and 6. ``serve-rwkv6-7b``: the serving path at
+   full width (random bf16 weights from a seed, loaded one model at a
+   time): one request's prefill logits through the kernels against the
+   plain versions (float32, first 8 layers; and in bf16 at full depth
+   beside the effect of a small noise, for scale); a ContinuousBatcher
+   of 4 slots (max_len 512) serving 6 requests of 64-384 prompt tokens,
+   32 new tokens each; the
+   launch.serve path batched (B=8, P=256, gen 32); exact kernel launch
+   counts; prefill and decode tokens/s and the device's idle share
+   (torch.profiler);
+7. ``time``: per-launch card time of flash_attention and wkv at each
+   serve shape (CUDA-graph replay), beside the plain version, the bound
+   and, for flash_attention, scaled_dot_product_attention.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line names the device. Imports neither JAX nor the JAX
@@ -23,6 +43,8 @@ package.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -37,6 +59,7 @@ MAIN_TICKS = 2000          # full-grid ticks (>= 2,000; site and batch fixed)
 MAIN_CHUNK = 1000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32, outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 # kernel vs plain version: integers exact; floats within 4 float32 ulp
 # (the kernel runs the plain version's operations in the same order;
 # the plain version emulates the two fused multiply-adds in float64,
@@ -44,6 +67,32 @@ FP32_OPS_PER_S = 67e12     # H100 SXM float32, outside the tensor cores
 # bit)
 FLOAT_RTOL = 4 * 2.0 ** -23
 PARITY_TOL = 1e-3          # run level, the reference's own parity band
+
+# serving: the full-width models, one at a time
+SERVE_SEED = 0
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
+SERVE_PROMPTS = (64, 96, 128, 200, 256, 384)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 256, 32
+# attention and wkv kernels vs plain versions (allclose: atol + rtol *
+# |plain|), as tests/test_kernels.py holds the TPU kernels: the kernels
+# sum in another order, and in bf16 that flips roundings of the output
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+WKV_Y_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
+WKV_STATE_TOL = 2e-3
+# one request's last-position logits, kernels against plain versions on
+# the same weights cast to float32, over the first LOGIT_LAYERS layers,
+# as a share of the logits' largest magnitude. Float32, because these
+# random-weight stacks amplify any perturbation with depth: in bf16 a
+# relative noise of NOISE on the plain path's own attention or wkv
+# output moves the full-depth logits by a large share of their scale
+# (the phase prints it beside the kernels' bf16 difference), so bf16
+# logits cannot tell a rounding from a fault. In float32 the two paths
+# differ only in summation order, some 1e-6 to 1e-5 of the scale at 8
+# layers on an H100; a wiring fault (layout, mask, state) moves the
+# logits by their own scale.
+LOGIT_LAYERS = 8
+LOGIT_TOL = 1e-4
+NOISE = 2e-3
 
 
 def fail(msg: str) -> None:
@@ -165,6 +214,430 @@ def switch_bound(args, kw, out):
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
+# (label, B, T, H, d, causal, window, dtype): the qwen3-8b serve shapes
+FLASH_CASES = [
+    ("batched prefill", 8, 256, 32, 128, True, 0, "bfloat16"),
+    ("request", 1, 64, 32, 128, True, 0, "bfloat16"),
+    ("request", 1, 200, 32, 128, True, 0, "bfloat16"),
+    ("request", 1, 384, 32, 128, True, 0, "bfloat16"),
+    ("sliding window 128", 1, 384, 32, 128, True, 128, "bfloat16"),
+    ("float32", 2, 200, 8, 128, True, 0, "float32"),
+]
+# (label, B, T, H, dh, dtype): the rwkv6-7b serve shapes
+WKV_CASES = [
+    ("prefill", 1, 256, 64, 64, "bfloat16"),
+    ("decode", 4, 1, 64, 64, "bfloat16"),
+    ("ragged T", 2, 100, 64, 64, "bfloat16"),
+    ("float32", 1, 100, 64, 64, "float32"),
+]
+
+
+def allclose_err(torch, got, want, atol, rtol):
+    """max |got - want|; raises AssertionError on a shape or dtype
+    mismatch, a non-finite value, or any element beyond
+    atol + rtol * |want|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.double(), want.double()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite output")
+    d = (g - w).abs()
+    bad = d > atol + rtol * w.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{int(bad.sum())} of {d.numel()} values "
+                             f"beyond {atol:g} + {rtol:g}|plain| (max abs "
+                             f"{float(d.max()):.3g})")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def attn_inputs(torch, B, T, H, d, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((B, T, H, d), generator=g, device=dev).to(dtype)
+            for _ in range(3)]
+
+
+def wkv_inputs(torch, B, T, H, dh, dtype, dev, seed):
+    """r, k, v, w, u, state with RWKV-6's decay range w = exp(-exp(x))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    return ((n(B, T, H, dh) * 0.5).to(dtype), (n(B, T, H, dh) * 0.5).to(dtype),
+            n(B, T, H, dh).to(dtype),
+            torch.exp(-torch.exp(n(B, T, H, dh) * 0.5)).to(dtype),
+            (n(H, dh) * 0.3).to(dtype), n(B, H, dh, dh) * 0.1)
+
+
+def visible_pairs(T, S, causal, window):
+    """(query, key) pairs the masks leave visible: the work the inputs
+    need."""
+    n = 0
+    for i in range(T):
+        hi = min(i, S - 1) if causal else S - 1
+        lo = max(0, i - window + 1) if window else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+def bound(nbytes, ops, ops_per_s):
+    """(bound_ms, bound_by): the larger of bytes at the HBM rate and
+    operations at ``ops_per_s``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(q, k, v, causal, window):
+    """q, k, v read once and the output written once; 4 d operations a
+    visible (query, key) pair (QK^T and PV), at the bf16 tensor rate."""
+    B, T, H, d = q.shape
+    nbytes = 2 * q.numel() * q.element_size() \
+        + (k.numel() + v.numel()) * k.element_size()
+    return bound(nbytes, 4 * B * H * d * visible_pairs(T, k.shape[1],
+                                                       causal, window),
+                 BF16_OPS_PER_S)
+
+
+def wkv_bound(args, y, s_out):
+    """r, k, v, w, u, the state read once and y, the state written once;
+    4 dh^2 float32 operations a token and head (the y contraction and
+    the decayed state update), at the float32 rate."""
+    B, T, H, dh = args[0].shape
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, y, s_out))
+    return bound(nbytes, 4 * B * T * H * dh * dh, FP32_OPS_PER_S)
+
+
+def weighted(entries, key):
+    """The launch-weighted mean of ``key`` over per-shape entries: the
+    mean per launch on the path."""
+    n = sum(e["launches"] for e in entries)
+    return sum(e[key] * e["launches"] for e in entries) / n
+
+
+def profile_busy(torch, fn, kernel_name):
+    """(wall s, device-busy s, kernel launches, ms of the kernels named
+    ``kernel_name``, top kernels) of ``fn`` under torch.profiler; busy is
+    the sum of kernel times."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    launches = sum(e.count for e in events)
+    own = sum(e.self_device_time_total for e in events
+              if kernel_name in e.key) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return wall, busy, launches, own, [
+        (e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
+        for e in top]
+
+
+def check_attention_kernels(torch, dev):
+    """flash_attention and wkv against their plain versions; returns the
+    largest abs error of each."""
+    from repro_torch.kernels import flash_attention, ref, rwkv6_wkv
+    worst = {"flash_attention": 0.0, "wkv": 0.0}
+    for i, (label, B, T, H, d, causal, win, dt) in enumerate(FLASH_CASES):
+        q, k, v = attn_inputs(torch, B, T, H, d, getattr(torch, dt), dev,
+                              300 + i)
+        got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              swa_window=win)
+        want = ref.attention_ref(q, k, v, causal=causal, swa_window=win)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dt]
+        try:
+            err = allclose_err(torch, got, want, tol, tol)
+        except AssertionError as e:
+            fail(f"flash_attention {label} {(B, T, H, d)}: {e}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        phase("kernel", f"flash_attention {label} ({B}, {T}, {H}, {d}) {dt}"
+              f" causal={causal} window={win}: max abs {err:.3g} "
+              f"(tol {tol:g} abs + {tol:g} rel)")
+    for i, (label, B, T, H, dh, dt) in enumerate(WKV_CASES):
+        args = wkv_inputs(torch, B, T, H, dh, getattr(torch, dt), dev,
+                          400 + i)
+        y, s_out = rwkv6_wkv.wkv(*args)
+        y_ref, s_ref = ref.wkv_ref(*args)
+        torch.cuda.synchronize()
+        tol = WKV_Y_TOL[dt]
+        try:
+            err = allclose_err(torch, y, y_ref, tol, tol)
+            s_err = allclose_err(torch, s_out, s_ref, WKV_STATE_TOL,
+                                 WKV_STATE_TOL)
+        except AssertionError as e:
+            fail(f"wkv {label} {(B, T, H, dh)}: {e}")
+        worst["wkv"] = max(worst["wkv"], err, s_err)
+        phase("kernel", f"wkv {label} ({B}, {T}, {H}, {dh}) {dt}: y max abs"
+              f" {err:.3g} (tol {tol:g} abs + rel), state max abs "
+              f"{s_err:.3g} (tol {WKV_STATE_TOL:g})")
+    return worst
+
+
+def serve_phase(torch, arch, dev):
+    """The serving path of ``arch`` at full width. Returns the kernel
+    launches it made, by (B, T) shape, and its numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ops, rwkv6_wkv
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.serving import ContinuousBatcher, Request
+
+    name = f"serve-{arch}"
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    attn = cfg.layer_kind(0) == "attn"
+    own, other = (flash_attention, rwkv6_wkv) if attn \
+        else (rwkv6_wkv, flash_attention)
+    kname = "flash_attention" if attn else "wkv"
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SERVE_SEED, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    phase(name, f"{L} layers, d_model {cfg.d_model}, vocab {cfg.vocab}: "
+          f"{n_par / 1e9:.2f} B parameters in {cfg.dtype} (seed "
+          f"{SERVE_SEED}) on cuda in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    rng = np.random.default_rng(SERVE_SEED)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in SERVE_PROMPTS]
+    toks = torch.tensor([prompts[-1]], device=dev)
+    cfg32 = dataclasses.replace(cfg, n_layers=LOGIT_LAYERS,
+                                dtype=torch.float32)
+    params32 = _cast(dict(params, layers=params["layers"][:LOGIT_LAYERS]),
+                     torch.float32)
+    kern, _ = M.prefill(cfg32, params32, {"tokens": toks},
+                        kernel_fns=ops.model_kernel_fns())
+    plain, _ = M.prefill(cfg32, params32, {"tokens": toks})
+    torch.cuda.synchronize()
+    del params32
+    scale = float(plain.abs().max())
+    diff = float((kern - plain).abs().max())
+    if not (bool(torch.isfinite(kern).all()) and diff <= LOGIT_TOL * scale):
+        fail(f"{name}: prefill logits through the kernels differ from the "
+             f"plain path by {diff:.3g} (scale {scale:.3g}, tol "
+             f"{LOGIT_TOL:g} of it)")
+    phase(name, f"prefill of {toks.shape[1]} tokens through the first "
+          f"{LOGIT_LAYERS} layers in float32, kernels vs plain versions on "
+          f"the same weights: logits max abs diff {diff:.3g} of max "
+          f"|logit| {scale:.3g} (tol {LOGIT_TOL:g} of it)")
+    share = sensitivity(torch, cfg, params, toks, dev)
+    phase(name, f"the same request through all {L} layers in bf16: the "
+          f"kernels move the plain path's logits by {share['kernels']:.3g}"
+          f" of their scale, a relative noise of {NOISE:g} on the plain "
+          f"path's own attention/wkv outputs by {share['noise']:.3g}")
+
+    shapes = {}                      # (B, T) -> launches on the path
+    b = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
+                          max_len=SERVE_MAX_LEN)
+    reqs = [Request(rid=i, tokens=p, max_new=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        b.submit(r)
+    flash_attention.LAUNCHES = rwkv6_wkv.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b.run(max_ticks=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, stray = own.LAUNCHES, other.LAUNCHES
+    counted = launches
+    calls = b.prefills + (0 if attn else b.decode_steps)
+    if launches != L * calls or stray:
+        fail(f"{name}: batcher launched {kname} {launches} times, expected "
+             f"{L} x {calls}; the other kernel {stray} times")
+    for r in reqs:
+        if not (r.done and len(r.out) == SERVE_NEW and
+                all(0 <= t < cfg.padded_vocab for t in r.out)):
+            fail(f"{name}: request {r.rid} ended with {len(r.out)} tokens, "
+                 f"done={r.done}")
+    for n in SERVE_PROMPTS:
+        shapes[(1, n)] = shapes.get((1, n), 0) + L
+    if not attn:
+        shapes[(SERVE_SLOTS, 1)] = L * b.decode_steps
+    generated = sum(len(r.out) for r in reqs)
+    phase(name, f"ContinuousBatcher {SERVE_SLOTS} slots, max_len "
+          f"{SERVE_MAX_LEN}: {len(reqs)} requests (prompts {SERVE_PROMPTS},"
+          f" {SERVE_NEW} new tokens each) in {b.ticks} ticks, {b.prefills} "
+          f"prefills, {b.decode_steps} decode steps, {wall:.2f} s wall, "
+          f"{generated / wall:.1f} generated tok/s, idle_fraction "
+          f"{b.idle_fraction():.3f}; {kname} launches {launches} (= {L} x "
+          f"{calls})")
+    del b, reqs
+
+    prompts_b = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
+    fns = ops.model_kernel_fns()
+    flash_attention.LAUNCHES = rwkv6_wkv.LAUNCHES = 0
+    res = serve.generate(cfg, params, prompts_b, SERVE_GEN, kernel_fns=fns)
+    launches, stray = own.LAUNCHES, other.LAUNCHES
+    counted += launches
+    calls = 1 + (0 if attn else SERVE_GEN - 1)
+    if launches != L * calls or stray:
+        fail(f"{name}: launch.serve launched {kname} {launches} times, "
+             f"expected {L} x {calls}; the other kernel {stray} times")
+    tokens = res["tokens"]
+    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.padded_vocab)).all()):
+        fail(f"{name}: launch.serve gave tokens of shape "
+             f"{tuple(tokens.shape)}")
+    shapes[(SERVE_BATCH, SERVE_PROMPT)] = \
+        shapes.get((SERVE_BATCH, SERVE_PROMPT), 0) + L
+    if not attn:
+        shapes[(SERVE_BATCH, 1)] = L * (SERVE_GEN - 1)
+    wall, busy, n_launch, own_ms, top = profile_busy(
+        torch, lambda: serve.generate(cfg, params, prompts_b, SERVE_GEN,
+                                      kernel_fns=fns),
+        "flash_fwd_kernel" if attn else "wkv_kernel")
+    phase(name, f"launch.serve B={SERVE_BATCH} P={SERVE_PROMPT} gen "
+          f"{SERVE_GEN}: prefill {res['prefill_tok_s']:.1f} tok/s "
+          f"({res['prefill_s'] * 1e3:.1f} ms), decode "
+          f"{res['decode_tok_s']:.1f} tok/s ({res['decode_s'] * 1e3:.1f} ms"
+          f" for {SERVE_GEN - 1} steps); {kname} launches {launches} (= {L}"
+          f" x {calls}); under torch.profiler: {wall * 1e3:.1f} ms wall, "
+          f"{busy * 1e3:.1f} ms device busy, idle share "
+          f"{1 - busy / wall:.3f}, {n_launch} kernel launches "
+          f"({n_launch / SERVE_GEN:.0f} a step), {kname} {own_ms:.1f} ms "
+          f"of the device time; top kernels (name, calls, ms): {top}")
+    if sum(shapes.values()) != counted:
+        fail(f"{name}: {counted} {kname} launches, {sum(shapes.values())} "
+             f"by shape")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": counted, "shapes": shapes}
+
+
+def sensitivity(torch, cfg, params, toks, dev):
+    """Full-depth bf16 prefill logits: the kernels' difference from the
+    plain path, and that of the plain path with a relative noise of
+    NOISE on its attention/wkv outputs, as shares of the logits'
+    largest magnitude."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def noisy(x):
+        n = torch.randn(x.shape, generator=g, device=dev)
+        return (x.float() * (1 + NOISE * n)).to(x.dtype)
+
+    noise_fns = {
+        "attention": lambda *a, **kw: noisy(ref.attention_ref(*a, **kw)),
+        "wkv": lambda *a: (lambda y, s: (noisy(y), s))(*ref.wkv_ref(*a)),
+    }
+    batch = {"tokens": toks}
+    plain, _ = M.prefill(cfg, params, batch)
+    kern, _ = M.prefill(cfg, params, batch, kernel_fns=ops.model_kernel_fns())
+    noise, _ = M.prefill(cfg, params, batch, kernel_fns=noise_fns)
+    scale = float(plain.abs().max())
+    return {"kernels": float((kern - plain).abs().max()) / scale,
+            "noise": float((noise - plain).abs().max()) / scale}
+
+
+def _cast(tree, dtype):
+    """A copy of a parameter tree with every tensor cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def time_attention_kernels(torch, dev, card, paths, worst):
+    """Per-launch card time of flash_attention and wkv at each shape of
+    their serve paths; returns their entries of the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, rwkv6_wkv
+    entries = []
+    rows = []
+    for (B, T), n in sorted(paths["flash_attention"]["shapes"].items()):
+        q, k, v = attn_inputs(torch, B, T, 32, 128, torch.bfloat16, dev, 500)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        row = {"shape": [B, T, 32, 128], "launches": n}
+        row["ms"] = graph_ms(torch, lambda: flash_attention.flash_attention(
+            q, k, v, causal=True))
+        row["plain_ms"] = graph_ms(torch, lambda: ref.attention_ref(
+            q, k, v, causal=True), 20)
+        row["library_ms"] = graph_ms(
+            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True))
+        row["bound_ms"], row["bound_by"] = flash_bound(q, k, v, True, 0)
+        rows.append(row)
+        phase("time", f"flash_attention ({B}, {T}, 32, 128) bf16 causal: "
+              f"kernel {row['ms'] * 1e3:.1f} us/launch, plain version "
+              f"{row['plain_ms'] * 1e3:.1f} us, sdpa "
+              f"{row['library_ms'] * 1e3:.1f} us, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); "
+              f"{n} launches on the path; card {card}")
+    entries.append(_entry("flash_attention", "flash_attention.cu",
+                          "src/repro/kernels/flash_attention.py:83",
+                          paths["flash_attention"]["launches"],
+                          worst["flash_attention"], rows, library=True))
+    rows = []
+    for (B, T), n in sorted(paths["wkv"]["shapes"].items()):
+        args = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 600)
+        y, s_out = rwkv6_wkv.wkv(*args)
+        row = {"shape": [B, T, 64, 64], "launches": n}
+        row["ms"] = graph_ms(torch, lambda: rwkv6_wkv.wkv(*args))
+        row["plain_ms"] = graph_ms(torch, lambda: ref.wkv_ref(*args),
+                                   max(2, min(50, 400 // T)))
+        row["bound_ms"], row["bound_by"] = wkv_bound(args, y, s_out)
+        rows.append(row)
+        phase("time", f"wkv ({B}, {T}, 64, 64) bf16: kernel "
+              f"{row['ms'] * 1e3:.1f} us/launch, plain version "
+              f"{row['plain_ms'] * 1e3:.1f} us, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); "
+              f"{n} launches on the path; card {card}")
+    entries.append(_entry("wkv", "rwkv6_wkv.cu",
+                          "src/repro/kernels/rwkv6_wkv.py:78",
+                          paths["wkv"]["launches"], worst["wkv"], rows,
+                          library=False))
+    return entries
+
+
+def _entry(name, source, replaces, launches, max_abs_err, rows, library):
+    """A kernels-line entry: times, bound and library time as the mean
+    per launch on the path (weighted by each shape's launches), with
+    the per-shape rows beside them."""
+    share = {}
+    for r in rows:
+        share[r["bound_by"]] = share.get(r["bound_by"], 0.0) \
+            + r["bound_ms"] * r["launches"]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": weighted(rows, "ms"),
+        "plain_ms": weighted(rows, "plain_ms"),
+        "bound_ms": weighted(rows, "bound_ms"),
+        "bound_by": max(share, key=share.get),
+        "library_ms": weighted(rows, "library_ms") if library else None,
+        "shapes": rows,
+    }
+
 
 def main() -> None:
     try:
@@ -181,6 +654,8 @@ def main() -> None:
         from repro_torch.kernels import _build, lcdc_switch, ref
     except ImportError as e:
         fail(f"the port (src/repro_torch) is not importable here: {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 compares
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -210,6 +685,8 @@ def main() -> None:
         phase("kernel", f"switch_step {name} ({n}, {L}, {K}) serve {rate:g}:"
               f" ints exact, floats max abs {mabs:.3g} max rel {mrel:.3g}"
               f" (tol {FLOAT_RTOL:.3g} rel)")
+
+    worst = check_attention_kernels(torch, dev)
 
     # 3. golden on the card ---------------------------------------------
     golden = json.loads(GOLDEN.read_text())
@@ -329,6 +806,13 @@ def main() -> None:
         "library_ms": None,
         "tiers": tiers,
     }]
+
+    # 5-6. the serving paths at full width, one model at a time ---------
+    paths = {"flash_attention": serve_phase(torch, "qwen3-8b", dev),
+             "wkv": serve_phase(torch, "rwkv6-7b", dev)}
+
+    # 7. per-launch times of the serving kernels -------------------------
+    kernels += time_attention_kernels(torch, dev, card, paths, worst)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,24 @@
+"""Mixtral 8x7B — 8 experts top-2, sliding-window attention.
+
+32L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=32000, MoE 8e top-2,
+SWA window 4096 (v0.1). SWA makes long_500k decode O(window) -> the
+long_500k cell runs with a rolling KV cache. [arXiv:2401.04088; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x7b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv=8,
+    d_head=128,
+    d_ff=14336,
+    vocab=32000,
+    n_experts=8,
+    top_k=2,
+    d_expert=14336,
+    swa_window=4096,
+    rope_theta=1_000_000.0,
+)

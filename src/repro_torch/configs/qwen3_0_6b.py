@@ -1,0 +1,18 @@
+"""Qwen3-0.6B — dense, qk_norm, GQA. 28L d_model=1024 16H (kv=8) d_ff=3072
+vocab=151936, head_dim=128. [hf:Qwen/Qwen3-8B family; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-0.6b",
+    family="dense",
+    n_layers=28,
+    d_model=1024,
+    n_heads=16,
+    n_kv=8,
+    d_head=128,
+    d_ff=3072,
+    vocab=151936,
+    qk_norm=True,
+    rope_theta=1_000_000.0,
+    tie_embeddings=True,
+)

@@ -1,11 +1,11 @@
-"""Carry scenario batches and simulator state across to the reference.
+"""Carry scenario batches, simulator state, model parameters and
+caches across from the reference.
 
-The tick-level parity tests step the port and the JAX reference from
-ONE state. These helpers turn the reference's ``Scenario``/``SimState``
-leaves — fetched to the host as numpy arrays (``jax.device_get``) — into
-the port's tensors and back. They go by field name alone: any object
-whose fields carry the port's names converts, so nothing here imports
-the reference.
+The parity tests run the port and the JAX reference from ONE state.
+These helpers turn the reference's trees — fetched to the host as numpy
+arrays (``jax.device_get``) — into the port's tensors (and simulator
+state back). They go by field and key name alone, so nothing here
+imports the reference.
 """
 from __future__ import annotations
 
@@ -20,6 +20,9 @@ def _tensor(x, device):
     a = np.asarray(x)
     if a.dtype == np.uint32:           # threefry key words
         a = a.astype(np.int64)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(np.array(a).view(np.uint16)) \
+            .view(torch.bfloat16).to(device)
     return torch.as_tensor(np.array(a), device=device)
 
 
@@ -69,3 +72,54 @@ def state_to_numpy(state: SimState) -> dict:
             a = v.cpu().numpy()
             out[f] = a.astype(np.uint32) if f == "key" else a
     return out
+
+
+def _tree(tree, device, index=None):
+    """A nested dict of arrays -> the same dict of tensors; with
+    ``index``, of each leaf's slice ``[index]`` (one stacked layer)."""
+    if isinstance(tree, dict):
+        return {k: _tree(v, device, index) for k, v in tree.items()}
+    return _tensor(tree if index is None else np.asarray(tree)[index],
+                   device)
+
+
+def _layers(tree, device) -> list:
+    """The reference's layer stack (``prefix<i>`` layers, then
+    ``stack["sub<j>"]`` with a leading ``n_scan`` axis, the vmap-ed
+    init's layout) -> one dict per layer, in model order."""
+    n_prefix = sum(1 for k in tree if k.startswith("prefix"))
+    layers = [_tree(tree[f"prefix{i}"], device) for i in range(n_prefix)]
+    stack = tree["stack"]
+    period = [stack[f"sub{j}"] for j in range(len(stack))]
+    for i in range(_leading(stack)):
+        layers += [_tree(sub, device, i) for sub in period]
+    return layers
+
+
+def _leading(tree):
+    """The leading-axis length of the first leaf of a nested dict (None
+    for a dict without leaves)."""
+    for v in tree.values():
+        n = _leading(v) if isinstance(v, dict) else len(v)
+        if n is not None:
+            return n
+    return None
+
+
+def params_from_numpy(params, device="cpu") -> dict:
+    """``repro.models.model.init_params`` output (leaves as numpy
+    arrays) -> the port's parameters: ``embed``, ``final_norm``,
+    ``head`` (if untied) and ``layers``, one dict per layer."""
+    out = {k: _tensor(params[k], device)
+           for k in ("embed", "final_norm", "head") if k in params}
+    out["layers"] = _layers(params, device)
+    return out
+
+
+def cache_from_numpy(cache, device="cpu") -> dict:
+    """A reference cache (``init_cache`` or ``prefill`` output, leaves
+    as numpy arrays, layer leaves stacked on a leading axis) -> the
+    port's cache: ``pos_offset`` and ``layers``, one dict per layer with
+    the batch at axis 0."""
+    return {"pos_offset": _tensor(cache["pos_offset"], device),
+            "layers": _layers(cache, device)}

@@ -47,6 +47,7 @@ from repro_torch.core.topology import FBSite, pad_hull, site_tag
 from repro_torch.core.traffic import (TRAFFIC_SPECS, TrafficSpec,
                                       flow_arrival_rate_per_tick,
                                       rack_flow_rate_per_tick, stack_specs)
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import fma
 
@@ -1245,18 +1246,6 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
                         node_on, acc)
 
     return step
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``device`` if given, else
-    the CUDA device; raises when CUDA is asked for and there is none
-    (the port never falls back to the CPU on its own)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on a CUDA device by default and none is "
-            "available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def _fold_flat(acc: dict):

@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA sources with ``nvcc``, load them with ctypes,
+and the checks and launch shared by the kernels' wrappers.
 
 Each ``csrc/<name>.cu`` compiles to its own shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds):
@@ -21,12 +22,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -89,3 +93,42 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build([name])[name]))
         _LOADED[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of ``csrc/<name>.cu``, typed with
+    ``argtypes`` and returning the launch's cudaError_t as an int."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn
+
+
+def check(kernel, name, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` and
+    ``shape`` on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{kernel}: {name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
+                         f"{device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} must have shape "
+                         f"{tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def launch(kernel, fn, device, *args):
+    """Call the C entry ``fn`` with ``args`` and the current CUDA stream
+    of ``device``; raise if it returns a cudaError_t other than 0."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError_t "
+                           f"{err}")

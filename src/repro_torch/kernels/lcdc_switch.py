@@ -29,35 +29,12 @@ MAX_LINKS = 16
 #: it is launched)
 LAUNCHES = 0
 
-_FN = None
-
-
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = _build.load("lcdc_switch").lcdc_switch_step
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, p, p, p, f, i, i, i,
-                       p, p, p, p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p] * 9
 
 
 def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"switch_step: {name} must be a tensor")
-    if t.device != device:
-        raise ValueError(f"switch_step: {name} is on {t.device}, "
-                         f"queues on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"switch_step: {name} must be {dtype}, "
-                        f"got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"switch_step: {name} must have shape "
-                         f"{tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"switch_step: {name} must be contiguous")
+    _build.check("switch_step", name, t, dtype, shape, device)
 
 
 def _column(v, S, device):
@@ -115,18 +92,14 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
     lo_t = torch.empty((S,), dtype=torch.int32, device=dev)
     drop, wait, m1, m2 = (torch.empty((S,), dtype=torch.float32,
                                       device=dev) for _ in range(4))
-    fn = _fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(queues.data_ptr(), stage.data_ptr(), arrivals.data_ptr(),
-                 draining.data_ptr(), valid.data_ptr(), cap_c.data_ptr(),
-                 hi_c.data_ptr(), lo_c.data_ptr(), float(serve_rate), S, L,
-                 K, q_out.data_ptr(), served.data_ptr(), hi_t.data_ptr(),
-                 lo_t.data_ptr(), drop.data_ptr(), wait.data_ptr(),
-                 m1.data_ptr(), m2.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"lcdc_switch kernel launch failed: "
-                           f"cudaError_t {err}")
+    fn = _build.function("lcdc_switch", "lcdc_switch_step", _ARGTYPES)
+    _build.launch("lcdc_switch", fn, dev, queues.data_ptr(),
+                  stage.data_ptr(), arrivals.data_ptr(), draining.data_ptr(),
+                  valid.data_ptr(), cap_c.data_ptr(), hi_c.data_ptr(),
+                  lo_c.data_ptr(), float(serve_rate), S, L, K,
+                  q_out.data_ptr(), served.data_ptr(), hi_t.data_ptr(),
+                  lo_t.data_ptr(), drop.data_ptr(), wait.data_ptr(),
+                  m1.data_ptr(), m2.data_ptr())
     LAUNCHES += 1
     if squeeze:
         q_out, served = q_out[..., 0], served[..., 0]

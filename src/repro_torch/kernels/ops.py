@@ -8,8 +8,18 @@ from one to the other.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lcdc_switch as _sw
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rwkv6_wkv as _wkv
+
+
+def _on_cuda(kernel, t) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{kernel}: no kernel for device {t.device}")
 
 
 def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
@@ -18,8 +28,30 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
     for CUDA tensors, ``ref.switch_step_ref`` for CPU tensors. See
     ``ref.switch_step_ref`` for the argument and return contract."""
     kw = dict(valid=valid, cap=cap, hi=hi, lo=lo, serve_rate=serve_rate)
-    if queues.is_cuda:
+    if _on_cuda("switch_step", queues):
         return _sw.switch_step(queues, stage, arrivals, draining, **kw)
-    if queues.device.type == "cpu":
-        return _ref.switch_step_ref(queues, stage, arrivals, draining, **kw)
-    raise ValueError(f"switch_step: no kernel for device {queues.device}")
+    return _ref.switch_step_ref(queues, stage, arrivals, draining, **kw)
+
+
+def attention(q, k, v, *, causal=True, swa_window=0):
+    """Online-softmax attention, q (B,T,H,d), k/v (B,S,H,d): the CUDA
+    flash kernel for CUDA tensors, ``ref.attention_ref`` for CPU
+    tensors."""
+    if _on_cuda("attention", q):
+        return _fa.flash_attention(q, k, v, causal=causal,
+                                   swa_window=swa_window)
+    return _ref.attention_ref(q, k, v, causal=causal, swa_window=swa_window)
+
+
+def wkv(r, k, v, w, u, state):
+    """The RWKV-6 wkv recurrence: the CUDA kernel for CUDA tensors,
+    ``ref.wkv_ref`` for CPU tensors. Returns (y, final state)."""
+    if _on_cuda("wkv", r):
+        return _wkv.wkv(r, k, v, w, u, state)
+    return _ref.wkv_ref(r, k, v, w, u, state)
+
+
+def model_kernel_fns() -> dict:
+    """``kernel_fns`` for ``repro_torch.models.model``'s entry points:
+    attention and wkv through this dispatch."""
+    return {"attention": attention, "wkv": wkv}

@@ -6,6 +6,11 @@
   the card, and the path ``ops.switch_step`` takes for CPU tensors. The
   usable-link and watermark predicates come from core/gating.py, the
   controller's own definitions.
+* attention_ref   - the model's chunked online-softmax attention
+  (models/attention.py), held against csrc/flash_attention.cu.
+* attention_naive - the direct (T, S) softmax (small shapes only).
+* wkv_ref         - the sequential RWKV-6 recurrence (models/rwkv6.py),
+  held against csrc/rwkv6_wkv.cu.
 """
 from __future__ import annotations
 
@@ -13,8 +18,27 @@ import numpy as np
 import torch
 
 from repro_torch.core import gating
+from repro_torch.models.attention import chunked_attention as attention_ref  # noqa: F401
+from repro_torch.models.rwkv6 import wkv_scan as wkv_ref  # noqa: F401
 
 BIG = 1e30
+
+
+def attention_naive(q, k, v, *, causal=True, swa_window=0):
+    """q: (B,T,H,dq), k/v: (B,S,H,d) -> (B,T,H,dv): one float32 softmax
+    over the whole (T, S) score matrix, masked scores at -1e30."""
+    T, S, dq = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * dq ** -0.5
+    qp = torch.arange(T, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if swa_window:
+        mask &= (qp - kp) < swa_window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p, v.float()).to(v.dtype)
 
 
 def fma(a, b, c):

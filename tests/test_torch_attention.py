@@ -1,0 +1,192 @@
+"""The port's attention against the reference.
+
+``repro_torch.kernels.ref.attention_ref`` (the model's
+``chunked_attention``, the plain version the CUDA flash kernel is held
+against on the card) is compared with the reference's
+``chunked_attention``, its naive softmax ``attention_naive`` and its
+Pallas ``flash_attention`` in interpret mode, on the ATTN_CASES shapes
+of tests/test_kernels.py and on ragged lengths; then the GQA layer
+(``gqa_forward``, ``gqa_decode``) on a reduced qwen3-8b.
+
+Tolerances: 2e-5 (abs and rel) in float32, where the two sides differ
+only in summation order; 2e-2 in bfloat16, where that order flips the
+rounding of the bf16 output (the same bands tests/test_kernels.py holds
+the Pallas kernel to). The layer tests are float32 at rtol 1e-4 (atol
+1e-5), as the model tests.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config, reduced
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.models import attention as jattn
+from repro_torch.configs import get_config as t_get_config
+from repro_torch.configs import reduced as t_reduced
+from repro_torch.kernels import flash_attention, ops
+from repro_torch.kernels import ref as tref
+from repro_torch.models import attention as tattn
+
+# (B, T, S, H, dh, causal, swa, dtype, blocks): tests/test_kernels.py
+ATTN_CASES = [
+    (1, 64, 64, 1, 32, True, 0, "float32", 32),
+    (2, 128, 128, 2, 64, True, 0, "float32", 64),
+    (2, 128, 128, 2, 64, False, 0, "float32", 64),
+    (1, 128, 128, 2, 32, True, 32, "float32", 32),
+    (1, 128, 128, 1, 128, True, 0, "bfloat16", 64),
+    (1, 64, 64, 2, 80, False, 0, "float32", 32),   # hubert head dim
+]
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LAYER_RTOL, LAYER_ATOL = 1e-4, 1e-5
+
+
+def _qkv(seed, B, T, S, H, dh, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, n, H, dh)).astype(np.float32)
+            for n in (T, S, S)]
+    jx = [jnp.asarray(a, dtype=getattr(jnp, dtype)) for a in arrs]
+    tx = [torch.as_tensor(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, tx
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_plain_attention_vs_reference(case):
+    """The port's plain version against the reference's chunked
+    attention, its naive softmax and its Pallas kernel (interpret
+    mode), each on the same inputs."""
+    B, T, S, H, dh, causal, swa, dtype, blk = case
+    (jq, jk, jv), (tq, tk, tv) = _qkv(0, B, T, S, H, dh, dtype)
+    got = tref.attention_ref(tq, tk, tv, causal=causal, swa_window=swa)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = TOL[dtype]
+    _close(got, jattn.chunked_attention(jq, jk, jv, causal=causal,
+                                        swa_window=swa), tol)
+    _close(got, jref.attention_naive(jq, jk, jv, causal=causal,
+                                     swa_window=swa), tol)
+    _close(got, pallas_flash(jq, jk, jv, causal=causal, swa_window=swa,
+                             block_q=blk, block_k=blk, interpret=True), tol)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_plain_attention_chunks_agree(case):
+    """Chunked at the kernel's block size, the plain version gives the
+    one-chunk result, as the reference's does."""
+    B, T, S, H, dh, causal, swa, dtype, blk = case
+    (jq, jk, jv), (tq, tk, tv) = _qkv(1, B, T, S, H, dh, dtype)
+    one = tref.attention_ref(tq, tk, tv, causal=causal, swa_window=swa)
+    many = tattn.chunked_attention(tq, tk, tv, causal=causal,
+                                   swa_window=swa, chunk_q=blk, chunk_k=blk)
+    _close(many, one.float().numpy(), TOL[dtype])
+    _close(many, jattn.chunked_attention(
+        jq, jk, jv, causal=causal, swa_window=swa, chunk_q=blk,
+        chunk_k=blk), TOL[dtype])
+
+
+@pytest.mark.parametrize("T,swa", [(100, 0), (200, 0), (200, 48), (7, 0)])
+def test_plain_attention_ragged_length(T, swa):
+    """Serving prompts have any length: one chunk covers T <= 1024."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, 2, T, T, 2, 32, "float32")
+    got = tref.attention_ref(tq, tk, tv, causal=True, swa_window=swa)
+    _close(got, jattn.chunked_attention(jq, jk, jv, causal=True,
+                                        swa_window=swa), 2e-5)
+    _close(got, jref.attention_naive(jq, jk, jv, causal=True,
+                                     swa_window=swa), 2e-5)
+    _close(tref.attention_naive(tq, tk, tv, causal=True, swa_window=swa),
+           jref.attention_naive(jq, jk, jv, causal=True, swa_window=swa),
+           2e-5)
+
+
+def test_plain_attention_noncausal_window_is_the_softmax():
+    """causal=False with a window masks only keys a window or more
+    behind: the plain version gives the reference's naive softmax. (The
+    reference's Pallas kernel also skips the key blocks ahead of the
+    diagonal in this case, so it is not compared here.)"""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(8, 1, 128, 128, 2, 32, "float32")
+    got = tref.attention_ref(tq, tk, tv, causal=False, swa_window=32)
+    _close(got, jref.attention_naive(jq, jk, jv, causal=False,
+                                     swa_window=32), 2e-5)
+
+
+def test_chunked_attention_rejects_partial_chunks():
+    (_, _, _), (tq, tk, tv) = _qkv(3, 1, 96, 96, 1, 16, "float32")
+    with pytest.raises(ValueError, match="multiples"):
+        tattn.chunked_attention(tq, tk, tv, chunk_q=64, chunk_k=64)
+
+
+def test_ops_attention_takes_cpu_tensors_to_the_plain_version():
+    (_, _, _), (tq, tk, tv) = _qkv(4, 1, 32, 32, 2, 16, "float32")
+    before = flash_attention.LAUNCHES
+    got = ops.attention(tq, tk, tv, causal=True, swa_window=8)
+    assert torch.equal(got, tref.attention_ref(tq, tk, tv, causal=True,
+                                               swa_window=8))
+    assert flash_attention.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention.flash_attention(tq, tk, tv)
+
+
+def _layer(arch, seed, **over):
+    cfg = dataclasses.replace(reduced(get_config(arch)), **over)
+    tcfg = dataclasses.replace(t_reduced(t_get_config(arch)), **over)
+    p = jax.device_get(jattn.gqa_init(jax.random.PRNGKey(seed), cfg,
+                                      cfg.dtype))
+    tp = {k: torch.as_tensor(np.array(v)) for k, v in p.items()}
+    return cfg, tcfg, p, tp
+
+
+def _assert_layer_close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=LAYER_RTOL, atol=LAYER_ATOL)
+
+
+@pytest.mark.parametrize("arch,over", [("qwen3-8b", {}),
+                                       ("qwen3-8b", {"swa_window": 5}),
+                                       ("granite-34b", {})])
+def test_gqa_forward_vs_reference(arch, over):
+    cfg, tcfg, p, tp = _layer(arch, 0, **over)
+    x = np.random.default_rng(5).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32)
+    pos = np.arange(12)[None, :]
+    out, (k, v) = jattn.gqa_forward(p, cfg, jnp.asarray(x),
+                                    positions=jnp.asarray(pos))
+    for fn in (None, ops.attention):
+        tout, (tk, tv) = tattn.gqa_forward(tp, tcfg, torch.as_tensor(x),
+                                           positions=torch.as_tensor(pos),
+                                           kernel_fn=fn)
+        _assert_layer_close(tout, out)
+        _assert_layer_close(tk, k)
+        _assert_layer_close(tv, v)
+
+
+@pytest.mark.parametrize("over,pos", [
+    ({}, [5, 9]),                          # inside the cache
+    ({}, [3, 16]),                         # row 1 past it: not written
+    ({"swa_window": 8}, [3, 13]),          # rolling window, wrapped
+])
+def test_gqa_decode_vs_reference(over, pos):
+    cfg, tcfg, p, tp = _layer("qwen3-8b", 1, **over)
+    rng = np.random.default_rng(6)
+    B, S = 2, 8 if over else 16
+    kc, vc = (rng.standard_normal((B, S, cfg.n_kv, cfg.d_head))
+              .astype(np.float32) for _ in range(2))
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    out, cache = jattn.gqa_decode(p, cfg, jnp.asarray(x),
+                                  {"k": jnp.asarray(kc),
+                                   "v": jnp.asarray(vc)},
+                                  jnp.asarray(pos, jnp.int32))
+    tcache = {"k": torch.as_tensor(kc.copy()), "v": torch.as_tensor(vc.copy())}
+    tout, tcache = tattn.gqa_decode(tp, tcfg, torch.as_tensor(x), tcache,
+                                    torch.as_tensor(pos, dtype=torch.int32))
+    _assert_layer_close(tout, out)
+    _assert_layer_close(tcache["k"], cache["k"])
+    _assert_layer_close(tcache["v"], cache["v"])

@@ -8,13 +8,21 @@ Phases (one line each; any failure exits non-zero and prints no result):
 
 1. ``build``: the card's name and power limit (nvidia-smi), then every
    CUDA source of the port built with nvcc, one process per source, all
-   started together (timed, as set-up);
+   started together (timed, as set-up); ptxas's registers, spills and
+   static shared memory for every kernel; and the SASS of the flash
+   library (cuobjdump -sass), which must show the bf16 kernel's
+   tensor-core instructions (HGMMA) and its asynchronous copies
+   (UTMALDG, TMA; or LDGSTS, cp.async);
 2. ``kernel``: each kernel against its plain PyTorch version on the
    card, at the shapes its path gives it: switch_step at the
    simulator's two tier shapes and at odd switch counts;
-   flash_attention at the serve shapes of qwen3-8b (and one
-   sliding-window and one float32 case); wkv at the serve shapes of
-   rwkv6-7b (prefill, decode T = 1, a ragged T, float32);
+   flash_attention at the serve shapes of qwen3-8b, ragged, windowed,
+   non-causal and d = 64 cases (each through the variant its inputs
+   pick, which must be the one whose counter moved; bf16 ones also
+   through the CUDA-core variant) and one float32 case; wkv at the
+   serve shapes of rwkv6-7b (prefill at B = 1 and 8, decode T = 1, a
+   ragged T, float32), planned and with one thread per column, the
+   final state equal to the plain version's bit for bit;
 3. ``golden``: the committed golden results
    (tests/data/preflow_golden.json, "results") reproduced by
    ``run_sweep`` on the card;
@@ -31,11 +39,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
    of 4 slots (max_len 512) serving 6 requests of 64-384 prompt tokens,
    32 new tokens each; the
    launch.serve path batched (B=8, P=256, gen 32); exact kernel launch
-   counts; prefill and decode tokens/s and the device's idle share
+   counts (every qwen3-8b attention launch through the wgmma variant);
+   prefill and decode tokens/s and the device's idle share
    (torch.profiler);
 7. ``time``: per-launch card time of flash_attention and wkv at each
-   serve shape (CUDA-graph replay), beside the plain version, the bound
-   and, for flash_attention, scaled_dot_product_attention.
+   serve shape (CUDA-graph replay, timed in turns): the kernel, the
+   first design on the same inputs (flash's CUDA-core variant,
+   wkv with one thread per column), the plain version, the bound and,
+   for flash_attention, scaled_dot_product_attention.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line names the device. Imports neither JAX nor the JAX
@@ -47,6 +58,8 @@ import dataclasses
 import gc
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -214,22 +227,32 @@ def switch_bound(args, kw, out):
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-# (label, B, T, H, d, causal, window, dtype): the qwen3-8b serve shapes
+# (label, B, T, H, d, causal, window, dtype): the qwen3-8b serve shapes,
+# then ragged, non-causal and d = 64 (minicpm3's head dim) bf16 cases,
+# and float32 (the CUDA-core variant)
 FLASH_CASES = [
     ("batched prefill", 8, 256, 32, 128, True, 0, "bfloat16"),
     ("request", 1, 64, 32, 128, True, 0, "bfloat16"),
     ("request", 1, 200, 32, 128, True, 0, "bfloat16"),
     ("request", 1, 384, 32, 128, True, 0, "bfloat16"),
     ("sliding window 128", 1, 384, 32, 128, True, 128, "bfloat16"),
+    ("ragged T", 1, 100, 32, 128, True, 0, "bfloat16"),
+    ("non-causal", 1, 128, 32, 128, False, 0, "bfloat16"),
+    ("head dim 64", 2, 200, 40, 64, True, 0, "bfloat16"),
     ("float32", 2, 200, 8, 128, True, 0, "float32"),
 ]
 # (label, B, T, H, dh, dtype): the rwkv6-7b serve shapes
 WKV_CASES = [
     ("prefill", 1, 256, 64, 64, "bfloat16"),
+    ("batched prefill", 8, 256, 64, 64, "bfloat16"),
     ("decode", 4, 1, 64, 64, "bfloat16"),
     ("ragged T", 2, 100, 64, 64, "bfloat16"),
     ("float32", 1, 100, 64, 64, "float32"),
 ]
+# the flash library's bf16 kernel must run on the tensor cores with
+# asynchronous tile copies: SASS opcodes of wgmma and of TMA / cp.async
+WGMMA_OPS = ("HGMMA",)
+ASYNC_COPY_OPS = ("UTMALDG", "LDGSTS")
 
 
 def allclose_err(torch, got, want, atol, rtol):
@@ -342,44 +365,155 @@ def profile_busy(torch, fn, kernel_name):
 
 
 def check_attention_kernels(torch, dev):
-    """flash_attention and wkv against their plain versions; returns the
-    largest abs error of each."""
-    from repro_torch.kernels import flash_attention, ref, rwkv6_wkv
+    """flash_attention and wkv against their plain versions, each through
+    the path the wrapper picks and through the first design; returns the
+    largest abs error of each (of the picked path)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, rwkv6_wkv
     worst = {"flash_attention": 0.0, "wkv": 0.0}
     for i, (label, B, T, H, d, causal, win, dt) in enumerate(FLASH_CASES):
         q, k, v = attn_inputs(torch, B, T, H, d, getattr(torch, dt), dev,
                               300 + i)
-        got = flash_attention.flash_attention(q, k, v, causal=causal,
-                                              swa_window=win)
+        before = dict(fa.VARIANT_LAUNCHES)
+        got = fa.flash_attention(q, k, v, causal=causal, swa_window=win)
+        picked = fa.variant(q.dtype, d)
+        moved = {n: fa.VARIANT_LAUNCHES[n] - before[n] for n in before}
+        if moved != {n: int(n == picked) for n in before}:
+            fail(f"flash_attention {label}: picked {picked}, but the "
+                 f"variant counters moved {moved}")
         want = ref.attention_ref(q, k, v, causal=causal, swa_window=win)
-        torch.cuda.synchronize()
         tol = FLASH_TOL[dt]
         try:
             err = allclose_err(torch, got, want, tol, tol)
+            also = ""
+            if picked != "cuda_core":      # the first design, same inputs
+                first = fa._flash_attention_variant(
+                    q, k, v, "cuda_core", causal=causal, swa_window=win)
+                also = (f", cuda_core variant "
+                        f"{allclose_err(torch, first, want, tol, tol):.3g}")
         except AssertionError as e:
             fail(f"flash_attention {label} {(B, T, H, d)}: {e}")
         worst["flash_attention"] = max(worst["flash_attention"], err)
         phase("kernel", f"flash_attention {label} ({B}, {T}, {H}, {d}) {dt}"
-              f" causal={causal} window={win}: max abs {err:.3g} "
-              f"(tol {tol:g} abs + {tol:g} rel)")
+              f" causal={causal} window={win}: {picked} variant max abs "
+              f"{err:.3g}{also} (tol {tol:g} abs + {tol:g} rel)")
     for i, (label, B, T, H, dh, dt) in enumerate(WKV_CASES):
         args = wkv_inputs(torch, B, T, H, dh, getattr(torch, dt), dev,
                           400 + i)
-        y, s_out = rwkv6_wkv.wkv(*args)
+        layout = rwkv6_wkv.plan(B, T, H)
         y_ref, s_ref = ref.wkv_ref(*args)
-        torch.cuda.synchronize()
         tol = WKV_Y_TOL[dt]
-        try:
-            err = allclose_err(torch, y, y_ref, tol, tol)
-            s_err = allclose_err(torch, s_out, s_ref, WKV_STATE_TOL,
-                                 WKV_STATE_TOL)
-        except AssertionError as e:
-            fail(f"wkv {label} {(B, T, H, dh)}: {e}")
-        worst["wkv"] = max(worst["wkv"], err, s_err)
-        phase("kernel", f"wkv {label} ({B}, {T}, {H}, {dh}) {dt}: y max abs"
-              f" {err:.3g} (tol {tol:g} abs + rel), state max abs "
-              f"{s_err:.3g} (tol {WKV_STATE_TOL:g})")
+        errs = []
+        for lay in (layout, (1, 1)):
+            y, s_out = rwkv6_wkv._wkv_planned(*args, *lay)
+            torch.cuda.synchronize()
+            try:
+                err = allclose_err(torch, y, y_ref, tol, tol)
+                s_err = allclose_err(torch, s_out, s_ref, WKV_STATE_TOL,
+                                     WKV_STATE_TOL)
+            except AssertionError as e:
+                fail(f"wkv {label} {(B, T, H, dh)} (groups, splits) {lay}: "
+                     f"{e}")
+            if s_err != 0.0:
+                fail(f"wkv {label} {(B, T, H, dh)} (groups, splits) {lay}: "
+                     f"final state differs from the plain version's by "
+                     f"{s_err:.3g} (must be bit-identical)")
+            errs.append(err)
+        worst["wkv"] = max(worst["wkv"], errs[0])
+        phase("kernel", f"wkv {label} ({B}, {T}, {H}, {dh}) {dt}: planned "
+              f"(groups, splits) {layout} y max abs {errs[0]:.3g}, "
+              f"one thread a column {errs[1]:.3g} (tol {tol:g} abs + rel);"
+              f" final state bit-identical to the plain version in both")
     return worst
+
+
+def ptxas_report(log):
+    """{kernel: (registers, spill store bytes, spill load bytes, static
+    shared memory bytes)} from an ``nvcc -Xptxas -v`` log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [None, 0, 0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur][1:3] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[cur][3] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def short_names(names):
+    """{mangled: a short readable name} (c++filt where there is one)."""
+    names = list(names)
+    plain = names
+    tool = shutil.which("c++filt")
+    if tool and names:
+        res = subprocess.run([tool], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if res.returncode == 0:
+            plain = res.stdout.splitlines()
+    short = {}
+    for m, p in zip(names, plain):
+        p = p.replace("(anonymous namespace)::", "")
+        p = re.sub(r"^void ", "", p)
+        short[m] = p.split("(", 1)[0] if "(" in p else p
+    return short
+
+
+def sass_counts(lib, ops):
+    """{kernel: {opcode: count}} of the SASS in ``lib``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        out[name] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in ops}
+    return out
+
+
+def build_report(libs):
+    """Print ptxas's report of every kernel and check the SASS of the
+    flash library: each bf16 tensor-core kernel must hold wgmma (HGMMA)
+    and asynchronous copies (UTMALDG or LDGSTS)."""
+    from repro_torch.kernels import _build
+    reports = {n: ptxas_report(_build.build_log(n)) for n in libs}
+    short = short_names(k for r in reports.values() for k in r)
+    for n, rep in reports.items():
+        if not rep:
+            fail(f"build: no ptxas report for {n}.cu (is -Xptxas -v in "
+                 f"its flags?)")
+        phase("build", f"{n}.cu ptxas (registers / spill stores / spill "
+              f"loads / static smem bytes): " + "; ".join(
+                  f"{short[k]} {r[0]}/{r[1]}/{r[2]}/{r[3]}"
+                  for k, r in rep.items()))
+    ops = WGMMA_OPS + ASYNC_COPY_OPS
+    counts = sass_counts(libs["flash_attention"], ops)
+    wgmma = {k: c for k, c in counts.items() if "flash_wgmma_kernel" in k}
+    if len(wgmma) != 2:
+        fail(f"build: expected 2 wgmma flash kernels in the SASS, found "
+             f"{sorted(wgmma)}")
+    names = short_names(counts)
+    for k, c in counts.items():
+        phase("build", f"flash_attention SASS {names[k]}: " + ", ".join(
+            f"{op} {c[op]}" for op in ops))
+    for k, c in wgmma.items():
+        if not (sum(c[op] for op in WGMMA_OPS) and
+                sum(c[op] for op in ASYNC_COPY_OPS)):
+            fail(f"build: {names[k]} has no tensor-core ({WGMMA_OPS}) or no "
+                 f"asynchronous-copy ({ASYNC_COPY_OPS}) instructions: {c}")
 
 
 def serve_phase(torch, arch, dev):
@@ -443,7 +577,7 @@ def serve_phase(torch, arch, dev):
             for i, p in enumerate(prompts)]
     for r in reqs:
         b.submit(r)
-    flash_attention.LAUNCHES = rwkv6_wkv.LAUNCHES = 0
+    reset_counts(flash_attention, rwkv6_wkv)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     b.run(max_ticks=10_000)
@@ -455,6 +589,7 @@ def serve_phase(torch, arch, dev):
     if launches != L * calls or stray:
         fail(f"{name}: batcher launched {kname} {launches} times, expected "
              f"{L} x {calls}; the other kernel {stray} times")
+    check_variant(flash_attention, launches if attn else 0, name)
     for r in reqs:
         if not (r.done and len(r.out) == SERVE_NEW and
                 all(0 <= t < cfg.padded_vocab for t in r.out)):
@@ -465,19 +600,20 @@ def serve_phase(torch, arch, dev):
     if not attn:
         shapes[(SERVE_SLOTS, 1)] = L * b.decode_steps
     generated = sum(len(r.out) for r in reqs)
+    variants = ", all through the wgmma variant" if attn else ""
     phase(name, f"ContinuousBatcher {SERVE_SLOTS} slots, max_len "
           f"{SERVE_MAX_LEN}: {len(reqs)} requests (prompts {SERVE_PROMPTS},"
           f" {SERVE_NEW} new tokens each) in {b.ticks} ticks, {b.prefills} "
           f"prefills, {b.decode_steps} decode steps, {wall:.2f} s wall, "
           f"{generated / wall:.1f} generated tok/s, idle_fraction "
           f"{b.idle_fraction():.3f}; {kname} launches {launches} (= {L} x "
-          f"{calls})")
+          f"{calls}){variants}")
     del b, reqs
 
     prompts_b = torch.as_tensor(rng.integers(
         0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
     fns = ops.model_kernel_fns()
-    flash_attention.LAUNCHES = rwkv6_wkv.LAUNCHES = 0
+    reset_counts(flash_attention, rwkv6_wkv)
     res = serve.generate(cfg, params, prompts_b, SERVE_GEN, kernel_fns=fns)
     launches, stray = own.LAUNCHES, other.LAUNCHES
     counted += launches
@@ -485,6 +621,7 @@ def serve_phase(torch, arch, dev):
     if launches != L * calls or stray:
         fail(f"{name}: launch.serve launched {kname} {launches} times, "
              f"expected {L} x {calls}; the other kernel {stray} times")
+    check_variant(flash_attention, launches if attn else 0, name)
     tokens = res["tokens"]
     if tuple(tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.padded_vocab)).all()):
@@ -497,13 +634,14 @@ def serve_phase(torch, arch, dev):
     wall, busy, n_launch, own_ms, top = profile_busy(
         torch, lambda: serve.generate(cfg, params, prompts_b, SERVE_GEN,
                                       kernel_fns=fns),
-        "flash_fwd_kernel" if attn else "wkv_kernel")
+        "flash_wgmma_kernel" if attn else "wkv_kernel")
     phase(name, f"launch.serve B={SERVE_BATCH} P={SERVE_PROMPT} gen "
           f"{SERVE_GEN}: prefill {res['prefill_tok_s']:.1f} tok/s "
           f"({res['prefill_s'] * 1e3:.1f} ms), decode "
           f"{res['decode_tok_s']:.1f} tok/s ({res['decode_s'] * 1e3:.1f} ms"
           f" for {SERVE_GEN - 1} steps); {kname} launches {launches} (= {L}"
-          f" x {calls}); under torch.profiler: {wall * 1e3:.1f} ms wall, "
+          f" x {calls}){variants}; under torch.profiler: {wall * 1e3:.1f} ms "
+          f"wall, "
           f"{busy * 1e3:.1f} ms device busy, idle share "
           f"{1 - busy / wall:.3f}, {n_launch} kernel launches "
           f"({n_launch / SERVE_GEN:.0f} a step), {kname} {own_ms:.1f} ms "
@@ -515,6 +653,22 @@ def serve_phase(torch, arch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return {"launches": counted, "shapes": shapes}
+
+
+def reset_counts(flash_attention, rwkv6_wkv):
+    """Every launch count of the serving kernels to 0."""
+    flash_attention.LAUNCHES = rwkv6_wkv.LAUNCHES = 0
+    for n in flash_attention.VARIANT_LAUNCHES:
+        flash_attention.VARIANT_LAUNCHES[n] = 0
+
+
+def check_variant(flash_attention, launches, name):
+    """Fail unless the wgmma variant made all ``launches`` flash launches
+    since the counts were reset, and the CUDA-core variant none."""
+    got = dict(flash_attention.VARIANT_LAUNCHES)
+    if got != {"wgmma": launches, "cuda_core": 0}:
+        fail(f"{name}: flash launches by variant {got}, expected all "
+             f"{launches} through wgmma")
 
 
 def sensitivity(torch, cfg, params, toks, dev):
@@ -563,32 +717,48 @@ def _leaves(tree):
         yield tree
 
 
+def turns(torch, fns):
+    """Card ms per call of each of ``fns`` ({name: (fn, reps)}), timed in
+    turns: in order, then in reverse order; the mean of the two."""
+    first = {n: graph_ms(torch, f, r) for n, (f, r) in fns.items()}
+    second = {n: graph_ms(torch, f, r)
+              for n, (f, r) in reversed(list(fns.items()))}
+    return {n: (first[n] + second[n]) / 2 for n in fns}
+
+
 def time_attention_kernels(torch, dev, card, paths, worst):
     """Per-launch card time of flash_attention and wkv at each shape of
-    their serve paths; returns their entries of the kernels line."""
+    their serve paths, beside their first designs on the same
+    inputs; returns their entries of the kernels line."""
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, ref, rwkv6_wkv
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, rwkv6_wkv
     entries = []
     rows = []
     for (B, T), n in sorted(paths["flash_attention"]["shapes"].items()):
         q, k, v = attn_inputs(torch, B, T, 32, 128, torch.bfloat16, dev, 500)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        row = {"shape": [B, T, 32, 128], "launches": n}
-        row["ms"] = graph_ms(torch, lambda: flash_attention.flash_attention(
-            q, k, v, causal=True))
-        row["plain_ms"] = graph_ms(torch, lambda: ref.attention_ref(
-            q, k, v, causal=True), 20)
-        row["library_ms"] = graph_ms(
-            torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                          is_causal=True))
+        row = {"shape": [B, T, 32, 128], "launches": n,
+               "variant": fa.variant(q.dtype, 128)}
+        row.update(turns(torch, {
+            "ms": (lambda: fa.flash_attention(q, k, v, causal=True), 200),
+            "first_ms": (lambda: fa._flash_attention_variant(
+                q, k, v, "cuda_core", causal=True), 200),
+            "plain_ms": (lambda: ref.attention_ref(q, k, v, causal=True), 20),
+            "library_ms": (lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 200),
+        }))
         row["bound_ms"], row["bound_by"] = flash_bound(q, k, v, True, 0)
         rows.append(row)
         phase("time", f"flash_attention ({B}, {T}, 32, 128) bf16 causal: "
-              f"kernel {row['ms'] * 1e3:.1f} us/launch, plain version "
-              f"{row['plain_ms'] * 1e3:.1f} us, sdpa "
+              f"kernel ({row['variant']}) {row['ms'] * 1e3:.1f} us/launch, "
+              f"first design (cuda_core) {row['first_ms'] * 1e3:.1f} us, "
+              f"plain version {row['plain_ms'] * 1e3:.1f} us, sdpa "
               f"{row['library_ms'] * 1e3:.1f} us, bound "
-              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); "
-              f"{n} launches on the path; card {card}")
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}): kernel "
+              f"{row['ms'] / row['library_ms']:.2f}x sdpa, "
+              f"{row['ms'] / row['bound_ms']:.2f}x bound; {n} launches on "
+              f"the path; card {card}")
     entries.append(_entry("flash_attention", "flash_attention.cu",
                           "src/repro/kernels/flash_attention.py:83",
                           paths["flash_attention"]["launches"],
@@ -597,17 +767,24 @@ def time_attention_kernels(torch, dev, card, paths, worst):
     for (B, T), n in sorted(paths["wkv"]["shapes"].items()):
         args = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 600)
         y, s_out = rwkv6_wkv.wkv(*args)
-        row = {"shape": [B, T, 64, 64], "launches": n}
-        row["ms"] = graph_ms(torch, lambda: rwkv6_wkv.wkv(*args))
-        row["plain_ms"] = graph_ms(torch, lambda: ref.wkv_ref(*args),
-                                   max(2, min(50, 400 // T)))
+        layout = rwkv6_wkv.plan(B, T, 64)
+        row = {"shape": [B, T, 64, 64], "launches": n,
+               "groups_splits": list(layout)}
+        row.update(turns(torch, {
+            "ms": (lambda: rwkv6_wkv.wkv(*args), 200),
+            "first_ms": (lambda: rwkv6_wkv._wkv_planned(*args, 1, 1), 200),
+            "plain_ms": (lambda: ref.wkv_ref(*args),
+                         max(2, min(50, 400 // T))),
+        }))
         row["bound_ms"], row["bound_by"] = wkv_bound(args, y, s_out)
         rows.append(row)
-        phase("time", f"wkv ({B}, {T}, 64, 64) bf16: kernel "
-              f"{row['ms'] * 1e3:.1f} us/launch, plain version "
-              f"{row['plain_ms'] * 1e3:.1f} us, bound "
-              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}); "
-              f"{n} launches on the path; card {card}")
+        phase("time", f"wkv ({B}, {T}, 64, 64) bf16: kernel (groups, "
+              f"splits {layout}) {row['ms'] * 1e3:.1f} us/launch, "
+              f"one thread a column {row['first_ms'] * 1e3:.1f} us, plain "
+              f"version {row['plain_ms'] * 1e3:.1f} us, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}): kernel "
+              f"{row['ms'] / row['bound_ms']:.2f}x bound; {n} launches on "
+              f"the path; card {card}")
     entries.append(_entry("wkv", "rwkv6_wkv.cu",
                           "src/repro/kernels/rwkv6_wkv.py:78",
                           paths["wkv"]["launches"], worst["wkv"], rows,
@@ -618,7 +795,8 @@ def time_attention_kernels(torch, dev, card, paths, worst):
 def _entry(name, source, replaces, launches, max_abs_err, rows, library):
     """A kernels-line entry: times, bound and library time as the mean
     per launch on the path (weighted by each shape's launches), with
-    the per-shape rows beside them."""
+    the per-shape rows beside them; ``first_ms`` is the first design's
+    time on the same inputs."""
     share = {}
     for r in rows:
         share[r["bound_by"]] = share.get(r["bound_by"], 0.0) \
@@ -635,6 +813,7 @@ def _entry(name, source, replaces, launches, max_abs_err, rows, library):
         "bound_ms": weighted(rows, "bound_ms"),
         "bound_by": max(share, key=share.get),
         "library_ms": weighted(rows, "library_ms") if library else None,
+        "first_ms": weighted(rows, "first_ms"),
         "shapes": rows,
     }
 
@@ -666,6 +845,7 @@ def main() -> None:
     phase("build", f"{len(libs)} CUDA source(s) built with nvcc for sm_90a "
           f"in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs.values()))
+    build_report(libs)
 
     # 2. kernel vs plain version ----------------------------------------
     cases = [("rsw tier", 1280, 4, 2, 1.0), ("csw tier", 160, 4, 1, 4.0),

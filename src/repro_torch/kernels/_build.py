@@ -5,13 +5,18 @@ Each ``csrc/<name>.cu`` compiles to its own shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-         -shared -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so
+         -shared -Xcompiler -fPIC <SOURCE_FLAGS[name]>
+         -o build/repro_torch/<name>-<hash>.so
 
 into ``build/repro_torch/`` at the repository root (listed in
-.gitignore). ``<hash>`` covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. ``-fmad=false`` keeps
-every product rounded before it is added, as the plain PyTorch versions
-round it. Nothing here runs at import: the first ``load`` builds.
+.gitignore), with nvcc's output beside it in ``<name>-<hash>.log``.
+``<hash>`` covers the source and every flag, the source's own included,
+so an edited source or flag rebuilds and an unchanged one is reused.
+``-fmad=false`` keeps every product rounded before it is added, as the
+plain PyTorch versions round it. ``SOURCE_FLAGS`` adds flags to one
+source: each asks ptxas for its report (``-Xptxas -v``: registers,
+spills and shared memory of every kernel), which ``build_log`` reads
+back. Nothing here runs at import: the first ``load`` builds.
 """
 from __future__ import annotations
 
@@ -28,6 +33,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+#: extra nvcc flags of one source (after NVCC_FLAGS)
+SOURCE_FLAGS = {
+    "flash_attention": ("-Xptxas", "-v"),
+    "lcdc_switch": ("-Xptxas", "-v"),
+    "rwkv6_wkv": ("-Xptxas", "-v"),
+}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
@@ -47,10 +58,22 @@ def nvcc_path() -> str:
     return found
 
 
+def flags(name: str) -> tuple[str, ...]:
+    """Every nvcc flag of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + tuple(SOURCE_FLAGS.get(name, ()))
+
+
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src + b"\0" + "\0".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from the build of ``csrc/<name>.cu``'s current
+    library ("" before it is built)."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 def build(names=None) -> dict[str, Path]:
@@ -70,7 +93,7 @@ def build(names=None) -> dict[str, Path]:
         nvcc = nvcc or nvcc_path()
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc, *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
     for name, (tmp, proc) in procs.items():
@@ -79,6 +102,7 @@ def build(names=None) -> dict[str, Path]:
             failed.append(f"{name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out[name].with_suffix(".log").write_text(log)
             os.replace(tmp, out[name])     # atomic: readers never see half
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -135,6 +135,43 @@ def test_ops_attention_takes_cpu_tensors_to_the_plain_version():
         flash_attention.flash_attention(tq, tk, tv)
 
 
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 80, "cuda_core"),
+    (torch.bfloat16, 32, "cuda_core"),
+    (torch.bfloat16, 96, "cuda_core"),
+    (torch.float32, 128, "cuda_core"),
+    (torch.float32, 64, "cuda_core"),
+])
+def test_flash_variant_from_dtype_and_head_dim(dtype, d, want):
+    """The tensor-core variant takes bfloat16 at d 64 or 128; float32
+    (full float32 products) and every other head dim take the CUDA-core
+    variant."""
+    assert flash_attention.variant(dtype, d) == want
+
+
+@pytest.mark.parametrize("arch,want", [
+    ("qwen3-8b", "wgmma"), ("granite-34b", "wgmma"),
+    ("mixtral-8x7b", "wgmma"), ("jamba-v0.1-52b", "wgmma"),
+    ("minicpm3-4b", "wgmma"), ("hubert-xlarge", "cuda_core"),
+])
+def test_flash_variant_of_each_served_config(arch, want):
+    """At its own dtype and head dim, each attention config reaches the
+    variant the kernel note promises: d = 128 and 64 the tensor cores,
+    hubert's d = 80 the CUDA cores."""
+    cfg = t_get_config(arch)
+    assert flash_attention.variant(cfg.dtype, cfg.d_head) == want
+
+
+def test_flash_variant_entry_refuses_cpu_and_unknown_variants():
+    (_, _, _), (tq, tk, tv) = _qkv(5, 1, 16, 16, 2, 16, "float32")
+    before = dict(flash_attention.VARIANT_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention._flash_attention_variant(tq, tk, tv, "wgmma")
+    assert flash_attention.VARIANT_LAUNCHES == before
+
+
 def _layer(arch, seed, **over):
     cfg = dataclasses.replace(reduced(get_config(arch)), **over)
     tcfg = dataclasses.replace(t_reduced(t_get_config(arch)), **over)

@@ -10,7 +10,9 @@ port's dependencies are installed:
 Tolerances (abs and rel against the plain version): flash_attention
 2e-5 in float32 (summation order) and 2e-2 in bfloat16 (that order
 flips roundings of the bf16 output), as tests/test_kernels.py holds the
-TPU kernel; wkv y 2e-3 in float32 and 5e-2 in bfloat16, the state 2e-3.
+TPU kernel; wkv y 2e-3 in float32 and 5e-2 in bfloat16, the state 2e-3
+and, since the kernel updates it in the plain version's order of
+roundings, exactly.
 """
 import numpy as np
 import pytest
@@ -60,6 +62,37 @@ def test_flash_kernel_vs_plain_version(cuda, B, T, H, d, causal, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,d,causal,window", [
+    (8, 256, 32, 128, True, 0),       # the batched prefill
+    (1, 200, 32, 128, True, 0),       # ragged, not a multiple of 64
+    (1, 100, 32, 128, True, 0),
+    (1, 384, 32, 128, True, 128),     # causal with a window
+    (1, 128, 32, 128, False, 0),      # non-causal
+    (2, 200, 8, 64, True, 0),         # d = 64
+    (2, 100, 8, 64, False, 0),
+])
+def test_flash_wgmma_variant_vs_plain_version(cuda, B, T, H, d, causal,
+                                              window):
+    """bf16 at d 64 or 128 goes through the tensor-core variant (its
+    counter moves, the CUDA-core one's does not) and agrees with the
+    plain version; so does the CUDA-core variant on the same inputs."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn((B, T, H, d), generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    assert flash_attention.variant(q.dtype, d) == "wgmma"
+    before = dict(flash_attention.VARIANT_LAUNCHES)
+    got = ops.attention(q, k, v, causal=causal, swa_window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.VARIANT_LAUNCHES == {
+        "wgmma": before["wgmma"] + 1, "cuda_core": before["cuda_core"]}
+    want = ref.attention_ref(q, k, v, causal=causal, swa_window=window)
+    _close(got, want, ATTN_TOL["bfloat16"])
+    first = flash_attention._flash_attention_variant(
+        q, k, v, "cuda_core", causal=causal, swa_window=window)
+    _close(first, want, ATTN_TOL["bfloat16"])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,dh,dtype", [
     (1, 256, 64, 64, "bfloat16"),
     (4, 1, 64, 64, "bfloat16"),
@@ -85,6 +118,35 @@ def test_wkv_kernel_vs_plain_version(cuda, B, T, H, dh, dtype):
     assert rwkv6_wkv.LAUNCHES == before + 1
     _close(y, y_ref, WKV_TOL[dtype])
     _close(s, s_ref, 2e-3)
+    assert torch.equal(s, s_ref)
+
+
+def _wkv_args(device, B, T, H, dh, dt, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    return ((n(B, T, H, dh) * 0.5).to(dt), (n(B, T, H, dh) * 0.5).to(dt),
+            n(B, T, H, dh).to(dt),
+            torch.exp(-torch.exp(n(B, T, H, dh) * 0.5)).to(dt),
+            (n(H, dh) * 0.3).to(dt), n(B, H, dh, dh) * 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", rwkv6_wkv.GROUPS)
+@pytest.mark.parametrize("splits", rwkv6_wkv.SPLITS)
+@pytest.mark.parametrize("B,T", [(4, 1), (2, 100), (8, 256)])
+def test_wkv_every_layout_keeps_the_state_exact(cuda, B, T, groups, splits):
+    """Every (threads per column, blocks per head) layout the wrapper
+    can pick: the final state equals the plain version's bit for bit,
+    y is within the bf16 band."""
+    args = _wkv_args(cuda, B, T, 64, 64, torch.bfloat16, 3)
+    y, s = rwkv6_wkv._wkv_planned(*args, groups, splits)
+    y_ref, s_ref = ref.wkv_ref(*args)
+    torch.cuda.synchronize()
+    assert float((s - s_ref).abs().max()) == 0.0
+    _close(y, y_ref, WKV_TOL["bfloat16"])
 
 
 @pytest.mark.cuda

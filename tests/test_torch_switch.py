@@ -175,6 +175,21 @@ def test_build_target_is_keyed_by_source_and_ignored_dir():
     assert "lcdc_switch" not in _build._LOADED
 
 
+def test_build_target_covers_every_flag(monkeypatch):
+    """A source's own flags join the common ones, and the library's name
+    covers all of them: another flag for one source rebuilds only that
+    source's library."""
+    names = ("flash_attention", "lcdc_switch", "rwkv6_wkv")
+    before = {n: _build._target(n) for n in names}
+    for n in names:
+        assert _build.flags(n)[:len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
+        assert "-Xptxas" in _build.flags(n)   # the ptxas report
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "rwkv6_wkv",
+                        _build.SOURCE_FLAGS["rwkv6_wkv"] + ("-lineinfo",))
+    assert _build._target("rwkv6_wkv") != before["rwkv6_wkv"]
+    assert _build._target("flash_attention") == before["flash_attention"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,L,K,serve_rate", [(1280, 4, 2, 1.0),
                                               (160, 4, 1, 4.0),

@@ -107,6 +107,68 @@ def test_ops_wkv_takes_cpu_tensors_to_the_plain_version():
         rwkv6_wkv.wkv(*tx)
 
 
+@pytest.mark.parametrize("B,T,H,want", [
+    (1, 256, 64, (8, 2)),    # one request's prefill: 64 pairs
+    (1, 64, 64, (8, 2)),
+    (2, 100, 64, (8, 2)),
+    (4, 256, 64, (8, 1)),
+    (8, 256, 64, (4, 1)),    # launch.serve's batched prefill
+    (16, 256, 64, (2, 1)),
+    (64, 256, 64, (1, 1)),
+    (4, 1, 64, (4, 1)),      # decode steps
+    (8, 1, 64, (4, 1)),
+    (1, 1, 64, (4, 2)),
+])
+def test_wkv_plan_from_batch_tokens_heads(B, T, H, want):
+    """The wrapper's (threads per state column, blocks per head) at the
+    serve shapes of rwkv6-7b and around them."""
+    assert rwkv6_wkv.plan(B, T, H) == want
+
+
+def test_wkv_plan_is_always_a_built_layout():
+    """Whatever the shape, the plan names a layout the kernel is built
+    for, gives at least half the SMs a block where the pairs allow it,
+    and in prefill keeps B H G at most 2,048."""
+    for B in (1, 2, 3, 4, 8, 16, 64):
+        for T in (0, 1, 2, 64, 100, 384):
+            for H in (1, 3, 32, 64, 128):
+                groups, splits = rwkv6_wkv.plan(B, T, H)
+                assert groups in rwkv6_wkv.GROUPS
+                assert splits in rwkv6_wkv.SPLITS
+                if T > 1:
+                    assert B * H * groups <= 2048 or groups == 1
+                assert B * H * splits >= min(rwkv6_wkv.SMS // 2, B * H)
+
+
+@pytest.mark.parametrize("groups", rwkv6_wkv.GROUPS)
+def test_split_column_arithmetic_vs_reference(groups):
+    """The kernel's arithmetic written out in float32 on the CPU: y_j as
+    the G row groups' partials of sum_i r_i S_ij, summed pairwise as the
+    shuffles do, plus v_j sum_i r_i u_i k_i; each state row updated as
+    kv = k_i v_j, S = w_i S, S = S + kv. The state equals the plain
+    version's bit for bit, y is within SCAN_TOL of the reference."""
+    B, T, H, dh = 2, 12, 2, 16
+    jx, tx = _inputs(6, B, T, H, dh, "float32")
+    r, k, v, w, u, s = tx
+    rows = dh // groups
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = (x[:, t] for x in (r, k, v, w))     # (B, H, dh)
+        own = [slice(g * rows, (g + 1) * rows) for g in range(groups)]
+        parts = [torch.einsum("bhi,bhij->bhj", rt[..., o], s[..., o, :])
+                 for o in own]
+        while len(parts) > 1:
+            parts = [parts[i] + parts[i + 1] for i in range(0, len(parts), 2)]
+        a = (rt * u * kt).sum(-1, keepdim=True)
+        ys.append(parts[0] + a * vt)
+        kv = kt[..., :, None] * vt[..., None, :]
+        s = wt[..., :, None] * s + kv
+    y_ref, s_ref = tref.wkv_ref(*tx)
+    assert torch.equal(s, s_ref)
+    jy, _ = jrw.wkv_scan(*jx)
+    _close(torch.stack(ys, dim=1), jy, SCAN_TOL["float32"])
+
+
 def _rwkv_layer(seed):
     cfg = reduced(get_config("rwkv6-7b"))
     tcfg = t_reduced(t_get_config("rwkv6-7b"))

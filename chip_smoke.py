@@ -8,14 +8,17 @@ Phases (one line each; any failure exits non-zero and prints no result):
 
 1. ``build``: the card's name and power limit (nvidia-smi), then every
    CUDA source of the port built with nvcc, one process per source, all
-   started together (timed, as set-up); ptxas's registers, spills and
-   static shared memory for every kernel; and the SASS of the flash
-   library (cuobjdump -sass), which must show the bf16 kernel's
-   tensor-core instructions (HGMMA) and its asynchronous copies
-   (UTMALDG, TMA; or LDGSTS, cp.async);
+   started together (timed, as set-up); ptxas's registers, stack frame,
+   spills and static shared memory for every kernel (every lcdc_switch
+   kernel must have a stack frame of 0 bytes: its rows live in
+   registers); and the SASS of the flash library (cuobjdump -sass),
+   which must show the bf16 kernel's tensor-core instructions (HGMMA)
+   and its asynchronous copies (UTMALDG, TMA; or LDGSTS, cp.async);
 2. ``kernel``: each kernel against its plain PyTorch version on the
    card, at the shapes its path gives it: switch_step at the
-   simulator's two tier shapes and at odd switch counts;
+   simulator's two tier shapes and at odd switch counts; switch_tiers
+   (both tiers of a tick in one launch) at the main grid's shapes, on a
+   padded multi-site hull and with faults striking links;
    flash_attention at the serve shapes of qwen3-8b, ragged, windowed,
    non-causal and d = 64 cases (each through the variant its inputs
    pick, which must be the one whose counter moved; bf16 ones also
@@ -25,12 +28,13 @@ Phases (one line each; any failure exits non-zero and prints no result):
    final state equal to the plain version's bit for bit;
 3. ``golden``: the committed golden results
    (tests/data/preflow_golden.json, "results") reproduced by
-   ``run_sweep`` on the card;
+   ``run_sweep`` on the card, with the tick replayed from a CUDA graph
+   and again eagerly (``graph=False``); the two must agree exactly;
 4. ``main``: the sweep path at full size, the paper's Fig 2 site
    (``FBSite()``, 6,144 servers) under the standard 10-scenario grid,
-   with the switch kernel's launch count and the single fold fetch
-   checked, plus its per-launch times beside the plain version and the
-   bound;
+   three times with the CUDA graph and once eagerly, with the
+   switch_tiers launch count (one a tick), the single capture and the
+   single fold fetch checked, and conservation;
 5. ``serve-qwen3-8b`` and 6. ``serve-rwkv6-7b``: the serving path at
    full width (random bf16 weights from a seed, loaded one model at a
    time): one request's prefill logits through the kernels against the
@@ -42,11 +46,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
    counts (every qwen3-8b attention launch through the wgmma variant);
    prefill and decode tokens/s and the device's idle share
    (torch.profiler);
-7. ``time``: per-launch card time of flash_attention and wkv at each
-   serve shape (CUDA-graph replay, timed in turns): the kernel, the
-   first design on the same inputs (flash's CUDA-core variant,
-   wkv with one thread per column), the plain version, the bound and,
-   for flash_attention, scaled_dot_product_attention.
+7. ``time``: card time under CUDA-graph replay: switch_tiers a tick
+   beside its first design (two switch_step launches and their
+   glue), the plain version, the bound and an empty kernel's graph
+   node (the launch floor); switch_step alone at the two tier shapes;
+   flash_attention and wkv at each serve shape, timed in turns: the
+   kernel, the first design on the same inputs (flash's CUDA-core
+   variant, wkv with one thread per column), the plain version, the
+   bound and, for flash_attention, scaled_dot_product_attention.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line names the device. Imports neither JAX nor the JAX
@@ -78,7 +85,20 @@ BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 # the plain version emulates the two fused multiply-adds in float64,
 # whose double rounding can differ from one hardware FMA in the last
 # bit)
-FLOAT_RTOL = 4 * 2.0 ** -23
+ULP = 2.0 ** -23
+FLOAT_RTOL = 4 * ULP
+# switch_tiers' sums over rows are held looser: to_csw (fc_in) sums n
+# racks (CSWs) in index order, the plain version's torch.sum in another
+# order; two orders of n non-negative terms differ by at most (n - 1)
+# ulp of the sum, and the terms themselves by FLOAT_RTOL, so n + 3 ulp.
+# The accumulators (2 R P 2 + 2 non-negative terms a scenario, summed per
+# thread and then over the block) likewise, to 2 R P 2 + 5 ulp. The CSW
+# tier is held at FLOAT_RTOL on the kernel's own to_csw.
+
+
+def sum_rtol(n_terms):
+    return (n_terms + 3) * ULP
+
 PARITY_TOL = 1e-3          # run level, the reference's own parity band
 
 # serving: the full-width models, one at a time
@@ -170,22 +190,6 @@ def compare(torch, got, want):
     return max_abs, max_rel
 
 
-def time_ms(torch, fn, reps=200):
-    """Mean milliseconds per eager call (host clock and card together:
-    CUDA events around ``reps`` back-to-back calls)."""
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def graph_ms(torch, fn, reps=200):
     """Mean milliseconds of card time per call: ``reps`` calls captured
     in one CUDA graph and replayed, so the host's Python and launch
@@ -226,6 +230,267 @@ def switch_bound(args, kw, out):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tiers_inputs(torch, S, batch, seed, fault_share, dev):
+    """Random inputs of one tick's two switch tiers on ``batch``'s hull
+    with its real valid masks, in ``switch_tiers``' argument order:
+    queues, stages, drains, fault timers (``fault_share`` of the links
+    struck), arrivals as the tick's strided ``by_dest[..., 1:]`` view,
+    per-scenario caps and the accumulators."""
+    from repro_torch.kernels import lcdc_switch
+    hull = batch.hull
+    rack_valid, csw_valid = S._site_masks(hull, batch.scen)[:2]
+    B, R, P = len(batch), hull.n_racks, hull.csw_per_cluster
+    NC, CUP = hull.n_csw, hull.csw_uplinks
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=g)
+
+    def timers(*shape):
+        return torch.where(u(*shape) < fault_share,
+                           torch.randint(1, 40, shape, generator=g),
+                           0).to(torch.int32)
+
+    def stages(n, links):
+        return torch.randint(1, links + 1, (B, n), generator=g,
+                             dtype=torch.int32)
+
+    t = [u(B, R, P, 2) * 15, stages(R, P), u(B, R) < 0.3, timers(B, R, P),
+         rack_valid, u(B, R, 3) * 3, u(B, NC, CUP) * 15, stages(NC, CUP),
+         u(B, NC) < 0.3, timers(B, NC, CUP), csw_valid, 10 + u(B) * 15]
+    t = [x.to(dev) for x in t]
+    t[5] = t[5][..., 1:]
+    acc = {k: (u(B) * 50).to(dev) for k in lcdc_switch.TIER_ACC}
+    return (*t, acc)
+
+
+def state_tiers_inputs(torch, S, batch, state, dev):
+    """switch_tiers' inputs from a sweep state of ``batch`` (CPU leaves,
+    as ``run_sweep(return_state=True)`` gives it), with this tick's
+    arrivals drawn as small integer packet counts from a fixed seed."""
+    from repro_torch.kernels import lcdc_switch
+    hull = batch.hull
+    rack_valid, csw_valid = S._site_masks(hull, batch.scen)[:2]
+    g = torch.Generator().manual_seed(5)
+    by_dest = torch.randint(0, 3, (len(batch), hull.n_racks, 3),
+                            generator=g).float()
+    t = [state.rsw_q, state.rsw_gate.stage, state.rsw_gate.draining,
+         state.rsw_fault.timer, rack_valid, by_dest, state.csw_up_q,
+         state.csw_gate.stage, state.csw_gate.draining,
+         state.csw_fault.timer, csw_valid, batch.scen.queue_cap]
+    t = [x.to(dev) for x in t]
+    t[5] = t[5][..., 1:]
+    return (*t, {k: state.acc[k].to(dev) for k in lcdc_switch.TIER_ACC})
+
+
+def compare_tiers(torch, got, want, args):
+    """Max abs difference of switch_tiers' outputs from the plain
+    version's; raises AssertionError beyond the tolerances stated at
+    FLOAT_RTOL and sum_rtol. The CSW tier is held against the plain
+    switch_step on the kernel's own to_csw."""
+    from repro_torch.kernels import lcdc_switch, ref
+    B, R, P, _ = args[0].shape
+    NC, CUP = args[6].shape[1:]
+    csw = ref.switch_step_ref(
+        args[6].reshape(B * NC, CUP), args[7].reshape(-1),
+        got.to_csw[..., 1].reshape(-1), args[8].reshape(-1),
+        valid=(args[10][..., None] & (args[9] == 0)).reshape(B * NC, CUP),
+        cap=args[11].repeat_interleave(NC),
+        serve_rate=lcdc_switch.CSW_SERVE_RATE)
+    checks = [("rsw_q", got.rsw_q, want.rsw_q, FLOAT_RTOL),
+              ("rsw_wait", got.rsw_wait, want.rsw_wait, FLOAT_RTOL),
+              ("to_csw", got.to_csw, want.to_csw, sum_rtol(R // (NC // P))),
+              ("fc_in", got.fc_in, want.fc_in, sum_rtol(NC)),
+              ("csw_q", got.csw_q, csw[0].reshape(B, NC, CUP), FLOAT_RTOL),
+              ("csw_wait", got.csw_wait, csw[5].reshape(B, NC),
+               FLOAT_RTOL)]
+    checks += [(f"acc[{k!r}]", got.acc[k], want.acc[k],
+                sum_rtol(2 * R * P * 2 + 2)) for k in lcdc_switch.TIER_ACC]
+    worst = 0.0
+    for name, a, b, rtol in checks:
+        d = (a.double() - b.double()).abs()
+        bad = d > rtol * torch.maximum(a.double().abs(), b.double().abs())
+        if bool(bad.any()):
+            raise AssertionError(f"{name}: {int(bad.sum())} values beyond "
+                                 f"{rtol:.3g} relative (max abs "
+                                 f"{float(d.max()):.3g})")
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def tiers_bound(args, out):
+    """(bound_ms, bound_by) of switch_tiers: every input read once (the
+    two arrival components of a rack, not the view's stride) and every
+    output written once, against the float operations of both tiers'
+    rows (about 4K+8 per port) at the float32 rate."""
+    from repro_torch.kernels import lcdc_switch
+    acc = args[12]
+    ins = [t for i, t in enumerate(args[:12]) if i != 5] \
+        + [acc[k] for k in lcdc_switch.TIER_ACC]
+    outs = list(out[:6]) + list(out.acc.values())
+    nbytes = sum(t.numel() * t.element_size() for t in ins + outs) \
+        + args[5].numel() * args[5].element_size()
+    B, R, P, _ = args[0].shape
+    NC, CUP = args[6].shape[1:]
+    ops = B * (R * P * (4 * 2 + 8) + NC * CUP * (4 + 8))
+    return bound(nbytes, ops, FP32_OPS_PER_S)
+
+
+def two_launch_tiers(torch, args):
+    """A function running the first design of the tick's switch work on
+    ``args``: two switch_step launches and the glue the tick ran around
+    them (valid masks, contiguous arrivals, the tier sums, to_csw,
+    fc_in), with the per-row knob columns built once, as make_sim_step
+    built them."""
+    from repro_torch.kernels import lcdc_switch
+    (rsw_q, rsw_stage, rsw_drain, rsw_timer, rack_valid, arr, csw_q,
+     csw_stage, csw_drain, csw_timer, csw_valid, cap, acc) = args
+    B, R, P, _ = rsw_q.shape
+    NC, CUP = csw_q.shape[1:]
+
+    def cols(n):
+        return dict(cap=cap.repeat_interleave(n),
+                    hi=torch.full((B * n,), 0.75, device=cap.device),
+                    lo=torch.full((B * n,), 0.22, device=cap.device))
+
+    rsw_kn, csw_kn = cols(R), cols(NC)
+
+    def flat(x):
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    def run():
+        a = dict(acc)
+        out = lcdc_switch.switch_step(
+            flat(rsw_q), flat(rsw_stage), flat(arr).contiguous(),
+            flat(rsw_drain), valid=flat(rack_valid[..., None]
+                                        & (rsw_timer == 0)),
+            **rsw_kn, serve_rate=lcdc_switch.RSW_SERVE_RATE)
+        q = out[0].reshape(B, R, P, 2)
+        served = out[1].reshape(B, R, P, 2)
+        drop, wait, m1, m2 = (x.reshape(B, R) for x in out[4:])
+        a["drops"] = a["drops"] + torch.sum(drop, dim=1)
+        a["rsw_backlog"] = a["rsw_backlog"] + (
+            torch.sum(q, dim=(1, 2, 3)) + torch.sum(served, dim=(1, 2, 3)))
+        a["rsw_served"] = a["rsw_served"] + torch.sum(served, dim=(1, 2, 3))
+        a["rsw_occ_m1"] = a["rsw_occ_m1"] + torch.sum(m1, dim=1)
+        a["rsw_occ_m2"] = a["rsw_occ_m2"] + torch.sum(m2, dim=1)
+        to_csw = torch.sum(served.reshape(B, NC // P, -1, P, 2), dim=2)
+        inter_in = to_csw[..., 1].reshape(B, NC)
+        out = lcdc_switch.switch_step(
+            flat(csw_q), flat(csw_stage), inter_in.reshape(-1).contiguous(),
+            flat(csw_drain), valid=flat(csw_valid[..., None]
+                                        & (csw_timer == 0)),
+            **csw_kn, serve_rate=lcdc_switch.CSW_SERVE_RATE)
+        cq = out[0].reshape(B, NC, CUP)
+        cserve = out[1].reshape(B, NC, CUP)
+        cdrop, cwait, cm1, cm2 = (x.reshape(B, NC) for x in out[4:])
+        a["drops"] = a["drops"] + torch.sum(cdrop, dim=1)
+        a["csw_up_backlog"] = a["csw_up_backlog"] + torch.sum(csw_q,
+                                                              dim=(1, 2))
+        a["csw_up_served"] = a["csw_up_served"] + torch.sum(cserve,
+                                                            dim=(1, 2))
+        a["csw_occ_m1"] = a["csw_occ_m1"] + torch.sum(cm1, dim=1)
+        a["csw_occ_m2"] = a["csw_occ_m2"] + torch.sum(cm2, dim=1)
+        return q, wait, to_csw, cq, cwait, torch.sum(cserve, dim=1), a
+
+    return run
+
+
+def check_run(S, res, state):
+    """Fail unless every float metric of a run is finite and packets
+    are conserved in every scenario."""
+    for i, r in enumerate(res):
+        for k, v in r.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                fail(f"{r['label']}: {k} = {v}")
+        in_flight = sum(float(getattr(state, q)[i].sum())
+                        for q in ("rsw_q", "csw_up_q", "csw_down_q",
+                                  "fc_down_q"))
+        inj = r["injected_pkts"]
+        resid = inj - (r["delivered_pkts"] + r["drop_frac"] * inj
+                       + r["fault_dropped_pkts"] + in_flight)
+        if not abs(resid) <= 1e-3 * max(inj, 1.0):
+            fail(f"{r['label']}: conservation residual {resid:.4g} of "
+                 f"{inj:.0f} injected")
+
+
+def time_switch(torch, dev, card, S, batch, state, launches, tiers_err):
+    """Card time of switch_tiers a tick at the main grid's shapes (random
+    inputs, and the main run's final ``state``) beside its first
+    design, the plain version, the bound and an empty kernel's graph
+    node; of switch_step alone at the two tier shapes. Returns the
+    kernels-line entry."""
+    from repro_torch.kernels import lcdc_switch, ref
+    args = tiers_inputs(torch, S, batch, 900, 0.05, dev)
+    real = state_tiers_inputs(torch, S, batch, state, dev)
+    out = lcdc_switch.switch_tiers(*args)
+    try:
+        compare_tiers(torch, lcdc_switch.switch_tiers(*real),
+                      ref.switch_tiers_ref(*real), real)
+    except AssertionError as e:
+        fail(f"switch_tiers on the main run's state: {e}")
+    B, R, P, _ = args[0].shape
+    NC, CUP = args[6].shape[1:]
+    row = turns(torch, {
+        "ms": (lambda: lcdc_switch.switch_tiers(*args), 200),
+        "state_ms": (lambda: lcdc_switch.switch_tiers(*real), 200),
+        "first_ms": (two_launch_tiers(torch, args), 200),
+        "plain_ms": (lambda: ref.switch_tiers_ref(*args), 20),
+        "floor_ms": (lambda: torch.cuda._sleep(0), 200),
+    })
+    row["bound_ms"], row["bound_by"] = tiers_bound(args, out)
+    phase("time", f"switch_tiers B={B} hull (R, P, NC, CUP) = ({R}, {P}, "
+          f"{NC}, {CUP}): {row['ms'] * 1e3:.2f} us a tick on random "
+          f"inputs, {row['state_ms'] * 1e3:.2f} us on the main run's final "
+          f"state; first design"
+          f" (two switch_step launches and their glue) "
+          f"{row['first_ms'] * 1e3:.2f} us; plain version "
+          f"{row['plain_ms'] * 1e3:.1f} us; empty kernel (launch floor) "
+          f"{row['floor_ms'] * 1e3:.2f} us; bound "
+          f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}); "
+          f"{launches} launches on the path; card {card}")
+    tiers = {}
+    shapes = [("rsw", B * R, P, 2, 1.0), ("csw", B * NC, CUP, 1, 4.0)]
+    for i, (name, n, L, K, rate) in enumerate(shapes):
+        sargs, kw = switch_inputs(torch, n, L, K, dev, seed=200 + i)
+        sout = lcdc_switch.switch_step(*sargs, serve_rate=rate, **kw)
+        try:
+            compare(torch, sout, ref.switch_step_ref(*sargs,
+                                                     serve_rate=rate, **kw))
+        except AssertionError as e:
+            fail(f"switch_step {name} tier ({n}, {L}, {K}): {e}")
+        t = turns(torch, {
+            "ms": (lambda: lcdc_switch.switch_step(
+                *sargs, serve_rate=rate, **kw), 200),
+            "plain_ms": (lambda: ref.switch_step_ref(
+                *sargs, serve_rate=rate, **kw), 50)})
+        t["bound_ms"], t["bound_by"] = switch_bound(sargs, kw, sout)
+        tiers[name] = dict(shape=[n, L, K], serve_rate=rate, **t)
+        phase("time", f"switch_step alone, {name} tier ({n}, {L}, {K}): "
+              f"{t['ms'] * 1e3:.2f} us/launch, plain version "
+              f"{t['plain_ms'] * 1e3:.1f} us, bound "
+              f"{t['bound_ms'] * 1e3:.4f} us ({t['bound_by']}); card "
+              f"{card}")
+    return {
+        "name": "switch_tiers",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lcdc_switch.cu",
+        "replaces": "src/repro/kernels/lcdc_switch.py:115",
+        "launches": launches,
+        "max_abs_err": tiers_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "first_ms": row["first_ms"],
+        "state_ms": row["state_ms"],
+        "floor_ms": row["floor_ms"],
+        "shape": {"B": B, "R": R, "P": P, "NC": NC, "CUP": CUP},
+        "switch_step": tiers,
+    }
 
 # (label, B, T, H, d, causal, window, dtype): the qwen3-8b serve shapes,
 # then ragged, non-causal and d = 64 (minicpm3's head dim) bf16 cases,
@@ -428,27 +693,28 @@ def check_attention_kernels(torch, dev):
 
 
 def ptxas_report(log):
-    """{kernel: (registers, spill store bytes, spill load bytes, static
-    shared memory bytes)} from an ``nvcc -Xptxas -v`` log."""
+    """{kernel: (registers, stack frame bytes, spill store bytes, spill
+    load bytes, static shared memory bytes)} from an ``nvcc -Xptxas -v``
+    log."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1)
-            out[cur] = [None, 0, 0, 0]
+            out[cur] = [None, 0, 0, 0, 0]
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            out[cur][1:3] = [int(m.group(1)), int(m.group(2))]
+            out[cur][1:4] = [int(g) for g in m.groups()]
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[cur][0] = int(m.group(1))
         m = re.search(r"(\d+) bytes smem", line)
         if m:
-            out[cur][3] = int(m.group(1))
+            out[cur][4] = int(m.group(1))
     return {k: tuple(v) for k, v in out.items()}
 
 
@@ -495,10 +761,17 @@ def build_report(libs):
         if not rep:
             fail(f"build: no ptxas report for {n}.cu (is -Xptxas -v in "
                  f"its flags?)")
-        phase("build", f"{n}.cu ptxas (registers / spill stores / spill "
-              f"loads / static smem bytes): " + "; ".join(
-                  f"{short[k]} {r[0]}/{r[1]}/{r[2]}/{r[3]}"
+        phase("build", f"{n}.cu ptxas (registers / stack frame / spill "
+              f"stores / spill loads / static smem bytes): " + "; ".join(
+                  f"{short[k]} {r[0]}/{r[1]}/{r[2]}/{r[3]}/{r[4]}"
                   for k, r in rep.items()))
+    framed = {short[k]: r[1] for k, r in reports["lcdc_switch"].items()
+              if r[1]}
+    if framed:
+        fail(f"build: lcdc_switch kernels with a stack frame (bytes): "
+             f"{framed}; their rows must live in registers")
+    phase("build", f"lcdc_switch.cu: all {len(reports['lcdc_switch'])} "
+          f"kernels have a stack frame of 0 bytes")
     ops = WGMMA_OPS + ASYNC_COPY_OPS
     counts = sass_counts(libs["flash_attention"], ops)
     wgmma = {k: c for k, c in counts.items() if "flash_wgmma_kernel" in k}
@@ -851,7 +1124,7 @@ def main() -> None:
     cases = [("rsw tier", 1280, 4, 2, 1.0), ("csw tier", 160, 4, 1, 4.0),
              ("odd S", 16, 16, 2, 1.0), ("odd S", 100, 16, 1, 4.0),
              ("odd S", 100, 3, 2, 2.0)]
-    worst = 0.0
+    worst_step = 0.0
     for i, (name, n, L, K, rate) in enumerate(cases):
         args, kw = switch_inputs(torch, n, L, K, dev, seed=100 + i)
         got = lcdc_switch.switch_step(*args, serve_rate=rate, **kw)
@@ -861,14 +1134,46 @@ def main() -> None:
             mabs, mrel = compare(torch, got, want)
         except AssertionError as e:
             fail(f"switch_step {name} ({n}, {L}, {K}) serve {rate}: {e}")
-        worst = max(worst, mrel)
+        worst_step = max(worst_step, mrel)
         phase("kernel", f"switch_step {name} ({n}, {L}, {K}) serve {rate:g}:"
               f" ints exact, floats max abs {mabs:.3g} max rel {mrel:.3g}"
               f" (tol {FLOAT_RTOL:.3g} rel)")
 
-    worst = check_attention_kernels(torch, dev)
+    grid = S.sweep_grid()
+    padded = S.make_multi_site_batch(
+        S.grid_runs(traces=("fb_web", "fb_hadoop"))
+        + S.grid_runs(traces=("fb_web",), site=FBSite(
+            n_clusters=2, racks_per_cluster=40, csw_per_cluster=5,
+            n_fc=3)))
+    tiers_err = 0.0
+    for i, (label, b, share) in enumerate([
+            ("main grid", grid, 0.0), ("faults striking links", grid, 0.15),
+            ("padded multi-site hull", padded, 0.1)]):
+        args = tiers_inputs(torch, S, b, 700 + i, share, dev)
+        got = lcdc_switch.switch_tiers(*args)
+        want = ref.switch_tiers_ref(*args)
+        torch.cuda.synchronize()
+        try:
+            err = compare_tiers(torch, got, want, args)
+        except AssertionError as e:
+            fail(f"switch_tiers {label}: {e}")
+        tiers_err = max(tiers_err, err)
+        B, R, P, _ = args[0].shape
+        NC, CUP = args[6].shape[1:]
+        phase("kernel", f"switch_tiers {label}, B={B} on hull (R, P, NC, "
+              f"CUP) = ({R}, {P}, {NC}, {CUP}), {share:.0%} of links "
+              f"faulted: queues and waits within {FLOAT_RTOL:.3g} rel, "
+              f"to_csw within {sum_rtol(R // (NC // P)):.3g}, fc_in "
+              f"{sum_rtol(NC):.3g}, accumulators "
+              f"{sum_rtol(2 * R * P * 2 + 2):.3g}; max abs {err:.3g}")
 
-    # 3. golden on the card ---------------------------------------------
+    worst = check_attention_kernels(torch, dev)
+    phase("kernel", f"every kernel holds its plain version: switch_step "
+          f"max rel {worst_step:.3g} (tol {FLOAT_RTOL:.3g}), switch_tiers "
+          f"max abs {tiers_err:.3g}, flash_attention max abs "
+          f"{worst['flash_attention']:.3g}, wkv max abs {worst['wkv']:.3g}")
+
+    # 3. golden on the card, the tick from a CUDA graph and eagerly ------
     golden = json.loads(GOLDEN.read_text())
     cfg = golden["config"]
     site = FBSite(n_clusters=2, racks_per_cluster=8, servers_per_rack=8,
@@ -885,107 +1190,82 @@ def main() -> None:
     rows = golden["results"]
     if [r["label"] for r in rows] != list(batch.labels):
         fail("golden labels do not match the golden runs")
-    t0 = time.perf_counter()
-    res = S.run_sweep(batch, cfg["ticks"], chunk_ticks=cfg["chunk_ticks"],
-                      device=dev, threefry_partitionable=False)
-    torch.cuda.synchronize()
     keys = [k for k in S.PARITY_KEYS if k in rows[0]]
-    diff, where = S.worst_parity(rows, res, keys)
-    if not diff <= PARITY_TOL:
-        fail(f"golden parity {diff:.3g} at {where} > {PARITY_TOL}")
-    phase("golden", f"{len(runs)} runs x {cfg['ticks']} ticks on cuda in "
-          f"{time.perf_counter() - t0:.1f} s: worst_parity {diff:.3g} "
-          f"({where}) <= {PARITY_TOL} over {len(keys)} keys")
+    by_mode = {}
+    for graph in (True, False):
+        mode = "CUDA graph" if graph else "eager"
+        S.CAPTURE_COUNT = 0
+        t0 = time.perf_counter()
+        res = S.run_sweep(batch, cfg["ticks"], chunk_ticks=cfg["chunk_ticks"],
+                          device=dev, threefry_partitionable=False,
+                          graph=graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        diff, where = S.worst_parity(rows, res, keys)
+        if not diff <= PARITY_TOL:
+            fail(f"golden ({mode}): parity {diff:.3g} at {where} > "
+                 f"{PARITY_TOL}")
+        if S.CAPTURE_COUNT != int(graph):
+            fail(f"golden ({mode}): {S.CAPTURE_COUNT} graph captures")
+        by_mode[graph] = res
+        phase("golden", f"{mode}: {len(runs)} runs x {cfg['ticks']} ticks on "
+              f"cuda in {wall:.1f} s: worst_parity {diff:.3g} ({where}) <= "
+              f"{PARITY_TOL} over {len(keys)} keys; {S.CAPTURE_COUNT} "
+              f"capture(s)")
+    if by_mode[True] != by_mode[False]:
+        diff, where = S.worst_parity(by_mode[False], by_mode[True])
+        fail(f"golden: the CUDA-graph run differs from the eager run "
+             f"(worst_parity {diff:.3g} at {where}); they must be equal")
+    phase("golden", "the CUDA-graph and eager runs give equal results")
 
-    # 4. the full-size main path ----------------------------------------
-    batch = S.sweep_grid()
+    # 4. the full-size main path: three runs replayed from a CUDA graph,
+    # one eager --------------------------------------------------------
+    batch = grid
     hull = batch.hull
-    lcdc_switch.LAUNCHES = 0
-    S.HOST_TRANSFER_COUNT = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res, state = S.run_sweep(batch, MAIN_TICKS, chunk_ticks=MAIN_CHUNK,
-                             return_state=True, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = lcdc_switch.LAUNCHES
-    fetches = S.HOST_TRANSFER_COUNT
-    if launches != 2 * MAIN_TICKS:
-        fail(f"switch_step launched {launches} times, expected "
-             f"{2 * MAIN_TICKS} (2 per tick)")
-    if fetches != 1:
-        fail(f"{fetches} fold fetches, expected exactly 1")
-    for i, r in enumerate(res):
-        for k, v in r.items():
-            if isinstance(v, float) and not math.isfinite(v):
-                fail(f"{r['label']}: {k} = {v}")
-        in_flight = sum(float(getattr(state, q)[i].sum())
-                        for q in ("rsw_q", "csw_up_q", "csw_down_q",
-                                  "fc_down_q"))
-        inj = r["injected_pkts"]
-        resid = inj - (r["delivered_pkts"] + r["drop_frac"] * inj
-                       + r["fault_dropped_pkts"] + in_flight)
-        if not abs(resid) <= 1e-3 * max(inj, 1.0):
-            fail(f"{r['label']}: conservation residual {resid:.4g} of "
-                 f"{inj:.0f} injected")
-    lc = [r for r in res if r["gating"]]
+    rates, main = [], {}
+    for run in range(4):
+        graph = run < 3
+        lcdc_switch.LAUNCHES = 0
+        S.HOST_TRANSFER_COUNT = 0
+        S.CAPTURE_COUNT = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, state = S.run_sweep(batch, MAIN_TICKS, chunk_ticks=MAIN_CHUNK,
+                                 return_state=True, device=dev, graph=graph)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = lcdc_switch.LAUNCHES
+        counts = (launches, S.CAPTURE_COUNT, S.HOST_TRANSFER_COUNT)
+        if counts != (MAIN_TICKS, int(graph), 1):
+            fail(f"main: switch_tiers launches, captures, fold fetches "
+                 f"{counts}; expected ({MAIN_TICKS}, {int(graph)}, 1)")
+        check_run(S, res, state)
+        rate = len(batch) * MAIN_TICKS / wall
+        if graph:
+            rates.append(rate)
+            main.setdefault("launches", launches)
+            main.setdefault("graph", res)
+            main.setdefault("state", state)
+        else:
+            main["eager"] = rate
+            diff, where = S.worst_parity(main["graph"], res)
+        phase("main", f"FBSite() {hull.n_servers} servers, {len(batch)} "
+              f"scenarios x {MAIN_TICKS} ticks (chunk {MAIN_CHUNK}) on "
+              f"cuda, {'CUDA graph' if graph else 'eager'}: {wall:.2f} s "
+              f"wall, {rate:.1f} scenario-ticks/s; switch_tiers launches "
+              f"{launches} (= ticks), captures {S.CAPTURE_COUNT}, fold "
+              f"fetches {S.HOST_TRANSFER_COUNT}; conservation holds")
+    lc = [r for r in main["graph"] if r["gating"]]
     savings = min(r["switch_energy_savings_frac"] for r in lc)
-    phase("main", f"FBSite() {hull.n_servers} servers, {len(batch)} "
-          f"scenarios x {MAIN_TICKS} ticks (chunk {MAIN_CHUNK}) on cuda: "
-          f"{wall:.2f} s wall, {len(batch) * MAIN_TICKS / wall:.1f} "
-          f"scenario-ticks/s; switch_step launches {launches} "
-          f"(= 2 x ticks), fold fetches {fetches}; conservation holds; "
-          f"min LC/DC switch savings {savings:.3f}")
+    phase("main", f"CUDA graph over 3 runs: {min(rates):.1f}-"
+          f"{max(rates):.1f} scenario-ticks/s (mean "
+          f"{sum(rates) / 3:.1f}); eager {main['eager']:.1f} (the graph "
+          f"{sum(rates) / 3 / main['eager']:.2f}x that); graph vs eager "
+          f"worst_parity {diff:.3g} ({where}); min LC/DC switch savings "
+          f"{savings:.3f}; card {card}")
 
-    # per-launch times at the main path's two tier shapes
-    B = len(batch)
-    shapes = [("rsw", B * hull.n_racks, hull.csw_per_cluster, 2, 1.0),
-              ("csw", B * hull.n_csw, hull.csw_uplinks, 1, 4.0)]
-    tiers = {}
-    for i, (name, n, L, K, rate) in enumerate(shapes):
-        args, kw = switch_inputs(torch, n, L, K, dev, seed=200 + i)
-        out = lcdc_switch.switch_step(*args, serve_rate=rate, **kw)
-        mabs, mrel = compare(torch, out,
-                             ref.switch_step_ref(*args, serve_rate=rate,
-                                                 **kw))
-        def kern():
-            return lcdc_switch.switch_step(*args, serve_rate=rate, **kw)
-
-        def plain_fn():
-            return ref.switch_step_ref(*args, serve_rate=rate, **kw)
-
-        ms, plain = graph_ms(torch, kern), graph_ms(torch, plain_fn, 50)
-        call, plain_call = time_ms(torch, kern), time_ms(torch, plain_fn, 50)
-        bound, by = switch_bound(args, kw, out)
-        tiers[name] = dict(shape=[n, L, K], serve_rate=rate, ms=ms,
-                           plain_ms=plain, bound_ms=bound, bound_by=by,
-                           max_abs_err=mabs, eager_call_ms=call,
-                           plain_eager_call_ms=plain_call)
-        phase("time", f"switch_step {name} tier ({n}, {L}, {K}): card time "
-              f"kernel {ms * 1e3:.2f} us/launch, plain version "
-              f"{plain * 1e3:.1f} us, bound {bound * 1e3:.4f} us ({by}); "
-              f"eager call from Python: kernel {call * 1e3:.1f} us, plain "
-              f"{plain_call * 1e3:.1f} us; card {card}")
-    mean = {k: sum(t[k] for t in tiers.values()) / len(tiers)
-            for k in ("ms", "plain_ms", "bound_ms")}
-    kernels = [{
-        "name": "switch_step",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/lcdc_switch.cu",
-        "replaces": "src/repro/kernels/lcdc_switch.py:115",
-        "launches": launches,
-        "max_abs_err": max(t["max_abs_err"] for t in tiers.values()),
-        # the main path launches the two tier shapes 1:1, so its mean
-        # per-launch time is the mean of the two
-        "ms": mean["ms"],
-        "plain_ms": mean["plain_ms"],
-        "bound_ms": mean["bound_ms"],
-        "bound_by": "bytes" if all(t["bound_by"] == "bytes"
-                                   for t in tiers.values()) else
-        "operations",
-        "library_ms": None,
-        "tiers": tiers,
-    }]
+    kernels = [time_switch(torch, dev, card, S, batch, main["state"],
+                           main["launches"], tiers_err)]
 
     # 5-6. the serving paths at full width, one model at a time ---------
     paths = {"flash_attention": serve_phase(torch, "qwen3-8b", dev),

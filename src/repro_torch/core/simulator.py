@@ -17,14 +17,21 @@ How the reference's JAX structure maps here:
 
 * ``vmap`` over scenarios becomes an explicit leading batch axis ``B``
   on every ``Scenario`` and ``SimState`` leaf. The two switch tiers go
-  through ``kernels.ops.switch_step`` as flat ``(B*S, L, K)`` rows —
-  the hand-written CUDA kernel on the card, its plain PyTorch version
-  on the CPU — with the per-scenario cap/hi/lo as per-row columns.
-* ``lax.scan`` over ticks becomes a Python loop. Chunks keep the
-  reference's boundaries (``chunk_ticks``); a remainder chunk simply
-  runs fewer ticks, and at every boundary the accumulators fold into a
-  float32 Kahan ``(sum, comp)`` pair on the device, exactly as the
-  reference's x32 device fold does.
+  through ``kernels.ops.switch_tiers`` — one hand-written CUDA kernel
+  launch a tick on the card (one block per scenario), the reference's
+  two ``switch_step`` calls and their glue in plain PyTorch on the CPU.
+* ``lax.scan`` over ticks becomes a loop. Chunks keep the reference's
+  boundaries (``chunk_ticks``); a remainder chunk simply runs fewer
+  ticks, and at every boundary the accumulators fold into a float32
+  Kahan ``(sum, comp)`` pair on the device, exactly as the reference's
+  x32 device fold does.
+* The reference's one compiled program per (hull, batch, chunk) becomes
+  one CUDA graph per run on a CUDA device: a single tick of
+  ``step_into`` (the step writing its result back into fixed state
+  buffers) is captured once and replayed for every tick of every chunk
+  (``CAPTURE_COUNT`` counts captures as the reference's ``TRACE_COUNT``
+  counts traces). ``run_sweep(graph=False)`` and the CPU run the ticks
+  eagerly, op by op.
 * ``run_sweep`` fetches the fold once at the end (``HOST_TRANSFER_COUNT``
   counts it) and finalizes the paper's metrics on the host.
 
@@ -48,7 +55,7 @@ from repro_torch.core.traffic import (TRAFFIC_SPECS, TrafficSpec,
                                       flow_arrival_rate_per_tick,
                                       rack_flow_rate_per_tick, stack_specs)
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import lcdc_switch, ops
 from repro_torch.kernels.ref import fma
 
 F_SLOTS = 64              # concurrent flow slots per rack
@@ -64,6 +71,11 @@ CHUNK_TICKS = 10_000      # default chunk (accumulator fold period)
 #: number of accumulator host transfers the sweep engine has performed:
 #: exactly ONE per run_sweep (the final fold fetch)
 HOST_TRANSFER_COUNT = 0
+
+#: number of CUDA graphs captured of the sweep tick: exactly ONE per
+#: run_sweep on a CUDA device (remainder chunk included), none on the CPU
+#: or with graph=False
+CAPTURE_COUNT = 0
 
 #: scalar metrics two runs of the same scenarios must agree on (the
 #: reference's parity contract)
@@ -919,30 +931,22 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
         add("injected", torch.sum(by_dest[..., 1:], dim=(1, 2)))
         add("intra_rack", torch.sum(by_dest[..., 0], dim=1))
 
-        # 2+3. RSW datapath tick: min-backlog enqueue of the [intra,
-        # inter] arrival split + 1 pkt/tick serve per active uplink,
-        # through the switch kernel on flat (B*R, P, 2) rows. The valid
-        # mask is per-LINK: hull padding AND hard-faulted transceivers.
-        out = ops.switch_step(
-            _flat(state.rsw_q), _flat(state.rsw_gate.stage),
-            _flat(by_dest[..., 1:]).contiguous(),
-            _flat(state.rsw_gate.draining),
-            valid=_flat(rack_valid[..., None] & rsw_ok), **rsw_kn,
-            serve_rate=1.0)
-        rsw_q = out[0].reshape(B, R, P, 2)
-        served_split = out[1].reshape(B, R, P, 2)
-        rsw_drop, rsw_wait, rsw_m1, rsw_m2 = (x.reshape(B, R)
-                                              for x in out[4:])
-        add("drops", torch.sum(rsw_drop, dim=1))
-        add("rsw_backlog", torch.sum(rsw_q, dim=(1, 2, 3))
-            + torch.sum(served_split, dim=(1, 2, 3)))
-        add("rsw_served", torch.sum(served_split, dim=(1, 2, 3)))
-        add("rsw_occ_m1", torch.sum(rsw_m1, dim=1))
-        add("rsw_occ_m2", torch.sum(rsw_m2, dim=1))
-
-        # uplink c of rack r lands on CSW (cluster(r), c)
-        srv_rc = served_split.reshape(B, NCL, RPC, P, 2)
-        to_csw = torch.sum(srv_rc, dim=2)                       # (B,NCL,P,2)
+        # 2+3+5. both switch tiers in one call (one CUDA kernel launch on
+        # the card): the RSW datapath tick, min-backlog enqueue of the
+        # [intra, inter] arrival split + 1 pkt/tick serve per active
+        # uplink, on flat (B*R, P, 2) rows; the served packets summed per
+        # cluster-CSW (uplink c of rack r lands on CSW (cluster(r), c));
+        # the CSW uplink datapath tick (40G: 4 pkt/tick) -> FC on flat
+        # (B*NC, CUP) rows, fed the inter share. Valid masks are per
+        # LINK: hull padding AND hard-faulted transceivers.
+        tiers = ops.switch_tiers(
+            state.rsw_q, state.rsw_gate.stage, state.rsw_gate.draining,
+            state.rsw_fault.timer, rack_valid, by_dest[..., 1:],
+            state.csw_up_q, state.csw_gate.stage, state.csw_gate.draining,
+            state.csw_fault.timer, csw_valid, scen.queue_cap, acc)
+        acc.update(tiers.acc)
+        rsw_q, rsw_wait, to_csw = tiers.rsw_q, tiers.rsw_wait, tiers.to_csw
+        csw_up_q, csw_wait = tiers.csw_q, tiers.csw_wait
         inter_in = to_csw[..., 1].reshape(B, NC)
 
         # stage-aware down-plane weights: traffic for rack r rides plane
@@ -964,27 +968,9 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
         same_plane = torch.sum(torch.minimum(up_share, mean_down), dim=2)
         add("ring_pkts", torch.sum(intra_cl * (1.0 - same_plane), dim=1))
 
-        # 5. CSW uplink datapath tick (40G: 4 pkt/tick) -> FC, the same
-        # switch kernel on flat (B*NC, CUP) rows
-        out = ops.switch_step(
-            _flat(state.csw_up_q), _flat(state.csw_gate.stage),
-            inter_in.reshape(-1).contiguous(),
-            _flat(state.csw_gate.draining),
-            valid=_flat(csw_valid[..., None] & csw_ok), **csw_kn,
-            serve_rate=4.0)
-        csw_up_q = out[0].reshape(B, NC, CUP)
-        cserve = out[1].reshape(B, NC, CUP)
-        csw_drop, csw_wait, csw_m1, csw_m2 = (x.reshape(B, NC)
-                                              for x in out[4:])
-        add("drops", torch.sum(csw_drop, dim=1))
-        add("csw_up_backlog", torch.sum(state.csw_up_q, dim=(1, 2)))
-        add("csw_up_served", torch.sum(cserve, dim=(1, 2)))
-        add("csw_occ_m1", torch.sum(csw_m1, dim=1))
-        add("csw_occ_m2", torch.sum(csw_m2, dim=1))
-
         # uplink f of csw c lands on FC f; the FC routes traffic for
         # cluster k down an ACTIVE (f, c') plane of that cluster
-        fc_in = torch.sum(cserve, dim=1)                        # (B,CUP)
+        fc_in = tiers.fc_in                                     # (B,CUP)
         csw_stage = state.csw_gate.stage
         fc_w = (cup_i < csw_stage[..., None]) \
             / csw_stage.to(f32)[..., None]                      # (B,NC,CUP)
@@ -1263,9 +1249,79 @@ def _unfold_flat(flat: np.ndarray) -> dict:
     return out
 
 
+def _leaf_pairs(dst, src):
+    """(dst leaf, src leaf) tensor pairs of two states of one structure
+    (SimState, its NamedTuple parts and the accumulator dict), in
+    ``dst``'s order."""
+    if isinstance(dst, torch.Tensor):
+        yield dst, src
+    elif isinstance(dst, dict):
+        for k in dst:
+            yield from _leaf_pairs(dst[k], src[k])
+    else:
+        for d, s in zip(dst, src):
+            yield from _leaf_pairs(d, s)
+
+
+def step_into(step, static: SimState) -> None:
+    """One tick of ``step`` written back into ``static``'s tensors in
+    place: the form of the tick a CUDA graph replays, since a replayed
+    graph reads and writes fixed buffers. Runs on any device and leaves
+    ``static`` bit-identical to ``step(static)``. The copies go one
+    batched copy per dtype."""
+    groups = {}
+    for d, s in _leaf_pairs(static, step(static)):
+        if d is not s:
+            dl, sl = groups.setdefault(d.dtype, ([], []))
+            dl.append(d)
+            sl.append(s)
+    for dl, sl in groups.values():
+        torch._foreach_copy_(dl, sl)
+
+
+class _TickGraph:
+    """The sweep tick as one CUDA graph over the static state ``static``.
+
+    The first ``run`` runs the run's first tick eagerly on a side stream
+    (torch's capture recipe: it loads every kernel and warms the
+    allocator, and it is a real tick, so the run does not shift), then
+    captures ONE tick of ``step_into`` and replays it for every later
+    tick. A capture that meets an op syncing with the host raises; there
+    is no eager fallback. Replays credit the switch kernel's
+    ``LAUNCHES`` with the launches the graph holds.
+    """
+
+    def __init__(self, step, static: SimState):
+        self.step, self.static = step, static
+        self.graph = None
+        self.launches = 0          # switch kernel launches per replay
+
+    def run(self, n: int) -> None:
+        """Advance ``static`` by ``n`` ticks."""
+        global CAPTURE_COUNT
+        if n > 0 and self.graph is None:
+            lcdc_switch.load_tiers()
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step_into(self.step, self.static)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            before = lcdc_switch.CAPTURED
+            with torch.cuda.graph(self.graph):
+                step_into(self.step, self.static)
+            self.launches = lcdc_switch.CAPTURED - before
+            CAPTURE_COUNT += 1
+            n -= 1
+        for _ in range(n):
+            self.graph.replay()
+        lcdc_switch.LAUNCHES += n * self.launches
+
+
 def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
               chunk_ticks: int = CHUNK_TICKS, return_state: bool = False,
-              device=None, threefry_partitionable: bool = True):
+              device=None, threefry_partitionable: bool = True,
+              graph=None):
     """Run every scenario of ``batch`` for n_ticks us; returns one
     metrics dict per scenario (the reference's schema, with the
     scenario ``label``). With ``return_state=True`` also returns the
@@ -1283,31 +1339,47 @@ def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
     reference draws today; False draws what it drew under the older
     default, the scheme ``tests/data/preflow_golden.json["results"]``
     was captured with.
+
+    ``graph`` picks how ticks run on a CUDA device: True (the default
+    there) captures one tick as a CUDA graph and replays it for every
+    later tick (one capture per run, ``CAPTURE_COUNT``); False runs
+    every tick eagerly, op by op, as the CPU does (for comparisons).
+    Both give the same results.
     """
     global HOST_TRANSFER_COUNT
     if n_ticks < 1:
         raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
     dev = resolve_device(device)
+    if graph is None:
+        graph = dev.type == "cuda"
+    elif graph and dev.type != "cuda":
+        raise ValueError(f"run_sweep: graph=True needs a CUDA device, "
+                         f"got {dev}")
     hull = batch.hull
     scen = Scenario(*(x.to(dev) for x in batch.scen))
     state = _init_state(hull, scen, prng.key(batch.seeds, device=dev))
     step = make_sim_step(hull, scen,
                          threefry_partitionable=threefry_partitionable)
+    ticks = _TickGraph(step, state) if graph else None
     chunk = max(1, min(chunk_ticks, n_ticks))
     fsum = torch.zeros_like(_fold_flat(state.acc))
     fcomp = torch.zeros_like(fsum)
     done = 0
     while done < n_ticks:
-        for _ in range(min(chunk, n_ticks - done)):
-            state = step(state)
+        n = min(chunk, n_ticks - done)
+        if ticks is not None:
+            ticks.run(n)               # the graph's state buffers
+        else:
+            for _ in range(n):
+                state = step(state)
         # Kahan: sum carries the running total, comp the rounding error
         # still to subtract
         y = _fold_flat(state.acc) - fcomp
         t = fsum + y
         fcomp = (t - fsum) - y
         fsum = t
-        state = state._replace(acc=_zero_acc(len(batch), dev))
-        done += chunk
+        torch._foreach_zero_(list(state.acc.values()))
+        done += n
     host = torch.stack([fsum, fcomp]).cpu().numpy()
     HOST_TRANSFER_COUNT += 1
     acc64 = _unfold_flat(host[0].astype(np.float64)

@@ -1,40 +1,85 @@
-"""LC/DC switch datapath step: the wrapper of the hand-written CUDA kernel.
+"""LC/DC switch datapath: the wrappers of the hand-written CUDA kernels.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/lcdc_switch.py``
-(``switch_step``, body ``_kernel``). The kernel (csrc/lcdc_switch.cu)
-runs one thread per switch row and computes exactly what
-``ref.switch_step_ref`` computes; see the note at the top of the source
-for what bounds it on an H100 (launch latency, not bytes) and how the
-design follows from that.
+(``switch_step``, body ``_kernel``). The source (csrc/lcdc_switch.cu)
+holds one switch row's tick as a body templated on the port count, and
+two kernels built on it; see the note at the top of the source for what
+bounds them on an H100 (latency, not bytes) and how the design follows
+from that.
 
-``switch_step`` takes the reference's arguments, checks what the
-kernel accepts (CUDA float32/int32/bool tensors, contiguous rows,
-1 <= L <= 16 ports, K in {1, 2} components), allocates the 8 outputs
-with ``torch.empty`` and launches on the current CUDA stream. The
-per-switch ``cap``/``hi``/``lo`` become per-row columns and a (S,)
-``valid`` mask is broadcast to the kernel's per-link (S, L) operand.
-``LAUNCHES`` counts launches.
+* ``switch_step`` - one tick of a tier of switch rows, the contract of
+  ``ref.switch_step_ref`` (all 8 outputs, any row count, 1 <= L <= 16
+  ports, K in {1, 2} components).
+* ``switch_tiers`` - both tiers of one simulator tick in one launch, one
+  block per scenario: the contract of ``ref.switch_tiers_ref``, which is
+  what ``core/simulator.py``'s tick runs.
+
+Each checks what its kernel accepts (CUDA tensors of the right type and
+shape), allocates the outputs with ``torch.empty`` and launches on the
+current CUDA stream. ``LAUNCHES`` counts launches on the card; a launch
+recorded into a CUDA graph being captured counts in ``CAPTURED``
+instead, and the graph's owner adds its launches to ``LAUNCHES`` each
+time it replays the graph.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 MAX_LINKS = 16
+#: shared memory a switch_tiers block may take (the H100's 227 KB of
+#: opt-in shared memory, less the kernel's static reduction buffer)
+TIERS_SMEM_LIMIT = 232_448 - 320
 
-#: number of times the kernel has been launched (incremented only where
-#: it is launched)
+#: number of kernel launches on the card (incremented only where a
+#: kernel is launched, or where a graph holding launches is replayed)
 LAUNCHES = 0
+#: number of launches recorded into CUDA graphs during capture
+CAPTURED = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_float] + [ctypes.c_int] * 3 \
-    + [ctypes.c_void_p] * 9
+#: serve rates of the simulator's two tiers, packets a tick a port: a
+#: 10G RSW uplink and a 40G CSW uplink
+RSW_SERVE_RATE = 1.0
+CSW_SERVE_RATE = 4.0
+
+#: the accumulators ``switch_tiers`` adds its per-scenario tier sums to
+TIER_ACC = ("drops", "rsw_backlog", "rsw_served", "rsw_occ_m1",
+            "rsw_occ_m2", "csw_up_backlog", "csw_up_served", "csw_occ_m1",
+            "csw_occ_m2")
+
+_STEP_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_float] \
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
+_TIERS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] \
+    + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p] * 8
 
 
-def _check(name, t, dtype, shape, device):
-    _build.check("switch_step", name, t, dtype, shape, device)
+class Tiers(NamedTuple):
+    """What one tick's two switch tiers hand to the rest of the tick."""
+    rsw_q: torch.Tensor     # (B, R, P, 2) post-serve RSW queues
+    rsw_wait: torch.Tensor  # (B, R) RSW enq_wait
+    to_csw: torch.Tensor    # (B, NCL, P, 2) RSW-served packets per
+    #                         (cluster, plane): the cluster-CSWs' inputs
+    csw_q: torch.Tensor     # (B, NC, CUP) post-serve CSW-uplink queues
+    csw_wait: torch.Tensor  # (B, NC) CSW enq_wait
+    fc_in: torch.Tensor     # (B, CUP) CSW-served packets per FC
+    acc: dict               # TIER_ACC -> (B,) accumulator + tier sum
+
+
+def _count():
+    global LAUNCHES, CAPTURED
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED += 1
+    else:
+        LAUNCHES += 1
+
+
+def _check(name, t, dtype, shape, device, kernel="switch_step"):
+    _build.check(kernel, name, t, dtype, shape, device)
 
 
 def _column(v, S, device):
@@ -48,16 +93,21 @@ def _column(v, S, device):
     return torch.full((S,), float(v), dtype=torch.float32, device=device)
 
 
+def _require_cuda(kernel, t):
+    if not (isinstance(t, torch.Tensor) and t.is_cuda):
+        raise ValueError(f"lcdc_switch.{kernel} runs on CUDA tensors only; "
+                         f"ops.{kernel} takes CPU tensors to the plain "
+                         f"version")
+
+
 def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
                 cap=20.0, hi=0.75, lo=0.22, serve_rate=1.0):
     """One switch tick on the card; same contract as
     ``ref.switch_step_ref``: returns (new_queues, served, hi_trig,
-    lo_trig, dropped, enq_wait, occ_m1, occ_m2)."""
-    global LAUNCHES
-    if not (isinstance(queues, torch.Tensor) and queues.is_cuda):
-        raise ValueError("lcdc_switch.switch_step runs on CUDA tensors "
-                         "only; ops.switch_step takes CPU tensors to the "
-                         "plain version")
+    lo_trig, dropped, enq_wait, occ_m1, occ_m2). The per-switch
+    ``cap``/``hi``/``lo`` become per-row columns and a (S,) ``valid``
+    mask is broadcast to the kernel's per-link (S, L) operand."""
+    _require_cuda("switch_step", queues)
     squeeze = queues.dim() == 2
     if squeeze:
         queues, arrivals = queues[..., None], arrivals[..., None]
@@ -92,7 +142,7 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
     lo_t = torch.empty((S,), dtype=torch.int32, device=dev)
     drop, wait, m1, m2 = (torch.empty((S,), dtype=torch.float32,
                                       device=dev) for _ in range(4))
-    fn = _build.function("lcdc_switch", "lcdc_switch_step", _ARGTYPES)
+    fn = _build.function("lcdc_switch", "lcdc_switch_step", _STEP_ARGTYPES)
     _build.launch("lcdc_switch", fn, dev, queues.data_ptr(),
                   stage.data_ptr(), arrivals.data_ptr(), draining.data_ptr(),
                   valid.data_ptr(), cap_c.data_ptr(), hi_c.data_ptr(),
@@ -100,7 +150,89 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
                   q_out.data_ptr(), served.data_ptr(), hi_t.data_ptr(),
                   lo_t.data_ptr(), drop.data_ptr(), wait.data_ptr(),
                   m1.data_ptr(), m2.data_ptr())
-    LAUNCHES += 1
+    _count()
     if squeeze:
         q_out, served = q_out[..., 0], served[..., 0]
     return q_out, served, hi_t, lo_t, drop, wait, m1, m2
+
+
+def load_tiers():
+    """The C entry of ``switch_tiers``, built and loaded (call it before
+    capturing a CUDA graph that launches the kernel)."""
+    return _build.function("lcdc_switch", "lcdc_switch_tiers",
+                           _TIERS_ARGTYPES)
+
+
+def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
+                 rsw_arrivals, csw_q, csw_stage, csw_draining, csw_timer,
+                 csw_valid, cap, acc) -> Tiers:
+    """Both switch tiers of one simulator tick on the card, one launch;
+    same contract as ``ref.switch_tiers_ref``. ``rsw_arrivals`` (B, R, 2)
+    may be a strided view (the tick passes ``by_dest[..., 1:]``) whose
+    components are adjacent; every other tensor is contiguous."""
+    k = "switch_tiers"
+    _require_cuda(k, rsw_q)
+    if rsw_q.dim() != 4 or rsw_q.shape[-1] != 2 or csw_q.dim() != 3:
+        raise ValueError(f"{k}: queues must be (B, R, P, 2) and (B, NC, "
+                         f"CUP), got {tuple(rsw_q.shape)} and "
+                         f"{tuple(csw_q.shape)}")
+    B, R, P, _ = rsw_q.shape
+    NC, CUP = csw_q.shape[1:]
+    if not (1 <= P <= MAX_LINKS and 1 <= CUP <= MAX_LINKS):
+        raise ValueError(f"{k}: the kernel takes 1..{MAX_LINKS} ports a "
+                         f"tier, got P={P}, CUP={CUP}")
+    if NC % P or R % (NC // P):
+        raise ValueError(f"{k}: {NC} CSWs of {P} planes and {R} racks do "
+                         f"not form whole clusters")
+    NCL = NC // P
+    smem = 4 * (R * P * 2 + NC * CUP + NC)
+    if smem > TIERS_SMEM_LIMIT:
+        raise ValueError(f"{k}: a hull of {R} racks x {P} planes needs "
+                         f"{smem} bytes of shared memory a block, more "
+                         f"than the {TIERS_SMEM_LIMIT} an H100 block has")
+    dev = rsw_q.device
+    _check("rsw_q", rsw_q, torch.float32, (B, R, P, 2), dev, k)
+    _check("rsw_stage", rsw_stage, torch.int32, (B, R), dev, k)
+    _check("rsw_draining", rsw_draining, torch.bool, (B, R), dev, k)
+    _check("rsw_timer", rsw_timer, torch.int32, (B, R, P), dev, k)
+    _check("rack_valid", rack_valid, torch.bool, (B, R), dev, k)
+    _check("csw_q", csw_q, torch.float32, (B, NC, CUP), dev, k)
+    _check("csw_stage", csw_stage, torch.int32, (B, NC), dev, k)
+    _check("csw_draining", csw_draining, torch.bool, (B, NC), dev, k)
+    _check("csw_timer", csw_timer, torch.int32, (B, NC, CUP), dev, k)
+    _check("csw_valid", csw_valid, torch.bool, (B, NC), dev, k)
+    _check("cap", cap, torch.float32, (B,), dev, k)
+    a = rsw_arrivals
+    if not (isinstance(a, torch.Tensor) and a.device == dev
+            and a.dtype == torch.float32 and tuple(a.shape) == (B, R, 2)
+            and a.stride(2) == 1 and a.stride(0) == R * a.stride(1)):
+        raise ValueError(f"{k}: rsw_arrivals must be a float32 (B, R, 2) "
+                         f"tensor on {dev} with adjacent components and "
+                         f"evenly spaced rows")
+    acc_in = [acc[n] for n in TIER_ACC]
+    for n, t in zip(TIER_ACC, acc_in):
+        _check(f"acc[{n!r}]", t, torch.float32, (B,), dev, k)
+
+    out = Tiers(
+        rsw_q=torch.empty_like(rsw_q),
+        rsw_wait=torch.empty((B, R), dtype=torch.float32, device=dev),
+        to_csw=torch.empty((B, NCL, P, 2), dtype=torch.float32, device=dev),
+        csw_q=torch.empty_like(csw_q),
+        csw_wait=torch.empty((B, NC), dtype=torch.float32, device=dev),
+        fc_in=torch.empty((B, CUP), dtype=torch.float32, device=dev),
+        acc={n: torch.empty_like(t) for n, t in zip(TIER_ACC, acc_in)})
+    ptrs_in = (ctypes.c_void_p * len(TIER_ACC))(
+        *(t.data_ptr() for t in acc_in))
+    ptrs_out = (ctypes.c_void_p * len(TIER_ACC))(
+        *(out.acc[n].data_ptr() for n in TIER_ACC))
+    _build.launch(
+        "lcdc_switch", load_tiers(), dev, rsw_q.data_ptr(),
+        rsw_stage.data_ptr(), rsw_draining.data_ptr(), rsw_timer.data_ptr(),
+        rack_valid.data_ptr(), a.data_ptr(), a.stride(1), csw_q.data_ptr(),
+        csw_stage.data_ptr(), csw_draining.data_ptr(), csw_timer.data_ptr(),
+        csw_valid.data_ptr(), cap.data_ptr(), ptrs_in, RSW_SERVE_RATE,
+        CSW_SERVE_RATE, B, NCL, R // NCL, P, CUP, out.rsw_q.data_ptr(),
+        out.rsw_wait.data_ptr(), out.to_csw.data_ptr(), out.csw_q.data_ptr(),
+        out.csw_wait.data_ptr(), out.fc_in.data_ptr(), ptrs_out)
+    _count()
+    return out

@@ -33,6 +33,20 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
     return _ref.switch_step_ref(queues, stage, arrivals, draining, **kw)
 
 
+def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
+                 rsw_arrivals, csw_q, csw_stage, csw_draining, csw_timer,
+                 csw_valid, cap, acc):
+    """Both switch tiers of one simulator tick: the CUDA kernel (one
+    launch) for CUDA tensors, ``ref.switch_tiers_ref`` for CPU tensors.
+    See ``ref.switch_tiers_ref`` for the argument and return contract."""
+    args = (rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
+            rsw_arrivals, csw_q, csw_stage, csw_draining, csw_timer,
+            csw_valid, cap, acc)
+    if _on_cuda("switch_tiers", rsw_q):
+        return _sw.switch_tiers(*args)
+    return _ref.switch_tiers_ref(*args)
+
+
 def attention(q, k, v, *, causal=True, swa_window=0):
     """Online-softmax attention, q (B,T,H,d), k/v (B,S,H,d): the CUDA
     flash kernel for CUDA tensors, ``ref.attention_ref`` for CPU

@@ -6,6 +6,11 @@
   the card, and the path ``ops.switch_step`` takes for CPU tensors. The
   usable-link and watermark predicates come from core/gating.py, the
   controller's own definitions.
+* switch_tiers_ref - both switch tiers of one simulator tick: the two
+  ``switch_step_ref`` calls and the glue around them, exactly as the
+  tick ran them before the tiers had a kernel of their own. Held
+  against ``lcdc_switch.switch_tiers`` (csrc/lcdc_switch.cu) on the
+  card; the path ``ops.switch_tiers`` takes for CPU tensors.
 * attention_ref   - the model's chunked online-softmax attention
   (models/attention.py), held against csrc/flash_attention.cu.
 * attention_naive - the direct (T, S) softmax (small shapes only).
@@ -18,6 +23,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import gating
+from repro_torch.kernels.lcdc_switch import (CSW_SERVE_RATE,
+                                             RSW_SERVE_RATE, TIER_ACC,
+                                             Tiers)
 from repro_torch.models.attention import chunked_attention as attention_ref  # noqa: F401
 from repro_torch.models.rwkv6 import wkv_scan as wkv_ref  # noqa: F401
 
@@ -151,3 +159,76 @@ def switch_step_ref(queues, stage, arrivals, draining=None, *,
         q, served = q[..., 0], served[..., 0]
     return (q, served, hi_t.to(torch.int32), lo_t.to(torch.int32),
             dropped, enq_wait, occ_m1, occ_m2)
+
+
+def switch_tiers_ref(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
+                     rsw_arrivals, csw_q, csw_stage, csw_draining, csw_timer,
+                     csw_valid, cap, acc) -> Tiers:
+    """Both switch tiers of one simulator tick for B scenarios on a hull
+    of NCL clusters x RPC racks, P planes (CSWs per cluster, RSW
+    uplinks) and CUP CSW uplinks, served at RSW_SERVE_RATE and
+    CSW_SERVE_RATE.
+
+    RSW tier: queues (B, R, P, 2) [intra, inter], stage/draining (B, R),
+    per-link fault timers (B, R, P) int32, rack_valid (B, R), arrivals
+    (B, R, 2). A link is valid iff its rack is and its timer is 0. The
+    served inter packets of uplink p summed over a cluster's racks are
+    the arrivals of CSW (cluster, p).
+    CSW-uplink tier: queues (B, NC, CUP), stage/draining/csw_valid
+    (B, NC), timers (B, NC, CUP).
+    cap: (B,) per-scenario queue cap. acc: the accumulators, a dict
+    holding at least TIER_ACC, (B,) each; the tier sums are added to
+    them in the tick's order.
+
+    Returns ``Tiers``: the post-serve queues and enq_wait of both tiers,
+    to_csw (B, NCL, P, 2), fc_in (B, CUP) and the TIER_ACC accumulators
+    with this tick's sums added.
+    """
+    B, R, P, _ = rsw_q.shape
+    NC, CUP = csw_q.shape[1:]
+    NCL = NC // P
+
+    def flat(x):
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    out = switch_step_ref(
+        flat(rsw_q), flat(rsw_stage), flat(rsw_arrivals),
+        flat(rsw_draining), valid=flat(rack_valid[..., None]
+                                       & (rsw_timer == 0)),
+        cap=cap.repeat_interleave(R), serve_rate=RSW_SERVE_RATE)
+    rsw_q_new = out[0].reshape(B, R, P, 2)
+    served = out[1].reshape(B, R, P, 2)
+    rsw_drop, rsw_wait, rsw_m1, rsw_m2 = (x.reshape(B, R) for x in out[4:])
+    new = {}
+    new["drops"] = acc["drops"] + torch.sum(rsw_drop, dim=1)
+    new["rsw_backlog"] = acc["rsw_backlog"] \
+        + (torch.sum(rsw_q_new, dim=(1, 2, 3))
+           + torch.sum(served, dim=(1, 2, 3)))
+    new["rsw_served"] = acc["rsw_served"] + torch.sum(served, dim=(1, 2, 3))
+    new["rsw_occ_m1"] = acc["rsw_occ_m1"] + torch.sum(rsw_m1, dim=1)
+    new["rsw_occ_m2"] = acc["rsw_occ_m2"] + torch.sum(rsw_m2, dim=1)
+
+    # uplink p of rack r lands on CSW (cluster(r), p)
+    to_csw = torch.sum(served.reshape(B, NCL, R // NCL, P, 2), dim=2)
+    inter_in = to_csw[..., 1].reshape(B, NC)
+
+    out = switch_step_ref(
+        flat(csw_q), flat(csw_stage), inter_in.reshape(-1),
+        flat(csw_draining), valid=flat(csw_valid[..., None]
+                                       & (csw_timer == 0)),
+        cap=cap.repeat_interleave(NC), serve_rate=CSW_SERVE_RATE)
+    csw_q_new = out[0].reshape(B, NC, CUP)
+    cserve = out[1].reshape(B, NC, CUP)
+    csw_drop, csw_wait, csw_m1, csw_m2 = (x.reshape(B, NC)
+                                          for x in out[4:])
+    new["drops"] = new["drops"] + torch.sum(csw_drop, dim=1)
+    new["csw_up_backlog"] = acc["csw_up_backlog"] \
+        + torch.sum(csw_q, dim=(1, 2))
+    new["csw_up_served"] = acc["csw_up_served"] \
+        + torch.sum(cserve, dim=(1, 2))
+    new["csw_occ_m1"] = acc["csw_occ_m1"] + torch.sum(csw_m1, dim=1)
+    new["csw_occ_m2"] = acc["csw_occ_m2"] + torch.sum(csw_m2, dim=1)
+    # uplink f of every CSW lands on FC f
+    fc_in = torch.sum(cserve, dim=1)
+    return Tiers(rsw_q_new, rsw_wait, to_csw, csw_q_new, csw_wait, fc_in,
+                 {k: new[k] for k in TIER_ACC})

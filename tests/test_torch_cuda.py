@@ -7,7 +7,15 @@ port's dependencies are installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances (abs and rel against the plain version): flash_attention
+Tolerances (abs and rel against the plain version): switch_step and
+switch_tiers hold integers exactly and floats within 4 float32 ulp, but
+for switch_tiers' cross-row sums: to_csw and fc_in sum n racks (CSWs) in
+index order where the plain version's torch.sum takes another order, so
+they are held to n + 3 ulp of their value ((n - 1) ulp bounds two orders
+of n non-negative terms, 4 more the terms' own), the CSW tier is held
+at 4 ulp on the kernel's own to_csw, and the accumulators (sums of up to
+2 R P 2 + 2 non-negative terms, in a per-thread-then-tree order) to
+that many ulp plus 4. flash_attention
 2e-5 in float32 (summation order) and 2e-2 in bfloat16 (that order
 flips roundings of the bf16 output), as tests/test_kernels.py holds the
 TPU kernel; wkv y 2e-3 in float32 and 5e-2 in bfloat16, the state 2e-3
@@ -18,10 +26,26 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention, ops, ref, rwkv6_wkv
+from repro_torch.core import simulator as S
+from repro_torch.core.topology import FBSite
+from repro_torch.core.traffic import TRAFFIC_SPECS
+from repro_torch.kernels import (flash_attention, lcdc_switch, ops, ref,
+                                 rwkv6_wkv)
 
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+ULP = 2.0 ** -23
+#: the golden capture's site (tests/data/preflow_golden.json)
+GOLDEN_SITE = FBSite(n_clusters=2, racks_per_cluster=8, servers_per_rack=8,
+                     csw_per_cluster=2, n_fc=2, csw_ring_links=4,
+                     fc_ring_links=8)
+#: sites of the switch_tiers cases: the paper's Fig 2 site, and a
+#: padded hull of it with a site of 5 planes and 3 FCs
+TIER_SITES = {
+    "fbsite": (FBSite(),),
+    "padded": (FBSite(), FBSite(n_clusters=2, racks_per_cluster=40,
+                                csw_per_cluster=5, n_fc=3)),
+}
 
 
 @pytest.fixture
@@ -161,3 +185,144 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         rwkv6_wkv.wkv(r, r, r, r, torch.zeros((2, 48), device=cuda),
                       torch.zeros((1, 2, 48, 48), device=cuda))
+
+
+def tiers_inputs(sites, seed, fault_share, device):
+    """Random inputs of one tick's two switch tiers for the grid of
+    ``sites`` (two scenarios a site) on their padded hull: queues,
+    stages, drains, fault timers (``fault_share`` of the links struck),
+    arrivals as the tick's strided ``by_dest[..., 1:]`` view, caps and
+    accumulators; the hull's real valid masks."""
+    runs = [(S.SimParams(spec=TRAFFIC_SPECS["fb_web"], site=st,
+                         gating_enabled=g), i)
+            for i, st in enumerate(sites) for g in (True, False)]
+    batch = S.make_multi_site_batch(runs)
+    hull = batch.hull
+    rack_valid, csw_valid = S._site_masks(hull, batch.scen)[:2]
+    B, R, P = len(runs), hull.n_racks, hull.csw_per_cluster
+    NC, CUP = hull.n_csw, hull.csw_uplinks
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=g)
+
+    def timers(*shape):
+        return torch.where(u(*shape) < fault_share,
+                           torch.randint(1, 40, shape, generator=g),
+                           0).to(torch.int32)
+
+    t = dict(rsw_q=u(B, R, P, 2) * 15,
+             rsw_stage=torch.randint(1, P + 1, (B, R), generator=g,
+                                     dtype=torch.int32),
+             rsw_draining=u(B, R) < 0.3, rsw_timer=timers(B, R, P),
+             rack_valid=rack_valid, by_dest=u(B, R, 3) * 3,
+             csw_q=u(B, NC, CUP) * 15,
+             csw_stage=torch.randint(1, CUP + 1, (B, NC), generator=g,
+                                     dtype=torch.int32),
+             csw_draining=u(B, NC) < 0.3, csw_timer=timers(B, NC, CUP),
+             csw_valid=csw_valid, cap=10 + u(B) * 15)
+    t = {k: v.to(device) for k, v in t.items()}
+    acc = {k: (u(B) * 50).to(device) for k in lcdc_switch.TIER_ACC}
+    return (t["rsw_q"], t["rsw_stage"], t["rsw_draining"], t["rsw_timer"],
+            t["rack_valid"], t["by_dest"][..., 1:], t["csw_q"],
+            t["csw_stage"], t["csw_draining"], t["csw_timer"],
+            t["csw_valid"], t["cap"], acc)
+
+
+def _within(got, want, rtol):
+    d = (got.double() - want.double()).abs()
+    assert bool((d <= rtol * torch.maximum(got.double().abs(),
+                                           want.double().abs())).all()), \
+        float(d.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sites", sorted(TIER_SITES))
+@pytest.mark.parametrize("fault_share", [0.0, 0.15])
+def test_switch_tiers_kernel_vs_plain_version(cuda, sites, fault_share):
+    args = tiers_inputs(TIER_SITES[sites], 7, fault_share, cuda)
+    before = lcdc_switch.LAUNCHES
+    got = ops.switch_tiers(*args)
+    want = ref.switch_tiers_ref(*args)
+    torch.cuda.synchronize()
+    assert lcdc_switch.LAUNCHES == before + 1
+    B, R, P, _ = args[0].shape
+    NC, CUP = args[6].shape[1:]
+    for name in ("rsw_q", "rsw_wait"):
+        _within(getattr(got, name), getattr(want, name), 4 * ULP)
+    _within(got.to_csw, want.to_csw, (R // (NC // P) + 3) * ULP)
+    _within(got.fc_in, want.fc_in, (NC + 3) * ULP)
+    # the CSW tier on the kernel's own arrivals
+    csw = ref.switch_step_ref(
+        args[6].reshape(B * NC, CUP), args[7].reshape(-1),
+        got.to_csw[..., 1].reshape(-1), args[8].reshape(-1),
+        valid=(args[10][..., None] & (args[9] == 0)).reshape(B * NC, CUP),
+        cap=args[11].repeat_interleave(NC),
+        serve_rate=lcdc_switch.CSW_SERVE_RATE)
+    _within(got.csw_q, csw[0].reshape(B, NC, CUP), 4 * ULP)
+    _within(got.csw_wait, csw[5].reshape(B, NC), 4 * ULP)
+    for k in lcdc_switch.TIER_ACC:
+        _within(got.acc[k], want.acc[k], (2 * R * P * 2 + 5) * ULP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,K", [(1, 1), (3, 2), (4, 1), (4, 2), (7, 1),
+                                 (16, 2)])
+def test_switch_step_kernel_vs_plain_version(cuda, L, K):
+    """The public switch_step at widths its templates cover (the
+    simulator's are 4)."""
+    g = torch.Generator().manual_seed(L * 10 + K)
+    S_ = 333
+    q = torch.rand((S_, L, K), generator=g) * 15
+    args = [q, torch.randint(1, L + 1, (S_,), generator=g,
+                             dtype=torch.int32),
+            torch.rand((S_, K), generator=g) * 3,
+            torch.rand((S_,), generator=g) < 0.4]
+    kw = dict(valid=torch.rand((S_, L), generator=g) < 0.8,
+              cap=10 + torch.rand((S_,), generator=g) * 15,
+              hi=torch.full((S_,), 0.75), lo=torch.full((S_,), 0.22))
+    args = [a.to(cuda) for a in args]
+    kw = {k: v.to(cuda) for k, v in kw.items()}
+    got = lcdc_switch.switch_step(*args, serve_rate=2.0, **kw)
+    want = ref.switch_step_ref(*args, serve_rate=2.0, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if a.dtype.is_floating_point:
+            _within(a, b, 4 * ULP)
+        else:
+            assert torch.equal(a, b)
+
+
+def _golden_batch():
+    def p(spec, **kw):
+        return S.SimParams(spec=TRAFFIC_SPECS[spec], site=GOLDEN_SITE, **kw)
+    return S.make_batch([
+        (p("fb_hadoop", gating_enabled=True, rate_scale=1.6), 8),
+        (p("fb_hadoop", gating_enabled=False, rate_scale=1.6), 9),
+        (p("fb_web", gating_enabled=True,
+           link_mtbf_ticks=400.0, repair_ticks=30), 3)])
+
+
+@pytest.mark.cuda
+def test_graph_and_eager_sweeps_agree(cuda):
+    """The tick replayed from a CUDA graph against the same ticks run
+    eagerly: equal results and equal final state (every scatter_add
+    weight here is an integer, so its sums are exact in any order),
+    one capture and one switch_tiers launch a tick, a remainder chunk
+    included."""
+    batch = _golden_batch()
+    runs = {}
+    for graph in (True, False):
+        lcdc_switch.LAUNCHES = 0
+        S.CAPTURE_COUNT = 0
+        S.HOST_TRANSFER_COUNT = 0
+        res, state = S.run_sweep(batch, 250, chunk_ticks=100,
+                                 return_state=True, device=cuda,
+                                 graph=graph)
+        assert lcdc_switch.LAUNCHES == 250
+        assert S.CAPTURE_COUNT == (1 if graph else 0)
+        assert S.HOST_TRANSFER_COUNT == 1
+        runs[graph] = (res, state)
+    assert runs[True][0] == runs[False][0]
+    a = list(S._leaf_pairs(runs[True][1], runs[False][1]))
+    assert all(torch.equal(x, y) for x, y in a)

@@ -35,7 +35,29 @@ Phases (one line each; any failure exits non-zero and prints no result):
    three times with the CUDA graph and once eagerly, with the
    switch_tiers launch count (one a tick), the single capture and the
    single fold fetch checked, and conservation;
-5. ``serve-qwen3-8b`` and 6. ``serve-rwkv6-7b``: the serving path at
+5. ``planned``: ``run_sweep_planned`` at full width on the three fabric
+   shapes of benchmarks/bench_multi_site.py (6,144 servers each) x
+   {LC/DC, always-on}, fb_hadoop: 2,000 ticks in chunks of 800 (a
+   remainder of 400), two buckets pipelined, then serial, then one
+   bucket; labels in caller order, one capture and one fold fetch per
+   bucket, 2,000 switch_tiers launches per bucket, pipelined equal to
+   serial, every bucket equal to a plain ``run_sweep`` of its batch and
+   conserving packets, one bucket within 1e-3 of two, no error entry and
+   no retry; switch_tiers held to its plain version on each site's hull
+   and each bucket's padded hull; the rate of each mode and the host time
+   of each bucket's dispatch;
+6. ``durable``: the main grid, 2,000 ticks in chunks of 500, plain, with
+   ``validate=True``, and with a checkpoint every chunk too (all equal,
+   1 + 3 transfers; the guards' and a snapshot's cost, bytes a file); a
+   ``CHUNK_HOOK`` kill at chunk 3 (boundaries [1, 2] left) and
+   ``resume_sweep`` from 2 (equal, one transfer); ``validate_tol=-1``
+   (trips at chunk 0 for every label); ``fold="host"`` (within 1e-6);
+7. ``bucket-fault``: tests/test_faults.py's two-bucket runs: a transient
+   dispatch failure retried eagerly on the host fold on the card (the
+   kernel launching every tick, within 1e-6), and a permanent one giving
+   structured error entries and a salvage checkpoint that
+   ``resume_sweep`` finishes on the card, equal to the clean bucket;
+8. ``serve-qwen3-8b`` and 9. ``serve-rwkv6-7b``: the serving path at
    full width (random bf16 weights from a seed, loaded one model at a
    time): one request's prefill logits through the kernels against the
    plain versions (float32, first 8 layers; and in bf16 at full depth
@@ -46,10 +68,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
    counts (every qwen3-8b attention launch through the wgmma variant);
    prefill and decode tokens/s and the device's idle share
    (torch.profiler);
-7. ``time``: card time under CUDA-graph replay: switch_tiers a tick
+10. ``time``: card time under CUDA-graph replay: switch_tiers a tick
    beside its first design (two switch_step launches and their
    glue), the plain version, the bound and an empty kernel's graph
-   node (the launch floor); switch_step alone at the two tier shapes;
+   node (the launch floor); switch_step alone at the two tier shapes
+   (printed right after ``main``);
    flash_attention and wkv at each serve shape, timed in turns: the
    kernel, the first design on the same inputs (flash's CUDA-core
    variant, wkv with one thread per column), the plain version, the
@@ -491,6 +514,389 @@ def time_switch(torch, dev, card, S, batch, state, launches, tiers_err):
         "shape": {"B": B, "R": R, "P": P, "NC": NC, "CUP": CUP},
         "switch_step": tiers,
     }
+
+
+# the planned, durable and bucket-fault phases --------------------------
+
+#: the three fabric shapes of benchmarks/bench_multi_site.py:41-48 (the
+#: same 128 racks x 48 servers: the Fig 2 default, a wide two-cluster
+#: build and a dense eight-cluster build)
+MULTI_SITES = {
+    "fb_clos_4x32": {},
+    "wide_2x64": dict(n_clusters=2, racks_per_cluster=64, csw_per_cluster=4,
+                      n_fc=4),
+    "dense_8x16": dict(n_clusters=8, racks_per_cluster=16, csw_per_cluster=2,
+                       n_fc=2, csw_ring_links=4, fc_ring_links=8),
+}
+PLAN_TICKS, PLAN_CHUNK = 2000, 800      # a remainder chunk of 400
+DUR_TICKS, DUR_CHUNK = 2000, 500
+HOST_FOLD_TOL = 1e-6
+#: tests/test_faults.py's small site and its second bucket's site
+FAULT_SITE = dict(n_clusters=2, racks_per_cluster=8, servers_per_rack=8,
+                  csw_per_cluster=2, n_fc=2, csw_ring_links=4,
+                  fc_ring_links=8)
+FAULT_TICKS, FAULT_CHUNK = 600, 300
+
+
+def zero_counts(S, lcdc_switch):
+    lcdc_switch.LAUNCHES = 0
+    S.CAPTURE_COUNT = 0
+    S.HOST_TRANSFER_COUNT = 0
+
+
+def counts(S, lcdc_switch):
+    return lcdc_switch.LAUNCHES, S.CAPTURE_COUNT, S.HOST_TRANSFER_COUNT
+
+
+def strip_plan(res):
+    return [{k: v for k, v in r.items()
+             if k not in ("plan_bucket", "plan_hull")} for r in res]
+
+
+class HostTimer:
+    """Host time of each call of ``module.name`` while in a ``with``
+    block (the module attribute is swapped for a timing wrapper, and
+    restored on exit)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.times = module, name, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                self.times.append(time.perf_counter() - t0)
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def ms_list(times):
+    return ", ".join(f"{t * 1e3:.1f}" for t in times)
+
+
+def tiers_take_hull(torch, S, batch, label, dev):
+    """Fail unless switch_tiers takes ``batch``'s hull and holds its
+    plain version there (random inputs, 10% of links faulted)."""
+    from repro_torch.kernels import lcdc_switch, ref
+    args = tiers_inputs(torch, S, batch, 800, 0.1, dev)
+    try:
+        err = compare_tiers(torch, lcdc_switch.switch_tiers(*args),
+                            ref.switch_tiers_ref(*args), args)
+    except (AssertionError, ValueError) as e:
+        fail(f"switch_tiers on {label}: {e}")
+    h = batch.hull
+    smem = 4 * (h.n_racks * h.csw_per_cluster * 2
+                + h.n_csw * h.csw_uplinks + h.n_csw)
+    return (f"{label} (R, P, NC, CUP) = ({h.n_racks}, {h.csw_per_cluster}, "
+            f"{h.n_csw}, {h.csw_uplinks}), {smem} B smem of "
+            f"{lcdc_switch.TIERS_SMEM_LIMIT}, max abs {err:.3g}")
+
+
+def planned_phase(torch, S, dev, card):
+    """The planner's path at full width: the three bench_multi_site
+    sites x {LC/DC, always-on} on fb_hadoop, planned into 2 buckets
+    (pipelined, then serial) and into 1, each against plain run_sweeps
+    of its buckets."""
+    from repro_torch.core.topology import FBSite, full_site_tag
+    from repro_torch.core.traffic import TRAFFIC_SPECS
+    from repro_torch.kernels import lcdc_switch
+    spec = TRAFFIC_SPECS["fb_hadoop"]
+    sites = {n: FBSite(**kw) for n, kw in MULTI_SITES.items()}
+    runs = [(S.SimParams(spec=spec, site=s, gating_enabled=g), 0)
+            for s in sites.values() for g in (True, False)]
+    labels = list(S.make_multi_site_batch(runs).labels)
+    hulls = [tiers_take_hull(torch, S, S.make_batch([(S.SimParams(
+        spec=spec, site=s), 0)]), n, dev) for n, s in sites.items()]
+    out = {}
+    for mode, k, pipeline in (("pipelined", 2, True), ("serial", 2, False),
+                              ("K=1", 1, True)):
+        events = []
+        S.BUCKET_FAIL_HOOK = lambda b, ph: events.append(
+            (b, ph, time.perf_counter()))
+        zero_counts(S, lcdc_switch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with HostTimer(S, "step_into") as ticks:
+            res, plan = S.run_sweep_planned(
+                runs, PLAN_TICKS, max_compiles=k, chunk_ticks=PLAN_CHUNK,
+                return_plan=True, pipeline=pipeline, device=dev)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        S.BUCKET_FAIL_HOOK = None
+        nb = plan["n_buckets"]
+        got = counts(S, lcdc_switch)
+        if got != (PLAN_TICKS * nb, nb, nb):
+            fail(f"planned {mode}: switch_tiers launches, captures, fold "
+                 f"fetches {got}; expected ({PLAN_TICKS * nb}, {nb}, {nb})")
+        if [r["label"] for r in res] != labels:
+            fail(f"planned {mode}: labels out of caller order")
+        errs = [r["label"] for r in res if "error" in r]
+        if errs or any(ph == "retry" for _, ph, _ in events):
+            fail(f"planned {mode}: error entries {errs}, hook events "
+                 f"{[e[:2] for e in events]}")
+        # host time of each bucket's dispatch: from its "dispatch" hook
+        # to the next hook call (the next dispatch, or the first fetch)
+        disp = {b: events[i + 1][2] - t for i, (b, ph, t) in
+                enumerate(events) if ph == "dispatch" and i + 1 < len(events)}
+        out[mode] = dict(res=res, plan=plan, wall=wall,
+                         rate=len(runs) * PLAN_TICKS / wall)
+        phase("planned", f"{mode}: {nb} bucket(s) "
+              + "; ".join(f"{b['hull']} x{b['n_scenarios']} (padded cost "
+                          f"{b['padded_cost']:.0f}, waste "
+                          f"{b['waste_frac']:.3f})" for b in plan["buckets"])
+              + f", dispatch order {plan['dispatch_order']}: "
+              f"{len(runs)} scenarios x {PLAN_TICKS} ticks (chunk "
+              f"{PLAN_CHUNK}) in {wall:.3f} s wall, {out[mode]['rate']:.1f} "
+              f"scenario-ticks/s; host time of each dispatch "
+              + ", ".join(f"b{b} {t * 1e3:.1f} ms" for b, t in
+                          sorted(disp.items()))
+              + f", of it each bucket's eager first tick and its capture, in "
+              f"dispatch order, {ms_list(ticks.times)} ms"
+              + f"; launches {got[0]}, captures {got[1]}, fold fetches "
+              f"{got[2]}; card {card}")
+    if out["pipelined"]["res"] != out["serial"]["res"]:
+        diff, where = S.worst_parity(out["serial"]["res"],
+                                     out["pipelined"]["res"])
+        fail(f"planned: pipelined differs from serial ({diff:.3g} at "
+             f"{where}); they must be equal")
+    for mode in ("pipelined", "K=1"):
+        res, plan = out[mode]["res"], out[mode]["plan"]
+        for b in plan["buckets"]:
+            batch = S.make_multi_site_batch([runs[i] for i in b["indices"]])
+            hulls.append(tiers_take_hull(torch, S, batch,
+                                         f"bucket {b['hull']}", dev))
+            if full_site_tag(batch.hull) != b["hull"]:
+                fail(f"planned: bucket hull {b['hull']} is not its batch's")
+            plain, state = S.run_sweep(batch, PLAN_TICKS,
+                                       chunk_ticks=PLAN_CHUNK,
+                                       return_state=True, device=dev)
+            check_run(S, plain, state)
+            if strip_plan([res[i] for i in b["indices"]]) != plain:
+                fail(f"planned {mode}: bucket {b['hull']} differs from a "
+                     f"plain run_sweep of its make_multi_site_batch")
+    diff, where = S.worst_parity(out["pipelined"]["res"], out["K=1"]["res"])
+    if not diff <= PARITY_TOL:
+        fail(f"planned: K=1 vs K=2 worst_parity {diff:.3g} at {where}")
+    phase("planned", "switch_tiers takes every hull: " + "; ".join(hulls))
+    phase("planned", f"pipelined equals serial; every bucket equals a plain "
+          f"run_sweep of its batch and conserves packets; K=1 vs K=2 "
+          f"worst_parity {diff:.3g} ({where}) <= {PARITY_TOL}; rates "
+          + ", ".join(f"{m} {o['rate']:.1f}" for m, o in out.items())
+          + f" scenario-ticks/s; planner padded cost K=2 "
+          f"{out['pipelined']['plan']['padded_cost']:.0f} vs K=1 "
+          f"{out['K=1']['plan']['padded_cost']:.0f}; card {card}")
+
+
+def durable_phase(torch, S, dev, card):
+    """The durable path at full width: the main grid with validate=True
+    and a checkpoint every chunk, a kill and its resume, a tripped guard
+    and the host fold, each against the plain run."""
+    import tempfile
+    from repro_torch.core import checkpoint as CK
+    from repro_torch.kernels import lcdc_switch
+    batch = S.sweep_grid()
+    n_chunks = DUR_TICKS // DUR_CHUNK
+
+    def run(**kw):
+        zero_counts(S, lcdc_switch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = S.run_sweep(batch, DUR_TICKS, chunk_ticks=DUR_CHUNK,
+                          device=dev, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, counts(S, lcdc_switch)
+
+    # plain, checked and checked + checkpointed runs, twice in turns
+    # (their differences are near the host clock's spread)
+    walls = {"plain": [], "validate": [], "checkpoint": []}
+    snaps = []
+    for _ in range(2):
+        plain, t, _ = run()
+        walls["plain"].append(t)
+        checked, t, c = run(validate=True)
+        walls["validate"].append(t)
+        if checked != plain or c != (DUR_TICKS, 1, 1):
+            fail(f"durable: validate=True changed the results or the "
+                 f"counts {c}")
+        with tempfile.TemporaryDirectory() as d, \
+                HostTimer(S, "_snapshot_sweep") as snap, \
+                HostTimer(S, "_fetch_stash") as fetch:
+            spec = CK.CheckpointSpec(directory=d, every_chunks=1, keep=8,
+                                     tag="dur")
+            durable, t, c = run(validate=True, checkpoint=spec)
+            walls["checkpoint"].append(t)
+            files = CK.list_checkpoints(d, "dur")
+            sizes = [p.stat().st_size for _, p in files]
+        snaps.append((snap.times, fetch.times))
+        if durable != plain or c != (DUR_TICKS, 1, 1 + n_chunks - 1):
+            fail(f"durable: the checked, checkpointed run differs from the "
+                 f"plain one or made (launches, captures, transfers) {c}")
+        if [i for i, _ in files] != list(range(1, n_chunks)):
+            fail(f"durable: boundary files {[i for i, _ in files]}")
+    best = {k: min(v) for k, v in walls.items()}
+    snap_ms = (best["checkpoint"] - best["validate"]) / len(files) * 1e3
+    phase("durable", f"FBSite() grid, {len(batch)} scenarios x {DUR_TICKS} "
+          f"ticks (chunk {DUR_CHUNK}), twice in turns: plain "
+          f"{ms_list(walls['plain'])} ms, validate "
+          f"{ms_list(walls['validate'])} ms, validate + a checkpoint every "
+          f"chunk {ms_list(walls['checkpoint'])} ms wall; results equal; "
+          f"transfers 1 + {len(files)}; best of two: the guards "
+          f"{(best['validate'] - best['plain']) * 1e3:.1f} ms a run, a "
+          f"snapshot {snap_ms:.1f} ms of wall; host time a snapshot "
+          + "; ".join(f"{ms_list(a)} ms, of it the fetch (waiting for the "
+                      f"boundary, then the copy) {ms_list(b)} ms"
+                      for a, b in snaps)
+          + f"; bytes a file {min(sizes)}-{max(sizes)}; card {card}")
+    # the guards and a snapshot's clone and copy alone, on a fresh carry
+    scen, state, fold, guard, tol = S._prepare_sweep_args(batch, dev,
+                                                          validate=True)
+    guard_ms = graph_ms(torch, lambda: S._guard_chunk(
+        scen, state, fold, guard, 0, tol), 20)
+    copy = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S._fetch_stash(S._stash(1, state, fold, guard))
+        copy.append(time.perf_counter() - t0)
+    share = n_chunks * guard_ms / (best["plain"] * 1e3)
+    phase("durable", f"alone: the guards {guard_ms * 1e3:.1f} us of card "
+          f"time a chunk boundary ({share:.4%} of the plain run); a "
+          f"snapshot's clone and copy to the host "
+          f"{ms_list(copy)} ms with nothing queued; card {card}")
+    with tempfile.TemporaryDirectory() as d:
+        spec = CK.CheckpointSpec(directory=d, every_chunks=1, keep=8,
+                                 tag="kill")
+
+        def kill(ci):
+            if ci == 3:
+                raise RuntimeError("preempted")
+
+        S.CHUNK_HOOK = kill
+        try:
+            run(validate=True, checkpoint=spec)
+            fail("durable: the CHUNK_HOOK did not stop the run")
+        except RuntimeError as e:
+            if str(e) != "preempted":
+                raise
+        finally:
+            S.CHUNK_HOOK = None
+        files = CK.list_checkpoints(d, "kill")
+        if [i for i, _ in files] != [1, 2]:
+            fail(f"durable: a kill at chunk 3 left boundaries "
+                 f"{[i for i, _ in files]}, expected [1, 2]")
+        zero_counts(S, lcdc_switch)
+        t0 = time.perf_counter()
+        resumed = S.resume_sweep(files[-1][1], device=dev)
+        t_resume = time.perf_counter() - t0
+        c = counts(S, lcdc_switch)
+        left = DUR_TICKS - 2 * DUR_CHUNK
+        if resumed != plain or c != (left, 1, 1):
+            fail(f"durable: resume from boundary 2 differs from the "
+                 f"uninterrupted run or made {c}, expected ({left}, 1, 1)")
+    phase("durable", f"a kill at chunk 3 left boundaries [1, 2]; resume from "
+          f"2 equals the uninterrupted run ({t_resume:.3f} s, {c[0]} "
+          f"launches, 1 capture, 1 transfer)")
+    try:
+        run(validate=True, validate_tol=-1.0)
+        fail("durable: validate_tol=-1 did not trip the guards")
+    except S.SweepValidationError as e:
+        if e.first_bad_chunk != 0 or set(e.labels) != set(batch.labels):
+            fail(f"durable: the guard named chunk {e.first_bad_chunk} and "
+                 f"{len(e.labels)} of {len(batch)} labels")
+    host, t_host, c = run(fold="host")
+    diff, where = S.worst_parity(plain, host)
+    if not diff <= HOST_FOLD_TOL or c != (DUR_TICKS, 1, n_chunks):
+        fail(f"durable: host fold worst_parity {diff:.3g} at {where}, "
+             f"counts {c}")
+    phase("durable", f"validate_tol=-1 trips at chunk 0 for all "
+          f"{len(batch)} labels; host fold {t_host:.3f} s wall, "
+          f"{n_chunks} transfers, worst_parity vs the device fold "
+          f"{diff:.3g} ({where}) <= {HOST_FOLD_TOL}; card {card}")
+
+
+def bucket_fault_phase(torch, S, dev):
+    """Bucket isolation on the card: a transient failure retried eagerly
+    on the host fold (the switch kernel still launching), and a
+    permanent one degraded to error entries and a salvage checkpoint
+    that resume_sweep finishes."""
+    import tempfile
+    from repro_torch.core import checkpoint as CK
+    from repro_torch.core.topology import FBSite
+    from repro_torch.core.traffic import TRAFFIC_SPECS
+    from repro_torch.kernels import lcdc_switch
+    a = FBSite(**FAULT_SITE)
+    b = FBSite(**dict(FAULT_SITE, racks_per_cluster=4))
+    spec = TRAFFIC_SPECS["fb_hadoop"]
+    runs = [(S.SimParams(spec=spec, site=a), 0),
+            (S.SimParams(spec=spec, site=b), 1),
+            (S.SimParams(spec=spec, site=a, gating_enabled=False), 2)]
+
+    def planned(**kw):
+        return S.run_sweep_planned(runs, FAULT_TICKS, max_compiles=2,
+                                   chunk_ticks=FAULT_CHUNK, device=dev, **kw)
+
+    clean = planned()
+    events = []
+
+    def transient(k, ph):
+        events.append((k, ph))
+        if (k, ph) == (0, "dispatch"):
+            raise RuntimeError("transient")
+
+    S.BUCKET_FAIL_HOOK = transient
+    zero_counts(S, lcdc_switch)
+    res = planned()
+    S.BUCKET_FAIL_HOOK = None
+    c = counts(S, lcdc_switch)
+    diff, where = S.worst_parity(clean, res)
+    n_chunks = -(-FAULT_TICKS // FAULT_CHUNK)
+    if ((0, "retry") not in events or any("error" in r for r in res)
+            or not diff <= HOST_FOLD_TOL
+            or c != (2 * FAULT_TICKS, 1, 1 + n_chunks)):
+        fail(f"bucket-fault: transient retry: events {events}, worst_parity "
+             f"{diff:.3g} at {where}, counts {c}")
+    phase("bucket-fault", f"a transient dispatch failure of bucket 0 was "
+          f"retried eagerly on the host fold on {dev}: worst_parity vs the "
+          f"clean run {diff:.3g} <= {HOST_FOLD_TOL}; switch_tiers launches "
+          f"{c[0]} (both buckets, every tick), captures {c[1]}, transfers "
+          f"{c[2]}")
+
+    def permanent(k, ph):
+        if k == 0:
+            raise RuntimeError("permanent")
+
+    with tempfile.TemporaryDirectory() as d:
+        S.BUCKET_FAIL_HOOK = permanent
+        res = planned(checkpoint=CK.CheckpointSpec(directory=d, tag="bf",
+                                                   every_chunks=1))
+        S.BUCKET_FAIL_HOOK = None
+        bad = [(r, c) for r, c in zip(res, clean) if "error" in r]
+        good = [(r, c) for r, c in zip(res, clean) if "error" not in r]
+        if not bad or not good or any(
+                r["plan_bucket"] != 0 or r["error"]["stage"] != "dispatch"
+                or not r["error"]["retried"] or not r["error"]["checkpoint"]
+                for r, _ in bad):
+            fail(f"bucket-fault: permanent failure entries "
+                 f"{[r.get('error') for r in res]}")
+        if any(r != c for r, c in good):
+            fail("bucket-fault: the other bucket's results changed")
+        resumed = S.resume_sweep(bad[0][0]["error"]["checkpoint"],
+                                 device=dev)
+        if resumed != strip_plan([c for _, c in bad]):
+            fail("bucket-fault: resuming the salvage checkpoint does not "
+                 "give the failed bucket's clean results")
+    phase("bucket-fault", f"a permanent failure of bucket 0 gave "
+          f"{len(bad)} structured error entries (stage dispatch, retried) "
+          f"and a salvage checkpoint; resume_sweep finished it on {dev} "
+          f"equal to the bucket's clean run; bucket 1 intact")
 
 # (label, B, T, H, d, causal, window, dtype): the qwen3-8b serve shapes,
 # then ragged, non-causal and d = 64 (minicpm3's head dim) bf16 cases,
@@ -1267,11 +1673,16 @@ def main() -> None:
     kernels = [time_switch(torch, dev, card, S, batch, main["state"],
                            main["launches"], tiers_err)]
 
-    # 5-6. the serving paths at full width, one model at a time ---------
+    # 5-7. the planner's, the durable and the isolating paths ----------
+    planned_phase(torch, S, dev, card)
+    durable_phase(torch, S, dev, card)
+    bucket_fault_phase(torch, S, dev)
+
+    # 8-9. the serving paths at full width, one model at a time ---------
     paths = {"flash_attention": serve_phase(torch, "qwen3-8b", dev),
              "wkv": serve_phase(torch, "rwkv6-7b", dev)}
 
-    # 7. per-launch times of the serving kernels -------------------------
+    # 10. per-launch times of the serving kernels ------------------------
     kernels += time_attention_kernels(torch, dev, card, paths, worst)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """LC/DC network simulator: 1 us-slotted batched sweep engine in PyTorch.
 
-Counterpart of ``repro/core/simulator.py`` (its ``run_sweep`` main
-path). It models the Fig 2 Facebook-style site end to end:
+Counterpart of ``repro/core/simulator.py``. It models the Fig 2
+Facebook-style site end to end:
 
   server NICs --(node-gated links)--> RSW --(stage-gated uplinks)--> CSW
       --(stage-gated 40G uplinks)--> FC --> CSW --> RSW --> server
@@ -24,7 +24,8 @@ How the reference's JAX structure maps here:
   boundaries (``chunk_ticks``); a remainder chunk simply runs fewer
   ticks, and at every boundary the accumulators fold into a float32
   Kahan ``(sum, comp)`` pair on the device, exactly as the reference's
-  x32 device fold does.
+  x32 device fold does (or, with ``fold="host"``, into float64 on the
+  host, one fetch a chunk).
 * The reference's one compiled program per (hull, batch, chunk) becomes
   one CUDA graph per run on a CUDA device: a single tick of
   ``step_into`` (the step writing its result back into fixed state
@@ -32,25 +33,41 @@ How the reference's JAX structure maps here:
   (``CAPTURE_COUNT`` counts captures as the reference's ``TRACE_COUNT``
   counts traces). ``run_sweep(graph=False)`` and the CPU run the ticks
   eagerly, op by op.
-* ``run_sweep`` fetches the fold once at the end (``HOST_TRANSFER_COUNT``
-  counts it) and finalizes the paper's metrics on the host.
+* The reference's in-program guards (``validate=True``) and the device
+  fold run as eager ops at each chunk boundary, after the replays;
+  neither syncs with the host. ``run_sweep`` fetches the fold (with the
+  guard riding along) once at the end (``HOST_TRANSFER_COUNT`` counts
+  it) and finalizes the paper's metrics on the host.
+* JAX arrays are immutable, the replayed carry is not: a checkpoint
+  (``checkpoint=``, ``resume_sweep``) clones the carry on the device at
+  its chunk boundary and copies the clone to the host on a side stream
+  while the next chunk runs. The files are the reference's format
+  (core/checkpoint.py), so either engine resumes the other's.
+* ``run_sweep_planned`` splits a heterogeneous-site sweep into hull
+  buckets (core/planner.py), one capture each, with the reference's
+  isolation, retry and salvage contract.
 
 Entry points run on the CUDA device unless the caller passes
-``device="cpu"``; with no CUDA device, ``run_sweep`` raises.
+``device="cpu"``; with no CUDA device, they raise.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import checkpoint as _ckpt
 from repro_torch.core import constants as C
 from repro_torch.core import gating
 from repro_torch.core import prng
 from repro_torch.core import workloads
-from repro_torch.core.topology import FBSite, pad_hull, site_tag
+from repro_torch.core.checkpoint import CheckpointError, CheckpointSpec
+from repro_torch.core.topology import (FBSite, full_site_tag, pad_hull,
+                                       site_tag)
 from repro_torch.core.traffic import (TRAFFIC_SPECS, TrafficSpec,
                                       flow_arrival_rate_per_tick,
                                       rack_flow_rate_per_tick, stack_specs)
@@ -68,8 +85,15 @@ STACK_US = 3.75           # TCP/IP + NIC (Sec IV-C)
 
 CHUNK_TICKS = 10_000      # default chunk (accumulator fold period)
 
+#: bump whenever the per-tick dynamics change (checkpoints record it and
+#: resume refuses another version); the reference's, whose dynamics the
+#: port reproduces
+SIM_SCHEMA_VERSION = 8
+
 #: number of accumulator host transfers the sweep engine has performed:
-#: exactly ONE per run_sweep (the final fold fetch)
+#: exactly ONE per device-fold run_sweep (the final fold fetch, the
+#: validate guard riding along) plus one per checkpoint written; one per
+#: chunk on the host fold
 HOST_TRANSFER_COUNT = 0
 
 #: number of CUDA graphs captured of the sweep tick: exactly ONE per
@@ -132,13 +156,25 @@ def _delay_hist_add(hist, d, w, *, min_val=C.DELAY_HIST_MIN_US,
     it for its FCT frames. (On CUDA the adds into one bin land in no
     fixed order; with the integer weights of the rate-based edge and of
     flow completions every such sum is exact.)
+
+    A NaN sample (a run gone non-finite, which the ``validate`` guards
+    report) lands in bin 0: ``fmax`` drops the NaN where ``clamp`` would
+    keep it, and a NaN index would be out of bounds for the scatter (an
+    error on the CPU, a device-side assert that poisons the CUDA
+    context on the card). The reference's one-hot add puts it in bin 1
+    (XLA converts a NaN to the integer 0).
     """
     # the 1e-4 nudge keeps exact edge values in their own (half-open)
     # bin under f32 log2 rounding
     idx = torch.clamp(
-        torch.floor(torch.log2(torch.clamp(d, min=1e-9) / min_val) * bpo
+        torch.floor(torch.log2(torch.fmax(d, _DELAY_FLOOR) / min_val) * bpo
                     + 1e-4), -1, bins - 2).to(torch.int64) + 1
     return torch.scatter_add(hist, -1, idx, w)
+
+
+#: the histogram's floor of a sample, as a CPU scalar tensor (``fmax``
+#: takes a tensor; a 0-d CPU tensor rides into a CUDA kernel as a scalar)
+_DELAY_FLOOR = torch.tensor(1e-9, dtype=torch.float32)
 
 
 def on_frac_bucket(frac_on):
@@ -331,6 +367,26 @@ class SimParams:
             bad(f"flow_table_cap must be in [1, "
                 f"{C.FLOW_TABLE_SLOTS}] (the static table width), got "
                 f"{self.flow_table_cap}")
+
+
+def fault_fingerprint(p: "SimParams | None" = None) -> dict:
+    """The fault-knob dict joined into result-cache keys / metadata so
+    fault-free cached results never alias faulted runs. With no
+    argument, returns the defaults (the perfect optical plane)."""
+    if p is None:
+        return {f.name: f.default for f in dataclasses.fields(SimParams)
+                if f.name in FAULT_KNOBS}
+    return {k: getattr(p, k) for k in FAULT_KNOBS}
+
+
+def flow_fingerprint(p: "SimParams | None" = None) -> dict:
+    """The flow-knob dict joined into result-cache keys / metadata so
+    flow-free cached results never alias flow runs. With no argument,
+    returns the defaults (the rate-based path)."""
+    if p is None:
+        return {f.name: f.default for f in dataclasses.fields(SimParams)
+                if f.name in FLOW_KNOBS}
+    return {k: getattr(p, k) for k in FLOW_KNOBS}
 
 
 @dataclass(frozen=True)
@@ -1289,6 +1345,11 @@ class _TickGraph:
     tick. A capture that meets an op syncing with the host raises; there
     is no eager fallback. Replays credit the switch kernel's
     ``LAUNCHES`` with the launches the graph holds.
+
+    The tick's intermediates live in the graph's private memory pool:
+    its owner keeps the graph alive until the replays queued against it
+    are done (freeing the pool earlier would hand memory they still
+    write to other work).
     """
 
     def __init__(self, step, static: SimState):
@@ -1318,8 +1379,460 @@ class _TickGraph:
         lcdc_switch.LAUNCHES += n * self.launches
 
 
+class SweepValidationError(RuntimeError):
+    """Raised by ``validate=True`` sweeps when the chunk-boundary guards
+    (finite values / conservation, see ``run_sweep``) tripped. Carries
+    ``labels`` (the failing scenarios) and ``first_bad_chunk`` (the
+    earliest chunk index at which any of them first failed)."""
+
+    def __init__(self, labels, first_bad_chunk):
+        self.labels = tuple(labels)
+        self.first_bad_chunk = int(first_bad_chunk)
+        super().__init__(
+            f"sweep validation failed for scenario(s) {list(labels)} "
+            f"(first failing chunk: {first_bad_chunk})")
+
+
+#: test hook for the fault-tolerant planned executor: when set, called
+#: as ``BUCKET_FAIL_HOOK(bucket_index, phase)`` with phase in
+#: {"dispatch", "fetch", "retry"} before the corresponding stage of
+#: each bucket; raising from it simulates a bucket failure
+BUCKET_FAIL_HOOK = None
+
+#: preemption-injection seam for the durable executor: when set, called
+#: as ``CHUNK_HOOK(chunk_index)`` at the top of every chunk-loop
+#: iteration (before that chunk is dispatched); raising from it
+#: simulates a crash/preemption at an exact chunk boundary
+CHUNK_HOOK = None
+
+#: replaceable sleep used by the retry-backoff loop, so tests can pin the
+#: exact backoff sequence without waiting wall-clock time
+RETRY_SLEEP = time.sleep
+
+
+@dataclass(frozen=True)
+class BucketRetryPolicy:
+    """Retry/deadline policy for ``run_sweep_planned`` bucket failures.
+
+    The default is ONE serial retry on the conservative path
+    (``fold="host"``, eager ticks), immediately, with no deadline.
+    ``backoff_s(r)`` is the sleep before retry attempt ``r`` (1-based):
+    ``min(backoff_base_s * backoff_mult**(r-1), backoff_max_s)``, or 0
+    when ``backoff_base_s`` is 0 (no sleep). ``deadline_s`` bounds each
+    bucket's cumulative wall-clock time across its attempts: once
+    exceeded, remaining retries are abandoned and the bucket degrades to
+    a structured error entry. The deadline never discards finished work:
+    a bucket that completed (however slowly) keeps its results; only
+    further RETRIES are cut off.
+    """
+    max_retries: int = 1
+    backoff_base_s: float = 0.0
+    backoff_mult: float = 2.0
+    backoff_max_s: float = 60.0
+    deadline_s: float | None = None
+
+    def __post_init__(self):
+        def bad(msg):
+            raise ValueError(f"BucketRetryPolicy: {msg}")
+        if self.max_retries < 0:
+            bad(f"max_retries must be >= 0, got {self.max_retries}")
+        if self.backoff_base_s < 0.0:
+            bad(f"backoff_base_s must be >= 0, got {self.backoff_base_s}")
+        if self.backoff_mult < 1.0:
+            bad(f"backoff_mult must be >= 1, got {self.backoff_mult}")
+        if self.backoff_max_s < 0.0:
+            bad(f"backoff_max_s must be >= 0, got {self.backoff_max_s}")
+        if self.deadline_s is not None and self.deadline_s < 0.0:
+            bad(f"deadline_s must be >= 0, got {self.deadline_s}")
+
+    def backoff_s(self, attempt: int) -> float:
+        """Sleep (seconds) before 1-based retry ``attempt``."""
+        if self.backoff_base_s <= 0.0:
+            return 0.0
+        return min(self.backoff_base_s * self.backoff_mult ** (attempt - 1),
+                   self.backoff_max_s)
+
+
+def _use_graph(graph, dev: torch.device) -> bool:
+    """Whether a run on ``dev`` replays its tick from a CUDA graph:
+    ``graph=None`` means yes on a CUDA device."""
+    if graph is None:
+        return dev.type == "cuda"
+    if graph and dev.type != "cuda":
+        raise ValueError(f"graph=True needs a CUDA device, got {dev}")
+    return bool(graph)
+
+
+def _carry_tensors(state: SimState, fold, guard) -> dict:
+    """The carry a checkpoint holds, by the reference's member names:
+    ``state`` plus JAX's key path of each ``SimState`` leaf
+    (``state.rsw_q``, ``state.rsw_gate.stage``,
+    ``state.acc['injected']``), ``fold_sum/<k>`` and ``fold_comp/<k>``
+    (views into the flat fold buffers) and ``guard``."""
+    out = {}
+    _map_carry(state, lambda name, t: out.setdefault(name, t))
+    if fold is not None:
+        for d, flat in zip(("fold_sum", "fold_comp"), fold):
+            for k, v in _unfold_flat(flat).items():
+                out[f"{d}/{k}"] = v
+    if guard is not None:
+        out["guard"] = guard
+    return out
+
+
+def _map_carry(x, fn, name="state"):
+    """``x`` (a SimState, its NamedTuple parts, the accumulator dict)
+    with ``fn(name, leaf)`` applied to every tensor leaf, named as
+    JAX's ``keystr`` names the reference's leaves."""
+    if isinstance(x, torch.Tensor):
+        return fn(name, x)
+    if isinstance(x, dict):
+        return {k: _map_carry(v, fn, f"{name}[{k!r}]") for k, v in x.items()}
+    return type(x)(*(_map_carry(v, fn, f"{name}.{f}")
+                     for f, v in zip(x._fields, x)))
+
+
+class _Stash(NamedTuple):
+    """A carry cloned on the device at a chunk boundary: what a
+    checkpoint of that boundary writes once the next chunk is queued."""
+    chunk_index: int
+    tensors: dict          # member name -> device clone
+    ready: object          # CUDA event after the clones (None on the CPU)
+
+
+def _stash(ci: int, state: SimState, fold, guard) -> _Stash:
+    """Clone the carry at boundary ``ci`` on the device, in stream order
+    after the chunk that ends there: the next chunk's replays overwrite
+    the state buffers in place, so the snapshot must not alias them."""
+    tensors = {n: t.clone() for n, t in
+               _carry_tensors(state, fold, guard).items()}
+    ready = None
+    if state.key.is_cuda:
+        ready = torch.cuda.Event()
+        ready.record()
+    return _Stash(ci, tensors, ready)
+
+
+def _fetch_stash(snap: _Stash) -> dict:
+    """The stash's tensors as host numpy arrays: ONE transfer. On the
+    card the copies run on a side stream that waits only for the clones,
+    so they overlap the chunk queued behind them on the sweep's stream
+    (a copy on that stream would wait for its replays)."""
+    ts = list(snap.tensors.values())
+    if snap.ready is None:
+        host = ts
+    else:
+        side = torch.cuda.Stream(ts[0].device)
+        side.wait_event(snap.ready)
+        with torch.cuda.stream(side):
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    .copy_(t, non_blocking=True) for t in ts]
+        side.synchronize()
+    return {n: h.numpy() for n, h in zip(snap.tensors, host)}
+
+
+def _snapshot_sweep(spec: CheckpointSpec, batch: ScenarioBatch,
+                    snap: _Stash, *, n_ticks: int, chunk: int,
+                    validate: bool, tol, threefry_partitionable: bool,
+                    plan_meta: dict | None = None):
+    """Write one checkpoint of a running sweep's carry (stashed by
+    ``_stash``): one host transfer (``HOST_TRANSFER_COUNT``, so a
+    checkpointed run's count is exactly ``1 + n_checkpoints``), then an
+    atomic write in the reference's format, with the port's threefry
+    scheme as one more meta key."""
+    global HOST_TRANSFER_COUNT
+    arrays = _fetch_stash(snap)
+    HOST_TRANSFER_COUNT += 1
+    # the port holds the threefry key words in int64; the format (and
+    # the reference) hold them as uint32
+    arrays["state.key"] = arrays["state.key"].astype(np.uint32)
+    for name, leaf in zip(Scenario._fields, batch.scen):
+        arrays[f"scen/{name}"] = leaf.numpy()
+    meta = {
+        "sim_schema": SIM_SCHEMA_VERSION,
+        "fault_knobs": list(FAULT_KNOBS),
+        "flow_knobs": list(FLOW_KNOBS),
+        "scenario_fields": list(Scenario._fields),
+        "fold_dtype": "float32",
+        "n_ticks": int(n_ticks), "chunk_ticks": int(chunk),
+        "chunk_index": int(snap.chunk_index), "n_real": len(batch),
+        "validate": bool(validate),
+        "validate_tol": float(tol) if tol is not None else None,
+        "hull": dataclasses.asdict(batch.hull),
+        "sites": [dataclasses.asdict(s) for s in batch.sites],
+        "names": list(batch.names), "labels": list(batch.labels),
+        "gating": [bool(g) for g in batch.gating],
+        "seeds": [int(s) for s in batch.seeds],
+        "plan": plan_meta, "tag": spec.tag,
+        "threefry_partitionable": bool(threefry_partitionable),
+    }
+    path = _ckpt.write_checkpoint(spec.path_for(snap.chunk_index), meta,
+                                  arrays)
+    _ckpt.prune(spec)
+    return path
+
+
+@dataclass
+class _PendingSweep:
+    """A dispatched-but-not-fetched sweep: every chunk is queued on the
+    device; what is left is the fold fetch in ``_finish_sweep``. It
+    holds the run's tick graph, so the graph's pool outlives the
+    replays queued against it."""
+    batch: ScenarioBatch
+    n_ticks: int
+    state: SimState              # the final carry, on the device
+    fold: tuple | None           # flat (B, N) float32 (sum, comp)
+    acc64: np.ndarray | None     # host float64 (B, N) (fold="host")
+    guard: torch.Tensor | None   # (B,) int32 first failing chunk, or -1
+    guard_h: np.ndarray | None   # the guard as the host fold last saw it
+    ticks: _TickGraph | None
+
+    def release(self) -> None:
+        """Wait for the queued replays, then drop the tick graph."""
+        if self.ticks is not None:
+            torch.cuda.synchronize(self.state.key.device)
+            self.ticks = None
+
+
+def _prepare_sweep_args(batch: ScenarioBatch, dev: torch.device, *,
+                        fold: str = "device", validate: bool = False,
+                        validate_tol: float | None = None):
+    """A fresh run's operands on ``dev``: the scenario leaves, the
+    initial carry, the zeroed Kahan fold buffers (``fold="device"``)
+    and the validate guard and tolerance. Returns ``(scen, state,
+    dev_fold, guard, tol)``."""
+    scen = Scenario(*(x.to(dev) for x in batch.scen))
+    state = _init_state(batch.hull, scen, prng.key(batch.seeds, device=dev))
+    dev_fold = None
+    if fold == "device":
+        fsum = torch.zeros_like(_fold_flat(state.acc))
+        dev_fold = (fsum, torch.zeros_like(fsum))
+    guard = tol = None
+    if validate:
+        guard = torch.full((len(batch),), -1, dtype=torch.int32,
+                           device=dev)
+        tol = float(np.float32(C.VALIDATE_CONS_REL_TOL
+                               if validate_tol is None else validate_tol))
+    return scen, state, dev_fold, guard, tol
+
+
+def _guard_chunk(scen: Scenario, state: SimState, dev_fold, guard, ci: int,
+                 tol: float):
+    """The validate guards at the end of chunk ``ci`` (eager ops, no
+    host sync): per scenario, finite queues; on the device fold finite
+    running totals and the two conservation identities within ``tol``
+    relative, on the host fold finite chunk accumulators. Scenarios
+    failing a check for the first time record ``ci``."""
+    B = guard.shape[0]
+
+    def finite(arrs):
+        ok = torch.ones((B,), dtype=torch.bool, device=guard.device)
+        for a in arrs:
+            ok = ok & torch.all(torch.isfinite(a.reshape(B, -1)), dim=1)
+        return ok
+
+    queues = (state.rsw_q, state.csw_up_q, state.csw_down_q, state.fc_down_q)
+    ok = finite(queues)
+    if dev_fold is not None:
+        flat = dev_fold[0] - dev_fold[1]
+        ok = ok & finite((flat,))
+        tot = _unfold_flat(flat)
+        in_flight = sum(torch.sum(q.reshape(B, -1), dim=1) for q in queues)
+        inj = tot["injected"]
+        # injected == delivered + drops + fault_drops + in-flight
+        resid = inj - (tot["csw_down_served"] + tot["drops"]
+                       + tot["fault_drops"] + in_flight)
+        ok = ok & (torch.abs(resid) <= tol * torch.clamp(inj, min=1.0))
+        # started == completed + evicted + live usable table slots
+        usable = torch.arange(C.FLOW_TABLE_SLOTS, device=guard.device) \
+            < scen.flow_cap[:, None, None]
+        in_table = torch.sum((state.ft_rem > 0.0) & usable, dim=(1, 2))
+        started = tot["flows_started"]
+        fresid = started - (tot["flows_completed"] + tot["flows_evicted"]
+                            + in_table.to(torch.float32))
+        ok = ok & (torch.abs(fresid)
+                   <= tol * torch.clamp(started, min=1.0))
+    else:
+        ok = ok & finite(tuple(state.acc.values()))
+    return torch.where((guard < 0) & ~ok, ci, guard)
+
+
+def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
+                     dev_fold, guard, tol, *, n_ticks: int, chunk: int,
+                     fold: str, validate: bool, graph: bool,
+                     threefry_partitionable: bool, start_chunk: int = 0,
+                     checkpoint: CheckpointSpec | None = None,
+                     plan_meta: dict | None = None) -> _PendingSweep:
+    """THE chunk loop, shared by ``_start_sweep`` (fresh runs, from chunk
+    0) and ``resume_sweep`` (from the checkpoint's chunk index), so a
+    resumed run runs exactly the ticks and boundaries the fresh run would
+    have from there. ``chunk`` is the EFFECTIVE chunk length
+    (``max(1, min(chunk_ticks, n_ticks))``); a checkpoint records it and
+    resume reuses it.
+
+    Each chunk queues its ticks (graph replays, or eager steps), then the
+    fold (device: Kahan into ``dev_fold``; host: one fetch of the chunk's
+    accumulators, the guard riding along, folded into float64), then the
+    guards, then re-zeroes the accumulators.
+
+    Checkpointing (``checkpoint`` set; device fold only) snapshots the
+    carry at every ``every_chunks`` boundary, DEFERRED BY ONE CHUNK: the
+    carry is cloned on the device at boundary ``ci`` and written only
+    after chunk ``ci`` (the next one) has been queued, so the card has
+    work while the host fetches and serializes. The final boundary is
+    never snapshotted (the run is finished, not resumable, there).
+    """
+    global HOST_TRANSFER_COUNT
+    step = make_sim_step(batch.hull, scen,
+                         threefry_partitionable=threefry_partitionable)
+    ticks = _TickGraph(step, state) if graph else None
+    acc64 = guard_h = None
+    done = start_chunk * chunk
+    ci = start_chunk
+    pending_snap = None
+    try:
+        while done < n_ticks:
+            if CHUNK_HOOK is not None:
+                CHUNK_HOOK(ci)
+            n = min(chunk, n_ticks - done)
+            if ticks is not None:
+                ticks.run(n)               # the graph's state buffers
+            else:
+                for _ in range(n):
+                    state = step(state)
+            flat = _fold_flat(state.acc)
+            if dev_fold is not None:
+                # Kahan: sum carries the running total, comp the rounding
+                # error still to subtract
+                fsum, fcomp = dev_fold
+                y = flat - fcomp
+                t = fsum + y
+                dev_fold = (t, (t - fsum) - y)
+            if validate:
+                guard = _guard_chunk(scen, state, dev_fold, guard, ci, tol)
+            if fold == "host":
+                # one fetch of this chunk's accumulators (the guard as an
+                # extra float32 column, bit for bit), folded in float64
+                if guard is not None:
+                    flat = torch.cat(
+                        [flat, guard.view(torch.float32)[:, None]], dim=1)
+                host = flat.cpu().numpy()
+                HOST_TRANSFER_COUNT += 1
+                N = host.shape[1] - (guard is not None)
+                if acc64 is None:
+                    acc64 = np.zeros((host.shape[0], N), np.float64)
+                acc64 += host[:, :N].astype(np.float64)
+                if guard is not None:
+                    guard_h = host[:, N].copy().view(np.int32)
+            torch._foreach_zero_(list(state.acc.values()))
+            ci += 1
+            done += n
+            if pending_snap is not None:
+                _snapshot_sweep(checkpoint, batch, pending_snap,
+                                n_ticks=n_ticks, chunk=chunk,
+                                validate=validate, tol=tol,
+                                threefry_partitionable=threefry_partitionable,
+                                plan_meta=plan_meta)
+                pending_snap = None
+            if (checkpoint is not None and done < n_ticks
+                    and ci % checkpoint.every_chunks == 0):
+                pending_snap = _stash(ci, state, dev_fold, guard)
+    except BaseException:
+        # the graph dies with this frame: let its queued replays finish
+        if ticks is not None:
+            torch.cuda.synchronize(state.key.device)
+        raise
+    return _PendingSweep(batch=batch, n_ticks=n_ticks, state=state,
+                         fold=dev_fold, acc64=acc64, guard=guard,
+                         guard_h=guard_h, ticks=ticks)
+
+
+def _start_sweep(batch: ScenarioBatch, n_ticks: int, *,
+                 chunk_ticks: int = CHUNK_TICKS, fold: str = "device",
+                 validate: bool = False, validate_tol: float | None = None,
+                 checkpoint: CheckpointSpec | None = None,
+                 plan_meta: dict | None = None, device=None,
+                 threefry_partitionable: bool = True,
+                 graph=None) -> _PendingSweep:
+    """Queue a sweep's chunks without fetching results.
+
+    With ``fold="device"`` (default) on the card this returns once the
+    last chunk is queued (the host runs ahead of the card by up to the
+    launch queue's depth). ``fold="host"`` synchronizes at every chunk
+    boundary.
+
+    ``checkpoint`` (a :class:`CheckpointSpec`) snapshots the carry at
+    the spec's chunk cadence; device fold only (the host path already
+    synchronizes per chunk, so checkpointing it would pin a second fetch
+    discipline for no benefit).
+    """
+    if fold not in ("device", "host"):
+        raise ValueError(f"fold must be 'device' or 'host', got {fold!r}")
+    if n_ticks < 1:
+        raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
+    if checkpoint is not None and fold != "device":
+        raise ValueError(
+            "checkpointing requires the device-resident fold "
+            f"(fold='device'); got fold={fold!r}")
+    dev = resolve_device(device)
+    use_graph = _use_graph(graph, dev)
+    scen, state, dev_fold, guard, tol = _prepare_sweep_args(
+        batch, dev, fold=fold, validate=validate, validate_tol=validate_tol)
+    return _dispatch_chunks(
+        batch, scen, state, dev_fold, guard, tol, n_ticks=n_ticks,
+        chunk=max(1, min(chunk_ticks, n_ticks)), fold=fold,
+        validate=validate, graph=use_graph,
+        threefry_partitionable=threefry_partitionable,
+        checkpoint=checkpoint, plan_meta=plan_meta)
+
+
+def _finish_sweep(p: _PendingSweep, return_state: bool = False):
+    """Fetch a queued sweep's fold buffer (the run's single host transfer
+    on the device fold: the sum, the compensation and the guard, as a
+    float32 column viewed bit for bit, in one copy) and finalize
+    per-scenario metrics. A ``validate=True`` sweep whose guards tripped
+    raises ``SweepValidationError`` here."""
+    global HOST_TRANSFER_COUNT
+    guard_h = p.guard_h
+    if p.fold is not None:
+        fsum, fcomp = p.fold
+        parts = [fsum, fcomp]
+        if p.guard is not None:
+            parts.append(p.guard.view(torch.float32)[:, None])
+        host = torch.cat(parts, dim=1).cpu().numpy()
+        HOST_TRANSFER_COUNT += 1
+        N = fsum.shape[1]
+        acc64 = host[:, :N].astype(np.float64) \
+            - host[:, N:2 * N].astype(np.float64)
+        if p.guard is not None:
+            guard_h = host[:, 2 * N].copy().view(np.int32)
+    else:
+        acc64 = p.acc64
+    p.release()                    # the fetch waited for every replay
+    batch = p.batch
+    if guard_h is not None:
+        bad = [i for i in range(len(batch)) if int(guard_h[i]) >= 0]
+        if bad:
+            raise SweepValidationError(
+                [batch.labels[i] for i in bad],
+                min(int(guard_h[i]) for i in bad))
+    acc64 = _unfold_flat(acc64)
+    res = [
+        _finalize({k: v[i] for k, v in acc64.items()}, batch.sites[i],
+                  p.n_ticks, batch.gating[i], batch.names[i],
+                  batch.labels[i])
+        for i in range(len(batch))
+    ]
+    if return_state:
+        return res, _to_cpu(p.state)
+    return res
+
+
 def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
               chunk_ticks: int = CHUNK_TICKS, return_state: bool = False,
+              fold: str = "device", validate: bool = False,
+              validate_tol: float | None = None,
+              checkpoint: CheckpointSpec | None = None,
               device=None, threefry_partitionable: bool = True,
               graph=None):
     """Run every scenario of ``batch`` for n_ticks us; returns one
@@ -1328,11 +1841,31 @@ def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
     final state (leaves batched over scenarios, on the CPU).
 
     Ticks run in chunks of ``chunk_ticks`` (the last one may be
-    shorter); at every chunk boundary the accumulators fold into a
-    float32 Kahan ``(sum, comp)`` buffer on the device and restart from
-    zero, exactly as the reference's x32 device fold does. The run
+    shorter). ``fold="device"`` (default) folds the accumulators at
+    every chunk boundary into a float32 Kahan ``(sum, comp)`` buffer on
+    the device, exactly as the reference's x32 device fold does, and
     makes ONE host transfer of results, the final fetch of that buffer
-    (``HOST_TRANSFER_COUNT``). ``device=None`` means CUDA.
+    (``HOST_TRANSFER_COUNT``). ``fold="host"`` fetches each chunk's
+    accumulators and folds them in float64 on the host (one transfer a
+    chunk; within 1e-6 of the device fold). ``device=None`` means CUDA.
+
+    ``validate=True`` runs guards at every chunk boundary (eager ops
+    after the chunk's ticks, no host sync): per scenario, finite queues
+    and, on the device fold, finite running totals and the conservation
+    identities injected == delivered + drops + fault_drops + in-flight
+    and started == completed + evicted + in-table within
+    ``validate_tol`` (relative; default ``C.VALIDATE_CONS_REL_TOL``); on
+    the host fold, finite chunk accumulators. A tripped guard raises
+    ``SweepValidationError`` at fetch time, naming the failing scenario
+    labels and the FIRST failing chunk index. The (B,) int32 guard rides
+    the fold fetch, so it adds no transfer (and no capture); a clean
+    pass changes no result.
+
+    ``checkpoint`` (a :class:`CheckpointSpec`; device fold only)
+    snapshots the full carry at the spec's chunk cadence so an
+    interrupted run restarts from ``resume_sweep(path)`` bit-identically.
+    Checkpointing only observes the run; each snapshot adds one host
+    transfer (``HOST_TRANSFER_COUNT`` becomes ``1 + n_checkpoints``).
 
     ``threefry_partitionable`` picks JAX's threefry counter scheme: True
     (the default of the JAX release the reference pins) draws what the
@@ -1346,53 +1879,403 @@ def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
     every tick eagerly, op by op, as the CPU does (for comparisons).
     Both give the same results.
     """
-    global HOST_TRANSFER_COUNT
-    if n_ticks < 1:
-        raise ValueError(f"n_ticks must be >= 1, got {n_ticks}")
+    return _finish_sweep(
+        _start_sweep(batch, n_ticks, chunk_ticks=chunk_ticks, fold=fold,
+                     validate=validate, validate_tol=validate_tol,
+                     checkpoint=checkpoint, device=device,
+                     threefry_partitionable=threefry_partitionable,
+                     graph=graph),
+        return_state=return_state)
+
+
+def resume_sweep(path, *, return_state: bool = False,
+                 checkpoint: CheckpointSpec | None = None, device=None,
+                 threefry_partitionable: bool | None = None, graph=None):
+    """Restart an interrupted sweep from a checkpoint file (written by
+    this engine or by the reference) and run it to completion,
+    bit-identically to the uninterrupted run of this engine.
+
+    The checkpoint carries the full per-scenario carry at a chunk
+    boundary plus the run geometry, so the remaining chunks run exactly
+    the ticks and boundaries the original run would have (same
+    effective chunk length, same per-tick ``fold_in`` PRNG streams). On
+    the card the resumed run captures its own tick graph (one more
+    ``CAPTURE_COUNT``). The draws use the threefry scheme the file
+    records (a file without the key, as the reference writes it, means
+    the partitionable scheme of the reference's jax); passing
+    ``threefry_partitionable`` that disagrees with it is rejected.
+
+    Raises :class:`CheckpointError` (reason naming the first mismatch:
+    "format"/"checksum"/"ckpt_schema" from the file layer, "sim_schema",
+    "fingerprint", "scenario_fields", "x64_mode" (a float64 fold: the
+    port folds in float32), "threefry_scheme", "state_schema" from the
+    engine checks) rather than resuming from a checkpoint this engine
+    cannot reproduce. Pass ``checkpoint`` to KEEP checkpointing the
+    resumed run at the same absolute chunk cadence.
+    """
+    meta, arrays = _ckpt.read_checkpoint(path)
+
+    def reject(reason, detail):
+        raise CheckpointError(reason, f"{path}: {detail}")
+
+    if meta.get("sim_schema") != SIM_SCHEMA_VERSION:
+        reject("sim_schema",
+               f"written at SIM_SCHEMA_VERSION={meta.get('sim_schema')!r}"
+               f", this engine is {SIM_SCHEMA_VERSION}")
+    if meta.get("fault_knobs") != list(FAULT_KNOBS) \
+            or meta.get("flow_knobs") != list(FLOW_KNOBS):
+        reject("fingerprint",
+               f"fault/flow knob inventory {meta.get('fault_knobs')!r}/"
+               f"{meta.get('flow_knobs')!r} != this engine's "
+               f"{list(FAULT_KNOBS)!r}/{list(FLOW_KNOBS)!r}")
+    if meta.get("scenario_fields") != list(Scenario._fields):
+        reject("scenario_fields",
+               f"scenario leaves {meta.get('scenario_fields')!r} != "
+               f"this engine's {list(Scenario._fields)!r}")
+    if meta.get("fold_dtype") != "float32":
+        reject("x64_mode",
+               f"written with fold dtype {meta.get('fold_dtype')!r} "
+               f"(JAX_ENABLE_X64={meta.get('fold_dtype') == 'float64'}),"
+               f" this engine folds in 'float32'")
+    recorded = bool(meta.get("threefry_partitionable", True))
+    if threefry_partitionable is not None \
+            and bool(threefry_partitionable) != recorded:
+        reject("threefry_scheme",
+               f"written with threefry_partitionable={recorded}, asked "
+               f"to resume with {threefry_partitionable}")
+    missing_scen = [f for f in Scenario._fields
+                    if f"scen/{f}" not in arrays]
+    if missing_scen:
+        reject("scenario_fields",
+               f"scenario leaf arrays missing: {missing_scen}")
+
     dev = resolve_device(device)
-    if graph is None:
-        graph = dev.type == "cuda"
-    elif graph and dev.type != "cuda":
-        raise ValueError(f"run_sweep: graph=True needs a CUDA device, "
-                         f"got {dev}")
-    hull = batch.hull
-    scen = Scenario(*(x.to(dev) for x in batch.scen))
-    state = _init_state(hull, scen, prng.key(batch.seeds, device=dev))
-    step = make_sim_step(hull, scen,
-                         threefry_partitionable=threefry_partitionable)
-    ticks = _TickGraph(step, state) if graph else None
-    chunk = max(1, min(chunk_ticks, n_ticks))
-    fsum = torch.zeros_like(_fold_flat(state.acc))
-    fcomp = torch.zeros_like(fsum)
-    done = 0
-    while done < n_ticks:
-        n = min(chunk, n_ticks - done)
-        if ticks is not None:
-            ticks.run(n)               # the graph's state buffers
+    hull = FBSite(**meta["hull"])
+    batch = ScenarioBatch(
+        scen=Scenario(**{f: torch.as_tensor(arrays[f"scen/{f}"])
+                         for f in Scenario._fields}),
+        hull=hull, sites=tuple(FBSite(**d) for d in meta["sites"]),
+        names=tuple(meta["names"]), labels=tuple(meta["labels"]),
+        gating=tuple(bool(g) for g in meta["gating"]),
+        seeds=tuple(int(s) for s in meta["seeds"]))
+    validate = bool(meta["validate"])
+    scen, tmpl, dev_fold, guard, _ = _prepare_sweep_args(
+        batch, dev, validate=validate)
+
+    # place every saved leaf into the initial carry's structure: any
+    # drift in the carry inventory (a missing, re-shaped or re-typed
+    # leaf) is a structured rejection
+    def load(name, t):
+        if name not in arrays:
+            reject("state_schema", f"carry array {name!r} missing")
+        a = arrays[name]
+        want = np.dtype(np.uint32) if name == "state.key" \
+            else torch.empty((), dtype=t.dtype).numpy().dtype
+        if tuple(a.shape) != tuple(t.shape) or a.dtype != want:
+            reject("state_schema",
+                   f"carry array {name!r} is {a.dtype}{a.shape}, this "
+                   f"engine expects {want}{tuple(t.shape)}")
+        return torch.as_tensor(a.astype(np.int64) if name == "state.key"
+                               else a).to(dev)
+
+    state = _map_carry(tmpl, load)
+    folded = []
+    for d in ("fold_sum", "fold_comp"):
+        parts = {}
+        for k, shp in ACC_SHAPES.items():
+            name = f"{d}/{k}"
+            if name not in arrays:
+                reject("state_schema", f"fold buffer {name!r} missing")
+            if tuple(arrays[name].shape) != (len(batch),) + shp:
+                reject("state_schema",
+                       f"fold buffer {name!r} is {arrays[name].shape}")
+            parts[k] = torch.as_tensor(
+                arrays[name].astype(np.float32)).to(dev)
+        folded.append(_fold_flat(parts))
+    dev_fold = tuple(folded)
+    tol = None
+    if validate:
+        if "guard" not in arrays:
+            reject("state_schema", "validate guard array missing")
+        guard = torch.as_tensor(arrays["guard"].astype(np.int32)).to(dev)
+        tol = float(np.float32(meta["validate_tol"]))
+
+    pend = _dispatch_chunks(
+        batch, scen, state, dev_fold, guard, tol,
+        n_ticks=int(meta["n_ticks"]), chunk=int(meta["chunk_ticks"]),
+        fold="device", validate=validate, graph=_use_graph(graph, dev),
+        threefry_partitionable=recorded,
+        start_chunk=int(meta["chunk_index"]), checkpoint=checkpoint,
+        plan_meta=meta.get("plan"))
+    return _finish_sweep(pend, return_state=return_state)
+
+
+def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
+                      *, max_compiles: int = 4,
+                      chunk_ticks: int = CHUNK_TICKS,
+                      return_plan: bool = False, fold: str = "device",
+                      pipeline: bool = True, validate: bool = False,
+                      validate_tol: float | None = None,
+                      retry: BucketRetryPolicy | None = None,
+                      checkpoint: CheckpointSpec | None = None,
+                      device=None, threefry_partitionable: bool = True,
+                      graph=None):
+    """Run a heterogeneous-site sweep through the hull-bucketing planner
+    (core/planner.py): the (SimParams, seed) pairs are partitioned into
+    <= ``max_compiles`` hull buckets by estimated padded cost, each
+    bucket runs as its own ``make_multi_site_batch`` + sweep (one tick
+    capture per bucket on the card), and the per-scenario metric dicts
+    come back in CALLER order, each annotated with its ``plan_bucket``
+    index and ``plan_hull`` tag.
+
+    With ``pipeline=True`` (default) every bucket's chunks are queued
+    first, in the planner's ``dispatch_order`` (largest padded cost
+    first), then results are fetched: one blocking transfer per bucket.
+    (On the card the set-up of bucket k+1 still waits for bucket k's
+    queued replays: its copies from pageable host memory and the graph
+    capture synchronize, so the two modes take about the same time.)
+    The pipeline keeps every bucket's state, fold buffers and tick graph
+    resident at once; ``pipeline=False`` runs buckets strictly serially
+    (dispatch + fetch per bucket, caller order, one bucket resident at a
+    time) and gives bit-identical results.
+
+    With ``return_plan=True`` also returns ``SweepPlan.report()``.
+    ``max_compiles=1`` is the single-hull case, identical to
+    ``run_sweep(make_multi_site_batch(runs), ...)``.
+
+    Bucket failures are ISOLATED: a Python exception while dispatching
+    or fetching one bucket (a scenario tripping ``validate`` guards, a
+    failed graph capture, an out-of-memory error) never takes down the
+    other buckets. The failed bucket is retried per the ``retry``
+    policy (:class:`BucketRetryPolicy`; default ONE immediate retry, no
+    deadline), each retry strictly serial in the most conservative
+    mode: ``fold="host"`` and ``graph=False`` (eager ticks) on the SAME
+    device (never the CPU instead of the card; the switch kernel still
+    launches), with the policy's backoff between attempts and its
+    ``deadline_s`` bounding each bucket's cumulative wall-clock time. On
+    exhaustion that bucket's runs come back as structured error entries
+    (``{"label", "plan_bucket", "plan_hull", "error": {"type",
+    "message", "stage", "retried"}}``, ``stage`` the phase of the
+    ORIGINAL failure, "dispatch" or "fetch", ``message`` the final
+    attempt's) in caller order beside the other buckets' results. All
+    pending buckets are drained (their replays waited for) even when a
+    fetch raises. Isolation covers Python exceptions only: a sticky CUDA
+    error (an illegal address, a device-side assert) poisons the CUDA
+    context, and every later bucket and retry on it fails too.
+
+    ``checkpoint`` checkpoints every bucket under a per-bucket tag
+    (``<tag>-<plan.bucket_tag(k)>``), and an exhausted bucket carries
+    ``error["checkpoint"]``: the path of its newest cadence snapshot, or
+    a freshly written chunk-0 snapshot of its initial carry when it
+    never reached a boundary (None only if even that write failed), so
+    ``resume_sweep`` can finish it later.
+    """
+    # local import, as the reference's: only the execution path needs
+    # the planner
+    from repro_torch.core import planner
+
+    if checkpoint is not None and fold != "device":
+        raise ValueError(
+            "checkpointing requires the device-resident fold "
+            f"(fold='device'); got fold={fold!r}")
+    dev = resolve_device(device)
+    runs = list(runs)
+    plan = planner.plan_sites([p.site for p, _ in runs], max_compiles)
+    order = plan.dispatch_order if pipeline \
+        else tuple(range(len(plan.buckets)))
+    policy = retry if retry is not None else BucketRetryPolicy()
+    engine = dict(device=dev, threefry_partitionable=threefry_partitionable)
+    pending: dict[int, _PendingSweep] = {}
+    fetched: dict[int, list] = {}
+    errors: dict[int, dict] = {}
+    elapsed: dict[int, float] = {}
+
+    def hook(k, phase):
+        if BUCKET_FAIL_HOOK is not None:
+            BUCKET_FAIL_HOOK(k, phase)
+
+    def timed(k, fn):
+        # per-bucket wall-clock ledger: cumulative across the bucket's
+        # dispatch, fetch and retry attempts; the policy's deadline_s
+        # is checked against it before each retry
+        t0 = time.monotonic()
+        try:
+            return fn()
+        finally:
+            elapsed[k] = elapsed.get(k, 0.0) + (time.monotonic() - t0)
+
+    def bucket_batch(k):
+        return make_multi_site_batch(
+            [runs[i] for i in plan.buckets[k].indices])
+
+    def bucket_spec(k):
+        if checkpoint is None:
+            return None
+        return dataclasses.replace(
+            checkpoint, tag=f"{checkpoint.tag}-{plan.bucket_tag(k)}")
+
+    def bucket_plan_meta(k):
+        return {"fingerprint": plan.fingerprint, "bucket": k,
+                "hull": full_site_tag(plan.buckets[k].hull)}
+
+    def salvage_checkpoint(k, spec_k):
+        # a resumable artifact for the exhausted bucket: its newest
+        # cadence snapshot if it reached a boundary, else a fresh
+        # chunk-0 snapshot of its INITIAL carry (resuming that runs the
+        # whole bucket). Best effort: None if even this fails.
+        existing = _ckpt.latest_checkpoint(spec_k.directory, spec_k.tag)
+        if existing is not None:
+            return str(existing)
+        try:
+            batch = bucket_batch(k)
+            _, state, dev_fold, guard, tol = _prepare_sweep_args(
+                batch, dev, validate=validate, validate_tol=validate_tol)
+            return str(_snapshot_sweep(
+                spec_k, batch, _stash(0, state, dev_fold, guard),
+                n_ticks=n_ticks, chunk=max(1, min(chunk_ticks, n_ticks)),
+                validate=validate, tol=tol,
+                threefry_partitionable=threefry_partitionable,
+                plan_meta=bucket_plan_meta(k)))
+        except Exception:                  # noqa: BLE001 — best effort
+            return None
+
+    def retry_bucket(k, stage, exc):
+        # bounded retries on the most conservative path; on exhaustion
+        # record a structured error for the bucket (stage = the
+        # ORIGINAL failure's phase, message = the final failure's)
+        last = exc
+        retried = False
+        for attempt in range(1, policy.max_retries + 1):
+            if (policy.deadline_s is not None
+                    and elapsed.get(k, 0.0) >= policy.deadline_s):
+                break
+            delay = policy.backoff_s(attempt)
+            if delay > 0.0:
+                RETRY_SLEEP(delay)
+            retried = True
+
+            def one_retry():
+                hook(k, "retry")
+                return _finish_sweep(_start_sweep(
+                    bucket_batch(k), n_ticks, chunk_ticks=chunk_ticks,
+                    fold="host", validate=validate,
+                    validate_tol=validate_tol, graph=False, **engine))
+
+            try:
+                fetched[k] = timed(k, one_retry)
+                return
+            except Exception as exc2:      # noqa: BLE001 — isolation
+                last = exc2
+        errors[k] = {"type": type(last).__name__, "message": str(last),
+                     "stage": stage, "retried": retried}
+        spec_k = bucket_spec(k)
+        if spec_k is not None:
+            errors[k]["checkpoint"] = salvage_checkpoint(k, spec_k)
+
+    def fetch(k):
+        def go():
+            hook(k, "fetch")
+            return _finish_sweep(pending[k])
+
+        try:
+            fetched[k] = timed(k, go)
+        except Exception as exc:           # noqa: BLE001 — isolation
+            pending.pop(k).release()
+            retry_bucket(k, "fetch", exc)
         else:
-            for _ in range(n):
-                state = step(state)
-        # Kahan: sum carries the running total, comp the rounding error
-        # still to subtract
-        y = _fold_flat(state.acc) - fcomp
-        t = fsum + y
-        fcomp = (t - fsum) - y
-        fsum = t
-        torch._foreach_zero_(list(state.acc.values()))
-        done += n
-    host = torch.stack([fsum, fcomp]).cpu().numpy()
-    HOST_TRANSFER_COUNT += 1
-    acc64 = _unfold_flat(host[0].astype(np.float64)
-                         - host[1].astype(np.float64))
-    res = [
-        _finalize({k: v[i] for k, v in acc64.items()}, batch.sites[i],
-                  n_ticks, batch.gating[i], batch.names[i],
-                  batch.labels[i])
-        for i in range(len(batch))
-    ]
-    if return_state:
-        return res, _to_cpu(state)
-    return res
+            pending.pop(k)
+
+    try:
+        for k in order:
+            def dispatch(k=k):
+                hook(k, "dispatch")
+                return _start_sweep(
+                    bucket_batch(k), n_ticks, chunk_ticks=chunk_ticks,
+                    fold=fold, validate=validate,
+                    validate_tol=validate_tol, checkpoint=bucket_spec(k),
+                    plan_meta=bucket_plan_meta(k)
+                    if checkpoint is not None else None, graph=graph,
+                    **engine)
+
+            try:
+                ps = timed(k, dispatch)
+            except Exception as exc:       # noqa: BLE001 — isolation
+                retry_bucket(k, "dispatch", exc)
+                continue
+            pending[k] = ps
+            if not pipeline:
+                # strictly serial: fetch this bucket before the next
+                # one is set up, and drop it (one bucket resident)
+                fetch(k)
+        for k in [k for k in order if k in pending]:
+            fetch(k)
+    finally:
+        # a fetch that raised leaves its bucket queued: wait for the
+        # replays before dropping the graphs and buffers they write
+        for ps in pending.values():
+            ps.release()
+        pending.clear()
+    results: list = [None] * len(runs)
+    for k, bucket in enumerate(plan.buckets):
+        # the FULL tag, the format of the plan report's bucket "hull"
+        hull_tag = full_site_tag(bucket.hull)
+        if k in fetched:
+            for i, r in zip(bucket.indices, fetched[k]):
+                r["plan_bucket"] = k
+                r["plan_hull"] = hull_tag
+                results[i] = r
+        else:
+            for i in bucket.indices:
+                p, seed = runs[i]
+                results[i] = {
+                    "label": _run_label(p, seed, tag_site=True),
+                    "plan_bucket": k, "plan_hull": hull_tag,
+                    "error": dict(errors[k]),
+                }
+    if return_plan:
+        return results, plan.report()
+    return results
+
+
+def run_sim(params: SimParams, n_ticks: int, seed: int = 0, *,
+            device=None, threefry_partitionable: bool = True,
+            graph=None) -> dict:
+    """Run ONE scenario for n_ticks us; returns its aggregate metrics.
+
+    The reference's single-scenario path (one scan, no fold): here a
+    batch of one run in ONE chunk of ``n_ticks``, whose Kahan fold of a
+    single chunk is the accumulators themselves, exactly."""
+    return run_sweep(make_batch([(params, seed)]), n_ticks,
+                     chunk_ticks=n_ticks, device=device,
+                     threefry_partitionable=threefry_partitionable,
+                     graph=graph)[0]
+
+
+def compare_traces(n_ticks: int = 200_000, seed: int = 0, traces=None, *,
+                   device=None, threefry_partitionable: bool = True,
+                   graph=None) -> dict:
+    """LC/DC vs always-on across every modeled trace (Figs 8-10), as a
+    single batched sweep (2 x |traces| scenarios)."""
+    names = list(traces or TRAFFIC_SPECS)
+    runs = []
+    for name in names:
+        spec = TRAFFIC_SPECS[name]
+        runs.append((SimParams(spec=spec, gating_enabled=True), seed))
+        runs.append((SimParams(spec=spec, gating_enabled=False), seed))
+    res = run_sweep(make_batch(runs), n_ticks, device=device,
+                    threefry_partitionable=threefry_partitionable,
+                    graph=graph)
+    out = {}
+    for i, name in enumerate(names):
+        lc, base = res[2 * i], res[2 * i + 1]
+        out[name] = {
+            "lcdc": lc, "baseline": base,
+            "switch_energy_savings": lc["switch_energy_savings_frac"],
+            "all_transceiver_savings": lc["all_transceiver_savings_frac"],
+            "latency_penalty":
+                lc["mean_latency_us"] / base["mean_latency_us"] - 1.0,
+        }
+    return out
 
 
 def _to_cpu(x):

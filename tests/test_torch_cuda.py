@@ -21,11 +21,18 @@ flips roundings of the bf16 output), as tests/test_kernels.py holds the
 TPU kernel; wkv y 2e-3 in float32 and 5e-2 in bfloat16, the state 2e-3
 and, since the kernel updates it in the plain version's order of
 roundings, exactly.
+
+The sweep-engine tests hold the card's execution layer to itself, bit
+for bit: a checkpoint taken while the tick replays from a CUDA graph
+against the eager run's carry at the same boundary, a resume against the
+uninterrupted run, pipelined buckets against serial ones; a retried
+bucket (eager, host fold, on the card) within 1e-6 of the clean run.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import checkpoint as CK
 from repro_torch.core import simulator as S
 from repro_torch.core.topology import FBSite
 from repro_torch.core.traffic import TRAFFIC_SPECS
@@ -326,3 +333,138 @@ def test_graph_and_eager_sweeps_agree(cuda):
     assert runs[True][0] == runs[False][0]
     a = list(S._leaf_pairs(runs[True][1], runs[False][1]))
     assert all(torch.equal(x, y) for x, y in a)
+
+
+#: two small sites of tests/test_durability.py: a two-bucket plan
+BUCKET_SITE = dict(n_clusters=2, racks_per_cluster=3, servers_per_rack=4,
+                   csw_per_cluster=2, n_fc=2, csw_ring_links=2,
+                   fc_ring_links=4)
+
+
+def _two_bucket_runs():
+    a = FBSite(**BUCKET_SITE)
+    b = FBSite(**dict(BUCKET_SITE, racks_per_cluster=5))
+    spec = TRAFFIC_SPECS["fb_hadoop"]
+    return [(S.SimParams(spec=spec, site=a), 0),
+            (S.SimParams(spec=spec, site=b), 1),
+            (S.SimParams(spec=spec, site=a, gating_enabled=False), 2)]
+
+
+def _zero_counts():
+    lcdc_switch.LAUNCHES = 0
+    S.CAPTURE_COUNT = 0
+    S.HOST_TRANSFER_COUNT = 0
+
+
+@pytest.mark.cuda
+def test_snapshot_under_graph_replay_equals_eager_carry(cuda, tmp_path):
+    """The replays overwrite the carry in place, so a snapshot must be a
+    clone taken at its boundary: every file of the replayed run equals,
+    array for array, the eager run's file at the same boundary."""
+    files = {}
+    for graph in (True, False):
+        d = tmp_path / ("graph" if graph else "eager")
+        _zero_counts()
+        S.run_sweep(_golden_batch(), 250, chunk_ticks=50, validate=True,
+                    device=cuda, graph=graph,
+                    checkpoint=CK.CheckpointSpec(directory=d, tag="g",
+                                                 every_chunks=1, keep=8))
+        assert S.HOST_TRANSFER_COUNT == 1 + 4
+        files[graph] = CK.list_checkpoints(d, "g")
+    assert [c for c, _ in files[True]] == [c for c, _ in files[False]] \
+        == [1, 2, 3, 4]
+    for (_, a), (_, b) in zip(files[True], files[False]):
+        xa, xb = CK.read_checkpoint(a)[1], CK.read_checkpoint(b)[1]
+        assert sorted(xa) == sorted(xb)
+        for name in xa:
+            np.testing.assert_array_equal(xa[name], xb[name], err_msg=name)
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card_equals_the_uninterrupted_run(cuda, tmp_path,
+                                                         monkeypatch):
+    batch = _golden_batch()
+    full = S.run_sweep(batch, 250, chunk_ticks=50, validate=True,
+                       device=cuda)
+
+    def kill(ci):
+        if ci == 3:
+            raise RuntimeError("preempted")
+
+    monkeypatch.setattr(S, "CHUNK_HOOK", kill)
+    with pytest.raises(RuntimeError, match="preempted"):
+        S.run_sweep(batch, 250, chunk_ticks=50, validate=True, device=cuda,
+                    checkpoint=CK.CheckpointSpec(directory=tmp_path,
+                                                 tag="k", every_chunks=1,
+                                                 keep=8))
+    monkeypatch.setattr(S, "CHUNK_HOOK", None)
+    found = CK.list_checkpoints(tmp_path, "k")
+    assert [c for c, _ in found] == [1, 2]
+    _zero_counts()
+    res = S.resume_sweep(found[-1][1], device=cuda)
+    assert (lcdc_switch.LAUNCHES, S.CAPTURE_COUNT,
+            S.HOST_TRANSFER_COUNT) == (150, 1, 1)
+    assert res == full
+
+
+@pytest.mark.cuda
+def test_pipelined_equals_serial_on_the_card(cuda):
+    out = {}
+    for pipeline in (True, False):
+        _zero_counts()
+        out[pipeline] = S.run_sweep_planned(
+            _two_bucket_runs(), 200, max_compiles=2, chunk_ticks=80,
+            device=cuda, pipeline=pipeline)
+        assert (lcdc_switch.LAUNCHES, S.CAPTURE_COUNT,
+                S.HOST_TRANSFER_COUNT) == (400, 2, 2)
+    assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+def test_retry_runs_eagerly_on_the_card(cuda, monkeypatch):
+    """A bucket failing its dispatch once is retried on the card (eager
+    ticks, host fold: the switch kernel still launches every tick, no
+    capture) within 1e-6 of the clean run."""
+    clean = S.run_sweep_planned(_two_bucket_runs(), 200, max_compiles=2,
+                                chunk_ticks=80, device=cuda)
+
+    def hook(k, phase):
+        if (k, phase) == (0, "dispatch"):
+            raise RuntimeError("transient")
+
+    monkeypatch.setattr(S, "BUCKET_FAIL_HOOK", hook)
+    _zero_counts()
+    res = S.run_sweep_planned(_two_bucket_runs(), 200, max_compiles=2,
+                              chunk_ticks=80, device=cuda)
+    # bucket 1 replayed from its graph; bucket 0 eagerly, fetched a chunk
+    # at a time (3 chunks)
+    assert (lcdc_switch.LAUNCHES, S.CAPTURE_COUNT,
+            S.HOST_TRANSFER_COUNT) == (400, 1, 1 + 3)
+    assert all("error" not in r for r in res)
+    diff, where = S.worst_parity(clean, res)
+    assert diff <= 1e-6, (diff, where)
+
+
+@pytest.mark.cuda
+def test_guards_and_host_fold_on_the_card(cuda):
+    """The guards ride the fold fetch (one transfer, one capture, results
+    unchanged) and trip at chunk 0 under an impossible tolerance; the
+    host fold is within 1e-6 of the device fold."""
+    batch = _golden_batch()
+    plain = S.run_sweep(batch, 250, chunk_ticks=100, device=cuda)
+    _zero_counts()
+    checked = S.run_sweep(batch, 250, chunk_ticks=100, validate=True,
+                          device=cuda)
+    assert (S.CAPTURE_COUNT, S.HOST_TRANSFER_COUNT) == (1, 1)
+    assert checked == plain
+    with pytest.raises(S.SweepValidationError) as ei:
+        S.run_sweep(batch, 250, chunk_ticks=100, validate=True,
+                    validate_tol=-1.0, device=cuda)
+    assert ei.value.first_bad_chunk == 0
+    assert set(ei.value.labels) == set(batch.labels)
+    _zero_counts()
+    host = S.run_sweep(batch, 250, chunk_ticks=100, fold="host",
+                       device=cuda)
+    assert S.HOST_TRANSFER_COUNT == 3
+    diff, where = S.worst_parity(plain, host)
+    assert diff <= 1e-6, (diff, where)

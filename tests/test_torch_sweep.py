@@ -9,7 +9,11 @@ its isolation from JAX.
   counter scheme, so this run draws with ``threefry_partitionable=False``.
 * Zero fault knobs and ``flow_mode=0`` leave every fault and flow
   accumulator at exactly 0; exactly one fold fetch per run.
-* Importing the port and running a sweep loads neither ``jax`` nor
+* ``run_sim`` (one scenario, one chunk) and ``compare_traces`` against
+  the reference's within 1e-3; the schema version and the fault/flow
+  fingerprints are the reference's.
+* Importing the port (planner and checkpoint included) and running a
+  sweep, a planned sweep and a resume loads neither ``jax`` nor
   ``repro``; with no CUDA device, ``run_sweep()`` raises.
 """
 import json
@@ -120,19 +124,68 @@ def test_run_sweep_needs_cuda_by_default(monkeypatch):
         TS.run_sweep(batch, 5)
 
 
-def test_port_imports_neither_jax_nor_reference():
+def test_run_sim_matches_the_reference():
+    """One scenario in one chunk: the reference's single scan without a
+    fold."""
+    jp = _golden_runs(JS, JSite, JSPECS)[0][0]
+    tp = _golden_runs(TS, TSite, TSPECS)[0][0]
+    ref = JS.run_sim(jp, 200, seed=8)
+    res = TS.run_sim(tp, 200, seed=8, device="cpu")
+    assert res["label"] == ref["label"] and res["ticks"] == 200
+    diff, where = TS.worst_parity([ref], [res])
+    assert diff <= PARITY_TOL, (diff, where)
+
+
+def test_compare_traces_matches_the_reference():
+    ref = JS.compare_traces(n_ticks=40, traces=("fb_web",))
+    res = TS.compare_traces(n_ticks=40, traces=("fb_web",), device="cpu")
+    assert list(res) == list(ref) == ["fb_web"]
+    diff, where = TS.worst_parity(
+        [ref["fb_web"]["lcdc"], ref["fb_web"]["baseline"]],
+        [res["fb_web"]["lcdc"], res["fb_web"]["baseline"]])
+    assert diff <= PARITY_TOL, (diff, where)
+    for k in ("switch_energy_savings", "latency_penalty"):
+        assert abs(res["fb_web"][k] - ref["fb_web"][k]) <= PARITY_TOL * max(
+            abs(ref["fb_web"][k]), 1.0), k
+
+
+def test_schema_and_fingerprints_are_the_reference():
+    assert TS.SIM_SCHEMA_VERSION == JS.SIM_SCHEMA_VERSION
+    assert TS.fault_fingerprint() == JS.fault_fingerprint()
+    assert TS.flow_fingerprint() == JS.flow_fingerprint()
+    jp, tp = (S.SimParams(spec=specs["fb_web"], link_mtbf_ticks=50.0,
+                          repair_ticks=3, flow_mode=1, incast_degree=2)
+              for S, specs in ((JS, JSPECS), (TS, TSPECS)))
+    assert TS.fault_fingerprint(tp) == JS.fault_fingerprint(jp)
+    assert TS.flow_fingerprint(tp) == JS.flow_fingerprint(jp)
+
+
+def test_port_imports_neither_jax_nor_reference(tmp_path):
     code = (
         "import sys\n"
+        "from repro_torch.core import checkpoint as CK, planner\n"
         "from repro_torch.core import simulator as S\n"
         "from repro_torch.core.topology import FBSite\n"
         "from repro_torch.core.traffic import TRAFFIC_SPECS\n"
         "import repro_torch.core.convert, repro_torch.kernels.ops\n"
         "site = FBSite(n_clusters=1, racks_per_cluster=3, "
         "servers_per_rack=4, csw_per_cluster=2, n_fc=2)\n"
-        "b = S.make_batch([(S.SimParams(spec=TRAFFIC_SPECS['fb_web'], "
-        "site=site), 0)])\n"
+        "other = FBSite(n_clusters=1, racks_per_cluster=2, "
+        "servers_per_rack=4, csw_per_cluster=2, n_fc=2)\n"
+        "runs = [(S.SimParams(spec=TRAFFIC_SPECS['fb_web'], site=s), 0) "
+        "for s in (site, other)]\n"
+        "b = S.make_batch(runs[:1])\n"
         "r = S.run_sweep(b, 20, chunk_ticks=8, device='cpu')\n"
         "assert r[0]['ticks'] == 20\n"
+        f"spec = CK.CheckpointSpec(directory={str(tmp_path)!r}, tag='g')\n"
+        "S.run_sweep(b, 20, chunk_ticks=8, device='cpu', validate=True, "
+        "checkpoint=spec)\n"
+        "r2 = S.resume_sweep(CK.latest_checkpoint(spec.directory, 'g'), "
+        "device='cpu')\n"
+        "assert r2[0]['injected_pkts'] == r[0]['injected_pkts']\n"
+        "p = S.run_sweep_planned(runs, 20, max_compiles=2, chunk_ticks=8, "
+        "device='cpu')\n"
+        "assert [x['plan_bucket'] for x in p] == [0, 1]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(repr(bad))\n")

@@ -9,16 +9,19 @@ Phases (one line each; any failure exits non-zero and prints no result):
 1. ``build``: the card's name and power limit (nvidia-smi), then every
    CUDA source of the port built with nvcc, one process per source, all
    started together (timed, as set-up); ptxas's registers, stack frame,
-   spills and static shared memory for every kernel (every lcdc_switch
-   kernel must have a stack frame of 0 bytes: its rows live in
-   registers); and the SASS of the flash library (cuobjdump -sass),
-   which must show the bf16 kernel's tensor-core instructions (HGMMA)
-   and its asynchronous copies (UTMALDG, TMA; or LDGSTS, cp.async);
+   spills and static shared memory for every kernel (every float32
+   lcdc_switch kernel must have a stack frame of 0 bytes: its rows live
+   in registers; the float64 ones' frames are printed); and the SASS
+   of the flash library (cuobjdump -sass), which must show the bf16
+   kernel's tensor-core instructions (HGMMA) and its asynchronous
+   copies (UTMALDG, TMA; or LDGSTS, cp.async);
 2. ``kernel``: each kernel against its plain PyTorch version on the
    card, at the shapes its path gives it: switch_step at the
    simulator's two tier shapes and at odd switch counts; switch_tiers
    (both tiers of a tick in one launch) at the main grid's shapes, on a
-   padded multi-site hull and with faults striking links;
+   padded multi-site hull and with faults striking links; the float64
+   instantiations of both (the x64 mode's) on the same cases, in
+   float64 ulp;
    flash_attention at the serve shapes of qwen3-8b, ragged, windowed,
    non-causal and d = 64 cases (each through the variant its inputs
    pick, which must be the one whose counter moved; bf16 ones also
@@ -28,25 +31,35 @@ Phases (one line each; any failure exits non-zero and prints no result):
    final state equal to the plain version's bit for bit;
 3. ``golden``: the committed golden results
    (tests/data/preflow_golden.json, "results") reproduced by
-   ``run_sweep`` on the card, with the tick replayed from a CUDA graph
-   and again eagerly (``graph=False``); the two must agree exactly;
+   ``run_sweep`` on the card with the tick replayed from a CUDA graph
+   and a checkpoint at every chunk boundary, then by the last chunk
+   again with eager ticks (``graph=False``), resumed with
+   ``resume_sweep`` from the graph run's last checkpoint; both within
+   1e-3 of the golden, and equal to each other in results and state;
+3b. ``golden-x64``: the same in the x64 mode (``x64=True``) against the
+   golden's ``results_x64``, every launch the float64 kernel's;
 4. ``main``: the sweep path at full size, the paper's Fig 2 site
    (``FBSite()``, 6,144 servers) under the standard 10-scenario grid,
-   three times with the CUDA graph and once eagerly, with the
-   switch_tiers launch count (one a tick), the single capture and the
-   single fold fetch checked, and conservation;
+   three times with the CUDA graph, then 1,000 ticks eagerly and again
+   with the graph (equal in results and state), with the switch_tiers
+   launch count (one a tick), the single capture and the single fold
+   fetch checked, and conservation;
+4b. ``main-x64``: the same grid in the x64 mode, three times with the
+   CUDA graph: its rate beside the x32 rate of this invocation, one
+   float64 switch_tiers launch a tick (``LAUNCHES_F64``), one capture,
+   one fold fetch, conservation;
 5. ``planned``: ``run_sweep_planned`` at full width on the three fabric
    shapes of benchmarks/bench_multi_site.py (6,144 servers each) x
-   {LC/DC, always-on}, fb_hadoop: 2,000 ticks in chunks of 800 (a
-   remainder of 400), two buckets pipelined, then serial, then one
+   {LC/DC, always-on}, fb_hadoop: 1,000 ticks in chunks of 400 (a
+   remainder of 200), two buckets pipelined, then serial, then one
    bucket; labels in caller order, one capture and one fold fetch per
-   bucket, 2,000 switch_tiers launches per bucket, pipelined equal to
+   bucket, 1,000 switch_tiers launches per bucket, pipelined equal to
    serial, every bucket equal to a plain ``run_sweep`` of its batch and
    conserving packets, one bucket within 1e-3 of two, no error entry and
    no retry; switch_tiers held to its plain version on each site's hull
    and each bucket's padded hull; the rate of each mode and the host time
    of each bucket's dispatch;
-6. ``durable``: the main grid, 2,000 ticks in chunks of 500, plain, with
+6. ``durable``: the main grid, 1,000 ticks in chunks of 250, plain, with
    ``validate=True``, and with a checkpoint every chunk too (all equal,
    1 + 3 transfers; the guards' and a snapshot's cost, bytes a file); a
    ``CHUNK_HOOK`` kill at chunk 3 (boundaries [1, 2] left) and
@@ -72,7 +85,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
    beside its first design (two switch_step launches and their
    glue), the plain version, the bound and an empty kernel's graph
    node (the launch floor); switch_step alone at the two tier shapes
-   (printed right after ``main``);
+   (printed right after ``main``); the float64 switch_tiers a tick
+   beside the float32 kernel on the same inputs, its plain version and
+   bound (printed right after ``main-x64``);
    flash_attention and wkv at each serve shape, timed in turns: the
    kernel, the first design on the same inputs (flash's CUDA-core
    variant, wkv with one thread per column), the plain version, the
@@ -100,8 +115,10 @@ GOLDEN = ROOT / "tests" / "data" / "preflow_golden.json"
 
 MAIN_TICKS = 2000          # full-grid ticks (>= 2,000; site and batch fixed)
 MAIN_CHUNK = 1000
+MAIN_EAGER_TICKS, MAIN_EAGER_CHUNK = 1000, 500   # the eager leg's depth
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32, outside the tensor cores
+FP64_OPS_PER_S = 34e12     # H100 SXM float64, outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 # kernel vs plain version: integers exact; floats within 4 float32 ulp
 # (the kernel runs the plain version's operations in the same order;
@@ -110,6 +127,8 @@ BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 # bit)
 ULP = 2.0 ** -23
 FLOAT_RTOL = 4 * ULP
+# the float64 kernels (x64 mode) likewise, in float64 ulp
+ULP64 = 2.0 ** -52
 # switch_tiers' sums over rows are held looser: to_csw (fc_in) sums n
 # racks (CSWs) in index order, the plain version's torch.sum in another
 # order; two orders of n non-negative terms differ by at most (n - 1)
@@ -119,8 +138,8 @@ FLOAT_RTOL = 4 * ULP
 # tier is held at FLOAT_RTOL on the kernel's own to_csw.
 
 
-def sum_rtol(n_terms):
-    return (n_terms + 3) * ULP
+def sum_rtol(n_terms, ulp=ULP):
+    return (n_terms + 3) * ulp
 
 PARITY_TOL = 1e-3          # run level, the reference's own parity band
 
@@ -156,7 +175,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: seconds of the run up to each phase line, credited to that line's
+#: phase (the work before a line is that phase's); the [done] line
+#: prints them
+PHASE_SECONDS: dict = {}
+_LAST_LINE = [time.perf_counter()]
+
+
 def phase(name: str, msg: str) -> None:
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
     print(f"[{name}] {msg}", flush=True)
 
 
@@ -168,9 +197,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def switch_inputs(torch, S, L, K, device, seed):
+def switch_inputs(torch, S, L, K, device, seed, dtype=None):
     """Random switch-tick inputs: queues, stages, arrivals, drains, a
-    per-link valid mask with a few all-dead switches, per-row cap."""
+    per-link valid mask with a few all-dead switches, per-row cap; the
+    queues and arrivals in ``dtype`` (float32 by default)."""
     g = torch.Generator().manual_seed(seed)
     q = torch.rand((S, L, K), generator=g) * 15
     stage = torch.randint(1, L + 1, (S,), generator=g, dtype=torch.int32)
@@ -183,14 +213,16 @@ def switch_inputs(torch, S, L, K, device, seed):
     lo = torch.full((S,), 0.22)
     if K == 1:                       # the simulator's (S, L) shorthand
         q, arr = q[..., 0], arr[..., 0]
+    if dtype is not None:
+        q, arr = q.to(dtype), arr.to(dtype)
     t = [x.to(device).contiguous() for x in (q, stage, arr, drain, valid,
                                              cap, hi, lo)]
     return t[:4], dict(valid=t[4], cap=t[5], hi=t[6], lo=t[7])
 
 
-def compare(torch, got, want):
+def compare(torch, got, want, rtol=FLOAT_RTOL):
     """(max abs diff, max rel diff) of the float outputs; raises on an
-    integer mismatch or a float beyond FLOAT_RTOL."""
+    integer mismatch or a float beyond ``rtol``."""
     max_abs = max_rel = 0.0
     for i, (a, b) in enumerate(zip(got, want)):
         if a.shape != b.shape or a.dtype != b.dtype:
@@ -203,10 +235,10 @@ def compare(torch, got, want):
             continue
         d = (a.double() - b.double()).abs()
         scale = torch.maximum(a.double().abs(), b.double().abs())
-        bad = d > FLOAT_RTOL * scale
+        bad = d > rtol * scale
         if bool(bad.any()):
             raise AssertionError(f"output {i}: {int(bad.sum())} values "
-                                 f"beyond {FLOAT_RTOL:.2e} relative")
+                                 f"beyond {rtol:.2e} relative")
         max_abs = max(max_abs, float(d.max()) if d.numel() else 0.0)
         rel = d / scale.clamp(min=1e-30)
         max_rel = max(max_rel, float(rel.max()) if rel.numel() else 0.0)
@@ -308,11 +340,12 @@ def state_tiers_inputs(torch, S, batch, state, dev):
     return (*t, {k: state.acc[k].to(dev) for k in lcdc_switch.TIER_ACC})
 
 
-def compare_tiers(torch, got, want, args):
+def compare_tiers(torch, got, want, args, ulp=ULP):
     """Max abs difference of switch_tiers' outputs from the plain
     version's; raises AssertionError beyond the tolerances stated at
-    FLOAT_RTOL and sum_rtol. The CSW tier is held against the plain
-    switch_step on the kernel's own to_csw."""
+    FLOAT_RTOL and sum_rtol, in ``ulp`` (the float64 kernel's: ULP64).
+    The CSW tier is held against the plain switch_step on the kernel's
+    own to_csw."""
     from repro_torch.kernels import lcdc_switch, ref
     B, R, P, _ = args[0].shape
     NC, CUP = args[6].shape[1:]
@@ -322,15 +355,20 @@ def compare_tiers(torch, got, want, args):
         valid=(args[10][..., None] & (args[9] == 0)).reshape(B * NC, CUP),
         cap=args[11].repeat_interleave(NC),
         serve_rate=lcdc_switch.CSW_SERVE_RATE)
-    checks = [("rsw_q", got.rsw_q, want.rsw_q, FLOAT_RTOL),
-              ("rsw_wait", got.rsw_wait, want.rsw_wait, FLOAT_RTOL),
-              ("to_csw", got.to_csw, want.to_csw, sum_rtol(R // (NC // P))),
-              ("fc_in", got.fc_in, want.fc_in, sum_rtol(NC)),
-              ("csw_q", got.csw_q, csw[0].reshape(B, NC, CUP), FLOAT_RTOL),
-              ("csw_wait", got.csw_wait, csw[5].reshape(B, NC),
-               FLOAT_RTOL)]
+    rt = 4 * ulp
+    checks = [("rsw_q", got.rsw_q, want.rsw_q, rt),
+              ("rsw_wait", got.rsw_wait, want.rsw_wait, rt),
+              ("to_csw", got.to_csw, want.to_csw,
+               sum_rtol(R // (NC // P), ulp)),
+              ("fc_in", got.fc_in, want.fc_in, sum_rtol(NC, ulp)),
+              ("csw_q", got.csw_q, csw[0].reshape(B, NC, CUP), rt),
+              ("csw_wait", got.csw_wait, csw[5].reshape(B, NC), rt)]
     checks += [(f"acc[{k!r}]", got.acc[k], want.acc[k],
-                sum_rtol(2 * R * P * 2 + 2)) for k in lcdc_switch.TIER_ACC]
+                sum_rtol(2 * R * P * 2 + 2, ulp))
+               for k in lcdc_switch.TIER_ACC]
+    for name, a, b, _ in checks:
+        if a.dtype != b.dtype:
+            raise AssertionError(f"{name}: {a.dtype} vs {b.dtype}")
     worst = 0.0
     for name, a, b, rtol in checks:
         d = (a.double() - b.double()).abs()
@@ -343,11 +381,12 @@ def compare_tiers(torch, got, want, args):
     return worst
 
 
-def tiers_bound(args, out):
+def tiers_bound(args, out, ops_per_s=FP32_OPS_PER_S):
     """(bound_ms, bound_by) of switch_tiers: every input read once (the
     two arrival components of a rack, not the view's stride) and every
     output written once, against the float operations of both tiers'
-    rows (about 4K+8 per port) at the float32 rate."""
+    rows (about 4K+8 per port) at the float rate ``ops_per_s`` (float32,
+    or float64 for the x64 kernel)."""
     from repro_torch.kernels import lcdc_switch
     acc = args[12]
     ins = [t for i, t in enumerate(args[:12]) if i != 5] \
@@ -358,7 +397,7 @@ def tiers_bound(args, out):
     B, R, P, _ = args[0].shape
     NC, CUP = args[6].shape[1:]
     ops = B * (R * P * (4 * 2 + 8) + NC * CUP * (4 + 8))
-    return bound(nbytes, ops, FP32_OPS_PER_S)
+    return bound(nbytes, ops, ops_per_s)
 
 
 def two_launch_tiers(torch, args):
@@ -419,6 +458,16 @@ def two_launch_tiers(torch, args):
         return q, wait, to_csw, cq, cwait, torch.sum(cserve, dim=1), a
 
     return run
+
+
+def x64_tiers_args(args):
+    """switch_tiers' arguments in the x64 mode's types: float64 queues
+    and accumulators, the arrivals and caps float32 (the reference's x64
+    tick's types)."""
+    args = list(args)
+    args[0], args[6] = args[0].double(), args[6].double()
+    args[12] = {k: v.double() for k, v in args[12].items()}
+    return tuple(args)
 
 
 def check_run(S, res, state):
@@ -516,6 +565,60 @@ def time_switch(torch, dev, card, S, batch, state, launches, tiers_err):
     }
 
 
+def time_switch_f64(torch, dev, card, S, batch, state, launches, tiers_err):
+    """Card time of the float64 switch_tiers a tick at the main grid's
+    shapes (random inputs, and the main-x64 run's final ``state``)
+    beside the float32 kernel on the same inputs (queues and
+    accumulators rounded to float32), its plain version and bound.
+    Returns the kernels-line entry."""
+    from repro_torch.kernels import lcdc_switch, ref
+    args = x64_tiers_args(tiers_inputs(torch, S, batch, 900, 0.05, dev))
+    real = state_tiers_inputs(torch, S, batch, state, dev)
+    out = lcdc_switch.switch_tiers(*args)
+    try:
+        compare_tiers(torch, lcdc_switch.switch_tiers(*real),
+                      ref.switch_tiers_ref(*real), real, ULP64)
+    except AssertionError as e:
+        fail(f"switch_tiers float64 on the main-x64 run's state: {e}")
+    f32 = list(args)
+    f32[0], f32[6] = args[0].float(), args[6].float()
+    f32[12] = {k: v.float() for k, v in args[12].items()}
+    row = turns(torch, {
+        "ms": (lambda: lcdc_switch.switch_tiers(*args), 200),
+        "state_ms": (lambda: lcdc_switch.switch_tiers(*real), 200),
+        "f32_ms": (lambda: lcdc_switch.switch_tiers(*f32), 200),
+        "plain_ms": (lambda: ref.switch_tiers_ref(*args), 20),
+    })
+    row["bound_ms"], row["bound_by"] = tiers_bound(args, out,
+                                                   FP64_OPS_PER_S)
+    B, R, P, _ = args[0].shape
+    NC, CUP = args[6].shape[1:]
+    phase("time", f"switch_tiers float64 B={B} hull (R, P, NC, CUP) = "
+          f"({R}, {P}, {NC}, {CUP}): {row['ms'] * 1e3:.2f} us a tick on "
+          f"random inputs, {row['state_ms'] * 1e3:.2f} us on the main-x64 "
+          f"run's final state; the float32 kernel on the same inputs "
+          f"{row['f32_ms'] * 1e3:.2f} us; plain version "
+          f"{row['plain_ms'] * 1e3:.1f} us; bound "
+          f"{row['bound_ms'] * 1e3:.4f} us ({row['bound_by']}); "
+          f"{launches} launches on the main-x64 path; card {card}")
+    return {
+        "name": "switch_tiers_f64",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/lcdc_switch.cu",
+        "replaces": "src/repro/kernels/lcdc_switch.py:115",
+        "launches": launches,
+        "max_abs_err": tiers_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": None,
+        "state_ms": row["state_ms"],
+        "f32_ms": row["f32_ms"],
+        "shape": {"B": B, "R": R, "P": P, "NC": NC, "CUP": CUP},
+    }
+
+
 # the planned, durable and bucket-fault phases --------------------------
 
 #: the three fabric shapes of benchmarks/bench_multi_site.py:41-48 (the
@@ -528,14 +631,14 @@ MULTI_SITES = {
     "dense_8x16": dict(n_clusters=8, racks_per_cluster=16, csw_per_cluster=2,
                        n_fc=2, csw_ring_links=4, fc_ring_links=8),
 }
-PLAN_TICKS, PLAN_CHUNK = 2000, 800      # a remainder chunk of 400
-DUR_TICKS, DUR_CHUNK = 2000, 500
+PLAN_TICKS, PLAN_CHUNK = 1000, 400      # a remainder chunk of 200
+DUR_TICKS, DUR_CHUNK = 1000, 250
 HOST_FOLD_TOL = 1e-6
 #: tests/test_faults.py's small site and its second bucket's site
 FAULT_SITE = dict(n_clusters=2, racks_per_cluster=8, servers_per_rack=8,
                   csw_per_cluster=2, n_fc=2, csw_ring_links=4,
                   fc_ring_links=8)
-FAULT_TICKS, FAULT_CHUNK = 600, 300
+FAULT_TICKS, FAULT_CHUNK = 300, 150
 
 
 def zero_counts(S, lcdc_switch):
@@ -1171,13 +1274,21 @@ def build_report(libs):
               f"stores / spill loads / static smem bytes): " + "; ".join(
                   f"{short[k]} {r[0]}/{r[1]}/{r[2]}/{r[3]}/{r[4]}"
                   for k, r in rep.items()))
-    framed = {short[k]: r[1] for k, r in reports["lcdc_switch"].items()
-              if r[1]}
+    sw = reports["lcdc_switch"]
+    f64 = {k for k in sw if "<double" in short[k]}
+    framed = {short[k]: r[1] for k, r in sw.items() if r[1] and k not in f64}
     if framed:
-        fail(f"build: lcdc_switch kernels with a stack frame (bytes): "
-             f"{framed}; their rows must live in registers")
-    phase("build", f"lcdc_switch.cu: all {len(reports['lcdc_switch'])} "
-          f"kernels have a stack frame of 0 bytes")
+        fail(f"build: float32 lcdc_switch kernels with a stack frame "
+             f"(bytes): {framed}; their rows must live in registers")
+    if not f64:
+        fail("build: no float64 lcdc_switch kernels in the ptxas report")
+    framed64 = {short[k]: r[1] for k, r in sw.items() if r[1] and k in f64}
+    phase("build", f"lcdc_switch.cu: all {len(sw) - len(f64)} float32 "
+          f"kernels have a stack frame of 0 bytes; the {len(f64)} float64 "
+          f"kernels: " + (f"stack frames (bytes) {framed64}" if framed64
+                          else "all 0 bytes") + "; float64 registers max "
+          f"{max(sw[k][0] for k in f64)}, spills (store/load bytes) max "
+          f"{max(sw[k][2] for k in f64)}/{max(sw[k][3] for k in f64)}")
     ops = WGMMA_OPS + ASYNC_COPY_OPS
     counts = sass_counts(libs["flash_attention"], ops)
     wgmma = {k: c for k, c in counts.items() if "flash_wgmma_kernel" in k}
@@ -1497,6 +1608,73 @@ def _entry(name, source, replaces, launches, max_abs_err, rows, library):
     }
 
 
+def golden_phase(torch, S, dev, name, batch, rows, cfg, x64):
+    """The golden batch on the card in one mode: a run replayed from a
+    CUDA graph, with a checkpoint at every chunk boundary, then its last
+    chunk again with eager ticks, resumed from the graph run's last
+    checkpoint (an eager tick costs ~4 ms in x32 and ~30 ms in x64, so
+    the eager leg runs one chunk, not the whole run). Both end at the
+    golden's full length: each within PARITY_TOL of ``rows``, and the two
+    equal, results and final state, bit for bit."""
+    import tempfile
+    from repro_torch.core import checkpoint as CK
+    from repro_torch.kernels import lcdc_switch
+    keys = [k for k in S.PARITY_KEYS if k in rows[0]]
+    n, chunk = cfg["ticks"], cfg["chunk_ticks"]
+    last = n // chunk - 1          # the last boundary a run snapshots
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        spec = CK.CheckpointSpec(directory=d, every_chunks=1, keep=last,
+                                 tag="golden")
+        for graph in (True, False):
+            mode = "CUDA graph" if graph else "eager"
+            S.CAPTURE_COUNT = 0
+            lcdc_switch.LAUNCHES = lcdc_switch.LAUNCHES_F64 = 0
+            t0 = time.perf_counter()
+            if graph:
+                ticks, what = n, f"{n} ticks"
+                res, state = S.run_sweep(
+                    batch, n, chunk_ticks=chunk, device=dev,
+                    threefry_partitionable=False, graph=True, x64=x64,
+                    checkpoint=spec, return_state=True)
+            else:
+                files = CK.list_checkpoints(d, "golden")
+                if [i for i, _ in files] != list(range(1, last + 1)):
+                    fail(f"{name}: boundary files {[i for i, _ in files]}")
+                ticks = n - last * chunk
+                what = (f"the last {ticks} of {n} ticks, resumed from the "
+                        f"graph run's boundary {last}")
+                res, state = S.resume_sweep(files[-1][1], device=dev,
+                                            graph=False, x64=x64,
+                                            return_state=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = (S.CAPTURE_COUNT, lcdc_switch.LAUNCHES,
+                   lcdc_switch.LAUNCHES_F64)
+            if got != (int(graph), ticks, ticks if x64 else 0):
+                fail(f"{name} ({mode}): captures, switch_tiers launches, "
+                     f"float64 ones {got}")
+            diff, where = S.worst_parity(rows, res, keys)
+            if not diff <= PARITY_TOL:
+                fail(f"{name} ({mode}): parity {diff:.3g} at {where} > "
+                     f"{PARITY_TOL}")
+            out[graph] = res, state
+            phase(name, f"{mode}: {len(batch)} runs, {what} on cuda in "
+                  f"{wall:.1f} s: worst_parity {diff:.3g} ({where}) <= "
+                  f"{PARITY_TOL} over {len(keys)} keys; injected "
+                  f"{res[0]['injected_pkts']:.0f} ({res[0]['label']}); "
+                  f"captures {got[0]}, switch_tiers launches {got[1]} "
+                  f"(float64 {got[2]})")
+    (res_g, st_g), (res_e, st_e) = out[True], out[False]
+    if res_g != res_e or not all(torch.equal(a, b) for a, b in
+                                 S._leaf_pairs(st_g, st_e)):
+        diff, where = S.worst_parity(res_e, res_g)
+        fail(f"{name}: the CUDA-graph run differs from the eager one "
+             f"(worst_parity {diff:.3g} at {where}); they must be equal")
+    phase(name, "the CUDA-graph and eager runs end in equal results and "
+          "equal state, leaf for leaf")
+
+
 def main() -> None:
     try:
         import torch
@@ -1515,6 +1693,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 compares
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = _LAST_LINE[0] = time.perf_counter()
     card = card_line()
     print(card, flush=True)
 
@@ -1544,6 +1723,22 @@ def main() -> None:
         phase("kernel", f"switch_step {name} ({n}, {L}, {K}) serve {rate:g}:"
               f" ints exact, floats max abs {mabs:.3g} max rel {mrel:.3g}"
               f" (tol {FLOAT_RTOL:.3g} rel)")
+    worst_step64 = 0.0
+    for i, (name, n, L, K, rate) in enumerate(cases):
+        args, kw = switch_inputs(torch, n, L, K, dev, seed=150 + i,
+                                 dtype=torch.float64)
+        got = lcdc_switch.switch_step(*args, serve_rate=rate, **kw)
+        want = ref.switch_step_ref(*args, serve_rate=rate, **kw)
+        torch.cuda.synchronize()
+        try:
+            mabs, mrel = compare(torch, got, want, 4 * ULP64)
+        except AssertionError as e:
+            fail(f"switch_step float64 {name} ({n}, {L}, {K}) serve "
+                 f"{rate}: {e}")
+        worst_step64 = max(worst_step64, mrel)
+    phase("kernel", f"switch_step float64, the same {len(cases)} cases: ints "
+          f"exact, floats max rel {worst_step64:.3g} (tol "
+          f"{4 * ULP64:.3g} rel)")
 
     grid = S.sweep_grid()
     padded = S.make_multi_site_batch(
@@ -1573,10 +1768,36 @@ def main() -> None:
               f"{sum_rtol(NC):.3g}, accumulators "
               f"{sum_rtol(2 * R * P * 2 + 2):.3g}; max abs {err:.3g}")
 
+    tiers_err64 = 0.0
+    for i, (label, b, share) in enumerate([
+            ("main grid", grid, 0.0), ("faults striking links", grid, 0.15),
+            ("padded multi-site hull", padded, 0.1)]):
+        args = x64_tiers_args(tiers_inputs(torch, S, b, 750 + i, share, dev))
+        before = lcdc_switch.LAUNCHES_F64
+        got = lcdc_switch.switch_tiers(*args)
+        if lcdc_switch.LAUNCHES_F64 != before + 1:
+            fail(f"switch_tiers float64 {label}: the float64 count did not "
+                 f"move")
+        want = ref.switch_tiers_ref(*args)
+        torch.cuda.synchronize()
+        try:
+            err = compare_tiers(torch, got, want, args, ULP64)
+        except AssertionError as e:
+            fail(f"switch_tiers float64 {label}: {e}")
+        tiers_err64 = max(tiers_err64, err)
+        B, R, P, _ = args[0].shape
+        NC, CUP = args[6].shape[1:]
+        phase("kernel", f"switch_tiers float64 {label}, B={B} on hull (R, "
+              f"P, NC, CUP) = ({R}, {P}, {NC}, {CUP}), {share:.0%} of links "
+              f"faulted: queues and waits within {4 * ULP64:.3g} rel, sums "
+              f"as float32's in float64 ulp; max abs {err:.3g}")
+
     worst = check_attention_kernels(torch, dev)
     phase("kernel", f"every kernel holds its plain version: switch_step "
           f"max rel {worst_step:.3g} (tol {FLOAT_RTOL:.3g}), switch_tiers "
-          f"max abs {tiers_err:.3g}, flash_attention max abs "
+          f"max abs {tiers_err:.3g}, float64 switch_step max rel "
+          f"{worst_step64:.3g}, float64 switch_tiers max abs "
+          f"{tiers_err64:.3g}, flash_attention max abs "
           f"{worst['flash_attention']:.3g}, wkv max abs {worst['wkv']:.3g}")
 
     # 3. golden on the card, the tick from a CUDA graph and eagerly ------
@@ -1596,67 +1817,55 @@ def main() -> None:
     rows = golden["results"]
     if [r["label"] for r in rows] != list(batch.labels):
         fail("golden labels do not match the golden runs")
-    keys = [k for k in S.PARITY_KEYS if k in rows[0]]
-    by_mode = {}
-    for graph in (True, False):
-        mode = "CUDA graph" if graph else "eager"
-        S.CAPTURE_COUNT = 0
-        t0 = time.perf_counter()
-        res = S.run_sweep(batch, cfg["ticks"], chunk_ticks=cfg["chunk_ticks"],
-                          device=dev, threefry_partitionable=False,
-                          graph=graph)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        diff, where = S.worst_parity(rows, res, keys)
-        if not diff <= PARITY_TOL:
-            fail(f"golden ({mode}): parity {diff:.3g} at {where} > "
-                 f"{PARITY_TOL}")
-        if S.CAPTURE_COUNT != int(graph):
-            fail(f"golden ({mode}): {S.CAPTURE_COUNT} graph captures")
-        by_mode[graph] = res
-        phase("golden", f"{mode}: {len(runs)} runs x {cfg['ticks']} ticks on "
-              f"cuda in {wall:.1f} s: worst_parity {diff:.3g} ({where}) <= "
-              f"{PARITY_TOL} over {len(keys)} keys; {S.CAPTURE_COUNT} "
-              f"capture(s)")
-    if by_mode[True] != by_mode[False]:
-        diff, where = S.worst_parity(by_mode[False], by_mode[True])
-        fail(f"golden: the CUDA-graph run differs from the eager run "
-             f"(worst_parity {diff:.3g} at {where}); they must be equal")
-    phase("golden", "the CUDA-graph and eager runs give equal results")
+    golden_phase(torch, S, dev, "golden", batch, rows, cfg, x64=False)
 
-    # 4. the full-size main path: three runs replayed from a CUDA graph,
-    # one eager --------------------------------------------------------
+    # 3b. the golden in the x64 mode, against results_x64 ---------------
+    golden_phase(torch, S, dev, "golden-x64", batch, golden["results_x64"],
+                 cfg, x64=True)
+
+    # 4. the full-size main path: three runs replayed from a CUDA graph;
+    # then the eager leg, cut to MAIN_EAGER_TICKS (an eager tick of the
+    # grid costs 20-26 ms): an eager run and a graph run of that length,
+    # which must be equal --------------------------------------------
     batch = grid
     hull = batch.hull
     rates, main = [], {}
-    for run in range(4):
-        graph = run < 3
+    legs = (3 * [(True, MAIN_TICKS, MAIN_CHUNK)]
+            + [(False, MAIN_EAGER_TICKS, MAIN_EAGER_CHUNK),
+               (True, MAIN_EAGER_TICKS, MAIN_EAGER_CHUNK)])
+    for run, (graph, n, chunk) in enumerate(legs):
         lcdc_switch.LAUNCHES = 0
         S.HOST_TRANSFER_COUNT = 0
         S.CAPTURE_COUNT = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res, state = S.run_sweep(batch, MAIN_TICKS, chunk_ticks=MAIN_CHUNK,
+        res, state = S.run_sweep(batch, n, chunk_ticks=chunk,
                                  return_state=True, device=dev, graph=graph)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = lcdc_switch.LAUNCHES
         counts = (launches, S.CAPTURE_COUNT, S.HOST_TRANSFER_COUNT)
-        if counts != (MAIN_TICKS, int(graph), 1):
+        if counts != (n, int(graph), 1):
             fail(f"main: switch_tiers launches, captures, fold fetches "
-                 f"{counts}; expected ({MAIN_TICKS}, {int(graph)}, 1)")
+                 f"{counts}; expected ({n}, {int(graph)}, 1)")
         check_run(S, res, state)
-        rate = len(batch) * MAIN_TICKS / wall
-        if graph:
+        rate = len(batch) * n / wall
+        if run < 3:
             rates.append(rate)
             main.setdefault("launches", launches)
             main.setdefault("graph", res)
             main.setdefault("state", state)
-        else:
+        elif not graph:
             main["eager"] = rate
-            diff, where = S.worst_parity(main["graph"], res)
+            eager = res, state
+        else:
+            diff, where = S.worst_parity(eager[0], res)
+            if res != eager[0] or not all(torch.equal(a, b) for a, b in
+                                          S._leaf_pairs(state, eager[1])):
+                fail(f"main: the CUDA-graph run of {n} ticks differs from "
+                     f"the eager one (worst_parity {diff:.3g} at {where})")
         phase("main", f"FBSite() {hull.n_servers} servers, {len(batch)} "
-              f"scenarios x {MAIN_TICKS} ticks (chunk {MAIN_CHUNK}) on "
+              f"scenarios x {n} ticks (chunk {chunk}) on "
               f"cuda, {'CUDA graph' if graph else 'eager'}: {wall:.2f} s "
               f"wall, {rate:.1f} scenario-ticks/s; switch_tiers launches "
               f"{launches} (= ticks), captures {S.CAPTURE_COUNT}, fold "
@@ -1666,12 +1875,52 @@ def main() -> None:
     phase("main", f"CUDA graph over 3 runs: {min(rates):.1f}-"
           f"{max(rates):.1f} scenario-ticks/s (mean "
           f"{sum(rates) / 3:.1f}); eager {main['eager']:.1f} (the graph "
-          f"{sum(rates) / 3 / main['eager']:.2f}x that); graph vs eager "
-          f"worst_parity {diff:.3g} ({where}); min LC/DC switch savings "
-          f"{savings:.3f}; card {card}")
+          f"{sum(rates) / 3 / main['eager']:.2f}x that); graph and eager "
+          f"runs of {MAIN_EAGER_TICKS} ticks equal in results and state; "
+          f"min LC/DC switch savings {savings:.3f}; card {card}")
 
     kernels = [time_switch(torch, dev, card, S, batch, main["state"],
                            main["launches"], tiers_err)]
+
+    # 4b. the main grid in the x64 mode: three runs from a CUDA graph ----
+    rates64, main64 = [], {}
+    for run in range(3):
+        lcdc_switch.LAUNCHES = lcdc_switch.LAUNCHES_F64 = 0
+        S.HOST_TRANSFER_COUNT = 0
+        S.CAPTURE_COUNT = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, state = S.run_sweep(batch, MAIN_TICKS, chunk_ticks=MAIN_CHUNK,
+                                 return_state=True, device=dev, x64=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = (lcdc_switch.LAUNCHES_F64, lcdc_switch.LAUNCHES,
+               S.CAPTURE_COUNT, S.HOST_TRANSFER_COUNT)
+        if got != (MAIN_TICKS, MAIN_TICKS, 1, 1):
+            fail(f"main-x64: float64 switch_tiers launches, all launches, "
+                 f"captures, fold fetches {got}; expected ({MAIN_TICKS}, "
+                 f"{MAIN_TICKS}, 1, 1)")
+        if state.rsw_q.dtype != torch.float64:
+            fail(f"main-x64: the state's queues are {state.rsw_q.dtype}")
+        check_run(S, res, state)
+        rates64.append(len(batch) * MAIN_TICKS / wall)
+        main64.setdefault("launches", lcdc_switch.LAUNCHES_F64)
+        main64.setdefault("state", state)
+        phase("main-x64", f"FBSite() {len(batch)} scenarios x {MAIN_TICKS} "
+              f"ticks (chunk {MAIN_CHUNK}) on cuda in x64, CUDA graph: "
+              f"{wall:.2f} s wall, {rates64[-1]:.1f} scenario-ticks/s; "
+              f"float64 switch_tiers launches {lcdc_switch.LAUNCHES_F64} "
+              f"(= ticks), captures {S.CAPTURE_COUNT}, fold fetches "
+              f"{S.HOST_TRANSFER_COUNT}; conservation holds")
+    phase("main-x64", f"x64 over 3 runs: {min(rates64):.1f}-"
+          f"{max(rates64):.1f} scenario-ticks/s (mean "
+          f"{sum(rates64) / 3:.1f}) beside x32 {min(rates):.1f}-"
+          f"{max(rates):.1f} (mean {sum(rates) / 3:.1f}) in this "
+          f"invocation: x64 at {sum(rates64) / sum(rates):.3f}x the x32 "
+          f"rate; card {card}")
+    kernels.append(time_switch_f64(torch, dev, card, S, batch,
+                                   main64["state"], main64["launches"],
+                                   tiers_err64))
 
     # 5-7. the planner's, the durable and the isolating paths ----------
     planned_phase(torch, S, dev, card)
@@ -1684,6 +1933,9 @@ def main() -> None:
 
     # 10. per-launch times of the serving kernels ------------------------
     kernels += time_attention_kernels(torch, dev, card, paths, worst)
+    phase("done", f"every phase passed in {time.perf_counter() - t_start:.0f} s "
+          f"(the build included); seconds by phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

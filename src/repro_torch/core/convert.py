@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import gating
-from repro_torch.core.simulator import Scenario, SimState
+from repro_torch.core.simulator import (ACC_SHAPES, Scenario, SimState,
+                                        _fold_flat)
 
 
 def _tensor(x, device):
@@ -36,7 +37,9 @@ def scenario_from_numpy(scen, device="cpu") -> Scenario:
 def state_from_numpy(state, device="cpu") -> SimState:
     """A batched ``SimState`` (leaves with a leading B axis; the gate
     and fault carries as ``GateState``/``FaultState``-shaped objects,
-    ``acc`` a mapping) -> the port's ``SimState`` on ``device``."""
+    ``acc`` a mapping) -> the port's ``SimState`` on ``device``. Every
+    leaf keeps its type, so a state of the reference's x64 mode (float64
+    queues and accumulators, float32 flow table) stays one."""
     def tier(obj, cls):
         return cls(*(_tensor(getattr(obj, f), device) for f in cls._fields))
 
@@ -48,11 +51,18 @@ def state_from_numpy(state, device="cpu") -> SimState:
         elif f in ("rsw_fault", "csw_fault"):
             leaves[f] = tier(v, gating.FaultState)
         elif f == "acc":
-            leaves[f] = {k: _tensor(a, device).to(torch.float32)
-                         for k, a in v.items()}
+            leaves[f] = {k: _tensor(a, device) for k, a in v.items()}
         else:
             leaves[f] = _tensor(v, device)
     return SimState(**leaves)
+
+
+def fold_from_numpy(fold, device="cpu") -> tuple:
+    """The reference's device fold ``(sum, comp)``, two mappings of
+    accumulator name -> (B, ...) array -> the port's flat (B, N) Kahan
+    pair of the same type (float32, or float64 under x64)."""
+    return tuple(_fold_flat({k: _tensor(part[k], device)
+                             for k in ACC_SHAPES}) for part in fold)
 
 
 def state_to_numpy(state: SimState) -> dict:

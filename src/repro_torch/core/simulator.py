@@ -22,10 +22,13 @@ How the reference's JAX structure maps here:
   two ``switch_step`` calls and their glue in plain PyTorch on the CPU.
 * ``lax.scan`` over ticks becomes a loop. Chunks keep the reference's
   boundaries (``chunk_ticks``); a remainder chunk simply runs fewer
-  ticks, and at every boundary the accumulators fold into a float32
-  Kahan ``(sum, comp)`` pair on the device, exactly as the reference's
-  x32 device fold does (or, with ``fold="host"``, into float64 on the
-  host, one fetch a chunk).
+  ticks, and at every boundary the accumulators fold into a Kahan
+  ``(sum, comp)`` pair on the device, float32 or (``x64=True``)
+  float64, exactly as the reference's device fold does in its mode (or,
+  with ``fold="host"``, into float64 on the host, one fetch a chunk).
+* The reference's process-wide ``JAX_ENABLE_X64`` becomes the ``x64``
+  argument of every entry point: 64-bit draws, float64 state, fold and
+  checkpoints, and the float64 switch kernel on the card.
 * The reference's one compiled program per (hull, batch, chunk) becomes
   one CUDA graph per run on a CUDA device: a single tick of
   ``step_into`` (the step writing its result back into fixed state
@@ -166,15 +169,23 @@ def _delay_hist_add(hist, d, w, *, min_val=C.DELAY_HIST_MIN_US,
     """
     # the 1e-4 nudge keeps exact edge values in their own (half-open)
     # bin under f32 log2 rounding
+    floor = _DELAY_FLOOR64 if d.dtype == torch.float64 else _DELAY_FLOOR
     idx = torch.clamp(
-        torch.floor(torch.log2(torch.fmax(d, _DELAY_FLOOR) / min_val) * bpo
+        torch.floor(torch.log2(torch.fmax(d, floor) / min_val) * bpo
                     + 1e-4), -1, bins - 2).to(torch.int64) + 1
-    return torch.scatter_add(hist, -1, idx, w)
+    if w.dtype == hist.dtype:
+        return torch.scatter_add(hist, -1, idx, w)
+    # x64: float32 weights into a float64 histogram. The reference sums
+    # each bin's weights in float32, then adds the bin sums.
+    bin_sums = torch.zeros(hist.shape, dtype=w.dtype, device=w.device)
+    return hist + torch.scatter_add(bin_sums, -1, idx, w)
 
 
-#: the histogram's floor of a sample, as a CPU scalar tensor (``fmax``
-#: takes a tensor; a 0-d CPU tensor rides into a CUDA kernel as a scalar)
+#: the histogram's floor of a sample, as CPU scalar tensors of the two
+#: sample types (``fmax`` takes a tensor; a 0-d CPU tensor rides into a
+#: CUDA kernel as a scalar)
 _DELAY_FLOOR = torch.tensor(1e-9, dtype=torch.float32)
+_DELAY_FLOOR64 = torch.tensor(1e-9, dtype=torch.float64)
 
 
 def on_frac_bucket(frac_on):
@@ -585,13 +596,25 @@ ACC_SHAPES = {
 }
 
 
-def _zero_acc(B: int, device) -> dict:
-    return {k: torch.zeros((B,) + shp, dtype=torch.float32, device=device)
+def _float_dtype(x64: bool):
+    """The type of the reference's default floats: float32, or float64
+    under x64 (``jnp.zeros(())`` without a dtype)."""
+    return torch.float64 if x64 else torch.float32
+
+
+def _zero_acc(B: int, device, x64: bool = False) -> dict:
+    return {k: torch.zeros((B,) + shp, dtype=_float_dtype(x64),
+                           device=device)
             for k, shp in ACC_SHAPES.items()}
 
 
-def _init_state(hull: FBSite, scen: Scenario, keys) -> SimState:
-    """Initial carry of every scenario; ``keys`` is (B, 2)."""
+def _init_state(hull: FBSite, scen: Scenario, keys,
+                x64: bool = False) -> SimState:
+    """Initial carry of every scenario; ``keys`` is (B, 2). Each leaf
+    has the reference's type in its mode: under x64 the queues,
+    ``node_on`` and every accumulator are float64 (the reference makes
+    them without a dtype), the flow table's ``ft_rem``/``ft_cwnd`` stay
+    float32, and integers and flags keep their types."""
     s = hull
     R, P = s.n_racks, s.csw_per_cluster
     NC, RPC, NF = s.n_csw, s.racks_per_cluster, s.n_fc
@@ -617,7 +640,7 @@ def _init_state(hull: FBSite, scen: Scenario, keys) -> SimState:
         return gating.FaultState(f.timer.reshape(B, n, links),
                                  f.wake.reshape(B, n))
 
-    def zeros(*shape, dtype=torch.float32):
+    def zeros(*shape, dtype=_float_dtype(x64)):
         return torch.zeros((B,) + shape, dtype=dtype, device=dev)
 
     FT = C.FLOW_TABLE_SLOTS
@@ -629,10 +652,10 @@ def _init_state(hull: FBSite, scen: Scenario, keys) -> SimState:
         flow_fast=zeros(R, F_SLOTS, dtype=torch.bool),
         tick=zeros(dtype=torch.int32),
         ft_start=zeros(R, FT, dtype=torch.int32),
-        ft_rem=zeros(R, FT),
+        ft_rem=zeros(R, FT, dtype=torch.float32),
         ft_size=zeros(R, FT, dtype=torch.int32),
         ft_dst=zeros(R, FT, dtype=torch.int32),
-        ft_cwnd=zeros(R, FT),
+        ft_cwnd=zeros(R, FT, dtype=torch.float32),
         rsw_q=zeros(R, P, 2),
         csw_up_q=zeros(NC, s.csw_uplinks),
         csw_down_q=zeros(NC, RPC),
@@ -642,13 +665,15 @@ def _init_state(hull: FBSite, scen: Scenario, keys) -> SimState:
         rsw_fault=fault(R, P),
         csw_fault=fault(NC, s.csw_uplinks),
         node_on=zeros(R),
-        acc=_zero_acc(B, dev),
+        acc=_zero_acc(B, dev, x64),
     )
 
 
 # the reference's compiled code turns a division by a constant into a
-# product with the float32 reciprocal; these are those reciprocals
+# product with the reciprocal in the dividend's type; these are those
+# reciprocals (float32, and float64 for the x64 packet sizes)
 _PER_PKT = float(np.float32(1.0 / 1250.0))          # bytes -> packets
+_PER_PKT64 = 1.0 / 1250.0
 _PER_IDLE = float(np.float32(1.0 / NODE_IDLE_TICKS))
 
 
@@ -658,8 +683,9 @@ def _spawn_flows(scen: Scenario, u, z, rack_valid, burst_on, flow_rem,
 
     ``u`` (B, R, 5+F_SLOTS) and ``z`` (B, R, 2) are the rack's uniform
     and normal draws of this tick (keyed by its LOGICAL id, see
-    ``make_sim_step``). Returns the updated flow state plus this
-    tick's per-flow pace uniforms (B, R, F_SLOTS).
+    ``make_sim_step``), float64 under x64: the float32 knobs meet them
+    in float64 there, as in the reference. Returns the updated flow
+    state plus this tick's per-flow pace uniforms (B, R, F_SLOTS).
     """
     def col(x):
         return x[:, None]
@@ -680,7 +706,8 @@ def _spawn_flows(scen: Scenario, u, z, rack_valid, burst_on, flow_rem,
         pick_mix,
         torch.exp(fma(col(scen.size_s1), z[..., 0], col(scen.size_mu1))),
         torch.exp(fma(col(scen.size_s2), z[..., 1], col(scen.size_mu2))))
-    size_p = torch.clamp(torch.ceil(size_b * _PER_PKT), min=1.0) \
+    per_pkt = _PER_PKT64 if size_b.dtype == torch.float64 else _PER_PKT
+    size_p = torch.clamp(torch.ceil(size_b * per_pkt), min=1.0) \
         .to(torch.int32)
 
     ud = u[..., 4]
@@ -735,12 +762,16 @@ class _DrawPlan:
     six branch keys ``fold_in(k_u, c)``; per-switch keys
     ``fold_in(branch, logical id)``; and fixed-width uniform blocks from
     each. Here each level is ONE hash over every key of that level, so
-    a tick costs four hash calls whatever the site size.
+    a tick costs four hash calls whatever the site size. Under x64
+    (``x64=True``) the uniforms are float64 from 64 random bits each,
+    as ``jax.random.uniform`` draws them there: one hash a value too,
+    both of its output words kept (``prng.counter_words``).
     """
 
     def __init__(self, hull: FBSite, rack_uid, csw_uid,
-                 partitionable: bool = True):
+                 partitionable: bool = True, x64: bool = False):
         self.partitionable = partitionable
+        self.x64 = x64
         R, NC, NCL = hull.n_racks, hull.n_csw, hull.n_clusters
         dev = rack_uid.device
         B = rack_uid.shape[0]
@@ -763,14 +794,16 @@ class _DrawPlan:
         for n, w in blocks:
             key_idx.append(torch.arange(off, off + n, device=dev)
                            .repeat_interleave(w))
-            x1, x2, take2 = prng.counter_words(w, partitionable, dev)
+            x1, x2, take2 = prng.counter_words(w, partitionable, dev,
+                                               64 if x64 else 32)
             if take2 is None:
                 take2 = torch.zeros_like(x1, dtype=torch.bool)
             words.append(torch.stack([x1, x2, take2.long()]).repeat(1, n))
             off += n
         self.key_idx = torch.cat(key_idx)
         x1, x2, take2 = torch.cat(words, dim=1)
-        self.words = (x1, x2, None if partitionable else take2.bool())
+        self.words = (x1, x2, None if partitionable or x64
+                      else take2.bool())
         self.blocks = blocks
 
     def draw(self, key):
@@ -782,7 +815,11 @@ class _DrawPlan:
         base = torch.cat([k_u[:, None], k_z[:, None], br], 1)   # (B, 8, 2)
         l3 = prng.fold_in(base[:, self.l3_base], self.l3_data)
         l4 = torch.cat([l3, base[:, 5:6]], 1)[:, self.key_idx]
-        u = prng.bits_to_unit(prng.hash_counters(l4, *self.words))
+        if self.x64:
+            u = prng.words_to_unit64(
+                *prng.hash_counters64(l4, *self.words[:2]))
+        else:
+            u = prng.bits_to_unit(prng.hash_counters(l4, *self.words))
         parts, off = [], 0
         for n, w in self.blocks:
             parts.append(u[:, off:off + n * w].reshape(B, n, w))
@@ -791,6 +828,17 @@ class _DrawPlan:
         return keys3[:, 0], _Draws(
             u_rack, prng.unit_to_normal(u_z), u_fr, u_fc, u_pl,
             u_pc[:, 0], u_arr, u_size)
+
+
+def _sum_in_order(x, dim: int):
+    """``x`` summed over ``dim`` one term after another in index order,
+    each partial sum rounded in ``x``'s type: the order in which XLA's
+    CPU backend reduces a row, which ``torch.sum`` does not keep."""
+    x = x.movedim(dim, 0)
+    s = x[0]
+    for v in x[1:]:
+        s = s + v
+    return s
 
 
 def _flat(x):
@@ -807,14 +855,19 @@ def _unflat_gate(g, B: int):
 
 
 def make_sim_step(hull: FBSite, scen: Scenario, *,
-                  threefry_partitionable: bool = True):
+                  threefry_partitionable: bool = True, x64: bool = False):
     """One tick for every scenario of ``scen`` (leaves (B,), on the
     device the step runs on) on the static padded ``hull``: returns
     ``step(state) -> state``. Everything derived from the scenarios
     alone (site masks, logical ids, per-row knob columns, the PRNG
     plan) is built here once instead of every tick.
     ``threefry_partitionable`` picks JAX's threefry counter scheme
-    (see core/prng.py)."""
+    (see core/prng.py). ``x64`` steps a state of ``_init_state(...,
+    x64=True)`` the way the reference steps its state under
+    ``JAX_ENABLE_X64=1``: float64 draws, and float64 wherever they or
+    the float64 leaves meet float32 operands (PyTorch promotes a
+    float32 and a float64 tensor with dims as JAX does; no operand
+    here is a 0-d tensor, whose type PyTorch would not promote)."""
     s = hull
     NCL, RPC = s.n_clusters, s.racks_per_cluster
     P = s.csw_per_cluster     # plane axis: RSW uplink c IS cluster-CSW c
@@ -837,7 +890,7 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
     nc_idx = torch.arange(NC, device=dev)
     csw_uid = ((nc_idx // P)[None, :] * scen.cpc[:, None]
                + (nc_idx % P)[None, :]).to(torch.int32)
-    plan = _DrawPlan(hull, rack_uid, csw_uid, threefry_partitionable)
+    plan = _DrawPlan(hull, rack_uid, csw_uid, threefry_partitionable, x64)
     link_idx_p = torch.arange(P, device=dev)
     link_idx_c = torch.arange(CUP, device=dev)
     rsw_link_real = rack_valid[..., None] & (link_idx_p
@@ -881,6 +934,17 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
     cup_i = torch.arange(CUP, device=dev)
     nf_i = torch.arange(NF, device=dev)
     bins4 = torch.arange(4, device=dev)
+    # The flow engine's per-rack emissions are float32 sums of
+    # fractional rates over the FT table slots, and they feed the
+    # queues: a batch with the flow engine on sums them in the
+    # reference's order, one slot after another (FT - 1 more small ops
+    # a tick; the set-up reads the knob once). In another order their
+    # last bits differ, and under heavy faults the queues' watermark
+    # decisions amplify that over a run (ROADMAP Queue 3). The
+    # tick's other float32 sums over racks go to accumulators only; the
+    # reference's compiled code vectorizes those in shape-dependent
+    # orders (tests/test_torch_x64.py says which).
+    ordered = bool(torch.any(scen.flow_mode > 0))
 
     def col(x):
         return x[:, None]
@@ -931,8 +995,8 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
         arrive = (dr.u_arr[..., 0] < col(scen.flow_rate)) & rack_valid \
             & col(flow_on)
         n_new = torch.where(arrive, col(scen.incast), 0)        # (B,R)
-        sizes = workloads.sample_from_tables(dr.u_size, size_tab,
-                                             prob_tab)          # (B,R,W)
+        sizes = workloads.sample_from_tables(      # float32 uniforms,
+            dr.u_size.to(f32), size_tab, prob_tab)  # as the reference's
         fdst = _dest_class(dr.u_arr[..., 1], scen)              # (B,R)
         # admission: match candidate k to the k-th usable free slot;
         # overflow is EVICTION (counted)
@@ -973,10 +1037,11 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
         emit_f = torch.where(ft_live, torch.minimum(ft_rem, ft_cwnd), 0.0)
         ft_rem = ft_rem - emit_f
         done = ft_live & (ft_rem <= 0.0)                        # (B,R,FT)
-        flow_by_dest = torch.stack(
-            [torch.sum(torch.where(ft_dst == d, emit_f, 0.0), dim=2)
-             for d in (0, 1, 2)], dim=2)                        # (B,R,3)
-        by_dest = torch.where(flow_on[:, None, None], flow_by_dest, by_dest)
+        if ordered:
+            per_dest = torch.stack([torch.where(ft_dst == d, emit_f, 0.0)
+                                    for d in (0, 1, 2)], dim=2)  # (B,R,3,FT)
+            by_dest = torch.where(flow_on[:, None, None],
+                                  _sum_in_order(per_dest, 3), by_dest)
         n_holding = torch.where(col(flow_on),
                                 torch.sum(ft_live, dim=2).to(f32),
                                 n_holding)
@@ -1103,8 +1168,14 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
 
         # 8. node-level link gating (OS intercept: zero latency cost)
         need = torch.minimum(n_holding + delivered_r, col(scen.spr))
-        node_on = torch.maximum(need, fma(col(-scen.spr), torch.full_like(
-            state.node_on, _PER_IDLE), state.node_on))
+        if x64:
+            # the decrement is a float32 product, the subtraction float64
+            idle = state.node_on - col(scen.spr) * _PER_IDLE
+        else:
+            idle = fma(col(-scen.spr), torch.full_like(state.node_on,
+                                                       _PER_IDLE),
+                       state.node_on)
+        node_on = torch.maximum(need, idle)
         add("node_on", torch.sum(node_on, dim=1))
 
         # 8.5 in-scan delay sampling: one sample per rack per
@@ -1291,7 +1362,8 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
 
 
 def _fold_flat(acc: dict):
-    """The accumulators as one (B, N) float32 buffer, ACC_SHAPES order."""
+    """The accumulators as one (B, N) buffer of their type (float32, or
+    float64 under x64), ACC_SHAPES order."""
     B = acc["injected"].shape[0]
     return torch.cat([acc[k].reshape(B, -1) for k in ACC_SHAPES], dim=1)
 
@@ -1361,7 +1433,7 @@ class _TickGraph:
         """Advance ``static`` by ``n`` ticks."""
         global CAPTURE_COUNT
         if n > 0 and self.graph is None:
-            lcdc_switch.load_tiers()
+            lcdc_switch.load_tiers(self.static.rsw_q.dtype)
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -1376,7 +1448,8 @@ class _TickGraph:
             n -= 1
         for _ in range(n):
             self.graph.replay()
-        lcdc_switch.LAUNCHES += n * self.launches
+        lcdc_switch.credit_replays(n * self.launches,
+                                   self.static.rsw_q.dtype)
 
 
 class SweepValidationError(RuntimeError):
@@ -1539,7 +1612,9 @@ def _snapshot_sweep(spec: CheckpointSpec, batch: ScenarioBatch,
     ``_stash``): one host transfer (``HOST_TRANSFER_COUNT``, so a
     checkpointed run's count is exactly ``1 + n_checkpoints``), then an
     atomic write in the reference's format, with the port's threefry
-    scheme as one more meta key."""
+    scheme as one more meta key. The arrays keep their types, so an x64
+    run writes float64 leaves and fold buffers and ``fold_dtype:
+    "float64"``, as the reference does under x64."""
     global HOST_TRANSFER_COUNT
     arrays = _fetch_stash(snap)
     HOST_TRANSFER_COUNT += 1
@@ -1553,7 +1628,8 @@ def _snapshot_sweep(spec: CheckpointSpec, batch: ScenarioBatch,
         "fault_knobs": list(FAULT_KNOBS),
         "flow_knobs": list(FLOW_KNOBS),
         "scenario_fields": list(Scenario._fields),
-        "fold_dtype": "float32",
+        "fold_dtype": str(snap.tensors["fold_sum/injected"].dtype)
+        .removeprefix("torch."),
         "n_ticks": int(n_ticks), "chunk_ticks": int(chunk),
         "chunk_index": int(snap.chunk_index), "n_real": len(batch),
         "validate": bool(validate),
@@ -1581,7 +1657,8 @@ class _PendingSweep:
     batch: ScenarioBatch
     n_ticks: int
     state: SimState              # the final carry, on the device
-    fold: tuple | None           # flat (B, N) float32 (sum, comp)
+    fold: tuple | None           # flat (B, N) (sum, comp), float32 or
+    #                              float64 (x64)
     acc64: np.ndarray | None     # host float64 (B, N) (fold="host")
     guard: torch.Tensor | None   # (B,) int32 first failing chunk, or -1
     guard_h: np.ndarray | None   # the guard as the host fold last saw it
@@ -1596,13 +1673,16 @@ class _PendingSweep:
 
 def _prepare_sweep_args(batch: ScenarioBatch, dev: torch.device, *,
                         fold: str = "device", validate: bool = False,
-                        validate_tol: float | None = None):
+                        validate_tol: float | None = None,
+                        x64: bool = False):
     """A fresh run's operands on ``dev``: the scenario leaves, the
-    initial carry, the zeroed Kahan fold buffers (``fold="device"``)
-    and the validate guard and tolerance. Returns ``(scen, state,
-    dev_fold, guard, tol)``."""
+    initial carry, the zeroed Kahan fold buffers (``fold="device"``, of
+    the accumulators' type: float64 under x64) and the validate guard
+    and tolerance (float32 in both modes, as the reference's). Returns
+    ``(scen, state, dev_fold, guard, tol)``."""
     scen = Scenario(*(x.to(dev) for x in batch.scen))
-    state = _init_state(batch.hull, scen, prng.key(batch.seeds, device=dev))
+    state = _init_state(batch.hull, scen,
+                        prng.key(batch.seeds, device=dev, x64=x64), x64)
     dev_fold = None
     if fold == "device":
         fsum = torch.zeros_like(_fold_flat(state.acc))
@@ -1649,7 +1729,7 @@ def _guard_chunk(scen: Scenario, state: SimState, dev_fold, guard, ci: int,
         in_table = torch.sum((state.ft_rem > 0.0) & usable, dim=(1, 2))
         started = tot["flows_started"]
         fresid = started - (tot["flows_completed"] + tot["flows_evicted"]
-                            + in_table.to(torch.float32))
+                            + in_table.to(started.dtype))
         ok = ok & (torch.abs(fresid)
                    <= tol * torch.clamp(started, min=1.0))
     else:
@@ -1657,10 +1737,29 @@ def _guard_chunk(scen: Scenario, state: SimState, dev_fold, guard, ci: int,
     return torch.where((guard < 0) & ~ok, ci, guard)
 
 
+def _guard_column(guard, flat):
+    """The (B,) int32 guard as one more (B, 1) column of ``flat``'s type,
+    so it rides the fold's single host transfer and comes back exactly:
+    a float32 fold carries the guard's bits (a float32 view of the
+    int32 words), a float64 fold its values (float64 holds every int32
+    exactly; a view would need two float32 words a row)."""
+    if flat.dtype == torch.float64:
+        return guard.to(torch.float64)[:, None]
+    return guard.view(torch.float32)[:, None]
+
+
+def _guard_from_column(col: np.ndarray) -> np.ndarray:
+    """``_guard_column``'s host copy back to the int32 guard."""
+    if col.dtype == np.float64:
+        return col.astype(np.int32)
+    return col.copy().view(np.int32)
+
+
 def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
                      dev_fold, guard, tol, *, n_ticks: int, chunk: int,
                      fold: str, validate: bool, graph: bool,
-                     threefry_partitionable: bool, start_chunk: int = 0,
+                     threefry_partitionable: bool, x64: bool = False,
+                     start_chunk: int = 0,
                      checkpoint: CheckpointSpec | None = None,
                      plan_meta: dict | None = None) -> _PendingSweep:
     """THE chunk loop, shared by ``_start_sweep`` (fresh runs, from chunk
@@ -1684,7 +1783,8 @@ def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
     """
     global HOST_TRANSFER_COUNT
     step = make_sim_step(batch.hull, scen,
-                         threefry_partitionable=threefry_partitionable)
+                         threefry_partitionable=threefry_partitionable,
+                         x64=x64)
     ticks = _TickGraph(step, state) if graph else None
     acc64 = guard_h = None
     done = start_chunk * chunk
@@ -1712,10 +1812,10 @@ def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
                 guard = _guard_chunk(scen, state, dev_fold, guard, ci, tol)
             if fold == "host":
                 # one fetch of this chunk's accumulators (the guard as an
-                # extra float32 column, bit for bit), folded in float64
+                # extra column, see _guard_column), folded in float64
                 if guard is not None:
-                    flat = torch.cat(
-                        [flat, guard.view(torch.float32)[:, None]], dim=1)
+                    flat = torch.cat([flat, _guard_column(guard, flat)],
+                                     dim=1)
                 host = flat.cpu().numpy()
                 HOST_TRANSFER_COUNT += 1
                 N = host.shape[1] - (guard is not None)
@@ -1723,7 +1823,7 @@ def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
                     acc64 = np.zeros((host.shape[0], N), np.float64)
                 acc64 += host[:, :N].astype(np.float64)
                 if guard is not None:
-                    guard_h = host[:, N].copy().view(np.int32)
+                    guard_h = _guard_from_column(host[:, N])
             torch._foreach_zero_(list(state.acc.values()))
             ci += 1
             done += n
@@ -1752,7 +1852,7 @@ def _start_sweep(batch: ScenarioBatch, n_ticks: int, *,
                  validate: bool = False, validate_tol: float | None = None,
                  checkpoint: CheckpointSpec | None = None,
                  plan_meta: dict | None = None, device=None,
-                 threefry_partitionable: bool = True,
+                 threefry_partitionable: bool = True, x64: bool = False,
                  graph=None) -> _PendingSweep:
     """Queue a sweep's chunks without fetching results.
 
@@ -1777,19 +1877,20 @@ def _start_sweep(batch: ScenarioBatch, n_ticks: int, *,
     dev = resolve_device(device)
     use_graph = _use_graph(graph, dev)
     scen, state, dev_fold, guard, tol = _prepare_sweep_args(
-        batch, dev, fold=fold, validate=validate, validate_tol=validate_tol)
+        batch, dev, fold=fold, validate=validate, validate_tol=validate_tol,
+        x64=x64)
     return _dispatch_chunks(
         batch, scen, state, dev_fold, guard, tol, n_ticks=n_ticks,
         chunk=max(1, min(chunk_ticks, n_ticks)), fold=fold,
         validate=validate, graph=use_graph,
-        threefry_partitionable=threefry_partitionable,
+        threefry_partitionable=threefry_partitionable, x64=x64,
         checkpoint=checkpoint, plan_meta=plan_meta)
 
 
 def _finish_sweep(p: _PendingSweep, return_state: bool = False):
     """Fetch a queued sweep's fold buffer (the run's single host transfer
-    on the device fold: the sum, the compensation and the guard, as a
-    float32 column viewed bit for bit, in one copy) and finalize
+    on the device fold: the sum, the compensation and the guard as one
+    more column, ``_guard_column``, in one copy) and finalize
     per-scenario metrics. A ``validate=True`` sweep whose guards tripped
     raises ``SweepValidationError`` here."""
     global HOST_TRANSFER_COUNT
@@ -1798,14 +1899,14 @@ def _finish_sweep(p: _PendingSweep, return_state: bool = False):
         fsum, fcomp = p.fold
         parts = [fsum, fcomp]
         if p.guard is not None:
-            parts.append(p.guard.view(torch.float32)[:, None])
+            parts.append(_guard_column(p.guard, fsum))
         host = torch.cat(parts, dim=1).cpu().numpy()
         HOST_TRANSFER_COUNT += 1
         N = fsum.shape[1]
         acc64 = host[:, :N].astype(np.float64) \
             - host[:, N:2 * N].astype(np.float64)
         if p.guard is not None:
-            guard_h = host[:, 2 * N].copy().view(np.int32)
+            guard_h = _guard_from_column(host[:, 2 * N])
     else:
         acc64 = p.acc64
     p.release()                    # the fetch waited for every replay
@@ -1834,7 +1935,7 @@ def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
               validate_tol: float | None = None,
               checkpoint: CheckpointSpec | None = None,
               device=None, threefry_partitionable: bool = True,
-              graph=None):
+              graph=None, x64: bool = False):
     """Run every scenario of ``batch`` for n_ticks us; returns one
     metrics dict per scenario (the reference's schema, with the
     scenario ``label``). With ``return_state=True`` also returns the
@@ -1842,8 +1943,9 @@ def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
 
     Ticks run in chunks of ``chunk_ticks`` (the last one may be
     shorter). ``fold="device"`` (default) folds the accumulators at
-    every chunk boundary into a float32 Kahan ``(sum, comp)`` buffer on
-    the device, exactly as the reference's x32 device fold does, and
+    every chunk boundary into a Kahan ``(sum, comp)`` buffer on the
+    device (float32, float64 with ``x64``), as the reference's device
+    fold does, and
     makes ONE host transfer of results, the final fetch of that buffer
     (``HOST_TRANSFER_COUNT``). ``fold="host"`` fetches each chunk's
     accumulators and folds them in float64 on the host (one transfer a
@@ -1878,19 +1980,30 @@ def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
     later tick (one capture per run, ``CAPTURE_COUNT``); False runs
     every tick eagerly, op by op, as the CPU does (for comparisons).
     Both give the same results.
+
+    ``x64=True`` runs the sweep as the reference runs it under
+    ``JAX_ENABLE_X64=1`` (the default, False, is the reference's default
+    mode): seeds are int64 (``prng.key``), every uniform and normal is
+    float64 from 64 random bits, the queues, ``node_on`` and the
+    accumulators are float64 (the flow table's float32 leaves stay
+    float32), the device fold is a float64 Kahan pair, checkpoints are
+    float64 files, and on the card the tick launches the float64
+    ``switch_tiers`` kernel. It draws other numbers than the x32 mode,
+    not just wider ones.
     """
     return _finish_sweep(
         _start_sweep(batch, n_ticks, chunk_ticks=chunk_ticks, fold=fold,
                      validate=validate, validate_tol=validate_tol,
                      checkpoint=checkpoint, device=device,
                      threefry_partitionable=threefry_partitionable,
-                     graph=graph),
+                     x64=x64, graph=graph),
         return_state=return_state)
 
 
 def resume_sweep(path, *, return_state: bool = False,
                  checkpoint: CheckpointSpec | None = None, device=None,
-                 threefry_partitionable: bool | None = None, graph=None):
+                 threefry_partitionable: bool | None = None, graph=None,
+                 x64: bool = False):
     """Restart an interrupted sweep from a checkpoint file (written by
     this engine or by the reference) and run it to completion,
     bit-identically to the uninterrupted run of this engine.
@@ -1903,15 +2016,17 @@ def resume_sweep(path, *, return_state: bool = False,
     ``CAPTURE_COUNT``). The draws use the threefry scheme the file
     records (a file without the key, as the reference writes it, means
     the partitionable scheme of the reference's jax); passing
-    ``threefry_partitionable`` that disagrees with it is rejected.
+    ``threefry_partitionable`` that disagrees with it is rejected. The
+    x64 mode is the caller's, as the reference's process-wide mode is:
+    ``x64`` must match the mode the file was written in.
 
     Raises :class:`CheckpointError` (reason naming the first mismatch:
     "format"/"checksum"/"ckpt_schema" from the file layer, "sim_schema",
-    "fingerprint", "scenario_fields", "x64_mode" (a float64 fold: the
-    port folds in float32), "threefry_scheme", "state_schema" from the
-    engine checks) rather than resuming from a checkpoint this engine
-    cannot reproduce. Pass ``checkpoint`` to KEEP checkpointing the
-    resumed run at the same absolute chunk cadence.
+    "fingerprint", "scenario_fields", "x64_mode" (the file's fold dtype
+    is not this call's: float64 iff ``x64``), "threefry_scheme",
+    "state_schema" from the engine checks) rather than resuming from a
+    checkpoint this engine cannot reproduce. Pass ``checkpoint`` to KEEP
+    checkpointing the resumed run at the same absolute chunk cadence.
     """
     meta, arrays = _ckpt.read_checkpoint(path)
 
@@ -1932,11 +2047,12 @@ def resume_sweep(path, *, return_state: bool = False,
         reject("scenario_fields",
                f"scenario leaves {meta.get('scenario_fields')!r} != "
                f"this engine's {list(Scenario._fields)!r}")
-    if meta.get("fold_dtype") != "float32":
+    fold_dtype = "float64" if x64 else "float32"
+    if meta.get("fold_dtype") != fold_dtype:
         reject("x64_mode",
                f"written with fold dtype {meta.get('fold_dtype')!r} "
                f"(JAX_ENABLE_X64={meta.get('fold_dtype') == 'float64'}),"
-               f" this engine folds in 'float32'")
+               f" this call folds in {fold_dtype!r} (x64={x64})")
     recorded = bool(meta.get("threefry_partitionable", True))
     if threefry_partitionable is not None \
             and bool(threefry_partitionable) != recorded:
@@ -1960,7 +2076,7 @@ def resume_sweep(path, *, return_state: bool = False,
         seeds=tuple(int(s) for s in meta["seeds"]))
     validate = bool(meta["validate"])
     scen, tmpl, dev_fold, guard, _ = _prepare_sweep_args(
-        batch, dev, validate=validate)
+        batch, dev, validate=validate, x64=x64)
 
     # place every saved leaf into the initial carry's structure: any
     # drift in the carry inventory (a missing, re-shaped or re-typed
@@ -1990,7 +2106,7 @@ def resume_sweep(path, *, return_state: bool = False,
                 reject("state_schema",
                        f"fold buffer {name!r} is {arrays[name].shape}")
             parts[k] = torch.as_tensor(
-                arrays[name].astype(np.float32)).to(dev)
+                arrays[name].astype(fold_dtype)).to(dev)
         folded.append(_fold_flat(parts))
     dev_fold = tuple(folded)
     tol = None
@@ -2004,7 +2120,7 @@ def resume_sweep(path, *, return_state: bool = False,
         batch, scen, state, dev_fold, guard, tol,
         n_ticks=int(meta["n_ticks"]), chunk=int(meta["chunk_ticks"]),
         fold="device", validate=validate, graph=_use_graph(graph, dev),
-        threefry_partitionable=recorded,
+        threefry_partitionable=recorded, x64=x64,
         start_chunk=int(meta["chunk_index"]), checkpoint=checkpoint,
         plan_meta=meta.get("plan"))
     return _finish_sweep(pend, return_state=return_state)
@@ -2019,7 +2135,7 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
                       retry: BucketRetryPolicy | None = None,
                       checkpoint: CheckpointSpec | None = None,
                       device=None, threefry_partitionable: bool = True,
-                      graph=None):
+                      graph=None, x64: bool = False):
     """Run a heterogeneous-site sweep through the hull-bucketing planner
     (core/planner.py): the (SimParams, seed) pairs are partitioned into
     <= ``max_compiles`` hull buckets by estimated padded cost, each
@@ -2069,6 +2185,9 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
     a freshly written chunk-0 snapshot of its initial carry when it
     never reached a boundary (None only if even that write failed), so
     ``resume_sweep`` can finish it later.
+
+    ``x64`` (see ``run_sweep``) holds for every bucket, its retries and
+    its salvage checkpoints.
     """
     # local import, as the reference's: only the execution path needs
     # the planner
@@ -2084,7 +2203,8 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
     order = plan.dispatch_order if pipeline \
         else tuple(range(len(plan.buckets)))
     policy = retry if retry is not None else BucketRetryPolicy()
-    engine = dict(device=dev, threefry_partitionable=threefry_partitionable)
+    engine = dict(device=dev, threefry_partitionable=threefry_partitionable,
+                  x64=x64)
     pending: dict[int, _PendingSweep] = {}
     fetched: dict[int, list] = {}
     errors: dict[int, dict] = {}
@@ -2129,7 +2249,8 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
         try:
             batch = bucket_batch(k)
             _, state, dev_fold, guard, tol = _prepare_sweep_args(
-                batch, dev, validate=validate, validate_tol=validate_tol)
+                batch, dev, validate=validate, validate_tol=validate_tol,
+                x64=x64)
             return str(_snapshot_sweep(
                 spec_k, batch, _stash(0, state, dev_fold, guard),
                 n_ticks=n_ticks, chunk=max(1, min(chunk_ticks, n_ticks)),
@@ -2239,23 +2360,25 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
 
 def run_sim(params: SimParams, n_ticks: int, seed: int = 0, *,
             device=None, threefry_partitionable: bool = True,
-            graph=None) -> dict:
+            graph=None, x64: bool = False) -> dict:
     """Run ONE scenario for n_ticks us; returns its aggregate metrics.
 
     The reference's single-scenario path (one scan, no fold): here a
     batch of one run in ONE chunk of ``n_ticks``, whose Kahan fold of a
-    single chunk is the accumulators themselves, exactly."""
+    single chunk is the accumulators themselves, exactly. ``x64`` as in
+    ``run_sweep``."""
     return run_sweep(make_batch([(params, seed)]), n_ticks,
                      chunk_ticks=n_ticks, device=device,
                      threefry_partitionable=threefry_partitionable,
-                     graph=graph)[0]
+                     graph=graph, x64=x64)[0]
 
 
 def compare_traces(n_ticks: int = 200_000, seed: int = 0, traces=None, *,
                    device=None, threefry_partitionable: bool = True,
-                   graph=None) -> dict:
+                   graph=None, x64: bool = False) -> dict:
     """LC/DC vs always-on across every modeled trace (Figs 8-10), as a
-    single batched sweep (2 x |traces| scenarios)."""
+    single batched sweep (2 x |traces| scenarios); ``x64`` as in
+    ``run_sweep``."""
     names = list(traces or TRAFFIC_SPECS)
     runs = []
     for name in names:
@@ -2264,7 +2387,7 @@ def compare_traces(n_ticks: int = 200_000, seed: int = 0, traces=None, *,
         runs.append((SimParams(spec=spec, gating_enabled=False), seed))
     res = run_sweep(make_batch(runs), n_ticks, device=device,
                     threefry_partitionable=threefry_partitionable,
-                    graph=graph)
+                    graph=graph, x64=x64)
     out = {}
     for i, name in enumerate(names):
         lc, base = res[2 * i], res[2 * i + 1]

@@ -14,12 +14,15 @@ from that.
   block per scenario: the contract of ``ref.switch_tiers_ref``, which is
   what ``core/simulator.py``'s tick runs.
 
-Each checks what its kernel accepts (CUDA tensors of the right type and
-shape), allocates the outputs with ``torch.empty`` and launches on the
-current CUDA stream. ``LAUNCHES`` counts launches on the card; a launch
-recorded into a CUDA graph being captured counts in ``CAPTURED``
-instead, and the graph's owner adds its launches to ``LAUNCHES`` each
-time it replays the graph.
+Each runs in float32, or in float64 when its queues are float64 (the
+sweep's x64 mode; the source's ``_f64`` entries), and checks what its
+kernel accepts (CUDA tensors of the right type and shape), allocates the
+outputs with ``torch.empty`` and launches on the current CUDA stream.
+``LAUNCHES`` counts launches on the card; a launch recorded into a CUDA
+graph being captured counts in ``CAPTURED`` instead, and the graph's
+owner adds its launches to ``LAUNCHES`` each time it replays the graph
+(``credit_replays``). ``LAUNCHES_F64`` counts the float64 launches
+among them.
 """
 from __future__ import annotations
 
@@ -31,13 +34,18 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_LINKS = 16
-#: shared memory a switch_tiers block may take (the H100's 227 KB of
-#: opt-in shared memory, less the kernel's static reduction buffer)
+#: shared memory a float32 switch_tiers block may take (the H100's 227
+#: KB of opt-in shared memory, less the kernel's static reduction
+#: buffer of 8 warps x 10 partial sums)
 TIERS_SMEM_LIMIT = 232_448 - 320
+#: the same for the float64 kernel (its reduction buffer is twice as big)
+TIERS_SMEM_LIMIT_F64 = 232_448 - 640
 
 #: number of kernel launches on the card (incremented only where a
 #: kernel is launched, or where a graph holding launches is replayed)
 LAUNCHES = 0
+#: the float64 kernels' share of LAUNCHES (the sweep's x64 mode)
+LAUNCHES_F64 = 0
 #: number of launches recorded into CUDA graphs during capture
 CAPTURED = 0
 
@@ -51,11 +59,28 @@ TIER_ACC = ("drops", "rsw_backlog", "rsw_served", "rsw_occ_m1",
             "rsw_occ_m2", "csw_up_backlog", "csw_up_served", "csw_occ_m1",
             "csw_occ_m2")
 
-_STEP_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_float] \
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
-_TIERS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] \
-    + [ctypes.c_void_p] * 7 + [ctypes.c_float] * 2 + [ctypes.c_int] * 5 \
-    + [ctypes.c_void_p] * 8
+#: per float type: (symbol suffix, the ctypes type of its scalars)
+_FLOAT_TYPES = {torch.float32: ("", ctypes.c_float),
+                torch.float64: ("_f64", ctypes.c_double)}
+
+
+def _step_argtypes(c_float):
+    return [ctypes.c_void_p] * 8 + [c_float] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 9
+
+
+def _tiers_argtypes(c_float):
+    return [ctypes.c_void_p] * 6 + [ctypes.c_int] \
+        + [ctypes.c_void_p] * 7 + [c_float] * 2 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p] * 8
+
+
+def _float_type(kernel, t):
+    """The kernel's float type, from its queues: float32 or float64."""
+    if t.dtype not in _FLOAT_TYPES:
+        raise TypeError(f"{kernel}: queues must be float32 or float64, "
+                        f"got {t.dtype}")
+    return t.dtype
 
 
 class Tiers(NamedTuple):
@@ -70,12 +95,22 @@ class Tiers(NamedTuple):
     acc: dict               # TIER_ACC -> (B,) accumulator + tier sum
 
 
-def _count():
-    global LAUNCHES, CAPTURED
+def _count(dtype):
+    global LAUNCHES, LAUNCHES_F64, CAPTURED
     if torch.cuda.is_current_stream_capturing():
         CAPTURED += 1
     else:
         LAUNCHES += 1
+        LAUNCHES_F64 += dtype == torch.float64
+
+
+def credit_replays(launches: int, dtype) -> None:
+    """Count ``launches`` launches of a replayed CUDA graph whose kernels
+    run in ``dtype``."""
+    global LAUNCHES, LAUNCHES_F64
+    LAUNCHES += launches
+    if dtype == torch.float64:
+        LAUNCHES_F64 += launches
 
 
 def _check(name, t, dtype, shape, device, kernel="switch_step"):
@@ -105,8 +140,10 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
     """One switch tick on the card; same contract as
     ``ref.switch_step_ref``: returns (new_queues, served, hi_trig,
     lo_trig, dropped, enq_wait, occ_m1, occ_m2). The per-switch
-    ``cap``/``hi``/``lo`` become per-row columns and a (S,) ``valid``
-    mask is broadcast to the kernel's per-link (S, L) operand."""
+    ``cap``/``hi``/``lo`` become per-row float32 columns and a (S,)
+    ``valid`` mask is broadcast to the kernel's per-link (S, L) operand.
+    float64 queues take the float64 kernel, with float64 arrivals (the
+    CSW tier's under x64)."""
     _require_cuda("switch_step", queues)
     squeeze = queues.dim() == 2
     if squeeze:
@@ -122,9 +159,10 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
     if K not in (1, 2):
         raise ValueError(f"switch_step: the kernel takes K in {{1, 2}} "
                          f"components, got K={K}")
-    _check("queues", queues, torch.float32, (S, L, K), dev)
+    ft = _float_type("switch_step", queues)
+    _check("queues", queues, ft, (S, L, K), dev)
     _check("stage", stage, torch.int32, (S,), dev)
-    _check("arrivals", arrivals, torch.float32, (S, K), dev)
+    _check("arrivals", arrivals, ft, (S, K), dev)
     if draining is None:
         draining = torch.zeros((S,), dtype=torch.bool, device=dev)
     _check("draining", draining, torch.bool, (S,), dev)
@@ -140,9 +178,11 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
     served = torch.empty_like(queues)
     hi_t = torch.empty((S,), dtype=torch.int32, device=dev)
     lo_t = torch.empty((S,), dtype=torch.int32, device=dev)
-    drop, wait, m1, m2 = (torch.empty((S,), dtype=torch.float32,
-                                      device=dev) for _ in range(4))
-    fn = _build.function("lcdc_switch", "lcdc_switch_step", _STEP_ARGTYPES)
+    drop, wait, m1, m2 = (torch.empty((S,), dtype=ft, device=dev)
+                          for _ in range(4))
+    suffix, c_float = _FLOAT_TYPES[ft]
+    fn = _build.function("lcdc_switch", "lcdc_switch_step" + suffix,
+                         _step_argtypes(c_float))
     _build.launch("lcdc_switch", fn, dev, queues.data_ptr(),
                   stage.data_ptr(), arrivals.data_ptr(), draining.data_ptr(),
                   valid.data_ptr(), cap_c.data_ptr(), hi_c.data_ptr(),
@@ -150,17 +190,19 @@ def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
                   q_out.data_ptr(), served.data_ptr(), hi_t.data_ptr(),
                   lo_t.data_ptr(), drop.data_ptr(), wait.data_ptr(),
                   m1.data_ptr(), m2.data_ptr())
-    _count()
+    _count(ft)
     if squeeze:
         q_out, served = q_out[..., 0], served[..., 0]
     return q_out, served, hi_t, lo_t, drop, wait, m1, m2
 
 
-def load_tiers():
-    """The C entry of ``switch_tiers``, built and loaded (call it before
-    capturing a CUDA graph that launches the kernel)."""
-    return _build.function("lcdc_switch", "lcdc_switch_tiers",
-                           _TIERS_ARGTYPES)
+def load_tiers(dtype=torch.float32):
+    """The C entry of ``switch_tiers`` for queues of ``dtype``, built and
+    loaded (call it before capturing a CUDA graph that launches the
+    kernel)."""
+    suffix, c_float = _FLOAT_TYPES[dtype]
+    return _build.function("lcdc_switch", "lcdc_switch_tiers" + suffix,
+                           _tiers_argtypes(c_float))
 
 
 def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
@@ -169,7 +211,12 @@ def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
     """Both switch tiers of one simulator tick on the card, one launch;
     same contract as ``ref.switch_tiers_ref``. ``rsw_arrivals`` (B, R, 2)
     may be a strided view (the tick passes ``by_dest[..., 1:]``) whose
-    components are adjacent; every other tensor is contiguous."""
+    components are adjacent; every other tensor is contiguous.
+
+    The queues' type picks the kernel: float32, or float64 (the sweep's
+    x64 mode), where the queues, the accumulators and every output are
+    float64 and ``rsw_arrivals`` and ``cap`` stay float32, the types the
+    reference's x64 tick hands its datapath."""
     k = "switch_tiers"
     _require_cuda(k, rsw_q)
     if rsw_q.dim() != 4 or rsw_q.shape[-1] != 2 or csw_q.dim() != 3:
@@ -185,18 +232,22 @@ def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
         raise ValueError(f"{k}: {NC} CSWs of {P} planes and {R} racks do "
                          f"not form whole clusters")
     NCL = NC // P
-    smem = 4 * (R * P * 2 + NC * CUP + NC)
-    if smem > TIERS_SMEM_LIMIT:
+    ft = _float_type(k, rsw_q)
+    item = rsw_q.element_size()
+    smem = item * (R * P * 2 + NC * CUP + NC)
+    limit = TIERS_SMEM_LIMIT_F64 if ft == torch.float64 \
+        else TIERS_SMEM_LIMIT
+    if smem > limit:
         raise ValueError(f"{k}: a hull of {R} racks x {P} planes needs "
-                         f"{smem} bytes of shared memory a block, more "
-                         f"than the {TIERS_SMEM_LIMIT} an H100 block has")
+                         f"{smem} bytes of shared memory a block in "
+                         f"{ft}, more than the {limit} an H100 block has")
     dev = rsw_q.device
-    _check("rsw_q", rsw_q, torch.float32, (B, R, P, 2), dev, k)
+    _check("rsw_q", rsw_q, ft, (B, R, P, 2), dev, k)
     _check("rsw_stage", rsw_stage, torch.int32, (B, R), dev, k)
     _check("rsw_draining", rsw_draining, torch.bool, (B, R), dev, k)
     _check("rsw_timer", rsw_timer, torch.int32, (B, R, P), dev, k)
     _check("rack_valid", rack_valid, torch.bool, (B, R), dev, k)
-    _check("csw_q", csw_q, torch.float32, (B, NC, CUP), dev, k)
+    _check("csw_q", csw_q, ft, (B, NC, CUP), dev, k)
     _check("csw_stage", csw_stage, torch.int32, (B, NC), dev, k)
     _check("csw_draining", csw_draining, torch.bool, (B, NC), dev, k)
     _check("csw_timer", csw_timer, torch.int32, (B, NC, CUP), dev, k)
@@ -211,22 +262,22 @@ def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
                          f"evenly spaced rows")
     acc_in = [acc[n] for n in TIER_ACC]
     for n, t in zip(TIER_ACC, acc_in):
-        _check(f"acc[{n!r}]", t, torch.float32, (B,), dev, k)
+        _check(f"acc[{n!r}]", t, ft, (B,), dev, k)
 
     out = Tiers(
         rsw_q=torch.empty_like(rsw_q),
-        rsw_wait=torch.empty((B, R), dtype=torch.float32, device=dev),
-        to_csw=torch.empty((B, NCL, P, 2), dtype=torch.float32, device=dev),
+        rsw_wait=torch.empty((B, R), dtype=ft, device=dev),
+        to_csw=torch.empty((B, NCL, P, 2), dtype=ft, device=dev),
         csw_q=torch.empty_like(csw_q),
-        csw_wait=torch.empty((B, NC), dtype=torch.float32, device=dev),
-        fc_in=torch.empty((B, CUP), dtype=torch.float32, device=dev),
+        csw_wait=torch.empty((B, NC), dtype=ft, device=dev),
+        fc_in=torch.empty((B, CUP), dtype=ft, device=dev),
         acc={n: torch.empty_like(t) for n, t in zip(TIER_ACC, acc_in)})
     ptrs_in = (ctypes.c_void_p * len(TIER_ACC))(
         *(t.data_ptr() for t in acc_in))
     ptrs_out = (ctypes.c_void_p * len(TIER_ACC))(
         *(out.acc[n].data_ptr() for n in TIER_ACC))
     _build.launch(
-        "lcdc_switch", load_tiers(), dev, rsw_q.data_ptr(),
+        "lcdc_switch", load_tiers(ft), dev, rsw_q.data_ptr(),
         rsw_stage.data_ptr(), rsw_draining.data_ptr(), rsw_timer.data_ptr(),
         rack_valid.data_ptr(), a.data_ptr(), a.stride(1), csw_q.data_ptr(),
         csw_stage.data_ptr(), csw_draining.data_ptr(), csw_timer.data_ptr(),
@@ -234,5 +285,5 @@ def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
         CSW_SERVE_RATE, B, NCL, R // NCL, P, CUP, out.rsw_q.data_ptr(),
         out.rsw_wait.data_ptr(), out.to_csw.data_ptr(), out.csw_q.data_ptr(),
         out.csw_wait.data_ptr(), out.fc_in.data_ptr(), ptrs_out)
-    _count()
+    _count(ft)
     return out

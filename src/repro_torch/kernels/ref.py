@@ -50,14 +50,87 @@ def attention_naive(q, k, v, *, causal=True, swa_window=0):
 
 
 def fma(a, b, c):
-    """float32 ``a * b + c`` rounded once, as a fused multiply-add.
+    """``a * b + c`` rounded once, as a fused multiply-add, in the
+    promoted float type of the three tensors.
 
     The reference runs compiled (XLA contracts a product feeding an add
-    into one FMA), so wherever its float32 state is updated as
-    ``c + a * b`` this is the operation to match. The float32 product is
-    exact in float64; the sum rounds there and then to float32.
+    into one FMA), so wherever its state is updated as ``c + a * b``
+    this is the operation to match. In float32 the product is exact in
+    float64; the sum rounds there and then to float32. In float64 it is
+    ``fma64``.
     """
+    dt = torch.promote_types(torch.promote_types(a.dtype, b.dtype), c.dtype)
+    if dt == torch.float64:
+        return fma64(a.double(), b.double(), c.double())
     return (a.double() * b.double() + c.double()).float()
+
+
+# Veltkamp's splitter for binary64: 2**27 + 1
+_SPLIT = 134217729.0
+
+
+def _two_sum(a, b):
+    """(s, t) with s = fl(a + b) and a + b = s + t exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def veltkamp_split(a):
+    """Veltkamp's split: (hi, lo) with a = hi + lo exactly, each with at
+    most 26 significant bits."""
+    t = _SPLIT * a
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def _two_prod(a, b, b_split=None):
+    """(p, e) with p = fl(a * b) and a * b = p + e exactly (Dekker), for
+    |a|, |b| < 2**995 and a product whose error term does not underflow
+    (|a * b| >= 2**-969, or a * b = 0). ``b_split`` is
+    ``veltkamp_split(b)``, when the caller reuses one ``b``."""
+    p = a * b
+    ah, al = veltkamp_split(a)
+    bh, bl = veltkamp_split(b) if b_split is None else b_split
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _add_odd(a, b):
+    """a + b rounded to odd: of the two floats around an inexact sum,
+    the one whose last mantissa bit is 1 (an exact sum stays as it is)."""
+    s, err = _two_sum(a, b)
+    keep = (err == 0) | ((s.view(torch.int64) & 1) == 1)
+    return torch.where(keep, s, torch.nextafter(s, err * float("inf")))
+
+
+def fma64_finite(a, b, c, b_split=None):
+    """``fma64`` for operands whose products and sums stay finite, where
+    the sign of an exact zero result does not matter (a Horner step with
+    nonzero coefficients): the same rounding with fewer operations.
+    ``b_split`` as in ``_two_prod``."""
+    p, e = _two_prod(a, b, b_split)
+    th, tl = _two_sum(c, p)
+    return th + _add_odd(tl, e)
+
+
+def fma64(a, b, c):
+    """float64 ``a * b + c`` rounded once (round to nearest, ties to
+    even), from error-free transformations: PyTorch has no fused
+    multiply-add, and float64 has no wider type to round through.
+
+    Boldo and Melquiond's emulation (IEEE Trans. Computers 57(4), 2008):
+    the exact product p + e (Dekker's two-product over Veltkamp's split),
+    the exact sum c + p = th + tl (Knuth's two-sum), then
+    ``th + RO(tl + e)`` with the inner sum rounded to odd, which makes
+    the one outer rounding the correct one. Exact for finite inputs with
+    |a|, |b|, |c| < 2**995 whose product is 0 or at least 2**-969 in
+    magnitude (its error term must not underflow); results may be
+    subnormal. Zeros, infinities and NaN take IEEE's ``a * b + c``,
+    which is exact there. Runs the same on every device.
+    """
+    p = a * b
+    special = (p == 0) | ~torch.isfinite(p) | ~torch.isfinite(c)
+    return torch.where(special, p + c, fma64_finite(a, b, c))
 
 
 def switch_step_ref(queues, stage, arrivals, draining=None, *,
@@ -65,8 +138,8 @@ def switch_step_ref(queues, stage, arrivals, draining=None, *,
                     serve_rate=1.0):
     """One switch tick for a tier of S switches with L output ports.
 
-    queues:   (S, L, K) float32 per-port backlogs split into K traffic
-              components, or (S, L) for the K=1 shorthand.
+    queues:   (S, L, K) float32 or float64 per-port backlogs split into
+              K traffic components, or (S, L) for the K=1 shorthand.
     stage:    (S,) int32 active-stage counts (ports [0, stage) enabled).
     arrivals: (S, K) — or (S,) with 2-D queues — per-switch arrival
               vector enqueued onto the min-backlog usable port.
@@ -76,6 +149,11 @@ def switch_step_ref(queues, stage, arrivals, draining=None, *,
               with no valid port is inert, but any arrival fed to it is
               counted as a drop.
     cap/hi/lo: scalars or per-switch (S,) float32.
+
+    Types follow the reference's promotion, so one body serves both
+    modes: under x64 the queues are float64 and the arrivals float64
+    (CSW tier) or float32 (RSW tier, summed in float32), and every float
+    output is float64.
 
     Per switch: (1) pick the usable port with the least total backlog
     (ties to the lowest index), (2) enqueue the arrival vector there,
@@ -121,9 +199,10 @@ def switch_step_ref(queues, stage, arrivals, draining=None, *,
 
     # (5a) backlog-age of the pick: what an arrival queues behind
     # (a division by the static rate compiles to a product with its
-    # float32 reciprocal in the reference)
-    enq_wait = torch.where(vswitch, mn0, 0.0) \
-        * float(np.float32(1.0 / serve_rate))
+    # reciprocal, in the queues' type, in the reference)
+    inv_rate = 1.0 / serve_rate if queues.dtype == torch.float64 \
+        else float(np.float32(1.0 / serve_rate))
+    enq_wait = torch.where(vswitch, mn0, 0.0) * inv_rate
 
     # (2) enqueue with capacity clamp (proportional over components)
     add_tot = torch.sum(arrivals, dim=1)                # (S,)

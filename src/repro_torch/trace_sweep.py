@@ -1,6 +1,7 @@
 """Where one tick of the sweep goes on the card: a torch.profiler trace.
 
     PYTHONPATH=src python -m repro_torch.trace_sweep [--ticks 50] [--graph]
+        [--x64]
 
 Runs the standard 10-scenario grid on the paper's Fig 2 site
 (``FBSite()``) on the CUDA device, warms up, then profiles ``--ticks``
@@ -11,6 +12,9 @@ times the same number of ticks again without the profiler, between two
 CUDA events (``event_ms_per_tick``). With ``--graph`` the ticks are
 replayed from one captured CUDA graph, as ``run_sweep`` runs them on
 the card; without it they run eagerly, op by op (``graph=False``).
+With ``--x64`` the grid runs in the sweep's x64 mode (float64 draws,
+state and fold; the float64 switch_tiers kernel), as
+``run_sweep(x64=True)`` runs it.
 Where the profiler reports no kernels inside graph replays, the busy
 fields are null and the event time is the measure. Needs a CUDA device.
 """
@@ -33,13 +37,16 @@ def main() -> None:
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--graph", action="store_true",
                     help="replay the tick from a CUDA graph")
+    ap.add_argument("--x64", action="store_true",
+                    help="run the grid in the sweep's x64 mode")
     args = ap.parse_args()
     dev = S.resolve_device(None)
     batch = S.sweep_grid()
     scen = S.Scenario(*(x.to(dev) for x in batch.scen))
-    state = S._init_state(batch.hull, scen, prng.key(batch.seeds,
-                                                     device=dev))
-    step = S.make_sim_step(batch.hull, scen)
+    state = S._init_state(batch.hull, scen,
+                          prng.key(batch.seeds, device=dev, x64=args.x64),
+                          x64=args.x64)
+    step = S.make_sim_step(batch.hull, scen, x64=args.x64)
     for _ in range(args.warmup):
         state = step(state)
     if args.graph:
@@ -82,6 +89,7 @@ def main() -> None:
     out = {
         "device": torch.cuda.get_device_name(0),
         "mode": "graph" if args.graph else "eager",
+        "x64": args.x64,
         "scenarios": len(batch), "ticks": n,
         "wall_ms_per_tick": wall * 1e3 / n,
         "event_ms_per_tick": start.elapsed_time(end) / n,

@@ -20,7 +20,8 @@ that many ulp plus 4. flash_attention
 flips roundings of the bf16 output), as tests/test_kernels.py holds the
 TPU kernel; wkv y 2e-3 in float32 and 5e-2 in bfloat16, the state 2e-3
 and, since the kernel updates it in the plain version's order of
-roundings, exactly.
+roundings, exactly. The float64 switch kernels (the x64 mode) are held
+as the float32 ones, in float64 ulp.
 
 The sweep-engine tests hold the card's execution layer to itself, bit
 for bit: a checkpoint taken while the tick replays from a CUDA graph
@@ -42,6 +43,7 @@ from repro_torch.kernels import (flash_attention, lcdc_switch, ops, ref,
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 ULP = 2.0 ** -23
+ULP64 = 2.0 ** -52
 #: the golden capture's site (tests/data/preflow_golden.json)
 GOLDEN_SITE = FBSite(n_clusters=2, racks_per_cluster=8, servers_per_rack=8,
                      csw_per_cluster=2, n_fc=2, csw_ring_links=4,
@@ -300,6 +302,71 @@ def test_switch_step_kernel_vs_plain_version(cuda, L, K):
             assert torch.equal(a, b)
 
 
+def _to_x64(args):
+    """switch_tiers' arguments in the x64 mode's types: float64 queues
+    and accumulators; the arrivals and caps stay float32."""
+    args = list(args)
+    args[0], args[6] = args[0].double(), args[6].double()
+    args[12] = {k: v.double() for k, v in args[12].items()}
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sites", sorted(TIER_SITES))
+@pytest.mark.parametrize("fault_share", [0.0, 0.15])
+def test_switch_tiers_f64_kernel_vs_plain_version(cuda, sites, fault_share):
+    """The float64 instantiation (the x64 tick's) on the same cases as
+    the float32 one, in float64 ulp; its launch counts."""
+    args = _to_x64(tiers_inputs(TIER_SITES[sites], 9, fault_share, cuda))
+    before = lcdc_switch.LAUNCHES
+    got = ops.switch_tiers(*args)
+    want = ref.switch_tiers_ref(*args)
+    torch.cuda.synchronize()
+    assert lcdc_switch.LAUNCHES == before + 1
+    assert got.rsw_q.dtype == got.acc["drops"].dtype == torch.float64
+    B, R, P, _ = args[0].shape
+    NC, CUP = args[6].shape[1:]
+    for name in ("rsw_q", "rsw_wait"):
+        _within(getattr(got, name), getattr(want, name), 4 * ULP64)
+    _within(got.to_csw, want.to_csw, (R // (NC // P) + 3) * ULP64)
+    _within(got.fc_in, want.fc_in, (NC + 3) * ULP64)
+    csw = ref.switch_step_ref(
+        args[6].reshape(B * NC, CUP), args[7].reshape(-1),
+        got.to_csw[..., 1].reshape(-1), args[8].reshape(-1),
+        valid=(args[10][..., None] & (args[9] == 0)).reshape(B * NC, CUP),
+        cap=args[11].repeat_interleave(NC),
+        serve_rate=lcdc_switch.CSW_SERVE_RATE)
+    _within(got.csw_q, csw[0].reshape(B, NC, CUP), 4 * ULP64)
+    _within(got.csw_wait, csw[5].reshape(B, NC), 4 * ULP64)
+    for k in lcdc_switch.TIER_ACC:
+        _within(got.acc[k], want.acc[k], (2 * R * P * 2 + 5) * ULP64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,K", [(1, 1), (4, 1), (4, 2), (16, 2)])
+def test_switch_step_f64_kernel_vs_plain_version(cuda, L, K):
+    g = torch.Generator().manual_seed(L * 10 + K)
+    S_ = 333
+    args = [torch.rand((S_, L, K), generator=g, dtype=torch.float64) * 15,
+            torch.randint(1, L + 1, (S_,), generator=g, dtype=torch.int32),
+            torch.rand((S_, K), generator=g, dtype=torch.float64) * 3,
+            torch.rand((S_,), generator=g) < 0.4]
+    kw = dict(valid=torch.rand((S_, L), generator=g) < 0.8,
+              cap=10 + torch.rand((S_,), generator=g) * 15,
+              hi=torch.full((S_,), 0.75), lo=torch.full((S_,), 0.22))
+    args = [a.to(cuda) for a in args]
+    kw = {k: v.to(cuda) for k, v in kw.items()}
+    got = lcdc_switch.switch_step(*args, serve_rate=4.0, **kw)
+    want = ref.switch_step_ref(*args, serve_rate=4.0, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        if a.dtype.is_floating_point:
+            _within(a, b, 4 * ULP64)
+        else:
+            assert torch.equal(a, b)
+
+
 def _golden_batch():
     def p(spec, **kw):
         return S.SimParams(spec=TRAFFIC_SPECS[spec], site=GOLDEN_SITE, **kw)
@@ -333,6 +400,28 @@ def test_graph_and_eager_sweeps_agree(cuda):
     assert runs[True][0] == runs[False][0]
     a = list(S._leaf_pairs(runs[True][1], runs[False][1]))
     assert all(torch.equal(x, y) for x, y in a)
+
+
+@pytest.mark.cuda
+def test_x64_sweep_launches_the_f64_kernel(cuda):
+    """An x64 sweep on the card replays a tick whose switch_tiers launch
+    is the float64 kernel (one a tick, counted), gives the CUDA-graph
+    and eager runs equal results, and keeps float64 state."""
+    batch = _golden_batch()
+    runs = {}
+    for graph in (True, False):
+        lcdc_switch.LAUNCHES = lcdc_switch.LAUNCHES_F64 = 0
+        S.CAPTURE_COUNT = 0
+        res, state = S.run_sweep(batch, 250, chunk_ticks=100,
+                                 return_state=True, device=cuda,
+                                 graph=graph, x64=True)
+        assert lcdc_switch.LAUNCHES == lcdc_switch.LAUNCHES_F64 == 250
+        assert S.CAPTURE_COUNT == (1 if graph else 0)
+        assert state.rsw_q.dtype == torch.float64
+        runs[graph] = res
+    assert runs[True] == runs[False]
+    assert runs[True] != S.run_sweep(batch, 250, chunk_ticks=100,
+                                     device=cuda)
 
 
 #: two small sites of tests/test_durability.py: a two-bucket plan

@@ -48,6 +48,24 @@ Phases (one line each; any failure exits non-zero and prints no result):
    CUDA graph: its rate beside the x32 rate of this invocation, one
    float64 switch_tiers launch a tick (``LAUNCHES_F64``), one capture,
    one fold fetch, conservation;
+4c. ``fabric``: the paper's analytic models, no sweep of their own:
+   Fig 11's whole-DC savings at 30/50/70% util from the transceiver
+   on-fraction of ``main``'s LC/DC rows, beside the paper's numbers, and
+   Fig 1's final network fractions; Fig 7's traffic fidelity (200,000
+   flow sizes and intervals a trace drawn on the card, Pearson r against
+   the published CDFs within the reference tests' bands; the same draws
+   on the CPU: mixture picks equal, values at the ulp level); the node
+   timing; the scheduled and reactive ICI gating policies on
+   tests/test_hlo_ici.py's step and a 4,096-tick one, the reactive run
+   on the card from a CUDA graph equal to its eager run and the CPU's,
+   each timed;
+4d. ``sharded``: the main grid over two, then three, views of the one
+   card (``_local_devices`` replaced): 1,000 ticks against ``main``'s
+   one-device graph run of 1,000 (within 1e-6, bit-identity printed),
+   results in caller order, pad rows dropped from ``return_state``, one
+   fold fetch, one capture and one block of launches a view; a kill at
+   chunk 2 on three views resumed on one, and the converse, against the
+   same run;
 5. ``planned``: ``run_sweep_planned`` at full width on the three fabric
    shapes of benchmarks/bench_multi_site.py (6,144 servers each) x
    {LC/DC, always-on}, fb_hadoop: 1,000 ticks in chunks of 400 (a
@@ -115,7 +133,9 @@ GOLDEN = ROOT / "tests" / "data" / "preflow_golden.json"
 
 MAIN_TICKS = 2000          # full-grid ticks (>= 2,000; site and batch fixed)
 MAIN_CHUNK = 1000
-MAIN_EAGER_TICKS, MAIN_EAGER_CHUNK = 1000, 500   # the eager leg's depth
+# the eager leg's depth; chunks of 250 give the sharded phase's kill at
+# chunk 2 a boundary to resume from
+MAIN_EAGER_TICKS, MAIN_EAGER_CHUNK = 1000, 250
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32, outside the tensor cores
 FP64_OPS_PER_S = 34e12     # H100 SXM float64, outside the tensor cores
@@ -923,6 +943,236 @@ def durable_phase(torch, S, dev, card):
           f"{len(batch)} labels; host fold {t_host:.3f} s wall, "
           f"{n_chunks} transfers, worst_parity vs the device fold "
           f"{diff:.3g} ({where}) <= {HOST_FOLD_TOL}; card {card}")
+
+
+#: Fig 11's whole-DC savings as the paper quotes them at each server
+#: utilization: links only / with PHY and NIC (benchmarks/bench_figures.py)
+FIG11_PAPER = ((0.30, "12% / 21-27%"), (0.50, "13% / 23%"),
+               (0.70, "12% / 21%"))
+#: Fig 7: draws a trace and kind, the keys tests/test_traffic.py draws
+#: with, and the Pearson bands it holds (sizes, intervals)
+FIG7_DRAWS = 200_000
+FIG7_BANDS = {"size": (0, 0.95), "interval": (1, 0.89)}
+#: the samplers' card-against-CPU band: the float32 ulp of the exponent
+#: (|mu + s z| < 32) in exp, as tests/test_torch_traffic.py holds them
+LOGNORMAL_RTOL = 4e-6
+#: tests/test_hlo_ici.py's synthetic step (1,060 ticks of 1 us) and one
+#: long enough to take the reactive timeline's 4,096-tick cap
+ICI_STEPS = {
+    "test_hlo_ici": ("x", "train_4k", 8, 100.0, 25.0, 50.0, 10.0),
+    "61 layers": ("z", "train", 61, 1234.5, 321.1, 999.0, 456.7),
+}
+#: the sharded phase's layouts: views of the one card (_local_devices)
+SHARD_VIEWS = (2, 3)
+SHARD_TOL = 1e-6
+
+
+def fabric_phase(torch, dev, card, lcdc_rows):
+    """The paper's analytic models on the port: Fig 11 from the main
+    grid's measured transceiver on-fraction, Fig 1's final network
+    fractions, Fig 7's traffic fidelity drawn on the card (and the same
+    draws on the CPU), the node-level hiding condition and the ICI
+    gating policies on the card."""
+    from repro_torch.core import energy, ici_gating, node_model, prng
+    from repro_torch.core import traffic as T
+
+    # Fig 11 input: the mean over the five traces of the LC/DC rows'
+    # transceiver on-fraction (benchmarks/bench_figures.py's arithmetic)
+    on = sum(1.0 - r["switch_energy_savings_frac"] for r in lcdc_rows) \
+        / len(lcdc_rows)
+    if len(lcdc_rows) != 5 or not 0.0 < on < 1.0:
+        fail(f"fabric: {len(lcdc_rows)} LC/DC rows, on-fraction {on}")
+    for util, paper in FIG11_PAPER:
+        r = energy.dc_savings(on, util)["average"]
+        phase("fabric", f"Fig 11 at util {util:.0%}: whole-DC savings "
+              f"{r.savings_links_only:.3f} links only / "
+              f"{r.savings_with_phy_nic:.3f} with PHY and NIC (paper "
+              f"{paper}), transceiver on-fraction {on:.4f} from main's "
+              f"LC/DC rows, transceivers {r.transceiver_frac:.3f} of DC "
+              f"power")
+    fr = energy.final_network_fractions(0.30)
+    tx = [v["transceivers"] for v in fr.values()]
+    full = [v["phy_nic_transceivers"] for v in fr.values()]
+    phase("fabric", f"Fig 1 after every server optimization at 30% util: "
+          f"transceivers {sum(tx) / len(tx):.3f} of DC power on average "
+          f"(paper ~20%), PHY + NIC + transceivers up to {max(full):.3f} "
+          f"(paper up to 46%), over {len(fr)} designs")
+
+    # Fig 7 on the card, and the same draws on the CPU
+    cpu = torch.device("cpu")
+    worst, card_s, fits = 0.0, 0.0, []
+    for trace, spec in T.TRAFFIC_SPECS.items():
+        for kind, (seed, band) in FIG7_BANDS.items():
+            fn = T.sample_flow_sizes if kind == "size" else \
+                T.sample_intervals
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(prng.key(seed, device=dev), spec, FIG7_DRAWS)
+            torch.cuda.synchronize()
+            card_s += time.perf_counter() - t0
+            want = fn(prng.key(seed, device=cpu), spec, FIG7_DRAWS)
+            g = got.cpu().numpy().astype("float64")
+            w = want.numpy().astype("float64")
+            rel = float(abs(g / w - 1.0).max())
+            if rel > LOGNORMAL_RTOL:
+                fail(f"fabric: {trace} {kind}s on the card differ from the "
+                     f"CPU's by {rel:.3g} relative (tol {LOGNORMAL_RTOL})")
+            worst = max(worst, rel)
+            if kind == "size":
+                picks = [prng.uniform(prng.split(prng.key(seed, device=d),
+                                                 3)[0], FIG7_DRAWS)
+                         < torch.tensor(spec.size_w, device=d)
+                         for d in (dev, cpu)]
+                if not torch.equal(picks[0].cpu(), picks[1]):
+                    fail(f"fabric: {trace} mixture picks differ between "
+                         f"the card and the CPU")
+            r = T.pearson_vs_target(g, T.TARGET_CDFS[trace][kind])
+            if r < band:
+                fail(f"fabric: {trace} {kind} Pearson r {r:.4f} < {band}")
+            fits.append(f"{trace} {r:.4f}" if kind == "size"
+                        else f"/{r:.4f}")
+    phase("fabric", f"Fig 7: {FIG7_DRAWS} sizes (key 0) and intervals (key "
+          f"1) a trace on the card in {card_s * 1e3:.1f} ms in all; "
+          f"Pearson r sizes/intervals " + " ".join(
+              a + b for a, b in zip(fits[::2], fits[1::2]))
+          + f" (bands 0.95 / 0.89); the CPU's draws: picks equal, values "
+          f"within {worst:.3g} relative (tol {LOGNORMAL_RTOL})")
+
+    t = node_model.default_timing()
+    phase("fabric", f"node level: TCP/IP + NIC {t.stack_ns} ns, laser "
+          f"{t.laser_on_ns} ns + CDR {t.cdr_ns:.3f} ns: hidden {t.hidden}, "
+          f"slack {t.slack_ns:.3f} ns, added latency "
+          f"{t.added_latency_ns} ns")
+
+    for name, fields in ICI_STEPS.items():
+        ph = ici_gating.StepPhases(*fields)
+        sched = ici_gating.scheduled_policy(ph)
+        ms = {}
+        for label, kw in (("graph", dict(device=dev)),
+                          ("eager", dict(device=dev, graph=False)),
+                          ("cpu", dict(device="cpu"))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = ici_gating.reactive_policy(ph, **kw)
+            ms[label] = (time.perf_counter() - t0) * 1e3
+            if label == "graph":
+                react = out
+            elif out["link_on_frac"] != react["link_on_frac"] or abs(
+                    out["latency_penalty"] - react["latency_penalty"]) \
+                    > 1e-6 * abs(react["latency_penalty"]):
+                fail(f"fabric: reactive policy on {name}: the card's "
+                     f"graph run {react} differs from the {label} run "
+                     f"{out}")
+        n_ticks = max(int(react["step_us"] / react["tick_us"]), 1)
+        phase("fabric", f"ICI gating on the {name} step ({ph.n_layers} "
+              f"layers, {ph.step_us:.1f} us): scheduled savings "
+              f"{sched['ici_energy_savings']:.3f} at no latency; reactive "
+              f"{react['ici_energy_savings']:.4f} at "
+              f"{react['latency_penalty']:.4f} stall over {n_ticks} ticks "
+              f"of {react['tick_us']:.3f} us, the card's CUDA-graph run "
+              f"equal to its eager one and to the CPU's (powered "
+              f"link-ticks exact); reactive_policy {ms['graph']:.1f} ms "
+              f"on the card from the graph, {ms['eager']:.1f} ms eagerly, "
+              f"{ms['cpu']:.1f} ms on the CPU; card {card}")
+
+
+def sharded_phase(torch, S, dev, card, batch, ref, n_ticks, chunk):
+    """The main grid laid over two, then three, views of the one card
+    (``_local_devices`` replaced): against ``ref`` (main's one-device
+    graph run of ``n_ticks``, results and state), with the layout's
+    contracts; then a kill and resume across layouts."""
+    import tempfile
+    from repro_torch.core import checkpoint as CK
+    from repro_torch.kernels import lcdc_switch
+
+    ref_res, ref_state = ref
+    local = S._local_devices
+    B = len(batch)
+
+    def views(k):
+        S._local_devices = lambda d: [d] * k
+
+    def compare(label, res, state=None):
+        if [r["label"] for r in res] != list(batch.labels):
+            fail(f"sharded: {label}: labels not in caller order")
+        diff, where = S.worst_parity(ref_res, res)
+        if diff > SHARD_TOL:
+            fail(f"sharded: {label}: worst_parity {diff:.3g} at {where} "
+                 f"against the one-device run (tol {SHARD_TOL})")
+        same = res == ref_res
+        if state is not None:
+            if state.rsw_q.shape[0] != B:
+                fail(f"sharded: {label}: return_state has "
+                     f"{state.rsw_q.shape[0]} rows, not {B}")
+            same = same and all(torch.equal(a, b) for a, b in
+                                S._leaf_pairs(state, ref_state))
+        return f"{diff:.3g}" + (f" (at {where})" if where else ""), same
+
+    try:
+        for k in SHARD_VIEWS:
+            views(k)
+            zero_counts(S, lcdc_switch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, state = S.run_sweep(batch, n_ticks, chunk_ticks=chunk,
+                                     return_state=True, device=dev)
+            wall = time.perf_counter() - t0
+            got = counts(S, lcdc_switch)
+            if got != (n_ticks * k, k, 1):
+                fail(f"sharded: {k} views: switch_tiers launches, "
+                     f"captures, fold fetches {got}; expected "
+                     f"({n_ticks * k}, {k}, 1)")
+            diff, same = compare(f"{k} views", res, state)
+            pad = (-B) % k
+            phase("sharded", f"{B} scenarios over {k} views of the card "
+                  f"({B + pad} rows, {pad} pad), {n_ticks} ticks (chunk "
+                  f"{chunk}): {wall:.2f} s wall, {B * n_ticks / wall:.1f} "
+                  f"scenario-ticks/s; launches {got[0]}, captures {got[1]}, "
+                  f"fold fetches {got[2]}; {len(res)} results in caller "
+                  f"order, return_state {state.rsw_q.shape[0]} rows; "
+                  f"worst_parity {diff} against the one-device run, "
+                  f"{'bit-identical' if same else 'not bit-identical'} in "
+                  f"results and state")
+
+        def kill(ci):
+            if ci == 2:
+                raise RuntimeError("preempted")
+
+        for first, then in ((3, 1), (1, 3)):
+            with tempfile.TemporaryDirectory() as d:
+                spec = CK.CheckpointSpec(directory=d, every_chunks=1,
+                                         keep=8, tag=f"v{first}")
+                views(first)
+                S.CHUNK_HOOK = kill
+                try:
+                    S.run_sweep(batch, n_ticks, chunk_ticks=chunk,
+                                device=dev, checkpoint=spec)
+                    fail("sharded: the kill at chunk 2 did not stop the run")
+                except RuntimeError as e:
+                    if "preempted" not in str(e):
+                        raise
+                finally:
+                    S.CHUNK_HOOK = None
+                found = [c for c, _ in CK.list_checkpoints(d, spec.tag)]
+                if found != [1]:
+                    fail(f"sharded: the kill left boundaries {found}")
+                views(then)
+                zero_counts(S, lcdc_switch)
+                res = S.resume_sweep(CK.latest_checkpoint(d, spec.tag),
+                                     device=dev)
+                rest = n_ticks - chunk
+                got = counts(S, lcdc_switch)
+                if got != (rest * then, then, 1):
+                    fail(f"sharded: resume on {then} view(s): counts {got}")
+                diff, same = compare(f"{first} -> {then} views", res)
+            phase("sharded", f"killed at chunk 2 on {first} view(s), resumed "
+                  f"from boundary 1 on {then}: worst_parity {diff} "
+                  f"against the uninterrupted run, "
+                  f"{'bit-identical' if same else 'not bit-identical'}; "
+                  f"resume launches {got[0]}, captures {got[1]}, fetches "
+                  f"{got[2]}; card {card}")
+    finally:
+        S._local_devices = local
 
 
 def bucket_fault_phase(torch, S, dev):
@@ -1859,6 +2109,7 @@ def main() -> None:
             main["eager"] = rate
             eager = res, state
         else:
+            main["short"] = res, state
             diff, where = S.worst_parity(eager[0], res)
             if res != eager[0] or not all(torch.equal(a, b) for a, b in
                                           S._leaf_pairs(state, eager[1])):
@@ -1921,6 +2172,12 @@ def main() -> None:
     kernels.append(time_switch_f64(torch, dev, card, S, batch,
                                    main64["state"], main64["launches"],
                                    tiers_err64))
+
+    # 4c-4d. the paper's analytic models on main's rows; the main grid
+    # over views of the card -------------------------------------------
+    fabric_phase(torch, dev, card, lc)
+    sharded_phase(torch, S, dev, card, batch, main["short"],
+                  MAIN_EAGER_TICKS, MAIN_EAGER_CHUNK)
 
     # 5-7. the planner's, the durable and the isolating paths ----------
     planned_phase(torch, S, dev, card)

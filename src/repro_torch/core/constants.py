@@ -91,3 +91,13 @@ LO_WATERMARK = 0.22        # stage-down threshold (22%)
 # long before the low watermark may drain it (keeps an elephant from
 # flapping the stage and re-paying the turn-on queueing repeatedly)
 STAGE_DWELL_TICKS = 1024
+
+# --- the modelled TPU v5e pod of the beyond-paper ICI study ---------------
+# Inputs of core/ici_gating.py: the chip and link parameters of the TPU
+# pod whose ICI fabric that analysis models (per chip, per link). They
+# describe the modelled pod, not the hardware this port runs on.
+TPU_PEAK_BF16_FLOPS = 197e12     # per chip
+TPU_HBM_BW = 819e9               # bytes/s per chip
+TPU_ICI_LINK_BW = 50e9           # bytes/s per link (~ one direction)
+TPU_ICI_LINKS_PER_CHIP = 4       # 2D torus (v5e); 3D torus has 6
+ICI_XCVR_W = 2.5                 # modeled per-link optical transceiver power

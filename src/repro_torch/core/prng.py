@@ -227,10 +227,10 @@ def erfinv(x):
 
 
 # The float64 erfinv and log1p XLA's CPU backend compiles (jax 0.9):
-# literals copied from the optimized HLO and LLVM IR that
-#   JAX_ENABLE_X64=1 XLA_FLAGS=--xla_dump_to=DIR python -c "import jax,
-#   jax.numpy as jnp; jax.jit(jax.lax.erf_inv)(jnp.zeros(3))"
-# writes (the HLO's f64 constants; the IR's hex doubles for log1p).
+# literals copied from the optimized HLO and LLVM IR that a jitted
+# ``jax.lax.erf_inv`` of three float64 zeros writes under
+#   JAX_ENABLE_X64=1 XLA_FLAGS=--xla_dump_to=DIR
+# (the HLO's f64 constants; the IR's hex doubles for log1p).
 # erfinv: Horner coefficients, highest power first, of the branches
 # w < 6.25 (23), w < 16 (19) and w >= 16 (17), w = -log1p(-x*x).
 _ERFINV64_W625 = (

@@ -49,6 +49,11 @@ How the reference's JAX structure maps here:
 * ``run_sweep_planned`` splits a heterogeneous-site sweep into hull
   buckets (core/planner.py), one capture each, with the reference's
   isolation, retry and salvage contract.
+* The reference's scenario sharding (a ``NamedSharding`` over the batch
+  axis, rows padded to a multiple of the device count) becomes
+  contiguous row blocks, one per device of ``_local_devices`` (``shard=``
+  on every sweep entry point), each with its own carry, fold, guard and
+  tick graph; the results meet on the first device.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; with no CUDA device, they raise.
@@ -1421,7 +1426,8 @@ class _TickGraph:
     The tick's intermediates live in the graph's private memory pool:
     its owner keeps the graph alive until the replays queued against it
     are done (freeing the pool earlier would hand memory they still
-    write to other work).
+    write to other work). Everything runs on the state's device, made
+    the current one for the call, whichever device was current before.
     """
 
     def __init__(self, step, static: SimState):
@@ -1432,22 +1438,24 @@ class _TickGraph:
     def run(self, n: int) -> None:
         """Advance ``static`` by ``n`` ticks."""
         global CAPTURE_COUNT
-        if n > 0 and self.graph is None:
-            lcdc_switch.load_tiers(self.static.rsw_q.dtype)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                step_into(self.step, self.static)
-            torch.cuda.current_stream().wait_stream(side)
-            self.graph = torch.cuda.CUDAGraph()
-            before = lcdc_switch.CAPTURED
-            with torch.cuda.graph(self.graph):
-                step_into(self.step, self.static)
-            self.launches = lcdc_switch.CAPTURED - before
-            CAPTURE_COUNT += 1
-            n -= 1
-        for _ in range(n):
-            self.graph.replay()
+        dev = self.static.key.device
+        with torch.cuda.device(dev):
+            if n > 0 and self.graph is None:
+                lcdc_switch.load_tiers(self.static.rsw_q.dtype)
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    step_into(self.step, self.static)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self.graph = torch.cuda.CUDAGraph()
+                before = lcdc_switch.CAPTURED
+                with torch.cuda.graph(self.graph):
+                    step_into(self.step, self.static)
+                self.launches = lcdc_switch.CAPTURED - before
+                CAPTURE_COUNT += 1
+                n -= 1
+            for _ in range(n):
+                self.graph.replay()
         lcdc_switch.credit_replays(n * self.launches,
                                    self.static.rsw_q.dtype)
 
@@ -1536,6 +1544,148 @@ def _use_graph(graph, dev: torch.device) -> bool:
     return bool(graph)
 
 
+def _local_devices(dev: torch.device) -> list:
+    """The devices a sharded run on ``dev`` spreads its scenarios over,
+    the port's ``jax.local_devices()``: every visible CUDA device for a
+    CUDA ``dev``, the CPU alone for the CPU. The one seam tests replace
+    (with several views of one device) to lay a run over many devices."""
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _should_shard(n_scenarios: int, shard: bool | None,
+                  device=None) -> bool:
+    """THE sharding predicate, shared by the sweep's set-up and
+    ``execution_mode``: shard when more than one local device is visible
+    (``shard=None``; ``True`` asks for it, ``False`` refuses it) and the
+    batch has more than one scenario."""
+    n_dev = len(_local_devices(resolve_device(device)))
+    want = shard if shard is not None else n_dev > 1
+    return bool(want and n_dev > 1 and n_scenarios > 1)
+
+
+def execution_mode(*, fold: str = "device", shard: bool | None = None,
+                   n_scenarios: int | None = None, x64: bool = False,
+                   device=None) -> dict:
+    """The execution-layer knobs that can shift float results: the fold
+    path, the fold's type (float64 iff ``x64``) and the number of
+    devices a run of ``n_scenarios`` spreads over (the same predicate
+    the sweep uses). ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    sharded = _should_shard(2 if n_scenarios is None else n_scenarios,
+                            shard, dev)
+    return {"fold": fold, "fold_dtype": "float64" if x64 else "float32",
+            "devices": len(_local_devices(dev)) if sharded else 1}
+
+
+def _layout(n_real: int, shard: bool | None, dev: torch.device):
+    """The devices of a run of ``n_real`` scenarios and its row count:
+    sharded, the batch grows to a multiple of the device count."""
+    if not _should_shard(n_real, shard, dev):
+        return [dev], n_real
+    devices = _local_devices(dev)
+    return devices, n_real + (-n_real) % len(devices)
+
+
+def _pad_rows(x, n: int):
+    """``x`` (a tensor, or a SimState / Scenario / fold pair of them)
+    grown to ``n`` rows with copies of row 0. A pad row is a full copy
+    of scenario 0 (its knobs, its seed, its carry), and scenarios never
+    mix, so pad rows change no real row; they are dropped before results
+    are made."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        pad = n - x.shape[0]
+        if pad == 0:
+            return x
+        return torch.cat([x, x[:1].expand((pad,) + tuple(x.shape[1:]))])
+    if isinstance(x, dict):
+        return {k: _pad_rows(v, n) for k, v in x.items()}
+    rows = [_pad_rows(v, n) for v in x]
+    return tuple(rows) if type(x) is tuple else type(x)(*rows)
+
+
+@dataclass
+class _Block:
+    """One device's contiguous rows of a run: their scenarios, carry,
+    Kahan fold pair, guard, tick, and tick graph on the card."""
+    scen: Scenario
+    state: SimState
+    fold: tuple | None
+    guard: torch.Tensor | None
+    step: object
+    ticks: "_TickGraph | None"
+
+    def advance(self, n: int, ci: int, validate: bool, tol):
+        """Queue ``n`` ticks, the device fold and the guards of chunk
+        ``ci``; returns the chunk's accumulators as one (B, N) buffer."""
+        if self.ticks is not None:
+            self.ticks.run(n)               # the graph's state buffers
+        else:
+            for _ in range(n):
+                self.state = self.step(self.state)
+        flat = _fold_flat(self.state.acc)
+        if self.fold is not None:
+            # Kahan: sum carries the running total, comp the rounding
+            # error still to subtract
+            fsum, fcomp = self.fold
+            y = flat - fcomp
+            t = fsum + y
+            self.fold = (t, (t - fsum) - y)
+        if validate:
+            self.guard = _guard_chunk(self.scen, self.state, self.fold,
+                                      self.guard, ci, tol)
+        return flat
+
+
+def _split_blocks(hull: FBSite, scen: Scenario, state: SimState, dev_fold,
+                  guard, devices, *, graph: bool,
+                  threefry_partitionable: bool, x64: bool) -> list:
+    """The run's rows as one contiguous block per device (the first rows
+    on the first device), each with its own tick and tick graph."""
+    n = scen.ncl.shape[0] // len(devices)
+    blocks = []
+    for i, d in enumerate(devices):
+        def part(t, rows=slice(i * n, (i + 1) * n), d=d):
+            return None if t is None else t[rows].to(d)
+        sc = Scenario(*(part(t) for t in scen))
+        st = _map_carry(state, lambda _, t: part(t))
+        step = make_sim_step(hull, sc, x64=x64,
+                             threefry_partitionable=threefry_partitionable)
+        blocks.append(_Block(
+            sc, st, None if dev_fold is None else tuple(map(part, dev_fold)),
+            part(guard), step, _TickGraph(step, st) if graph else None))
+    return blocks
+
+
+def _gather(parts, n_real: int):
+    """Per-block tensors of one leaf, stacked on the first block's device
+    (device to device), pad rows dropped."""
+    if len(parts) == 1:
+        return parts[0][:n_real]
+    d = parts[0].device
+    return torch.cat([p.to(d) for p in parts])[:n_real]
+
+
+def _gather_carry(blocks, n_real: int):
+    """The run's (state, fold pair, guard) over all blocks, on the first
+    device, without pad rows."""
+    b0 = blocks[0]
+    named = [_carry_tensors(b.state, None, None) for b in blocks]
+    state = _map_carry(b0.state, lambda name, _: _gather(
+        [m[name] for m in named], n_real))
+    fold = None
+    if b0.fold is not None:
+        fold = tuple(_gather([b.fold[j] for b in blocks], n_real)
+                     for j in range(2))
+    guard = None if b0.guard is None \
+        else _gather([b.guard for b in blocks], n_real)
+    return state, fold, guard
+
+
 def _carry_tensors(state: SimState, fold, guard) -> dict:
     """The carry a checkpoint holds, by the reference's member names:
     ``state`` plus JAX's key path of each ``SimState`` leaf
@@ -1582,7 +1732,7 @@ def _stash(ci: int, state: SimState, fold, guard) -> _Stash:
     ready = None
     if state.key.is_cuda:
         ready = torch.cuda.Event()
-        ready.record()
+        ready.record(torch.cuda.current_stream(state.key.device))
     return _Stash(ci, tensors, ready)
 
 
@@ -1651,46 +1801,54 @@ def _snapshot_sweep(spec: CheckpointSpec, batch: ScenarioBatch,
 @dataclass
 class _PendingSweep:
     """A dispatched-but-not-fetched sweep: every chunk is queued on the
-    device; what is left is the fold fetch in ``_finish_sweep``. It
-    holds the run's tick graph, so the graph's pool outlives the
-    replays queued against it."""
+    devices; what is left is the fold fetch in ``_finish_sweep``. Its
+    blocks (one a device, see ``_Block``) hold the final carry, the
+    flat (B, N) Kahan pairs (float32, or float64 under x64) and guards,
+    and the tick graphs, so a graph's pool outlives the replays queued
+    against it."""
     batch: ScenarioBatch
     n_ticks: int
-    state: SimState              # the final carry, on the device
-    fold: tuple | None           # flat (B, N) (sum, comp), float32 or
-    #                              float64 (x64)
+    blocks: list
     acc64: np.ndarray | None     # host float64 (B, N) (fold="host")
-    guard: torch.Tensor | None   # (B,) int32 first failing chunk, or -1
     guard_h: np.ndarray | None   # the guard as the host fold last saw it
-    ticks: _TickGraph | None
 
     def release(self) -> None:
-        """Wait for the queued replays, then drop the tick graph."""
-        if self.ticks is not None:
-            torch.cuda.synchronize(self.state.key.device)
-            self.ticks = None
+        """Wait for the queued replays, then drop the tick graphs."""
+        _release(self.blocks)
+
+
+def _release(blocks) -> None:
+    for b in blocks:
+        if b.ticks is not None:
+            torch.cuda.synchronize(b.state.key.device)
+            b.ticks = None
 
 
 def _prepare_sweep_args(batch: ScenarioBatch, dev: torch.device, *,
-                        fold: str = "device", validate: bool = False,
+                        fold: str = "device", shard: bool | None = None,
+                        validate: bool = False,
                         validate_tol: float | None = None,
                         x64: bool = False):
     """A fresh run's operands on ``dev``: the scenario leaves, the
     initial carry, the zeroed Kahan fold buffers (``fold="device"``, of
     the accumulators' type: float64 under x64) and the validate guard
     and tolerance (float32 in both modes, as the reference's). Returns
-    ``(scen, state, dev_fold, guard, tol)``."""
-    scen = Scenario(*(x.to(dev) for x in batch.scen))
+    ``(scen, state, dev_fold, guard, tol)``. When the run shards
+    (``_should_shard``), the rows are padded with copies of scenario 0
+    to a multiple of the device count; ``_dispatch_chunks`` hands them
+    out to the devices."""
+    _, n_pad = _layout(len(batch), shard, dev)
+    seeds = list(batch.seeds) + [batch.seeds[0]] * (n_pad - len(batch))
+    scen = _pad_rows(Scenario(*(x.to(dev) for x in batch.scen)), n_pad)
     state = _init_state(batch.hull, scen,
-                        prng.key(batch.seeds, device=dev, x64=x64), x64)
+                        prng.key(seeds, device=dev, x64=x64), x64)
     dev_fold = None
     if fold == "device":
         fsum = torch.zeros_like(_fold_flat(state.acc))
         dev_fold = (fsum, torch.zeros_like(fsum))
     guard = tol = None
     if validate:
-        guard = torch.full((len(batch),), -1, dtype=torch.int32,
-                           device=dev)
+        guard = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
         tol = float(np.float32(C.VALIDATE_CONS_REL_TOL
                                if validate_tol is None else validate_tol))
     return scen, state, dev_fold, guard, tol
@@ -1758,8 +1916,8 @@ def _guard_from_column(col: np.ndarray) -> np.ndarray:
 def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
                      dev_fold, guard, tol, *, n_ticks: int, chunk: int,
                      fold: str, validate: bool, graph: bool,
-                     threefry_partitionable: bool, x64: bool = False,
-                     start_chunk: int = 0,
+                     threefry_partitionable: bool, devices: list,
+                     x64: bool = False, start_chunk: int = 0,
                      checkpoint: CheckpointSpec | None = None,
                      plan_meta: dict | None = None) -> _PendingSweep:
     """THE chunk loop, shared by ``_start_sweep`` (fresh runs, from chunk
@@ -1769,23 +1927,29 @@ def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
     (``max(1, min(chunk_ticks, n_ticks))``); a checkpoint records it and
     resume reuses it.
 
-    Each chunk queues its ticks (graph replays, or eager steps), then the
-    fold (device: Kahan into ``dev_fold``; host: one fetch of the chunk's
-    accumulators, the guard riding along, folded into float64), then the
-    guards, then re-zeroes the accumulators.
+    The carry's rows go out to ``devices`` (``_layout``'s) in
+    contiguous blocks, each with its own tick, carry, fold pair, guard
+    and tick graph (``_split_blocks``). Each chunk queues every block's
+    ticks in turn (graph replays, or eager steps), its device fold
+    (Kahan into the block's pair) and its guards, then re-zeroes the
+    accumulators; nothing waits for the host. The host fold fetches the
+    chunk's accumulators of every block (the guards riding along) in one
+    transfer and folds them in float64.
 
     Checkpointing (``checkpoint`` set; device fold only) snapshots the
     carry at every ``every_chunks`` boundary, DEFERRED BY ONE CHUNK: the
-    carry is cloned on the device at boundary ``ci`` and written only
-    after chunk ``ci`` (the next one) has been queued, so the card has
-    work while the host fetches and serializes. The final boundary is
-    never snapshotted (the run is finished, not resumable, there).
+    carry is gathered onto the first device without pad rows and cloned
+    there at boundary ``ci``, and written only after chunk ``ci`` (the
+    next one) has been queued, so the card has work while the host
+    fetches and serializes. The final boundary is never snapshotted (the
+    run is finished, not resumable, there).
     """
     global HOST_TRANSFER_COUNT
-    step = make_sim_step(batch.hull, scen,
-                         threefry_partitionable=threefry_partitionable,
-                         x64=x64)
-    ticks = _TickGraph(step, state) if graph else None
+    n_real = len(batch)
+    blocks = _split_blocks(batch.hull, scen, state, dev_fold, guard,
+                           devices, graph=graph,
+                           threefry_partitionable=threefry_partitionable,
+                           x64=x64)
     acc64 = guard_h = None
     done = start_chunk * chunk
     ci = start_chunk
@@ -1795,36 +1959,23 @@ def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
             if CHUNK_HOOK is not None:
                 CHUNK_HOOK(ci)
             n = min(chunk, n_ticks - done)
-            if ticks is not None:
-                ticks.run(n)               # the graph's state buffers
-            else:
-                for _ in range(n):
-                    state = step(state)
-            flat = _fold_flat(state.acc)
-            if dev_fold is not None:
-                # Kahan: sum carries the running total, comp the rounding
-                # error still to subtract
-                fsum, fcomp = dev_fold
-                y = flat - fcomp
-                t = fsum + y
-                dev_fold = (t, (t - fsum) - y)
-            if validate:
-                guard = _guard_chunk(scen, state, dev_fold, guard, ci, tol)
+            flats = [b.advance(n, ci, validate, tol) for b in blocks]
             if fold == "host":
                 # one fetch of this chunk's accumulators (the guard as an
                 # extra column, see _guard_column), folded in float64
-                if guard is not None:
-                    flat = torch.cat([flat, _guard_column(guard, flat)],
-                                     dim=1)
-                host = flat.cpu().numpy()
+                if validate:
+                    flats = [torch.cat([f, _guard_column(b.guard, f)], dim=1)
+                             for f, b in zip(flats, blocks)]
+                host = _gather(flats, n_real).cpu().numpy()
                 HOST_TRANSFER_COUNT += 1
-                N = host.shape[1] - (guard is not None)
+                N = host.shape[1] - validate
                 if acc64 is None:
-                    acc64 = np.zeros((host.shape[0], N), np.float64)
+                    acc64 = np.zeros((n_real, N), np.float64)
                 acc64 += host[:, :N].astype(np.float64)
-                if guard is not None:
+                if validate:
                     guard_h = _guard_from_column(host[:, N])
-            torch._foreach_zero_(list(state.acc.values()))
+            for b in blocks:
+                torch._foreach_zero_(list(b.state.acc.values()))
             ci += 1
             done += n
             if pending_snap is not None:
@@ -1836,20 +1987,19 @@ def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
                 pending_snap = None
             if (checkpoint is not None and done < n_ticks
                     and ci % checkpoint.every_chunks == 0):
-                pending_snap = _stash(ci, state, dev_fold, guard)
+                pending_snap = _stash(ci, *_gather_carry(blocks, n_real))
     except BaseException:
-        # the graph dies with this frame: let its queued replays finish
-        if ticks is not None:
-            torch.cuda.synchronize(state.key.device)
+        # the graphs die with this frame: let their queued replays finish
+        _release(blocks)
         raise
-    return _PendingSweep(batch=batch, n_ticks=n_ticks, state=state,
-                         fold=dev_fold, acc64=acc64, guard=guard,
-                         guard_h=guard_h, ticks=ticks)
+    return _PendingSweep(batch=batch, n_ticks=n_ticks, blocks=blocks,
+                         acc64=acc64, guard_h=guard_h)
 
 
 def _start_sweep(batch: ScenarioBatch, n_ticks: int, *,
                  chunk_ticks: int = CHUNK_TICKS, fold: str = "device",
-                 validate: bool = False, validate_tol: float | None = None,
+                 shard: bool | None = None, validate: bool = False,
+                 validate_tol: float | None = None,
                  checkpoint: CheckpointSpec | None = None,
                  plan_meta: dict | None = None, device=None,
                  threefry_partitionable: bool = True, x64: bool = False,
@@ -1859,7 +2009,8 @@ def _start_sweep(batch: ScenarioBatch, n_ticks: int, *,
     With ``fold="device"`` (default) on the card this returns once the
     last chunk is queued (the host runs ahead of the card by up to the
     launch queue's depth). ``fold="host"`` synchronizes at every chunk
-    boundary.
+    boundary. ``shard`` spreads the scenarios over the local devices
+    (see ``run_sweep``).
 
     ``checkpoint`` (a :class:`CheckpointSpec`) snapshots the carry at
     the spec's chunk cadence; device fold only (the host path already
@@ -1876,43 +2027,49 @@ def _start_sweep(batch: ScenarioBatch, n_ticks: int, *,
             f"(fold='device'); got fold={fold!r}")
     dev = resolve_device(device)
     use_graph = _use_graph(graph, dev)
+    devices, _ = _layout(len(batch), shard, dev)
     scen, state, dev_fold, guard, tol = _prepare_sweep_args(
-        batch, dev, fold=fold, validate=validate, validate_tol=validate_tol,
-        x64=x64)
+        batch, dev, fold=fold, shard=shard, validate=validate,
+        validate_tol=validate_tol, x64=x64)
     return _dispatch_chunks(
         batch, scen, state, dev_fold, guard, tol, n_ticks=n_ticks,
         chunk=max(1, min(chunk_ticks, n_ticks)), fold=fold,
         validate=validate, graph=use_graph,
         threefry_partitionable=threefry_partitionable, x64=x64,
-        checkpoint=checkpoint, plan_meta=plan_meta)
+        devices=devices, checkpoint=checkpoint, plan_meta=plan_meta)
 
 
 def _finish_sweep(p: _PendingSweep, return_state: bool = False):
-    """Fetch a queued sweep's fold buffer (the run's single host transfer
-    on the device fold: the sum, the compensation and the guard as one
-    more column, ``_guard_column``, in one copy) and finalize
-    per-scenario metrics. A ``validate=True`` sweep whose guards tripped
-    raises ``SweepValidationError`` here."""
+    """Fetch a queued sweep's fold buffers (the run's single host
+    transfer on the device fold: every block's sum, compensation and
+    guard, as one more column (``_guard_column``), gathered on the first
+    device and copied at once) and finalize per-scenario metrics, pad
+    rows dropped. A ``validate=True`` sweep whose guards tripped raises
+    ``SweepValidationError`` here."""
     global HOST_TRANSFER_COUNT
+    batch, blocks = p.batch, p.blocks
+    n_real = len(batch)
     guard_h = p.guard_h
-    if p.fold is not None:
-        fsum, fcomp = p.fold
-        parts = [fsum, fcomp]
-        if p.guard is not None:
-            parts.append(_guard_column(p.guard, fsum))
-        host = torch.cat(parts, dim=1).cpu().numpy()
+    if blocks[0].fold is not None:
+        N = blocks[0].fold[0].shape[1]
+        parts = []
+        for b in blocks:
+            fsum, fcomp = b.fold
+            cols = [fsum, fcomp]
+            if b.guard is not None:
+                cols.append(_guard_column(b.guard, fsum))
+            parts.append(torch.cat(cols, dim=1))
+        host = _gather(parts, n_real).cpu().numpy()
         HOST_TRANSFER_COUNT += 1
-        N = fsum.shape[1]
         acc64 = host[:, :N].astype(np.float64) \
             - host[:, N:2 * N].astype(np.float64)
-        if p.guard is not None:
+        if blocks[0].guard is not None:
             guard_h = _guard_from_column(host[:, 2 * N])
     else:
         acc64 = p.acc64
     p.release()                    # the fetch waited for every replay
-    batch = p.batch
     if guard_h is not None:
-        bad = [i for i in range(len(batch)) if int(guard_h[i]) >= 0]
+        bad = [i for i in range(n_real) if int(guard_h[i]) >= 0]
         if bad:
             raise SweepValidationError(
                 [batch.labels[i] for i in bad],
@@ -1922,16 +2079,17 @@ def _finish_sweep(p: _PendingSweep, return_state: bool = False):
         _finalize({k: v[i] for k, v in acc64.items()}, batch.sites[i],
                   p.n_ticks, batch.gating[i], batch.names[i],
                   batch.labels[i])
-        for i in range(len(batch))
+        for i in range(n_real)
     ]
     if return_state:
-        return res, _to_cpu(p.state)
+        return res, _to_cpu(_gather_carry(blocks, n_real)[0])
     return res
 
 
 def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
               chunk_ticks: int = CHUNK_TICKS, return_state: bool = False,
-              fold: str = "device", validate: bool = False,
+              fold: str = "device", shard: bool | None = None,
+              validate: bool = False,
               validate_tol: float | None = None,
               checkpoint: CheckpointSpec | None = None,
               device=None, threefry_partitionable: bool = True,
@@ -1990,10 +2148,24 @@ def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
     float64 files, and on the card the tick launches the float64
     ``switch_tiers`` kernel. It draws other numbers than the x32 mode,
     not just wider ones.
+
+    ``shard`` spreads the scenarios over the local devices
+    (``_local_devices``: every visible CUDA device), as the reference
+    shards its batch axis: ``None`` (default) shards when more than one
+    device is visible, ``True`` asks for it, ``False`` keeps one device;
+    a batch of one scenario never shards. The batch is padded with
+    copies of scenario 0 to a multiple of the device count, each device
+    runs a contiguous block of rows with its own carry, fold, guard and
+    tick graph (one capture per device, so ``CAPTURE_COUNT`` grows by the
+    device count, and ``switch_tiers`` launches ticks x devices times),
+    and at the end the fold buffers come to the first device and the
+    host in ONE transfer, pad rows dropped before results and before
+    ``return_state``. Sharded results equal unsharded ones.
     """
     return _finish_sweep(
         _start_sweep(batch, n_ticks, chunk_ticks=chunk_ticks, fold=fold,
-                     validate=validate, validate_tol=validate_tol,
+                     shard=shard, validate=validate,
+                     validate_tol=validate_tol,
                      checkpoint=checkpoint, device=device,
                      threefry_partitionable=threefry_partitionable,
                      x64=x64, graph=graph),
@@ -2001,6 +2173,7 @@ def run_sweep(batch: ScenarioBatch, n_ticks: int, *,
 
 
 def resume_sweep(path, *, return_state: bool = False,
+                 shard: bool | None = None,
                  checkpoint: CheckpointSpec | None = None, device=None,
                  threefry_partitionable: bool | None = None, graph=None,
                  x64: bool = False):
@@ -2018,7 +2191,10 @@ def resume_sweep(path, *, return_state: bool = False,
     the partitionable scheme of the reference's jax); passing
     ``threefry_partitionable`` that disagrees with it is rejected. The
     x64 mode is the caller's, as the reference's process-wide mode is:
-    ``x64`` must match the mode the file was written in.
+    ``x64`` must match the mode the file was written in. The saved rows
+    (never pad rows) are padded and spread for this call's device layout
+    (``shard``, as in ``run_sweep``), so a run checkpointed on one
+    device count resumes on another bit for bit.
 
     Raises :class:`CheckpointError` (reason naming the first mismatch:
     "format"/"checksum"/"ckpt_schema" from the file layer, "sim_schema",
@@ -2076,7 +2252,7 @@ def resume_sweep(path, *, return_state: bool = False,
         seeds=tuple(int(s) for s in meta["seeds"]))
     validate = bool(meta["validate"])
     scen, tmpl, dev_fold, guard, _ = _prepare_sweep_args(
-        batch, dev, validate=validate, x64=x64)
+        batch, dev, shard=False, validate=validate, x64=x64)
 
     # place every saved leaf into the initial carry's structure: any
     # drift in the carry inventory (a missing, re-shaped or re-typed
@@ -2116,11 +2292,15 @@ def resume_sweep(path, *, return_state: bool = False,
         guard = torch.as_tensor(arrays["guard"].astype(np.int32)).to(dev)
         tol = float(np.float32(meta["validate_tol"]))
 
+    # pad and spread for THIS call's layout (pad rows: copies of row 0)
+    devices, n_pad = _layout(len(batch), shard, dev)
+    scen, state, dev_fold, guard = (_pad_rows(x, n_pad) for x in
+                                    (scen, state, dev_fold, guard))
     pend = _dispatch_chunks(
         batch, scen, state, dev_fold, guard, tol,
         n_ticks=int(meta["n_ticks"]), chunk=int(meta["chunk_ticks"]),
         fold="device", validate=validate, graph=_use_graph(graph, dev),
-        threefry_partitionable=recorded, x64=x64,
+        threefry_partitionable=recorded, x64=x64, devices=devices,
         start_chunk=int(meta["chunk_index"]), checkpoint=checkpoint,
         plan_meta=meta.get("plan"))
     return _finish_sweep(pend, return_state=return_state)
@@ -2130,6 +2310,7 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
                       *, max_compiles: int = 4,
                       chunk_ticks: int = CHUNK_TICKS,
                       return_plan: bool = False, fold: str = "device",
+                      shard: bool | None = None,
                       pipeline: bool = True, validate: bool = False,
                       validate_tol: float | None = None,
                       retry: BucketRetryPolicy | None = None,
@@ -2186,8 +2367,8 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
     never reached a boundary (None only if even that write failed), so
     ``resume_sweep`` can finish it later.
 
-    ``x64`` (see ``run_sweep``) holds for every bucket, its retries and
-    its salvage checkpoints.
+    ``x64`` and ``shard`` (see ``run_sweep``) hold for every bucket and
+    its retries; a salvage checkpoint holds no pad rows.
     """
     # local import, as the reference's: only the execution path needs
     # the planner
@@ -2204,7 +2385,7 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
         else tuple(range(len(plan.buckets)))
     policy = retry if retry is not None else BucketRetryPolicy()
     engine = dict(device=dev, threefry_partitionable=threefry_partitionable,
-                  x64=x64)
+                  x64=x64, shard=shard)
     pending: dict[int, _PendingSweep] = {}
     fetched: dict[int, list] = {}
     errors: dict[int, dict] = {}
@@ -2249,8 +2430,8 @@ def run_sweep_planned(runs: Sequence[tuple[SimParams, int]], n_ticks: int,
         try:
             batch = bucket_batch(k)
             _, state, dev_fold, guard, tol = _prepare_sweep_args(
-                batch, dev, validate=validate, validate_tol=validate_tol,
-                x64=x64)
+                batch, dev, shard=False, validate=validate,
+                validate_tol=validate_tol, x64=x64)
             return str(_snapshot_sweep(
                 spec_k, batch, _stash(0, state, dev_fold, guard),
                 n_ticks=n_ticks, chunk=max(1, min(chunk_ticks, n_ticks)),

@@ -3,8 +3,9 @@
 `FBSite` is the simulated Clos site of Fig 2 (the LC/DC evaluation
 network): 4 clusters x 32 racks x 48 servers, RSW->4 CSWs (10G),
 CSW->4 FCs (40G), plus the CSW/FC load-balancing rings. Counterpart of
-``repro/core/topology.py`` (the Fig 1 ``NetworkDesign`` builders are
-not ported yet).
+``repro/core/topology.py``, with the component counts of the five
+network designs Fig 1 and Fig 11 compare (``NetworkDesign``,
+``all_designs``).
 """
 from __future__ import annotations
 
@@ -130,3 +131,67 @@ def pad_hull(sites: Sequence[FBSite]) -> FBSite:
         n_fc=max(s.n_fc for s in sites),
         csw_ring_links=max(s.csw_ring_links for s in sites),
         fc_ring_links=max(s.fc_ring_links for s in sites))
+
+
+@dataclass(frozen=True)
+class NetworkDesign:
+    """Component counts for the Fig 1 power-breakdown study."""
+    name: str
+    n_servers: int
+    n_switches: int
+    n_10g_ports: int          # optical 10G ports (transceiver each)
+    n_40g_ports: int
+    notes: str = ""
+
+    def network_power_w(self) -> dict:
+        return {
+            "switch_asic": self.n_switches * C.P_SWITCH_ASIC_W,
+            "nic": self.n_servers * C.P_NIC_W,
+            "phy": (self.n_10g_ports + self.n_40g_ports) * C.P_PHY_W,
+            "transceivers": (self.n_10g_ports * C.P_SFP10_W
+                             + self.n_40g_ports * C.P_QSFP40_W),
+        }
+
+
+def fb_site_design() -> NetworkDesign:
+    s = FBSite()
+    n10 = (s.n_server_links * 2 + s.n_rsw_csw_links * 2
+           + s.n_ring_links * 2)
+    n40 = s.n_csw_fc_links * 2
+    n_switches = s.n_racks + s.n_csw + s.n_fc
+    return NetworkDesign("fb_clos", s.n_servers, n_switches, n10, n40,
+                         "Facebook site, Fig 2 [48]")
+
+
+def flattened_butterfly_design(n_servers: int = 6144) -> NetworkDesign:
+    # Abts et al. [1]: FBFLY k=32 c=4; ~each switch 4 servers + ~19
+    # inter-switch 40G ports.
+    n_sw = n_servers // 4
+    n40 = n_sw * 19
+    return NetworkDesign("flattened_butterfly", n_servers, n_sw,
+                         n_servers * 2, n40, "Google FBFLY [1]")
+
+
+def fat_tree_designs(n_servers: int = 6144) -> list[NetworkDesign]:
+    # Farrington et al. [28]: k=48 3-tier FULLY-PROVISIONED fat trees
+    # (1:1 oversubscription): every server has an optical edge link plus
+    # edge-agg and agg-core fabric links (2 transceivers each) -> ~6 10G
+    # transceivers per server, with a 40G share for the engineered
+    # variants. The board/chassis (ft2) and custom-ASIC (ft3) builds fold
+    # tiers onto backplanes, cutting optical port counts.
+    designs = []
+    for i, (sw_scale, p10, p40) in enumerate(
+            [(1.0, 6.0, 0.5), (0.7, 5.0, 0.4), (0.5, 4.0, 0.3)], start=1):
+        n_sw = int(5 * n_servers / 48 * sw_scale)
+        n10 = int(n_servers * p10)
+        n40 = int(n_servers * p40)
+        designs.append(NetworkDesign(
+            f"fat_tree_{i}", n_servers, n_sw, n10, n40,
+            "off-the-shelf" if i == 1 else
+            ("board/chassis engineered" if i == 2 else "custom ASIC")))
+    return designs
+
+
+def all_designs() -> list[NetworkDesign]:
+    return [fb_site_design(), flattened_butterfly_design(),
+            *fat_tree_designs()]

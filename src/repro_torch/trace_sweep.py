@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.trace_sweep [--ticks 50] [--graph]
         [--x64]
+    PYTHONPATH=src python -m repro_torch.trace_sweep --shard-views 2
+        [--ticks 1000] [--x64]
 
 Runs the standard 10-scenario grid on the paper's Fig 2 site
 (``FBSite()``) on the CUDA device, warms up, then profiles ``--ticks``
@@ -16,7 +18,16 @@ With ``--x64`` the grid runs in the sweep's x64 mode (float64 draws,
 state and fold; the float64 switch_tiers kernel), as
 ``run_sweep(x64=True)`` runs it.
 Where the profiler reports no kernels inside graph replays, the busy
-fields are null and the event time is the measure. Needs a CUDA device.
+fields are null and the event time is the measure.
+
+With ``--shard-views K`` it profiles nothing: it steps the grid on the
+device and laid over K views of it (as a sharded ``run_sweep`` lays its
+rows out, pad rows included), both replayed from CUDA graphs, and
+compares every state leaf after every tick, for up to ``--ticks``
+ticks. It prints the first tick at which a leaf differs, which leaves,
+and by how much, and the same for the first leaf outside the
+accumulators (the carry the next tick reads), or that none did. Needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -31,6 +42,50 @@ from repro_torch.core import simulator as S
 from repro_torch.kernels import lcdc_switch
 
 
+def first_divergence(dev, batch, views: int, ticks: int, x64: bool) -> dict:
+    """The first tick at which the grid laid over ``views`` views of
+    ``dev`` leaves the one-device run, leaf by leaf; and the first tick
+    at which a leaf outside the accumulators does."""
+    scen, state, _, _, _ = S._prepare_sweep_args(batch, dev, fold="host",
+                                                 shard=False, x64=x64)
+    n_pad = len(batch) + (-len(batch)) % views
+    copy = S._map_carry(S._pad_rows(state, n_pad), lambda _, t: t.clone())
+    blocks = S._split_blocks(batch.hull, S._pad_rows(scen, n_pad), copy,
+                             None, None, [dev] * views, graph=True,
+                             threefry_partitionable=True, x64=x64)
+    one = S._TickGraph(S.make_sim_step(batch.hull, scen, x64=x64), state)
+    out = {}
+    for tick in range(1, ticks + 1):
+        out["ticks_compared"] = tick
+        one.run(1)
+        for b in blocks:
+            b.ticks.run(1)
+        got = S._carry_tensors(S._gather_carry(blocks, len(batch))[0],
+                               None, None)
+        diff = {}
+        for name, want in S._carry_tensors(one.static, None, None).items():
+            g = got[name]
+            if torch.equal(g, want):
+                continue
+            a, b = g.double(), want.double()
+            bad = (a != b).reshape(len(batch), -1).any(dim=1)
+            rel = (a - b).abs() / torch.clamp(
+                torch.maximum(a.abs(), b.abs()), min=1e-30)
+            diff[name] = {"max_abs": float((a - b).abs().max()),
+                          "max_rel": float(rel.max()),
+                          "rows": [batch.labels[i] for i in
+                                   torch.nonzero(bad)[:, 0].tolist()]}
+        carry = {k: v for k, v in diff.items()
+                 if not k.startswith("state.acc")}
+        if diff and "first" not in out:
+            out["first"] = {"tick": tick, "leaves": diff}
+        if carry:
+            out["first_outside_accumulators"] = {"tick": tick,
+                                                 "leaves": carry}
+            break
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ticks", type=int, default=50)
@@ -39,9 +94,19 @@ def main() -> None:
                     help="replay the tick from a CUDA graph")
     ap.add_argument("--x64", action="store_true",
                     help="run the grid in the sweep's x64 mode")
+    ap.add_argument("--shard-views", type=int, default=0,
+                    help="compare the one-device tick with the grid laid "
+                         "over this many views of the card, tick by tick")
     args = ap.parse_args()
     dev = S.resolve_device(None)
     batch = S.sweep_grid()
+    if args.shard_views:
+        out = first_divergence(dev, batch, args.shard_views, args.ticks,
+                               args.x64)
+        print(json.dumps({"device": torch.cuda.get_device_name(0),
+                          "views": args.shard_views, "x64": args.x64,
+                          "scenarios": len(batch), **out}, indent=1))
+        return
     scen = S.Scenario(*(x.to(dev) for x in batch.scen))
     state = S._init_state(batch.hull, scen,
                           prng.key(batch.seeds, device=dev, x64=args.x64),

@@ -27,14 +27,28 @@ The sweep-engine tests hold the card's execution layer to itself, bit
 for bit: a checkpoint taken while the tick replays from a CUDA graph
 against the eager run's carry at the same boundary, a resume against the
 uninterrupted run, pipelined buckets against serial ones; a retried
-bucket (eager, host fold, on the card) within 1e-6 of the clean run.
+bucket (eager, host fold, on the card) within 1e-6 of the clean run. A
+sweep laid over two views of the card (``_local_devices`` replaced)
+equals the one-device run within 1e-6, with one capture and one block of
+launches per view and one fold fetch; a checkpoint of it resumes on one
+view bit for bit.
+
+The analytic models on the card against the port's own CPU run: the
+Fig 7 samplers (the mixture pick bit for bit, sizes and intervals within
+4e-6 relative: the exponent's float32 ulp in ``exp``, as
+tests/test_torch_traffic.py holds the CPU against the reference) and
+``reactive_policy`` (its CUDA-graph run equal to its eager run; the
+powered link-ticks exact against the CPU, the stall within 1e-6).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import checkpoint as CK
+from repro_torch.core import ici_gating as I
+from repro_torch.core import prng
 from repro_torch.core import simulator as S
+from repro_torch.core import traffic as T
 from repro_torch.core.topology import FBSite
 from repro_torch.core.traffic import TRAFFIC_SPECS
 from repro_torch.kernels import (flash_attention, lcdc_switch, ops, ref,
@@ -557,3 +571,74 @@ def test_guards_and_host_fold_on_the_card(cuda):
     assert S.HOST_TRANSFER_COUNT == 3
     diff, where = S.worst_parity(plain, host)
     assert diff <= 1e-6, (diff, where)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_samplers_on_the_card_equal_the_cpu(cuda, partitionable):
+    for trace, spec in T.TRAFFIC_SPECS.items():
+        for seed in (0, 1, 7):
+            out = {}
+            for dev in (cuda, torch.device("cpu")):
+                key = prng.key(seed, device=dev)
+                k1 = prng.split(key, 3, partitionable)[0]
+                out[dev.type] = [t.cpu() for t in (
+                    prng.uniform(k1, 20_000, partitionable)
+                    < torch.tensor(spec.size_w, device=dev),
+                    T.sample_flow_sizes(key, spec, 20_000,
+                                        partitionable=partitionable),
+                    T.sample_intervals(key, spec, 20_000,
+                                       partitionable=partitionable))]
+            (pc, sc, ic), (pp, sp, ip) = out["cuda"], out["cpu"]
+            assert torch.equal(pc, pp), (trace, seed)
+            np.testing.assert_allclose(sc.numpy(), sp.numpy(), rtol=4e-6,
+                                       atol=0)
+            np.testing.assert_allclose(ic.numpy(), ip.numpy(), rtol=4e-6,
+                                       atol=0)
+
+
+@pytest.mark.cuda
+def test_reactive_policy_on_the_card_equals_the_cpu(cuda):
+    for ph, idle in ((I.StepPhases("x", "train_4k", 8, 100.0, 25.0, 50.0,
+                                   10.0), 0.0),
+                     (I.StepPhases("y", "serve", 32, 313.7, 41.3, 77.0,
+                                   0.0), 0.4)):
+        got = I.reactive_policy(ph, idle_frac=idle, device=cuda)
+        eager = I.reactive_policy(ph, idle_frac=idle, device=cuda,
+                                  graph=False)
+        want = I.reactive_policy(ph, idle_frac=idle, device="cpu")
+        assert got == eager
+        assert got["link_on_frac"] == want["link_on_frac"]
+        assert got["latency_penalty"] == pytest.approx(
+            want["latency_penalty"], rel=1e-6, abs=0)
+
+
+@pytest.mark.cuda
+def test_sweep_over_two_views_of_the_card(cuda, tmp_path, monkeypatch):
+    batch = _golden_batch()            # 3 rows: one pad row on two views
+    _zero_counts()
+    one, st1 = S.run_sweep(batch, 250, chunk_ticks=100, return_state=True,
+                           device=cuda)
+    monkeypatch.setattr(S, "_local_devices", lambda dev: [dev, dev])
+    _zero_counts()
+    two, st2 = S.run_sweep(batch, 250, chunk_ticks=100, return_state=True,
+                           device=cuda)
+    assert (lcdc_switch.LAUNCHES, S.CAPTURE_COUNT,
+            S.HOST_TRANSFER_COUNT) == (2 * 250, 2, 1)
+    assert S.worst_parity(one, two)[0] <= 1e-6
+    assert [r["label"] for r in two] == list(batch.labels)
+    assert st2.rsw_q.shape[0] == 3
+    spec = CK.CheckpointSpec(directory=tmp_path, every_chunks=1, tag="v",
+                             keep=8)
+    def kill(ci):
+        if ci == 2:
+            raise RuntimeError("preempted")
+
+    monkeypatch.setattr(S, "CHUNK_HOOK", kill)
+    with pytest.raises(RuntimeError, match="preempted"):
+        S.run_sweep(batch, 250, chunk_ticks=100, device=cuda,
+                    checkpoint=spec)
+    monkeypatch.setattr(S, "CHUNK_HOOK", None)
+    again = S.resume_sweep(CK.latest_checkpoint(tmp_path, "v"),
+                           device=cuda, shard=False)
+    assert again == two

@@ -18,6 +18,13 @@ shared with the reference.
   each within 1e-3 of the reference's uninterrupted run. This holds the
   format and the carry mapping; the tick's fault and flow dynamics are
   pinned by tests/test_torch_step.py.
+* Across device layouts (tests/test_durability.py's
+  ``test_resume_parity_under_sharding``, with ``simulator._local_devices``
+  replaced by four CPU devices, 3 rows padded to 4): a one-device
+  checkpoint resumes on four devices, a kill and resume under four
+  devices (and that file resumed on one) are worst_parity 0.0 against
+  the uninterrupted run, and a reference-written checkpoint resumes
+  under the four-device layout within 1e-3.
 """
 import io
 import json
@@ -141,6 +148,45 @@ def test_kill_at_chunk_k_then_resume_bit_identical(tmp_path, reference,
     assert S.HOST_TRANSFER_COUNT - h0 == 1
     diff, key = S.worst_parity(reference, res)
     assert diff == 0.0, key
+
+
+def _four_devices(monkeypatch):
+    monkeypatch.setattr(S, "_local_devices", lambda dev: [dev] * 4)
+
+
+def test_one_device_checkpoint_resumes_on_four_devices(ckpt_file, reference,
+                                                       monkeypatch):
+    """A checkpoint holds no pad rows, so a file written on one device
+    resumes on four (3 rows padded to 4) bit-identically."""
+    _four_devices(monkeypatch)
+    h0 = S.HOST_TRANSFER_COUNT
+    res = S.resume_sweep(ckpt_file, device="cpu")
+    assert S.HOST_TRANSFER_COUNT - h0 == 1
+    diff, key = S.worst_parity(reference, res)
+    assert diff == 0.0, key
+
+
+def test_kill_and_resume_under_four_devices(tmp_path, reference,
+                                            monkeypatch):
+    """The kill/resume contract under the four-device layout; the file it
+    leaves (the real rows only) resumes on one device too."""
+    _four_devices(monkeypatch)
+    monkeypatch.setattr(S, "CHUNK_HOOK", _kill_at(4))
+    with pytest.raises(RuntimeError, match="preempted"):
+        _run(checkpoint=_spec(tmp_path))
+    monkeypatch.setattr(S, "CHUNK_HOOK", None)
+    found = CK.list_checkpoints(tmp_path, "t")
+    assert [c for c, _ in found] == [2]
+    meta, arrays = CK.read_checkpoint(found[0][1])
+    assert meta["n_real"] == 3 and arrays["state.rsw_q"].shape[0] == 3
+    assert arrays["fold_sum/injected"].shape == (3,)
+    h0 = S.HOST_TRANSFER_COUNT
+    res4 = S.resume_sweep(found[0][1], device="cpu")
+    assert S.HOST_TRANSFER_COUNT - h0 == 1
+    res1 = S.resume_sweep(found[0][1], device="cpu", shard=False)
+    for res in (res4, res1):
+        diff, key = S.worst_parity(reference, res)
+        assert diff == 0.0, key
 
 
 def test_resume_keeps_checkpointing_at_cadence(tmp_path, reference,
@@ -394,5 +440,16 @@ def test_port_checkpoint_resumes_in_the_reference(tmp_path, jax_run):
     assert meta["chunk_index"] == 2 and meta["fold_dtype"] == "float32"
     assert arrays["state.key"].dtype == np.uint32
     res = JS.resume_sweep(path)
+    diff, key = S.worst_parity(ref, res)
+    assert diff <= PARITY_TOL, (diff, key)
+
+
+def test_reference_checkpoint_resumes_on_four_devices(jax_run, monkeypatch):
+    ref, path = jax_run
+    _four_devices(monkeypatch)
+    h0 = S.HOST_TRANSFER_COUNT
+    res = S.resume_sweep(path, device="cpu")
+    assert S.HOST_TRANSFER_COUNT - h0 == 1
+    assert [r["label"] for r in res] == [r["label"] for r in ref]
     diff, key = S.worst_parity(ref, res)
     assert diff <= PARITY_TOL, (diff, key)

@@ -52,6 +52,13 @@ is the ``x64=True`` argument of its entry points.
   ways; ``fold="host"`` within 1e-6 of the device fold;
   ``run_sweep_planned(x64=True)`` equals the plain runs of its buckets
   within 1e-3; ``run_sim`` and ``compare_traces`` take the mode.
+* The analytic models in x64 (core/traffic.py, core/ici_gating.py):
+  ``sample_flow_sizes``/``sample_intervals`` for seeds 0, 1, 7 in both
+  schemes, every trace: the pick bit for bit, sizes and intervals within
+  ``RTOL_LOGNORMAL64`` (the exponent ``mu + s * z`` below 32 has a
+  float64 ulp of 3.6e-15 relative in ``exp``; the normals' 2 ulp and
+  ``exp``'s last bit ride through it); ``reactive_policy(x64=True)``:
+  ``link_on_frac`` exact and ``latency_penalty`` within 1e-6 relative.
 """
 from __future__ import annotations
 
@@ -69,6 +76,8 @@ import pytest
 import torch
 
 from repro_torch.core import convert, prng
+from repro_torch.core import ici_gating as TI
+from repro_torch.core import traffic as TT
 from repro_torch.core import simulator as TS
 from repro_torch.core.checkpoint import CheckpointError, CheckpointSpec
 from repro_torch.core.topology import FBSite
@@ -100,6 +109,15 @@ WIDTHS = [5 + TS.F_SLOTS, 2, 2 + TS.MAX_FAULT_LINKS, TS.MAX_FAULT_LINKS,
           8, 3, 1]
 SEEDS = [0, 3, 8, 12345, -1, -7, 2**32 + 5, 2**40 + 3, -(2**35) - 11]
 TICK_CASES = ("rate", "flows", "harsh_faults")
+#: the samplers' draws (seeds, draws a call) and their band in x64
+SAMPLER_SEEDS, SAMPLER_N = (0, 1, 7), 4000
+RTOL_LOGNORMAL64 = 1e-13
+#: the reactive ICI policy's cases in x64: (StepPhases fields, idle,
+#: max_ticks), tests/test_torch_ici.py's
+ICI_CASES = [
+    (("x", "train_4k", 8, 100.0, 25.0, 50.0, 10.0), 0.0, 4096),
+    (("y", "serve", 32, 313.7, 41.3, 77.0, 0.0), 0.4, 4096),
+    (("z", "train", 61, 1234.5, 321.1, 999.0, 456.7), 0.0, 300)]
 K_TICKS = 40
 #: accumulators whose float32 sums over racks the reference's flows
 #: tick reassociates (see the module docstring)
@@ -110,7 +128,9 @@ F32_RACK_SUMS = ("acc.delay_hist", "acc.delay_wt_inter", "acc.injected")
 _REF_SCRIPT = r'''
 import pickle, sys
 import jax, jax.numpy as jnp, numpy as np
+from repro.core import ici_gating as JI
 from repro.core import simulator as JS
+from repro.core import traffic as JT
 from repro.core.topology import FBSite
 from repro.core.traffic import TRAFFIC_SPECS
 assert jax.config.jax_enable_x64
@@ -135,6 +155,19 @@ for part in (True, False):
         out["prng"][part] = dict(keys=keys, batch=np.asarray(ks),
                                  draws=draws, u=np.asarray(u),
                                  z=np.asarray(z))
+        samples = {}
+        for t, tspec in JT.TRAFFIC_SPECS.items():
+            for s in spec["sampler_seeds"]:
+                k = jax.random.PRNGKey(s)
+                n = spec["sampler_n"]
+                samples[t, s] = (
+                    np.asarray(jax.random.bernoulli(
+                        jax.random.split(k, 3)[0], tspec.size_w, (n,))),
+                    np.asarray(JT.sample_flow_sizes(k, tspec, n)),
+                    np.asarray(JT.sample_intervals(k, tspec, n)))
+        out["prng"][part]["samples"] = samples
+out["ici"] = [JI.reactive_policy(JI.StepPhases(*f), idle_frac=i,
+                                 max_ticks=m) for f, i, m in spec["ici"]]
 
 def runs(rows, site):
     return [(JS.SimParams(spec=TRAFFIC_SPECS[t], site=site,
@@ -207,6 +240,8 @@ class _Reference:
         self.path = path
         spec = dict(seeds=SEEDS, widths=WIDTHS, site=SITE, k_ticks=K_TICKS,
                     tick={c: _rows(c) for c in TICK_CASES},
+                    sampler_seeds=SAMPLER_SEEDS, sampler_n=SAMPLER_N,
+                    ici=ICI_CASES,
                     faults_flows=FAULTS_FLOWS, ticks=TICKS, chunk=CHUNK)
         env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu",
                    PYTHONPATH=str(SRC) + os.pathsep
@@ -508,3 +543,38 @@ def test_one_x64_tick_from_shared_state(reference, case):
                                        err_msg=k)
         else:
             np.testing.assert_array_equal(b, a, err_msg=k)
+
+
+# ---- the analytic models -------------------------------------------------
+
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_samplers_x64(reference, partitionable):
+    ref = reference.get()["prng"][partitionable]["samples"]
+    for (trace, seed), (jpick, jsizes, jiat) in ref.items():
+        spec = TRAFFIC_SPECS[trace]
+        key = prng.key(seed, device="cpu", x64=True)
+        k1 = prng.split(key, 3, partitionable)[0]
+        pick = prng.uniform(k1, SAMPLER_N, partitionable, torch.float64) \
+            < torch.tensor(spec.size_w, dtype=torch.float64)
+        np.testing.assert_array_equal(pick.numpy(), jpick)
+        sizes = TT.sample_flow_sizes(key, spec, SAMPLER_N,
+                                     partitionable=partitionable, x64=True)
+        iat = TT.sample_intervals(key, spec, SAMPLER_N,
+                                  partitionable=partitionable, x64=True)
+        assert sizes.dtype == iat.dtype == torch.float64
+        np.testing.assert_allclose(sizes.numpy(), jsizes,
+                                   rtol=RTOL_LOGNORMAL64, atol=0)
+        np.testing.assert_allclose(iat.numpy(), jiat,
+                                   rtol=RTOL_LOGNORMAL64, atol=0)
+
+
+def test_reactive_policy_x64(reference):
+    for (fields, idle, max_ticks), want in zip(ICI_CASES,
+                                               reference.get()["ici"]):
+        got = TI.reactive_policy(TI.StepPhases(*fields), idle_frac=idle,
+                                 max_ticks=max_ticks, x64=True,
+                                 device="cpu")
+        assert got["link_on_frac"] == want["link_on_frac"], fields
+        assert got["tick_us"] == want["tick_us"]
+        assert got["latency_penalty"] == pytest.approx(
+            want["latency_penalty"], rel=1e-6, abs=0)

@@ -25,7 +25,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
    flash_attention at the serve shapes of qwen3-8b, ragged, windowed,
    non-causal and d = 64 cases (each through the variant its inputs
    pick, which must be the one whose counter moved; bf16 ones also
-   through the CUDA-core variant) and one float32 case; wkv at the
+   through the CUDA-core variant) and one float32 case, and at
+   minicpm3-4b's MLA shapes (q/k 96, v 64, 40 heads: the CUDA-core
+   variant) for each batcher prompt, the batched prefill and float32;
+   wkv at the
    serve shapes of rwkv6-7b (prefill at B = 1 and 8, decode T = 1, a
    ragged T, float32), planned and with one thread per column, the
    final state equal to the plain version's bit for bit;
@@ -88,17 +91,22 @@ Phases (one line each; any failure exits non-zero and prints no result):
    kernel launching every tick, within 1e-6), and a permanent one giving
    structured error entries and a salvage checkpoint that
    ``resume_sweep`` finishes on the card, equal to the clean bucket;
-8. ``serve-qwen3-8b`` and 9. ``serve-rwkv6-7b``: the serving path at
-   full width (random bf16 weights from a seed, loaded one model at a
-   time): one request's prefill logits through the kernels against the
-   plain versions (float32, first 8 layers; and in bf16 at full depth
-   beside the effect of a small noise, for scale); a ContinuousBatcher
-   of 4 slots (max_len 512) serving 6 requests of 64-384 prompt tokens,
-   32 new tokens each; the
+8. ``serve-qwen3-8b``, 9. ``serve-rwkv6-7b`` and 9b.
+   ``serve-minicpm3-4b`` (MLA), ``serve-mixtral-8x7b`` (MoE, sliding
+   window) and ``serve-jamba-v0.1-52b`` (Mamba + attention + MoE): the
+   serving path at full width (random bf16 weights from a seed, loaded
+   one model at a time; mixtral and jamba at 8 layers, SERVE_LAYERS):
+   one request's prefill logits through the kernels against the plain
+   versions (float32, over the first LOGIT_LAYERS[arch] layers; and in
+   bf16 at the served depth beside the effect of a small noise, for
+   scale); a ContinuousBatcher of 4 slots (max_len 512) serving 6
+   requests of 64-384 prompt tokens, 32 new tokens each; the
    launch.serve path batched (B=8, P=256, gen 32); exact kernel launch
-   counts (every qwen3-8b attention launch through the wgmma variant);
-   prefill and decode tokens/s and the device's idle share
-   (torch.profiler);
+   counts (flash once an attention layer a prefill, every launch
+   through the variant the prefill's head dims pick: wgmma at d = 128,
+   the CUDA cores for MLA's (96, 64); wkv once an rwkv layer a prefill
+   and a decode step); prefill and decode tokens/s and the device's
+   idle share (torch.profiler);
 10. ``time``: card time under CUDA-graph replay: switch_tiers a tick
    beside its first design (two switch_step launches and their
    glue), the plain version, the bound and an empty kernel's graph
@@ -117,6 +125,7 @@ package.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -163,7 +172,16 @@ def sum_rtol(n_terms, ulp=ULP):
 
 PARITY_TOL = 1e-3          # run level, the reference's own parity band
 
-# serving: the full-width models, one at a time
+# serving: the full-width models, one at a time, in this order
+SERVE_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "mixtral-8x7b",
+               "jamba-v0.1-52b")
+# the depth served on the card where the whole model does not fit its
+# 80 GB beside the float32 check: mixtral-8x7b's 32 layers are 93 GB of
+# bf16, its first 8 (~11.9 B parameters) 23.7 GB; jamba-v0.1-52b's one
+# hybrid period of 8 layers (Mamba at 0-3 and 5-7, attention at 4, MoE
+# at the odd layers; ~13.3 B parameters) 26.6 GB. The others serve all
+# their layers.
+SERVE_LAYERS = {"mixtral-8x7b": 8, "jamba-v0.1-52b": 8}
 SERVE_SEED = 0
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 SERVE_PROMPTS = (64, 96, 128, 200, 256, 384)
@@ -175,8 +193,8 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 WKV_Y_TOL = {"bfloat16": 5e-2, "float32": 2e-3}
 WKV_STATE_TOL = 2e-3
 # one request's last-position logits, kernels against plain versions on
-# the same weights cast to float32, over the first LOGIT_LAYERS layers,
-# as a share of the logits' largest magnitude. Float32, because these
+# the same weights cast to float32, over the first LOGIT_LAYERS[arch]
+# layers, as a share of the logits' largest magnitude. Float32, because these
 # random-weight stacks amplify any perturbation with depth: in bf16 a
 # relative noise of NOISE on the plain path's own attention or wkv
 # output moves the full-depth logits by a large share of their scale
@@ -185,7 +203,14 @@ WKV_STATE_TOL = 2e-3
 # differ only in summation order, some 1e-6 to 1e-5 of the scale at 8
 # layers on an H100; a wiring fault (layout, mask, state) moves the
 # logits by their own scale.
-LOGIT_LAYERS = 8
+# The float32 copy is of the first LOGIT_LAYERS[arch] layers and the
+# embedding and head, beside the bf16 model: qwen3-8b ~8.3 GB beside
+# 16.4, rwkv6-7b ~7.3 beside 15, minicpm3-4b ~3.5 beside 8.5;
+# mixtral-8x7b's 2 layers (two 8-expert MoE FFNs) ~12.7 beside 23.7;
+# jamba-v0.1-52b's 5 (Mamba 0-3, MoE at 1 and 3, attention at 4) ~29
+# beside 26.6 (at 8 layers it would be ~54 GB: the two no longer fit).
+LOGIT_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 8, "minicpm3-4b": 8,
+                "mixtral-8x7b": 2, "jamba-v0.1-52b": 5}
 LOGIT_TOL = 1e-4
 NOISE = 2e-3
 
@@ -1254,16 +1279,23 @@ def bucket_fault_phase(torch, S, dev):
 # (label, B, T, H, d, causal, window, dtype): the qwen3-8b serve shapes,
 # then ragged, non-causal and d = 64 (minicpm3's head dim) bf16 cases,
 # and float32 (the CUDA-core variant)
+# (label, B, T, H, dq, dv, causal, window, dtype): the serve shapes of
+# qwen3-8b, mixtral-8x7b and jamba-v0.1-52b (H 32, d 128) and of
+# minicpm3-4b's MLA (H 40, q/k 96, v 64: the CUDA-core variant)
 FLASH_CASES = [
-    ("batched prefill", 8, 256, 32, 128, True, 0, "bfloat16"),
-    ("request", 1, 64, 32, 128, True, 0, "bfloat16"),
-    ("request", 1, 200, 32, 128, True, 0, "bfloat16"),
-    ("request", 1, 384, 32, 128, True, 0, "bfloat16"),
-    ("sliding window 128", 1, 384, 32, 128, True, 128, "bfloat16"),
-    ("ragged T", 1, 100, 32, 128, True, 0, "bfloat16"),
-    ("non-causal", 1, 128, 32, 128, False, 0, "bfloat16"),
-    ("head dim 64", 2, 200, 40, 64, True, 0, "bfloat16"),
-    ("float32", 2, 200, 8, 128, True, 0, "float32"),
+    ("batched prefill", 8, 256, 32, 128, 128, True, 0, "bfloat16"),
+    ("request", 1, 64, 32, 128, 128, True, 0, "bfloat16"),
+    ("request", 1, 200, 32, 128, 128, True, 0, "bfloat16"),
+    ("request", 1, 384, 32, 128, 128, True, 0, "bfloat16"),
+    ("sliding window 128", 1, 384, 32, 128, 128, True, 128, "bfloat16"),
+    ("ragged T", 1, 100, 32, 128, 128, True, 0, "bfloat16"),
+    ("non-causal", 1, 128, 32, 128, 128, False, 0, "bfloat16"),
+    ("head dim 64", 2, 200, 40, 64, 64, True, 0, "bfloat16"),
+    ("float32", 2, 200, 8, 128, 128, True, 0, "float32"),
+] + [("MLA request", 1, n, 40, 96, 64, True, 0, "bfloat16")
+     for n in SERVE_PROMPTS] + [
+    ("MLA batched prefill", 8, 256, 40, 96, 64, True, 0, "bfloat16"),
+    ("MLA float32", 1, 384, 40, 96, 64, True, 0, "float32"),
 ]
 # (label, B, T, H, dh, dtype): the rwkv6-7b serve shapes
 WKV_CASES = [
@@ -1298,10 +1330,11 @@ def allclose_err(torch, got, want, atol, rtol):
     return float(d.max()) if d.numel() else 0.0
 
 
-def attn_inputs(torch, B, T, H, d, dtype, dev, seed):
+def attn_inputs(torch, B, T, H, dq, dv, dtype, dev, seed):
+    """Random q, k of head dim dq and v of dv."""
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn((B, T, H, d), generator=g, device=dev).to(dtype)
-            for _ in range(3)]
+            for d in (dq, dq, dv)]
 
 
 def wkv_inputs(torch, B, T, H, dh, dtype, dev, seed):
@@ -1337,14 +1370,15 @@ def bound(nbytes, ops, ops_per_s):
 
 
 def flash_bound(q, k, v, causal, window):
-    """q, k, v read once and the output written once; 4 d operations a
-    visible (query, key) pair (QK^T and PV), at the bf16 tensor rate."""
-    B, T, H, d = q.shape
-    nbytes = 2 * q.numel() * q.element_size() \
-        + (k.numel() + v.numel()) * k.element_size()
-    return bound(nbytes, 4 * B * H * d * visible_pairs(T, k.shape[1],
-                                                       causal, window),
-                 BF16_OPS_PER_S)
+    """q, k, v read once and the (B, T, H, dv) output written once;
+    2 dq + 2 dv operations a visible (query, key) pair (QK^T and PV), at
+    the bf16 tensor rate."""
+    B, T, H, dq = q.shape
+    dv = v.shape[-1]
+    nbytes = (q.numel() + k.numel() + v.numel() + B * T * H * dv) \
+        * q.element_size()
+    return bound(nbytes, (2 * dq + 2 * dv) * B * H * visible_pairs(
+        T, k.shape[1], causal, window), BF16_OPS_PER_S)
 
 
 def wkv_bound(args, y, s_out):
@@ -1395,12 +1429,13 @@ def check_attention_kernels(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref, rwkv6_wkv
     worst = {"flash_attention": 0.0, "wkv": 0.0}
-    for i, (label, B, T, H, d, causal, win, dt) in enumerate(FLASH_CASES):
-        q, k, v = attn_inputs(torch, B, T, H, d, getattr(torch, dt), dev,
-                              300 + i)
+    for i, (label, B, T, H, d, dv, causal, win, dt) in enumerate(
+            FLASH_CASES):
+        q, k, v = attn_inputs(torch, B, T, H, d, dv, getattr(torch, dt),
+                              dev, 300 + i)
         before = dict(fa.VARIANT_LAUNCHES)
         got = fa.flash_attention(q, k, v, causal=causal, swa_window=win)
-        picked = fa.variant(q.dtype, d)
+        picked = fa.variant(q.dtype, d, dv)
         moved = {n: fa.VARIANT_LAUNCHES[n] - before[n] for n in before}
         if moved != {n: int(n == picked) for n in before}:
             fail(f"flash_attention {label}: picked {picked}, but the "
@@ -1416,10 +1451,11 @@ def check_attention_kernels(torch, dev):
                 also = (f", cuda_core variant "
                         f"{allclose_err(torch, first, want, tol, tol):.3g}")
         except AssertionError as e:
-            fail(f"flash_attention {label} {(B, T, H, d)}: {e}")
+            fail(f"flash_attention {label} {(B, T, H, d, dv)}: {e}")
         worst["flash_attention"] = max(worst["flash_attention"], err)
-        phase("kernel", f"flash_attention {label} ({B}, {T}, {H}, {d}) {dt}"
-              f" causal={causal} window={win}: {picked} variant max abs "
+        dims = f"{d}" if dv == d else f"q/k {d}, v {dv}"
+        phase("kernel", f"flash_attention {label} ({B}, {T}, {H}, {dims}) "
+              f"{dt} causal={causal} window={win}: {picked} variant max abs "
               f"{err:.3g}{also} (tol {tol:g} abs + {tol:g} rel)")
     for i, (label, B, T, H, dh, dt) in enumerate(WKV_CASES):
         args = wkv_inputs(torch, B, T, H, dh, getattr(torch, dt), dev,
@@ -1556,9 +1592,20 @@ def build_report(libs):
                  f"asynchronous-copy ({ASYNC_COPY_OPS}) instructions: {c}")
 
 
+def attn_dims(cfg):
+    """(H, dq, dv): the heads and the q/k and v head dims a prefill of
+    ``cfg`` hands the attention kernel (MLA: nope + rope, and v)."""
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return (cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim,
+                m.v_head_dim)
+    return cfg.n_heads, cfg.d_head, cfg.d_head
+
+
 def serve_phase(torch, arch, dev):
-    """The serving path of ``arch`` at full width. Returns the kernel
-    launches it made, by (B, T) shape, and its numbers."""
+    """The serving path of ``arch`` at full width (at the depth
+    SERVE_LAYERS gives it). Returns the kernel launches it made, by
+    kernel and shape, and its numbers."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention, ops, rwkv6_wkv
@@ -1568,31 +1615,56 @@ def serve_phase(torch, arch, dev):
 
     name = f"serve-{arch}"
     cfg = get_config(arch)
+    depth = ""
+    if arch in SERVE_LAYERS:
+        depth = f" (of {cfg.n_layers})"
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[arch])
     L = cfg.n_layers
-    attn = cfg.layer_kind(0) == "attn"
-    own, other = (flash_attention, rwkv6_wkv) if attn \
-        else (rwkv6_wkv, flash_attention)
-    kname = "flash_attention" if attn else "wkv"
+    kinds = M.layer_kinds(cfg)
+    n_attn = sum(k == "attn" for k, _ in kinds)
+    n_rwkv = sum(k == "rwkv" for k, _ in kinds)
+    H, dq, dv = attn_dims(cfg)
+    picked = flash_attention.variant(cfg.dtype, dq, dv)
+    mix = ", ".join(f"{n} {k}" for k, n in sorted(
+        collections.Counter(k for k, _ in kinds).items()))
+    n_moe = sum(f == "moe" for k, f in kinds if k != "rwkv")
     t0 = time.perf_counter()
     params = M.init_params(cfg, SERVE_SEED, device=dev)
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in _leaves(params))
-    phase(name, f"{L} layers, d_model {cfg.d_model}, vocab {cfg.vocab}: "
-          f"{n_par / 1e9:.2f} B parameters in {cfg.dtype} (seed "
-          f"{SERVE_SEED}) on cuda in {time.perf_counter() - t0:.1f} s, "
+    phase(name, f"{L}{depth} layers ({mix}; {n_moe} MoE FFNs), d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}: {n_par / 1e9:.2f} B "
+          f"parameters in {cfg.dtype} (seed {SERVE_SEED}) on cuda in "
+          f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+
+    def expect(what, prefills, decode_steps):
+        """Fail unless flash launched once an attention layer a prefill,
+        through the variant the prefill's head dims pick, and wkv once
+        an rwkv layer a prefill and a decode step; returns the counts."""
+        want = {"flash_attention": n_attn * prefills,
+                "wkv": n_rwkv * (prefills + decode_steps)}
+        got = {"flash_attention": flash_attention.LAUNCHES,
+               "wkv": rwkv6_wkv.LAUNCHES}
+        if got != want:
+            fail(f"{name}: {what} launched {got}, expected {want} ({n_attn} "
+                 f"attention and {n_rwkv} rwkv layers, {prefills} prefills, "
+                 f"{decode_steps} decode steps)")
+        check_variant(flash_attention, got["flash_attention"], picked, name)
+        return got
 
     rng = np.random.default_rng(SERVE_SEED)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in SERVE_PROMPTS]
     toks = torch.tensor([prompts[-1]], device=dev)
-    cfg32 = dataclasses.replace(cfg, n_layers=LOGIT_LAYERS,
-                                dtype=torch.float32)
-    params32 = _cast(dict(params, layers=params["layers"][:LOGIT_LAYERS]),
+    n32 = LOGIT_LAYERS[arch]
+    cfg32 = dataclasses.replace(cfg, n_layers=n32, dtype=torch.float32)
+    params32 = _cast(dict(params, layers=params["layers"][:n32]),
                      torch.float32)
     kern, _ = M.prefill(cfg32, params32, {"tokens": toks},
                         kernel_fns=ops.model_kernel_fns())
     plain, _ = M.prefill(cfg32, params32, {"tokens": toks})
     torch.cuda.synchronize()
+    gib32 = sum(t.numel() for t in _leaves(params32)) * 4 / 2**30
     del params32
     scale = float(plain.abs().max())
     diff = float((kern - plain).abs().max())
@@ -1601,16 +1673,21 @@ def serve_phase(torch, arch, dev):
              f"plain path by {diff:.3g} (scale {scale:.3g}, tol "
              f"{LOGIT_TOL:g} of it)")
     phase(name, f"prefill of {toks.shape[1]} tokens through the first "
-          f"{LOGIT_LAYERS} layers in float32, kernels vs plain versions on "
-          f"the same weights: logits max abs diff {diff:.3g} of max "
-          f"|logit| {scale:.3g} (tol {LOGIT_TOL:g} of it)")
+          f"{n32} layers in float32 ({gib32:.1f} GiB), kernels vs plain "
+          f"versions on the same weights: logits max abs diff {diff:.3g} of "
+          f"max |logit| {scale:.3g} (tol {LOGIT_TOL:g} of it)")
     share = sensitivity(torch, cfg, params, toks, dev)
     phase(name, f"the same request through all {L} layers in bf16: the "
           f"kernels move the plain path's logits by {share['kernels']:.3g}"
           f" of their scale, a relative noise of {NOISE:g} on the plain "
           f"path's own attention/wkv outputs by {share['noise']:.3g}")
 
-    shapes = {}                      # (B, T) -> launches on the path
+    shapes = {"flash_attention": {}, "wkv": {}}
+
+    def add(kernel, key, n):
+        if n:
+            shapes[kernel][key] = shapes[kernel].get(key, 0) + n
+
     b = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
                           max_len=SERVE_MAX_LEN)
     reqs = [Request(rid=i, tokens=p, max_new=SERVE_NEW)
@@ -1623,31 +1700,26 @@ def serve_phase(torch, arch, dev):
     b.run(max_ticks=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, stray = own.LAUNCHES, other.LAUNCHES
-    counted = launches
-    calls = b.prefills + (0 if attn else b.decode_steps)
-    if launches != L * calls or stray:
-        fail(f"{name}: batcher launched {kname} {launches} times, expected "
-             f"{L} x {calls}; the other kernel {stray} times")
-    check_variant(flash_attention, launches if attn else 0, name)
+    counted = expect("the batcher", b.prefills, b.decode_steps)
     for r in reqs:
         if not (r.done and len(r.out) == SERVE_NEW and
                 all(0 <= t < cfg.padded_vocab for t in r.out)):
             fail(f"{name}: request {r.rid} ended with {len(r.out)} tokens, "
                  f"done={r.done}")
     for n in SERVE_PROMPTS:
-        shapes[(1, n)] = shapes.get((1, n), 0) + L
-    if not attn:
-        shapes[(SERVE_SLOTS, 1)] = L * b.decode_steps
+        add("flash_attention", (1, n, H, dq, dv), n_attn)
+        add("wkv", (1, n), n_rwkv)
+    add("wkv", (SERVE_SLOTS, 1), n_rwkv * b.decode_steps)
     generated = sum(len(r.out) for r in reqs)
-    variants = ", all through the wgmma variant" if attn else ""
+    launched = "; ".join(f"{k} launches {n}" for k, n in counted.items()
+                         if n)
+    variants = f", all through the {picked} variant" if n_attn else ""
     phase(name, f"ContinuousBatcher {SERVE_SLOTS} slots, max_len "
           f"{SERVE_MAX_LEN}: {len(reqs)} requests (prompts {SERVE_PROMPTS},"
           f" {SERVE_NEW} new tokens each) in {b.ticks} ticks, {b.prefills} "
           f"prefills, {b.decode_steps} decode steps, {wall:.2f} s wall, "
           f"{generated / wall:.1f} generated tok/s, idle_fraction "
-          f"{b.idle_fraction():.3f}; {kname} launches {launches} (= {L} x "
-          f"{calls}){variants}")
+          f"{b.idle_fraction():.3f}; {launched}{variants}")
     del b, reqs
 
     prompts_b = torch.as_tensor(rng.integers(
@@ -1655,44 +1727,42 @@ def serve_phase(torch, arch, dev):
     fns = ops.model_kernel_fns()
     reset_counts(flash_attention, rwkv6_wkv)
     res = serve.generate(cfg, params, prompts_b, SERVE_GEN, kernel_fns=fns)
-    launches, stray = own.LAUNCHES, other.LAUNCHES
-    counted += launches
-    calls = 1 + (0 if attn else SERVE_GEN - 1)
-    if launches != L * calls or stray:
-        fail(f"{name}: launch.serve launched {kname} {launches} times, "
-             f"expected {L} x {calls}; the other kernel {stray} times")
-    check_variant(flash_attention, launches if attn else 0, name)
+    got = expect("launch.serve", 1, SERVE_GEN - 1)
+    for k, n in got.items():
+        counted[k] += n
     tokens = res["tokens"]
     if tuple(tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
             ((tokens >= 0) & (tokens < cfg.padded_vocab)).all()):
         fail(f"{name}: launch.serve gave tokens of shape "
              f"{tuple(tokens.shape)}")
-    shapes[(SERVE_BATCH, SERVE_PROMPT)] = \
-        shapes.get((SERVE_BATCH, SERVE_PROMPT), 0) + L
-    if not attn:
-        shapes[(SERVE_BATCH, 1)] = L * (SERVE_GEN - 1)
+    add("flash_attention", (SERVE_BATCH, SERVE_PROMPT, H, dq, dv), n_attn)
+    add("wkv", (SERVE_BATCH, SERVE_PROMPT), n_rwkv)
+    add("wkv", (SERVE_BATCH, 1), n_rwkv * (SERVE_GEN - 1))
+    own = ("flash_wgmma_kernel" if picked == "wgmma" else "flash_fwd_kernel") \
+        if n_attn else "wkv_kernel"
     wall, busy, n_launch, own_ms, top = profile_busy(
         torch, lambda: serve.generate(cfg, params, prompts_b, SERVE_GEN,
-                                      kernel_fns=fns),
-        "flash_wgmma_kernel" if attn else "wkv_kernel")
+                                      kernel_fns=fns), own)
+    launched = "; ".join(f"{k} launches {n}" for k, n in got.items() if n)
     phase(name, f"launch.serve B={SERVE_BATCH} P={SERVE_PROMPT} gen "
           f"{SERVE_GEN}: prefill {res['prefill_tok_s']:.1f} tok/s "
           f"({res['prefill_s'] * 1e3:.1f} ms), decode "
           f"{res['decode_tok_s']:.1f} tok/s ({res['decode_s'] * 1e3:.1f} ms"
-          f" for {SERVE_GEN - 1} steps); {kname} launches {launches} (= {L}"
-          f" x {calls}){variants}; under torch.profiler: {wall * 1e3:.1f} ms "
-          f"wall, "
-          f"{busy * 1e3:.1f} ms device busy, idle share "
-          f"{1 - busy / wall:.3f}, {n_launch} kernel launches "
-          f"({n_launch / SERVE_GEN:.0f} a step), {kname} {own_ms:.1f} ms "
-          f"of the device time; top kernels (name, calls, ms): {top}")
-    if sum(shapes.values()) != counted:
-        fail(f"{name}: {counted} {kname} launches, {sum(shapes.values())} "
-             f"by shape")
+          f" for {SERVE_GEN - 1} steps); {launched}{variants}; under "
+          f"torch.profiler: {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} ms "
+          f"device busy, idle share {1 - busy / wall:.3f}, {n_launch} kernel"
+          f" launches ({n_launch / SERVE_GEN:.0f} a step), {own} "
+          f"{own_ms:.1f} ms of the device time; top kernels (name, calls, "
+          f"ms): {top}")
+    for k in counted:
+        if sum(shapes[k].values()) != counted[k]:
+            fail(f"{name}: {counted[k]} {k} launches, "
+                 f"{sum(shapes[k].values())} by shape")
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": counted, "shapes": shapes}
+    return {k: {"launches": counted[k], "shapes": shapes[k]}
+            for k in counted}
 
 
 def reset_counts(flash_attention, rwkv6_wkv):
@@ -1702,13 +1772,14 @@ def reset_counts(flash_attention, rwkv6_wkv):
         flash_attention.VARIANT_LAUNCHES[n] = 0
 
 
-def check_variant(flash_attention, launches, name):
-    """Fail unless the wgmma variant made all ``launches`` flash launches
-    since the counts were reset, and the CUDA-core variant none."""
+def check_variant(flash_attention, launches, picked, name):
+    """Fail unless the variant ``picked`` made all ``launches`` flash
+    launches since the counts were reset, and the other none."""
     got = dict(flash_attention.VARIANT_LAUNCHES)
-    if got != {"wgmma": launches, "cuda_core": 0}:
+    want = {n: launches if n == picked else 0 for n in got}
+    if got != want:
         fail(f"{name}: flash launches by variant {got}, expected all "
-             f"{launches} through wgmma")
+             f"{launches} through {picked}")
 
 
 def sensitivity(torch, cfg, params, toks, dev):
@@ -1775,25 +1846,34 @@ def time_attention_kernels(torch, dev, card, paths, worst):
     from repro_torch.kernels import ref, rwkv6_wkv
     entries = []
     rows = []
-    for (B, T), n in sorted(paths["flash_attention"]["shapes"].items()):
-        q, k, v = attn_inputs(torch, B, T, 32, 128, torch.bfloat16, dev, 500)
+    for (B, T, H, dq, dv), n in sorted(
+            paths["flash_attention"]["shapes"].items()):
+        q, k, v = attn_inputs(torch, B, T, H, dq, dv, torch.bfloat16, dev,
+                              500)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        row = {"shape": [B, T, 32, 128], "launches": n,
-               "variant": fa.variant(q.dtype, 128)}
-        row.update(turns(torch, {
+        row = {"shape": [B, T, H, dq, dv], "launches": n,
+               "variant": fa.variant(q.dtype, dq, dv)}
+        fns = {
             "ms": (lambda: fa.flash_attention(q, k, v, causal=True), 200),
-            "first_ms": (lambda: fa._flash_attention_variant(
-                q, k, v, "cuda_core", causal=True), 200),
             "plain_ms": (lambda: ref.attention_ref(q, k, v, causal=True), 20),
             "library_ms": (lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True), 200),
-        }))
+        }
+        if row["variant"] != "cuda_core":
+            fns["first_ms"] = (lambda: fa._flash_attention_variant(
+                q, k, v, "cuda_core", causal=True), 200)
+        row.update(turns(torch, fns))
+        first = "the first design itself"
+        if "first_ms" not in row:             # the kernel is the first design
+            row["first_ms"] = row["ms"]
+        else:
+            first = f"first design (cuda_core) {row['first_ms'] * 1e3:.1f} us"
         row["bound_ms"], row["bound_by"] = flash_bound(q, k, v, True, 0)
         rows.append(row)
-        phase("time", f"flash_attention ({B}, {T}, 32, 128) bf16 causal: "
+        dims = f"{dq}" if dq == dv else f"q/k {dq}, v {dv}"
+        phase("time", f"flash_attention ({B}, {T}, {H}, {dims}) bf16 causal: "
               f"kernel ({row['variant']}) {row['ms'] * 1e3:.1f} us/launch, "
-              f"first design (cuda_core) {row['first_ms'] * 1e3:.1f} us, "
-              f"plain version {row['plain_ms'] * 1e3:.1f} us, sdpa "
+              f"{first}, plain version {row['plain_ms'] * 1e3:.1f} us, sdpa "
               f"{row['library_ms'] * 1e3:.1f} us, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}): kernel "
               f"{row['ms'] / row['library_ms']:.2f}x sdpa, "
@@ -2184,9 +2264,14 @@ def main() -> None:
     durable_phase(torch, S, dev, card)
     bucket_fault_phase(torch, S, dev)
 
-    # 8-9. the serving paths at full width, one model at a time ---------
-    paths = {"flash_attention": serve_phase(torch, "qwen3-8b", dev),
-             "wkv": serve_phase(torch, "rwkv6-7b", dev)}
+    # 8-9b. the serving paths at full width, one model at a time -------
+    paths = {"flash_attention": {"launches": 0, "shapes": {}},
+             "wkv": {"launches": 0, "shapes": {}}}
+    for arch in SERVE_ARCHS:
+        for k, got in serve_phase(torch, arch, dev).items():
+            paths[k]["launches"] += got["launches"]
+            for key, n in got["shapes"].items():
+                paths[k]["shapes"][key] = paths[k]["shapes"].get(key, 0) + n
 
     # 10. per-launch times of the serving kernels ------------------------
     kernels += time_attention_kernels(torch, dev, card, paths, worst)

@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention -> _kernel): every attention layer of a prefill.
 // Semantics are those of models/attention.py::chunked_attention (the
-// plain version): q (B, T, H, d), k and v (B, S, H, d), float32 or
-// bfloat16, one head dim d for q, k and v; scores, running max,
+// plain version): q and k (B, T, H, d) and (B, S, H, d), v (B, S, H, dv),
+// float32 or bfloat16, the output (B, T, H, dv); scores, running max,
 // denominator and accumulator in float32; masked scores are -1e30 (a
 // row with no visible key in a processed tile averages its values, as
 // the plain version does); keys at or past S weigh 0; output in q's
@@ -15,10 +15,10 @@
 // H = 32, d = 128, bf16) the bytes (q, k, v read once, the output
 // written once: 67 MB at (8, 256, 32, 128), ~20 us at 3.35 TB/s) bound
 // it before the tensor cores do (4.3 GFLOP causal, ~4.4 us at 989
-// TFLOP/s). Two variants; the wrapper picks one from (dtype, d):
+// TFLOP/s). Two variants; the wrapper picks one from (dtype, d, dv):
 //
-// * flash_wgmma_kernel (namespace wg), bfloat16 with d in {64, 128}:
-//   the tensor-core design. A block is a consumer warpgroup (warps 0-3,
+// * flash_wgmma_kernel (namespace wg), bfloat16 with d = dv in
+//   {64, 128}: the tensor-core design. A block is a consumer warpgroup (warps 0-3,
 //   64 query rows: wgmma's M) and a producer warp, and walks one or more
 //   64-row query tiles of one (head, batch) pair: as many as it takes to
 //   give each SM two blocks (all 4 at (8, 256), 1 for a single request).
@@ -47,7 +47,9 @@
 //   next tile's S before this tile's softmax (two S accumulators, 181
 //   registers) was measured slower and is not used.
 // * flash_fwd_kernel, float32 at any d and bfloat16 at other head dims
-//   (8 <= d <= 128, d % 8 == 0): the CUDA-core design. One block of
+//   or with dv != d (8 <= d, dv <= 128, both multiples of 8; MLA's
+//   prefill gives d = 96 (nope 64 + rope 32), dv = 64): the CUDA-core
+//   design. One block of
 //   four warps per (64-row query tile, head, batch); the query tile is
 //   staged once in shared memory, pre-scaled by d^-1/2; a loop over key
 //   tiles of 64 stages K (row-major, rows padded by 4 floats so the
@@ -55,12 +57,12 @@
 //   and V in shared memory as float32, computes each warp's 16 x 64
 //   score tile with float32 FMAs (a lane owns two key columns), folds it
 //   into the running max and denominator with warp shuffles, and
-//   accumulates P V (a lane owns up to four of the d <= 128 output
+//   accumulates P V (a lane owns up to four of the dv <= 128 output
 //   columns). Tiles come in with 16-byte global loads, eight in flight
 //   per thread. Its products are full float32: the float32 callers
 //   (the float32 logit check of a serve path) need that, and TF32
-//   tensor cores would not give it. At d = 128 a block needs 115,712
-//   bytes of shared memory.
+//   tensor cores would not give it. At d = dv = 128 a block needs
+//   115,712 bytes of shared memory; at MLA's (96, 64) 74,752.
 
 #include <cuda.h>          // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -142,24 +144,25 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
   }
 }
 
-size_t smem_bytes(int d) {
+size_t smem_bytes(int d, int dv) {
   return sizeof(float) * ((size_t)kBQ * d + (size_t)kBK * (d + kKPad) +
-                          (size_t)kBK * d + (size_t)kBQ * kBK);
+                          (size_t)kBK * dv + (size_t)kBQ * kBK);
 }
 
-// NC = ceil(d / 32): output columns per lane.
+// NC = ceil(dv / 32): output columns per lane. d is the head dim of q
+// and k, dv that of v and the output.
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int n_q,
-                 int n_k, int n_heads, int d, int causal, int window,
-                 float scale) {
+                 int n_k, int n_heads, int d, int dv, int causal,
+                 int window, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldk = d + kKPad;
   float* sQ = smem;                      // [kBQ][d], scaled
   float* sK = sQ + kBQ * d;              // [kBK][ldk]
-  float* sV = sK + kBK * ldk;            // [kBK][d]
-  float* sP = sV + kBK * d;              // [kBQ][kBK]
+  float* sV = sK + kBK * ldk;            // [kBK][dv]
+  float* sP = sV + kBK * dv;             // [kBQ][kBK]
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -168,10 +171,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid & 31;
   const int r0 = (tid >> 5) * kRows;     // this warp's first row
   const size_t pitch = (size_t)n_heads * d;   // between positions
+  const size_t pitch_v = (size_t)n_heads * dv;  // of v and o
   const T* qh = q + ((size_t)b * n_q * n_heads + h) * d;
   const T* kh = k + ((size_t)b * n_k * n_heads + h) * d;
-  const T* vh = v + ((size_t)b * n_k * n_heads + h) * d;
-  T* oh = o + ((size_t)b * n_q * n_heads + h) * d;
+  const T* vh = v + ((size_t)b * n_k * n_heads + h) * dv;
+  T* oh = o + ((size_t)b * n_q * n_heads + h) * dv;
 
   load_tile(qh, q0, n_q, pitch, d, scale, sQ, d);
 
@@ -197,7 +201,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = t * kBK;
     __syncthreads();            // sQ written; last tile's sK/sV read
     load_tile(kh, k0, n_k, pitch, d, 1.0f, sK, ldk);
-    load_tile(vh, k0, n_k, pitch, d, 1.0f, sV, d);
+    load_tile(vh, k0, n_k, pitch_v, dv, 1.0f, sV, dv);
     __syncthreads();
 
     // scores of rows r0.. r0+15 against keys k0+lane, k0+lane+32
@@ -267,7 +271,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
           const int col = lane + 32 * c;
-          vv[u][c] = col < d ? sV[(j + u) * d + col] : 0.0f;
+          vv[u][c] = col < dv ? sV[(j + u) * dv + col] : 0.0f;
         }
       }
 #pragma unroll
@@ -294,7 +298,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
-      if (col < d) store(&oh[i * pitch + col], acc[rr][c] / denom);
+      if (col < dv) store(&oh[i * pitch_v + col], acc[rr][c] / denom);
     }
   }
 }
@@ -303,7 +307,7 @@ template <typename K>
 cudaError_t opt_in_smem(K kernel) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxD));
+      (int)smem_bytes(kMaxD, kMaxD));
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -312,34 +316,34 @@ cudaError_t opt_in_smem(K kernel) {
 
 template <typename T, int NC>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int n_q, int n_k, int n_heads, int d, int causal, int window,
-           float scale, cudaStream_t stream) {
-  // opt in once to the largest tile set (d = kMaxD) and the largest
+           int n_q, int n_k, int n_heads, int d, int dv, int causal,
+           int window, float scale, cudaStream_t stream) {
+  // opt in once to the largest tile set (d = dv = kMaxD) and the largest
   // shared-memory carveout, before any launch (and so outside any
   // CUDA-graph capture)
   static cudaError_t opt_in = opt_in_smem(flash_fwd_kernel<T, NC>);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 grid((n_q + kBQ - 1) / kBQ, n_heads, batch);
-  flash_fwd_kernel<T, NC><<<grid, kThreads, smem_bytes(d), stream>>>(
+  flash_fwd_kernel<T, NC><<<grid, kThreads, smem_bytes(d, dv), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n_q, n_k, n_heads, d,
-      causal, window, scale);
+      dv, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             int batch, int n_q, int n_k, int n_heads, int d, int causal,
-             int window, float scale, cudaStream_t s) {
-  switch ((d + 31) / 32) {
+             int batch, int n_q, int n_k, int n_heads, int d, int dv,
+             int causal, int window, float scale, cudaStream_t s) {
+  switch ((dv + 31) / 32) {
     case 1: return launch<T, 1>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                causal, window, scale, s);
+                                dv, causal, window, scale, s);
     case 2: return launch<T, 2>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                causal, window, scale, s);
+                                dv, causal, window, scale, s);
     case 3: return launch<T, 3>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                causal, window, scale, s);
+                                dv, causal, window, scale, s);
     default: return launch<T, 4>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                 causal, window, scale, s);
+                                 dv, causal, window, scale, s);
   }
 }
 
@@ -945,31 +949,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // C entries for ctypes. Both launch on `stream` and return the launch's
 // cudaError_t.
 //
-// The CUDA-core variant. q (batch, n_q, n_heads, d), k and v (batch, n_k,
-// n_heads, d) and o (as q) are contiguous device tensors of one dtype:
-// float32 (dtype 0) or bfloat16 (dtype 1), 16-byte aligned;
-// 8 <= d <= 128, d % 8 == 0.
+// The CUDA-core variant. q (batch, n_q, n_heads, d), k (batch, n_k,
+// n_heads, d), v (batch, n_k, n_heads, dv) and o (batch, n_q, n_heads,
+// dv) are contiguous device tensors of one dtype: float32 (dtype 0) or
+// bfloat16 (dtype 1), 16-byte aligned; 8 <= d, dv <= 128, both
+// multiples of 8.
 // causal: mask key j > query i; window > 0: mask i - j >= window.
 // Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype,
                                    int batch, int n_q, int n_k, int n_heads,
-                                   int d, int causal, int window,
+                                   int d, int dv, int causal, int window,
                                    float scale, void* stream) {
   if (d < 8 || d > kMaxD || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (dv < 8 || dv > kMaxD || dv % 8 != 0) return (int)cudaErrorInvalidValue;
   if (batch == 0 || n_q == 0 || n_heads == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, batch, n_q, n_k, n_heads, d, causal,
-                           window, scale, s);
+    return dispatch<float>(q, k, v, o, batch, n_q, n_k, n_heads, d, dv,
+                           causal, window, scale, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                   causal, window, scale, s);
+                                   dv, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core variant. q, k, v and o as above, bfloat16 only, d 64
-// or 128; the rows of q, k and v are addressed through TMA maps, so the
+// The tensor-core variant. q, k, v and o as above with dv = d, bfloat16
+// only, d 64 or 128; the rows of q, k and v are addressed through TMA maps, so the
 // tensors must be 16-byte aligned.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
                                          const void* v, void* o, int batch,

@@ -48,9 +48,10 @@ def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
 
 
 def attention(q, k, v, *, causal=True, swa_window=0):
-    """Online-softmax attention, q (B,T,H,d), k/v (B,S,H,d): the CUDA
-    flash kernel for CUDA tensors, ``ref.attention_ref`` for CPU
-    tensors."""
+    """Online-softmax attention, q (B,T,H,dq), k (B,S,H,dq), v
+    (B,S,H,dv) -> (B,T,H,dv): the CUDA flash kernel for CUDA tensors,
+    ``ref.attention_ref`` for CPU tensors. dv may differ from dq (MLA's
+    96 and 64): the kernel takes it as it is, nothing is padded."""
     if _on_cuda("attention", q):
         return _fa.flash_attention(q, k, v, causal=causal,
                                    swa_window=swa_window)

@@ -1,18 +1,24 @@
-"""Attention, GQA half (counterpart of ``repro/models/attention.py``):
-GQA with qk-norm, sliding window or bidirectional masks.
+"""Attention (counterpart of ``repro/models/attention.py``): GQA with
+qk-norm, sliding window or bidirectional masks, and MLA.
 
 Full-sequence attention never materialises a (T, S) score matrix
 beyond one (chunk_q, chunk_k) block per head: ``chunked_attention``
 scans KV chunks with an online softmax. It is also the plain version
 the CUDA flash-attention kernel is held against (``kernels/ref.py``).
 
-Decode: a (B, 1) query against a (B, S, n_kv, dh) cache (a rolling
-window for SWA archs). Unlike the reference's functional update, the
-decode step writes the new row into the cache tensors in place and
-returns them.
+Decode paths:
+  * GQA: a (B, 1) query against a (B, S, n_kv, dh) cache (a rolling
+    window for SWA archs);
+  * MLA: absorbed-weight latent attention against a (B, S, kv_lora) +
+    (B, S, rope) cache, float32 einsums as in the reference (which
+    computes it outside any Pallas kernel).
+Unlike the reference's functional update, both decode steps write the
+new row into the cache tensors in place and return them.
 
-MLA (``mla_init``/``mla_forward``/``mla_decode``) and the
-sequence-parallel ``gqa_decode_sp`` are not ported yet.
+MLA's prefill hands the attention kernel q/k of nope + rope dims and v
+of ``v_head_dim`` (minicpm3: 96 and 64); the kernel takes dv != dq.
+The sequence-parallel ``gqa_decode_sp`` needs the distributed slice
+(ROADMAP Queue 1 item 13f) and is not ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +41,29 @@ def gqa_init(gen, cfg, dtype):
         p["q_norm"] = torch.ones((dh,), dtype=dtype, device=gen.device)
         p["k_norm"] = torch.ones((dh,), dtype=dtype, device=gen.device)
     return p
+
+
+def mla_init(gen, cfg, dtype):
+    m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = gen.device
+    return {
+        "wdq": init_dense(gen, d, m.q_lora_rank, dtype),
+        "wuq": init_dense(gen, m.q_lora_rank, H * qk_head, dtype),
+        "wdkv": init_dense(gen, d, m.kv_lora_rank, dtype),
+        "wkr": init_dense(gen, d, m.qk_rope_head_dim, dtype),
+        "wuk": init_dense(gen, m.kv_lora_rank, H * m.qk_nope_head_dim,
+                          dtype),
+        "wuv": init_dense(gen, m.kv_lora_rank, H * m.v_head_dim, dtype),
+        "wo": init_dense(gen, H * m.v_head_dim, d, dtype),
+        "q_ln": torch.ones((m.q_lora_rank,), dtype=dtype, device=dev),
+        "kv_ln": torch.ones((m.kv_lora_rank,), dtype=dtype, device=dev),
+    }
+
+
+def attn_init(gen, cfg, dtype):
+    return mla_init(gen, cfg, dtype) if cfg.attn_type == "mla" \
+        else gqa_init(gen, cfg, dtype)
 
 
 def chunked_attention(q, k, v, *, causal=True, swa_window=0,
@@ -126,6 +155,18 @@ def gqa_forward(p, cfg, x, *, positions, kernel_fn=None):
     return out.reshape(B, T, H * dh) @ p["wo"], (k, v)
 
 
+def _write_row(cache, idx, row):
+    """``cache[b, idx[b]] = row[b]`` for every batch row b, in place; a
+    row whose index is past the cache is not written, as the
+    reference's scatter drops it."""
+    S = cache.shape[1]
+    inside = (idx < S).view(-1, *[1] * (row.dim() - 1))
+    at = idx.clamp(max=S - 1)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, at] = torch.where(inside, row.to(cache.dtype),
+                                  cache[rows, at])
+
+
 def gqa_decode(p, cfg, x, cache, pos):
     """One-token decode. x: (B,1,d); cache: dict(k,v: (B,S,Hkv,dh));
     pos: (B,) int. Writes the new row at ``pos`` (``pos % S`` for SWA
@@ -138,11 +179,8 @@ def gqa_decode(p, cfg, x, cache, pos):
     q, k, v = _project_qkv(p, cfg, x, pos[:, None])
 
     write_idx = pos % S if cfg.swa_window else pos
-    inside = (write_idx < S)[:, None, None]
-    idx = write_idx.clamp(max=S - 1)
-    rows = torch.arange(B, device=x.device)
-    kc[rows, idx] = torch.where(inside, k[:, 0].to(kc.dtype), kc[rows, idx])
-    vc[rows, idx] = torch.where(inside, v[:, 0].to(vc.dtype), vc[rows, idx])
+    _write_row(kc, write_idx, k[:, 0])
+    _write_row(vc, write_idx, v[:, 0])
 
     kf, vf = _repeat_kv(kc, H // Hkv), _repeat_kv(vc, H // Hkv)
     s = torch.einsum("bqhd,bshd->bhqs", q.float() * dh ** -0.5, kf.float())
@@ -155,3 +193,76 @@ def gqa_decode(p, cfg, x, cache, pos):
     out = torch.einsum("bhqs,bshd->bqhd", prob, vf.float())
     out = out.to(x.dtype).reshape(B, 1, H * dh)
     return out @ p["wo"], {"k": kc, "v": vc}
+
+
+def mla_forward(p, cfg, x, *, positions, kernel_fn=None):
+    """Full-sequence MLA (naive, un-absorbed). x: (B,T,d). Returns (out,
+    (c_kv (B,T,kv_lora), k_rope (B,T,rope))), the latent cache rows."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    cq = rms_norm(x @ p["wdq"], p["q_ln"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(B, T, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = rms_norm(x @ p["wdkv"], p["kv_ln"], cfg.norm_eps)   # (B,T,r)
+    k_rope = apply_rope((x @ p["wkr"])[:, :, None, :], positions,
+                        cfg.rope_theta)                        # (B,T,1,dr)
+    k_nope = (c_kv @ p["wuk"]).reshape(B, T, H, dn)
+    v = (c_kv @ p["wuv"]).reshape(B, T, H, dv)
+
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(B, T, H, dr)], dim=-1)
+    if kernel_fn is not None:
+        out = kernel_fn(qf, kf, v, causal=cfg.causal)
+    else:
+        out = chunked_attention(qf, kf, v, causal=cfg.causal,
+                                chunk_q=cfg.attn_chunk,
+                                chunk_k=cfg.attn_chunk)
+    out = out.reshape(B, T, H * dv) @ p["wo"]
+    return out, (c_kv, k_rope[:, :, 0, :])
+
+
+def mla_decode(p, cfg, x, cache, pos):
+    """Absorbed-weight MLA decode. x: (B,1,d); cache: dict(c_kv
+    (B,S,kv_lora), k_rope (B,S,rope)); pos: (B,) int. Writes the new
+    latent row at ``pos`` into the cache tensors in place (a row past
+    the cache is not written)."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    dn, dr, dv, r = (m.qk_nope_head_dim, m.qk_rope_head_dim,
+                     m.v_head_dim, m.kv_lora_rank)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    S = c_kv.shape[1]
+
+    cq = rms_norm(x @ p["wdq"], p["q_ln"], cfg.norm_eps)
+    q = (cq @ p["wuq"]).reshape(B, 1, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, pos[:, None], cfg.rope_theta)
+
+    c_new = rms_norm(x @ p["wdkv"], p["kv_ln"], cfg.norm_eps)  # (B,1,r)
+    kr_new = apply_rope((x @ p["wkr"])[:, :, None, :], pos[:, None],
+                        cfg.rope_theta)[:, :, 0, :]            # (B,1,dr)
+
+    _write_row(c_kv, pos, c_new[:, 0])
+    _write_row(k_rope, pos, kr_new[:, 0])
+
+    # absorb W_uk into q: q_lat[b,h,r] = sum_n q_nope[b,h,n] wuk[r,h*dn+n]
+    wuk = p["wuk"].reshape(r, H, dn)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), wuk.float())
+    scale = (dn + dr) ** -0.5
+    ckv32 = c_kv.float()
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv32)
+         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                        k_rope.float())) * scale
+    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    prob = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", prob, ckv32)
+    wuv = p["wuv"].reshape(r, H, dv)
+    out = torch.einsum("bqhr,rhv->bqhv", o_lat, wuv.float())
+    out = out.to(x.dtype).reshape(B, 1, H * dv)
+    return out @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}

@@ -5,7 +5,8 @@
 against on the card) is compared with the reference's
 ``chunked_attention``, its naive softmax ``attention_naive`` and its
 Pallas ``flash_attention`` in interpret mode, on the ATTN_CASES shapes
-of tests/test_kernels.py and on ragged lengths; then the GQA layer
+of tests/test_kernels.py, on ragged lengths and with a value head dim
+unlike the query's (MLA: q/k 96, v 64); then the GQA layer
 (``gqa_forward``, ``gqa_decode``) on a reduced qwen3-8b.
 
 Tolerances: 2e-5 (abs and rel) in float32, where the two sides differ
@@ -118,6 +119,45 @@ def test_plain_attention_noncausal_window_is_the_softmax():
                                      swa_window=32), 2e-5)
 
 
+# (B, T, H, dq, dv, causal, swa, dtype, chunk): v's head dim unlike q's
+DV_CASES = [
+    (1, 64, 2, 96, 64, True, 0, "float32", 64),      # minicpm3's MLA dims
+    (2, 128, 3, 96, 64, True, 0, "float32", 32),     # chunked
+    (1, 100, 2, 96, 64, True, 0, "float32", 100),    # ragged
+    (2, 64, 2, 96, 64, False, 0, "float32", 64),
+    (1, 128, 2, 32, 16, True, 32, "float32", 64),    # dv < dq, windowed
+    (1, 64, 2, 16, 48, True, 0, "float32", 64),      # dv > dq
+    (1, 128, 4, 96, 64, True, 0, "bfloat16", 128),
+]
+
+
+@pytest.mark.parametrize("case", DV_CASES)
+def test_plain_attention_dv_unlike_dq_vs_reference(case):
+    """q/k of dq, v of dv -> (B, T, H, dv) in v's dtype, as the
+    reference's chunked attention and naive softmax give it."""
+    B, T, H, dq, dv, causal, swa, dtype, ck = case
+    rng = np.random.default_rng(9)
+    arrs = [rng.standard_normal((B, T, H, d)).astype(np.float32)
+            for d in (dq, dq, dv)]
+    jq, jk, jv = (jnp.asarray(a, dtype=getattr(jnp, dtype)) for a in arrs)
+    tq, tk, tv = (torch.as_tensor(a).to(getattr(torch, dtype))
+                  for a in arrs)
+    got = tref.attention_ref(tq, tk, tv, causal=causal, swa_window=swa)
+    assert got.dtype == tv.dtype and tuple(got.shape) == (B, T, H, dv)
+    tol = TOL[dtype]
+    _close(got, jattn.chunked_attention(jq, jk, jv, causal=causal,
+                                        swa_window=swa), tol)
+    _close(got, jref.attention_naive(jq, jk, jv, causal=causal,
+                                     swa_window=swa), tol)
+    many = tattn.chunked_attention(tq, tk, tv, causal=causal,
+                                   swa_window=swa, chunk_q=ck, chunk_k=ck)
+    _close(many, jattn.chunked_attention(jq, jk, jv, causal=causal,
+                                         swa_window=swa, chunk_q=ck,
+                                         chunk_k=ck), tol)
+    assert torch.equal(ops.attention(tq, tk, tv, causal=causal,
+                                     swa_window=swa), got)
+
+
 def test_chunked_attention_rejects_partial_chunks():
     (_, _, _), (tq, tk, tv) = _qkv(3, 1, 96, 96, 1, 16, "float32")
     with pytest.raises(ValueError, match="multiples"):
@@ -148,20 +188,38 @@ def test_flash_variant_from_dtype_and_head_dim(dtype, d, want):
     """The tensor-core variant takes bfloat16 at d 64 or 128; float32
     (full float32 products) and every other head dim take the CUDA-core
     variant."""
-    assert flash_attention.variant(dtype, d) == want
+    assert flash_attention.variant(dtype, d, d) == want
+
+
+@pytest.mark.parametrize("dtype,dq,dv,want", [
+    (torch.bfloat16, 96, 64, "cuda_core"),          # MLA (minicpm3-4b)
+    (torch.bfloat16, 128, 64, "cuda_core"),
+    (torch.bfloat16, 64, 128, "cuda_core"),
+    (torch.float32, 96, 64, "cuda_core"),
+    (torch.bfloat16, 64, 64, "wgmma"),
+])
+def test_flash_variant_with_dv_unlike_dq(dtype, dq, dv, want):
+    """wgmma's tiles are whole 128-byte swizzle atoms of one head dim:
+    a value head dim unlike the query's goes to the CUDA-core variant."""
+    assert flash_attention.variant(dtype, dq, dv) == want
 
 
 @pytest.mark.parametrize("arch,want", [
     ("qwen3-8b", "wgmma"), ("granite-34b", "wgmma"),
     ("mixtral-8x7b", "wgmma"), ("jamba-v0.1-52b", "wgmma"),
-    ("minicpm3-4b", "wgmma"), ("hubert-xlarge", "cuda_core"),
+    ("minicpm3-4b", "cuda_core"), ("hubert-xlarge", "cuda_core"),
 ])
 def test_flash_variant_of_each_served_config(arch, want):
-    """At its own dtype and head dim, each attention config reaches the
-    variant the kernel note promises: d = 128 and 64 the tensor cores,
-    hubert's d = 80 the CUDA cores."""
+    """At its own dtype and the head dims its prefill hands the kernel,
+    each attention config reaches the variant the kernel note promises:
+    d = 128 and 64 the tensor cores; hubert's d = 80 and MLA's q/k of
+    96 with v of 64 (minicpm3-4b) the CUDA cores."""
     cfg = t_get_config(arch)
-    assert flash_attention.variant(cfg.dtype, cfg.d_head) == want
+    dq = dv = cfg.d_head
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        dq, dv = m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    assert flash_attention.variant(cfg.dtype, dq, dv) == want
 
 
 def test_flash_variant_entry_refuses_cpu_and_unknown_variants():

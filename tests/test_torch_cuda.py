@@ -126,7 +126,7 @@ def test_flash_wgmma_variant_vs_plain_version(cuda, B, T, H, d, causal,
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn((B, T, H, d), generator=g, device=cuda)
                .to(torch.bfloat16) for _ in range(3))
-    assert flash_attention.variant(q.dtype, d) == "wgmma"
+    assert flash_attention.variant(q.dtype, d, d) == "wgmma"
     before = dict(flash_attention.VARIANT_LAUNCHES)
     got = ops.attention(q, k, v, causal=causal, swa_window=window)
     torch.cuda.synchronize()
@@ -137,6 +137,78 @@ def test_flash_wgmma_variant_vs_plain_version(cuda, B, T, H, d, causal,
     first = flash_attention._flash_attention_variant(
         q, k, v, "cuda_core", causal=causal, swa_window=window)
     _close(first, want, ATTN_TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,dq,dv,causal,dtype", [
+    (1, 64, 40, 96, 64, True, "bfloat16"),        # minicpm3-4b's MLA
+    (1, 384, 40, 96, 64, True, "bfloat16"),
+    (8, 256, 40, 96, 64, True, "bfloat16"),
+    (1, 200, 40, 96, 64, True, "float32"),
+    (2, 100, 4, 96, 64, False, "bfloat16"),
+    (1, 130, 2, 32, 48, True, "float32"),         # dv > dq
+])
+def test_flash_kernel_dv_unlike_dq_vs_plain_version(cuda, B, T, H, dq, dv,
+                                                    causal, dtype):
+    """v's head dim unlike q's: the CUDA-core variant launches (the
+    wgmma one takes dq = dv only), the output is (B, T, H, dv) and
+    agrees with the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dt = getattr(torch, dtype)
+    q, k = (torch.randn((B, T, H, dq), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    v = torch.randn((B, T, H, dv), generator=g, device=cuda).to(dt)
+    assert flash_attention.variant(dt, dq, dv) == "cuda_core"
+    before = dict(flash_attention.VARIANT_LAUNCHES)
+    got = ops.attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.VARIANT_LAUNCHES == {
+        "wgmma": before["wgmma"], "cuda_core": before["cuda_core"] + 1}
+    assert got.dtype == dt and tuple(got.shape) == (B, T, H, dv)
+    _close(got, want, ATTN_TOL[dtype])
+    with pytest.raises(ValueError, match="wgmma variant"):
+        flash_attention._flash_attention_variant(q, k, v, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "mixtral-8x7b",
+                                  "jamba-v0.1-52b"])
+def test_new_families_through_the_kernels(cuda, arch):
+    """Reduced float32 MLA, MoE and Mamba models on the card: prefill
+    through the kernels (flash once per attention layer) within 1e-4 of
+    the plain path's logits scale, and decode steps from its cache equal
+    to the plain path's."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(reduced(get_config(arch)), n_layers=8)
+    params = M.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=cuda,
+                         generator=torch.Generator(device=cuda)
+                         .manual_seed(0))
+    n_attn = sum(kind == "attn" for kind, _ in M.layer_kinds(cfg))
+    before = flash_attention.LAUNCHES
+    kern, kc = M.prefill(cfg, params, {"tokens": toks},
+                         kernel_fns=ops.model_kernel_fns())
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + n_attn > before
+    plain, pc = M.prefill(cfg, params, {"tokens": toks})
+    scale = float(plain.abs().max())
+    assert float((kern - plain).abs().max()) <= 1e-4 * scale
+    caches = []
+    for pre in (kc, pc):
+        c = M.init_cache(cfg, 2, 48, device=cuda)
+        M.write_cache(c, pre)
+        caches.append(c)
+    tok = torch.argmax(plain, -1)[:, None]
+    for t in range(40, 43):
+        pos = torch.full((2,), t, dtype=torch.int32, device=cuda)
+        a, caches[0] = M.decode_step(cfg, params, caches[0], tok, pos,
+                                     kernel_fns=ops.model_kernel_fns())
+        b, caches[1] = M.decode_step(cfg, params, caches[1], tok, pos)
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+        tok = torch.argmax(b, -1)[:, None]
 
 
 @pytest.mark.cuda
@@ -204,6 +276,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 16), device=cuda)
     with pytest.raises(TypeError, match="must be"):
         flash_attention.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="head dim of v"):   # dv % 8 != 0
+        flash_attention.flash_attention(q, q, torch.zeros((1, 8, 2, 12),
+                                                          device=cuda))
     r = torch.zeros((1, 4, 2, 48), device=cuda)          # dh not served
     with pytest.raises(ValueError, match="head dim"):
         rwkv6_wkv.wkv(r, r, r, r, torch.zeros((2, 48), device=cuda),

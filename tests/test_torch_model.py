@@ -1,6 +1,9 @@
 """The port's model stack and configs against the reference.
 
-For reduced qwen3-0.6b, qwen3-8b and rwkv6-7b, the reference's random
+For reduced qwen3-0.6b, qwen3-8b, rwkv6-7b, minicpm3-4b (MLA),
+mixtral-8x7b (MoE, sliding window), jamba-v0.1-52b (Mamba + attention +
+MoE, one 8-sublayer period) and kimi-k2-1t-a32b (a dense prefix layer,
+then MoE), the reference's random
 parameters are carried across with ``core.convert.params_from_numpy``;
 the port's prefill logits and every cache leaf (``cache_from_numpy``
 maps the reference's stacked caches) are compared with
@@ -12,7 +15,9 @@ and a sum that cancels to a small value (a wkv state entry) keeps the
 rounding error of its larger terms.
 
 The configs must name the same models with the same fields, layer kinds
-and parameter counts; kinds the port does not run yet must raise.
+and parameter counts; the frontends the port does not run yet must
+raise. ``convert`` must lay the reference's stacks (jamba's period of 8,
+kimi-k2's ``prefix0``) out in model order, float32 leaves kept float32.
 """
 import dataclasses
 
@@ -29,7 +34,11 @@ from repro_torch.core import convert
 from repro_torch.kernels import ops
 from repro_torch.models import model as TM
 
-ARCHS = ["qwen3-0.6b", "qwen3-8b", "rwkv6-7b"]
+ARCHS = ["qwen3-0.6b", "qwen3-8b", "rwkv6-7b", "minicpm3-4b",
+         "mixtral-8x7b", "jamba-v0.1-52b", "kimi-k2-1t-a32b"]
+#: the families this slice adds, for the port-side decode-consistency
+#: checks (the reference's tests/test_decode_consistency.py)
+NEW_ARCHS = ARCHS[3:]
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -40,9 +49,9 @@ def _close(got, want):
                                atol=ATOL * scale)
 
 
-def _models(arch, seed=0):
-    cfg = jconfigs.reduced(jconfigs.get_config(arch))
-    tcfg = tconfigs.reduced(tconfigs.get_config(arch))
+def _models(arch, seed=0, **over):
+    cfg = jconfigs.reduced(jconfigs.get_config(arch), **over)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch), **over)
     jp = JM.init_params(cfg, jax.random.PRNGKey(seed))
     return cfg, tcfg, jp, convert.params_from_numpy(jax.device_get(jp))
 
@@ -201,14 +210,100 @@ def test_configs_name_the_same_models():
                 [j.ffn_kind(i) for i in range(j.n_layers)]
 
 
-@pytest.mark.parametrize("arch,item", [("minicpm3-4b", "13b"),
-                                       ("mixtral-8x7b", "13c"),
-                                       ("kimi-k2-1t-a32b", "13c"),
-                                       ("jamba-v0.1-52b", "13d")])
-def test_unported_kinds_raise(arch, item):
-    tcfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        TM.init_params(tcfg, 0, device="cpu")
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_decode_matches_full_forward_new_families(arch):
+    """The reference's decode-consistency property on the port (MoE
+    capacity raised, as there, so that drops do not differ between the
+    two token counts)."""
+    _, tcfg, _, tp = _models(arch, seed=1, capacity_factor=8.0)
+    B, T = 2, 12
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, tcfg.vocab, (B, T)))
+    full, _ = TM.prefill(tcfg, tp, {"tokens": toks})
+    _, pre = TM.prefill(tcfg, tp, {"tokens": toks[:, :-1]})
+    cache = TM.init_cache(tcfg, B, T, device="cpu")
+    TM.write_cache(cache, pre)
+    dec, new = TM.decode_step(tcfg, tp, cache, toks[:, -1:],
+                              torch.full((B,), T - 1, dtype=torch.int32))
+    assert float((dec - full).abs().max()) < 3e-3
+    for a, b in zip(cache["layers"], new["layers"]):
+        assert {k: (v.shape, v.dtype) for k, v in a.items()} == \
+            {k: (v.shape, v.dtype) for k, v in b.items()}
+
+
+def test_swa_rolling_cache_mixtral():
+    """The reference's test of that name on the port: with the prompt
+    longer than the window the prefill cache is rolled, and the decode
+    step from it gives the full forward's logits; both equal the
+    reference's."""
+    cfg, tcfg, jp, tp = _models("mixtral-8x7b", seed=4, swa_window=8,
+                                capacity_factor=8.0)
+    B, T = 2, 16
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, T))
+    full, _ = TM.prefill(tcfg, tp, {"tokens": torch.as_tensor(toks)})
+    _, cache = TM.prefill(tcfg, tp, {"tokens": torch.as_tensor(toks[:, :-1])})
+    assert cache["layers"][0]["k"].shape[1] == 8
+    pos = torch.full((B,), T - 1, dtype=torch.int32)
+    dec, _ = TM.decode_step(tcfg, tp, cache, torch.as_tensor(toks[:, -1:]),
+                            pos)
+    assert float((dec - full).abs().max()) < 3e-3
+    _, jc = JM.prefill(cfg, jp, {"tokens": jnp.asarray(toks[:, :-1],
+                                                       jnp.int32)})
+    jdec, _ = JM.decode_step(cfg, jp, jc, jnp.asarray(toks[:, -1:],
+                                                      jnp.int32),
+                             jnp.full((B,), T - 1, jnp.int32))
+    _close(dec, jdec)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("jamba-v0.1-52b", 16),
+                                           ("kimi-k2-1t-a32b", 3)])
+def test_convert_lays_out_the_stack_in_model_order(arch, n_layers):
+    """jamba: two periods of 8 sublayers (``stack["sub<j>"]`` with a
+    leading axis of 2); kimi-k2: ``prefix0`` (dense) then the stacked
+    MoE layers. Layer i of the port is the reference's layer i, its
+    mixer and FFN those of ``layer_kind(i)``/``ffn_kind(i)``; the
+    router, A_log and D stay float32 beside bf16 weights, and so do
+    Mamba's conv and h states in the cache."""
+    cfg = jconfigs.reduced(jconfigs.get_config(arch), n_layers=n_layers,
+                           dtype=jnp.bfloat16)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch), n_layers=n_layers,
+                            dtype=torch.bfloat16)
+    jp = jax.device_get(JM.init_params(cfg, jax.random.PRNGKey(0)))
+    tp = convert.params_from_numpy(jp)
+    assert len(tp["layers"]) == n_layers
+    n_prefix = cfg.first_dense
+    period = len(jp["stack"])
+    for i, layer in enumerate(tp["layers"]):
+        kind, ffn = TM.layer_kinds(tcfg)[i]
+        assert kind in layer and ffn in layer, (i, sorted(layer))
+        if i < n_prefix:
+            src = jp[f"prefix{i}"]
+        else:
+            j = i - n_prefix
+            src = jax.tree.map(lambda a: a[j // period],
+                               jp["stack"][f"sub{j % period}"])
+        for path, want in jax.tree_util.tree_leaves_with_path(src):
+            got = layer
+            for k in path:
+                got = got[k.key]
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(want, np.float32))
+        if ffn == "moe":
+            assert layer["moe"]["router"].dtype == torch.float32
+            assert layer["moe"]["w_up"].dtype == torch.bfloat16
+        if kind == "mamba":
+            assert layer["mamba"]["A_log"].dtype == torch.float32
+            assert layer["mamba"]["D"].dtype == torch.float32
+            assert layer["mamba"]["in_proj"].dtype == torch.bfloat16
+    cache = convert.cache_from_numpy(jax.device_get(
+        JM.init_cache(cfg, 2, 8, dtype=cfg.dtype)))
+    ours = TM.init_cache(tcfg, 2, 8, device="cpu")
+    for (kind, _), got, want in zip(TM.layer_kinds(tcfg), ours["layers"],
+                                    cache["layers"]):
+        assert {k: (v.shape, v.dtype) for k, v in got.items()} == \
+            {k: (v.shape, v.dtype) for k, v in want.items()}
+        if kind == "mamba":
+            assert want["conv"].dtype == want["h"].dtype == torch.float32
 
 
 def test_frontends_raise():

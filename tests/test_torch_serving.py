@@ -3,7 +3,9 @@
 The port's ``ContinuousBatcher`` and the reference's serve the same
 requests (the prompts of tests/test_batcher.py) with the same random
 parameters (carried across with ``core.convert.params_from_numpy``), on
-reduced qwen3-0.6b and rwkv6-7b in float32. Greedy tokens must be equal
+reduced qwen3-0.6b, rwkv6-7b, minicpm3-4b (MLA's latent cache),
+mixtral-8x7b (MoE), jamba-v0.1-52b (Mamba states, which a slot takes
+whole) and kimi-k2-1t-a32b in float32. Greedy tokens must be equal
 and so must the tick and idle-tick counts (``idle_fraction``): an
 argmax over float32 logits that agree to ~1e-6 (test_torch_model.py)
 picks the same token unless two logits tie to that precision, which
@@ -27,7 +29,8 @@ from repro_torch.launch import serve
 from repro_torch.serving import ContinuousBatcher, Request
 
 PROMPTS = [[5, 9, 2, 7], [11, 3, 1, 8, 6, 2], [4, 4, 4]]
-ARCHS = ["qwen3-0.6b", "rwkv6-7b"]
+ARCHS = ["qwen3-0.6b", "rwkv6-7b", "minicpm3-4b", "mixtral-8x7b",
+         "jamba-v0.1-52b", "kimi-k2-1t-a32b"]
 
 
 def _models(arch, seed=0):
@@ -135,6 +138,19 @@ def test_serve_main_on_cpu(capsys):
                       "--batch", "2", "--prompt-len", "8", "--gen", "4"])
     assert tuple(res["tokens"].shape) == (2, 4)
     assert "prefill" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "mixtral-8x7b",
+                                  "jamba-v0.1-52b"])
+def test_serve_main_on_cpu_new_families(arch, capsys):
+    """``launch.serve --arch <arch> --reduced --device cpu`` for the MLA,
+    MoE and Mamba families."""
+    res = serve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "4"])
+    tokens = res["tokens"]
+    assert tuple(tokens.shape) == (2, 4)
+    assert bool(((tokens >= 0) & (tokens < 512)).all())
+    assert arch in capsys.readouterr().out
 
 
 def test_serve_main_needs_cuda_by_default(monkeypatch):

@@ -31,7 +31,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
    wkv at the
    serve shapes of rwkv6-7b (prefill at B = 1 and 8, decode T = 1, a
    ragged T, float32), planned and with one thread per column, the
-   final state equal to the plain version's bit for bit;
+   final state equal to the plain version's bit for bit; then the
+   training side: both flash variants' rows' log-sum-exp against the
+   plain logsumexp (the output equal to serving's launch), the flash
+   backward kernel at (8, 256, 32, 128) bf16, (1, 384, 32, 128)
+   float32, MLA's (2, 256, 40, 96/64) and a sliding window, and the
+   wkv backward kernel at (1, 256) and (2, 1024) in bf16 and float32,
+   each against its plain version (``ref.attention_bwd_ref``,
+   ``ref.wkv_bwd_ref``) and equal to itself over two runs;
 3. ``golden``: the committed golden results
    (tests/data/preflow_golden.json, "results") reproduced by
    ``run_sweep`` on the card with the tick replayed from a CUDA graph
@@ -107,6 +114,19 @@ Phases (one line each; any failure exits non-zero and prints no result):
    the CUDA cores for MLA's (96, 64); wkv once an rwkv layer a prefill
    and a decode step); prefill and decode tokens/s and the device's
    idle share (torch.profiler);
+9c. ``train-qwen3-8b`` and ``train-rwkv6-7b``: the training path at
+   full width and 8 layers (TRAIN_LAYERS; bf16, remat, AdamW): the
+   gradient check (GRAD_TOL), then TRAIN_STEPS steps of B = 2 x 4,096
+   tokens from ``batch_at`` through ``Trainer.run`` (no checkpoint):
+   a warm-up step, a timed window of TRAIN_WINDOW, one under
+   torch.profiler; loss and grad_norm a step (finite), step ms and
+   tokens/s over the window, the model FLOPs' share of 989 TFLOP/s, peak
+   memory, and exact launch counts (forward twice a layer a step with
+   remat, backward once); 9d. ``train-reduced``: tests/test_system.py's
+   30 steps of reduced qwen3-0.6b through the kernels (the loss falls by
+   0.5) and tests/test_checkpoint_trainer.py's kill at step 8 and
+   resume, the resumed losses against the uninterrupted run's (bit for
+   bit, or the difference printed);
 10. ``time``: card time under CUDA-graph replay: switch_tiers a tick
    beside its first design (two switch_step launches and their
    glue), the plain version, the bound and an empty kernel's graph
@@ -117,7 +137,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
    flash_attention and wkv at each serve shape, timed in turns: the
    kernel, the first design on the same inputs (flash's CUDA-core
    variant, wkv with one thread per column), the plain version, the
-   bound and, for flash_attention, scaled_dot_product_attention.
+   bound and, for flash_attention, scaled_dot_product_attention; at the
+   training shapes also the training forward (with the log-sum-exp, or
+   saving the wkv states), held against the plain versions' outputs
+   the timing computed; the two backward kernels at the training
+   shapes beside their plain versions (and held against them), their
+   bounds and, for flash, SDPA's backward on the same tensors.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line names the device. Imports neither JAX nor the JAX
@@ -1837,10 +1862,12 @@ def turns(torch, fns):
     return {n: (first[n] + second[n]) / 2 for n in fns}
 
 
-def time_attention_kernels(torch, dev, card, paths, worst):
+def time_attention_kernels(torch, dev, card, paths, worst, train=()):
     """Per-launch card time of flash_attention and wkv at each shape of
-    their serve paths, beside their first designs on the same
-    inputs; returns their entries of the kernels line."""
+    their serve and train paths, beside their first designs on the same
+    inputs; at the shapes in ``train`` also the training forward's
+    (with the log-sum-exp or the saved states); returns their entries
+    of the kernels line."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref, rwkv6_wkv
@@ -1853,16 +1880,36 @@ def time_attention_kernels(torch, dev, card, paths, worst):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         row = {"shape": [B, T, H, dq, dv], "launches": n,
                "variant": fa.variant(q.dtype, dq, dv)}
+        # fewer replays where a call is long (the training shape's
+        # causal work is 64x that of (8, 256))
+        reps = max(3, 200 * 8 * 256 * 256 // max(B * T * T, 1) // 1)
+        reps = min(200, reps)
         fns = {
-            "ms": (lambda: fa.flash_attention(q, k, v, causal=True), 200),
-            "plain_ms": (lambda: ref.attention_ref(q, k, v, causal=True), 20),
+            "ms": (lambda: fa.flash_attention(q, k, v, causal=True), reps),
             "library_ms": (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), 200),
+                qt, kt, vt, is_causal=True), reps),
         }
+        plain = {}
+        if T <= 1024:
+            fns["plain_ms"] = (lambda: ref.attention_ref(q, k, v,
+                                                         causal=True), 20)
         if row["variant"] != "cuda_core":
             fns["first_ms"] = (lambda: fa._flash_attention_variant(
-                q, k, v, "cuda_core", causal=True), 200)
+                q, k, v, "cuda_core", causal=True), reps)
+        if (B, T, H, dq, dv) in train:
+            fns["lse_ms"] = (lambda: fa.flash_attention_lse(
+                q, k, v, causal=True), reps)
         row.update(turns(torch, fns))
+        if "plain_ms" not in row:
+            row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
+                "out", ref.attention_ref(q, k, v, causal=True)), 2)
+        held = ""
+        if (B, T, H, dq, dv) in train:
+            err = hold_train_forward(torch, fa, ref, q, k, v, plain)
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            held = (f"; the served and training forwards hold the plain "
+                    f"version here (max abs {err:.3g}, tol "
+                    f"{FLASH_TOL['bfloat16']:g}; lse tol {LSE_TOL:g})")
         first = "the first design itself"
         if "first_ms" not in row:             # the kernel is the first design
             row["first_ms"] = row["ms"]
@@ -1871,14 +1918,17 @@ def time_attention_kernels(torch, dev, card, paths, worst):
         row["bound_ms"], row["bound_by"] = flash_bound(q, k, v, True, 0)
         rows.append(row)
         dims = f"{dq}" if dq == dv else f"q/k {dq}, v {dv}"
+        lse = (f" (training's, with the log-sum-exp: "
+               f"{row['lse_ms'] * 1e3:.1f} us)" if "lse_ms" in row else "")
         phase("time", f"flash_attention ({B}, {T}, {H}, {dims}) bf16 causal: "
-              f"kernel ({row['variant']}) {row['ms'] * 1e3:.1f} us/launch, "
+              f"kernel ({row['variant']}) {row['ms'] * 1e3:.1f} us/launch{lse}, "
               f"{first}, plain version {row['plain_ms'] * 1e3:.1f} us, sdpa "
               f"{row['library_ms'] * 1e3:.1f} us, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}): kernel "
               f"{row['ms'] / row['library_ms']:.2f}x sdpa, "
               f"{row['ms'] / row['bound_ms']:.2f}x bound; {n} launches on "
-              f"the path; card {card}")
+              f"the path{held}; card {card}")
+        plain.clear()
     entries.append(_entry("flash_attention", "flash_attention.cu",
                           "src/repro/kernels/flash_attention.py:83",
                           paths["flash_attention"]["launches"],
@@ -1890,21 +1940,42 @@ def time_attention_kernels(torch, dev, card, paths, worst):
         layout = rwkv6_wkv.plan(B, T, 64)
         row = {"shape": [B, T, 64, 64], "launches": n,
                "groups_splits": list(layout)}
-        row.update(turns(torch, {
-            "ms": (lambda: rwkv6_wkv.wkv(*args), 200),
-            "first_ms": (lambda: rwkv6_wkv._wkv_planned(*args, 1, 1), 200),
-            "plain_ms": (lambda: ref.wkv_ref(*args),
-                         max(2, min(50, 400 // T))),
-        }))
+        reps = 200 if T <= 1024 else 20
+        fns = {
+            "ms": (lambda: rwkv6_wkv.wkv(*args), reps),
+            "first_ms": (lambda: rwkv6_wkv._wkv_planned(*args, 1, 1), reps),
+        }
+        if T <= 1024:
+            fns["plain_ms"] = (lambda: ref.wkv_ref(*args),
+                               max(2, min(50, 400 // T)))
+        if (B, T) in train:
+            fns["ckpt_ms"] = (lambda: rwkv6_wkv.wkv_ckpt(*args), reps)
+        row.update(turns(torch, fns))
+        plain = {}
+        if "plain_ms" not in row:
+            row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
+                "out", ref.wkv_ref(*args)), 1)
+        held = ""
+        if (B, T) in train:
+            err = hold_train_wkv(torch, rwkv6_wkv, ref, args, y, s_out,
+                                 plain)
+            worst["wkv"] = max(worst["wkv"], err)
+            held = (f"; the served and training forwards hold the plain "
+                    f"version here (y max abs {err:.3g}, tol "
+                    f"{WKV_Y_TOL['bfloat16']:g}; the final state "
+                    f"bit-identical)")
+        del plain
         row["bound_ms"], row["bound_by"] = wkv_bound(args, y, s_out)
         rows.append(row)
+        ck = (f" (training's, saving the states: "
+              f"{row['ckpt_ms'] * 1e3:.1f} us)" if "ckpt_ms" in row else "")
         phase("time", f"wkv ({B}, {T}, 64, 64) bf16: kernel (groups, "
-              f"splits {layout}) {row['ms'] * 1e3:.1f} us/launch, "
+              f"splits {layout}) {row['ms'] * 1e3:.1f} us/launch{ck}, "
               f"one thread a column {row['first_ms'] * 1e3:.1f} us, plain "
               f"version {row['plain_ms'] * 1e3:.1f} us, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}): kernel "
               f"{row['ms'] / row['bound_ms']:.2f}x bound; {n} launches on "
-              f"the path; card {card}")
+              f"the path{held}; card {card}")
     entries.append(_entry("wkv", "rwkv6_wkv.cu",
                           "src/repro/kernels/rwkv6_wkv.py:78",
                           paths["wkv"]["launches"], worst["wkv"], rows,
@@ -2003,6 +2074,619 @@ def golden_phase(torch, S, dev, name, batch, rows, cfg, x64):
              f"(worst_parity {diff:.3g} at {where}); they must be equal")
     phase(name, "the CUDA-graph and eager runs end in equal results and "
           "equal state, leaf for leaf")
+
+
+
+# training -----------------------------------------------------------------
+# the full-width models trained on the card: qwen3-8b (flash) and
+# rwkv6-7b (wkv), bf16, random weights from TRAIN_SEED, remat on (the
+# full configs'), AdamW through Trainer.run on batch_at's tokens, no
+# checkpoint. Cut in depth and batch: the whole of qwen3-8b with AdamW's
+# float32 moments is ~98 GB; 8 of its 36 layers are ~2.79 B parameters,
+# ~33.5 GB of weights, gradients and moments, 8 of rwkv6-7b's 32 ~2.28 B,
+# ~27 GB; B = 2 sequences of the reference launcher's 4,096 tokens
+# (8,192 tokens a step, against its global batch of 256).
+TRAIN_ARCHS = ("qwen3-8b", "rwkv6-7b")
+TRAIN_LAYERS = 8
+# steps: the first (the kernels' first launches) apart, a timed window
+# of TRAIN_WINDOW, then one under torch.profiler
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WINDOW = 2, 4096, 3
+TRAIN_STEPS = TRAIN_WINDOW + 2
+TRAIN_SEED = 0
+# the gradient check: the float32 kernels (forward and backward) against
+# the float32 plain versions (differentiated by autograd) on the card,
+# over the first GRAD_LAYERS layers (and the embedding, norm and head)
+# at B = 1, T = GRAD_SEQ; every gradient leaf within GRAD_TOL of its
+# largest magnitude (serving's LOGIT_TOL). The model around the kernels
+# runs on float64 copies of the weights, the kernels' inputs cast to
+# float32 and their outputs back: in a float32 model rwkv6-7b's
+# gradients are themselves ~4e-4 of their scale from float64 (on an
+# H100, PERF.md), so two float32 models that differ in one op differ by
+# that much in every leaf however right the op is; in float64 the
+# comparison sees the kernels alone (1.4e-5 for wkv, 1.8e-6 for flash
+# there).
+GRAD_LAYERS, GRAD_SEQ = 2, 1024
+GRAD_TOL = LOGIT_TOL
+# the backward kernels against their plain versions on the same inputs
+# (ref.attention_bwd_ref, ref.wkv_bwd_ref: float32 step by step), each
+# gradient within a share of its largest magnitude: float32 sums in
+# another order (1e-3; they read ~1e-6), and in bf16 the gradients' own
+# rounding (2^-9 of the value) grown by the sums over the sequence, as
+# FLASH_TOL and WKV_Y_TOL hold the forwards' bf16 outputs (2e-2)
+FLASH_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+WKV_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+# the forwards' rows' log-sum-exp against the plain logsumexp of the
+# scaled scores (abs and rel): float32 sums in another order
+LSE_TOL = 1e-4
+# (label, B, T, H, dq, dv, causal, window, dtype)
+FLASH_BWD_CASES = [
+    ("batched prefill", 8, 256, 32, 128, 128, True, 0, "bfloat16"),
+    ("float32", 1, 384, 32, 128, 128, True, 0, "float32"),
+    ("MLA", 2, 256, 40, 96, 64, True, 0, "bfloat16"),
+    ("sliding window 128", 1, 384, 32, 128, 128, True, 128, "bfloat16"),
+]
+# (B, T, dtype, with a final-state gradient); H 64, dh 64
+WKV_BWD_CASES = [(1, 256, "bfloat16", False), (1, 256, "float32", True),
+                 (2, 1024, "bfloat16", True), (2, 1024, "float32", False)]
+# train-reduced: tests/test_system.py's run (reduced qwen3-0.6b, vocab
+# 256, 30 steps of B = 8 x 32 tokens at peak lr 3e-3; the loss must fall
+# by 0.5) and tests/test_checkpoint_trainer.py's failure and resume
+# (vocab 512, 12 steps of 4 x 16, checkpoints every 4, killed at 8)
+REDUCED_STEPS, REDUCED_FALL = 30, 0.5
+
+
+def rel_errs(torch, got, want):
+    """max |got - want| and that over max |want|, per pair."""
+    out = []
+    for g, w in zip(got, want):
+        d = float((g.double() - w.double()).abs().max())
+        out.append((d, d / max(float(w.double().abs().max()), 1e-30)))
+    return out
+
+
+def check_backward_kernels(torch, dev):
+    """The forwards' log-sum-exp and both backward kernels against
+    their plain versions on the card; returns the backward kernels'
+    largest abs errors."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, rwkv6_wkv
+    worst = {"flash_attention_bwd": 0.0, "wkv_bwd": 0.0}
+    for i, (want_variant, B, T, H, d, dt) in enumerate(
+            (("wgmma", 8, 256, 32, 128, "bfloat16"),
+             ("cuda_core", 1, 384, 32, 128, "float32"))):
+        q, k, v = attn_inputs(torch, B, T, H, d, d, getattr(torch, dt), dev,
+                              700 + i)
+        if fa.variant(q.dtype, d, d) != want_variant:
+            fail(f"flash_attention_lse: ({B}, {T}, {H}, {d}) {dt} picks "
+                 f"{fa.variant(q.dtype, d, d)}, expected {want_variant}")
+        out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        served = fa.flash_attention(q, k, v, causal=True)
+        try:
+            err = allclose_err(torch, lse, ref.attention_lse_ref(q, k),
+                               LSE_TOL, LSE_TOL)
+        except AssertionError as e:
+            fail(f"flash_attention_lse {want_variant}: {e}")
+        if not torch.equal(out, served):
+            fail(f"flash_attention_lse {want_variant}: the output differs "
+                 f"from serving's launch")
+        phase("kernel", f"flash_attention forward with log-sum-exp, "
+              f"{want_variant} variant ({B}, {T}, {H}, {d}) {dt}: lse max "
+              f"abs {err:.3g} (tol {LSE_TOL:g} abs + rel); the output "
+              f"equals serving's bit for bit")
+    for i, (label, B, T, H, dq, dv, causal, win, dt) in enumerate(
+            FLASH_BWD_CASES):
+        q, k, v = attn_inputs(torch, B, T, H, dq, dv, getattr(torch, dt),
+                              dev, 720 + i)
+        do = attn_inputs(torch, B, T, H, dv, dv, q.dtype, dev, 740 + i)[0]
+        out, lse = fa.flash_attention_lse(q, k, v, causal=causal,
+                                          swa_window=win)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                     swa_window=win)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                       swa_window=win)
+        want = ref.attention_bwd_ref(
+            q, k, v, out, ref.attention_lse_ref(q, k, causal=causal,
+                                                swa_window=win), do,
+            causal=causal, swa_window=win)
+        torch.cuda.synchronize()
+        errs = rel_errs(torch, got, want)
+        tol = FLASH_BWD_TOL[dt]
+        if not all(bool(torch.isfinite(g).all()) for g in got) or any(
+                r > tol for _, r in errs):
+            fail(f"flash_attention_bwd {label} {(B, T, H, dq, dv)} {dt}: "
+                 f"(dq, dk, dv) errors {errs} (tol {tol:g} of max |plain|)")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"flash_attention_bwd {label}: two runs differ")
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                           max(a for a, _ in errs))
+        phase("kernel", f"flash_attention backward {label} ({B}, {T}, {H}, "
+              f"{dq}, {dv}) {dt} causal={causal} window={win}: dq, dk, dv "
+              f"max abs " + ", ".join(f"{a:.3g} ({r:.2g} of scale)"
+                                      for a, r in errs)
+              + f" (tol {tol:g} of scale); two runs equal bit for bit")
+    for i, (B, T, dt, final) in enumerate(WKV_BWD_CASES):
+        args = wkv_inputs(torch, B, T, 64, 64, getattr(torch, dt), dev,
+                          760 + i)
+        g = torch.Generator(device=dev).manual_seed(780 + i)
+        dy = torch.randn(args[0].shape, generator=g, device=dev) \
+            .to(args[0].dtype)
+        ds = torch.randn(args[5].shape, generator=g, device=dev) \
+            if final else None
+        y, s, ckpt = rwkv6_wkv.wkv_ckpt(*args)
+        y0, s0 = rwkv6_wkv.wkv(*args)
+        if not (torch.equal(y, y0) and torch.equal(s, s0)):
+            fail(f"wkv_ckpt ({B}, {T}) {dt}: differs from serving's launch")
+        got = rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy, ds)
+        again = rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy, ds)
+        want = ref.wkv_bwd_ref(*args, dy, ds)
+        torch.cuda.synchronize()
+        errs = rel_errs(torch, got, want)
+        tol = WKV_BWD_TOL[dt]
+        if not all(bool(torch.isfinite(x).all()) for x in got) or any(
+                r > tol for _, r in errs):
+            fail(f"wkv_bwd ({B}, {T}, 64, 64) {dt}: (dr, dk, dv, dw, du, "
+                 f"ds0) errors {errs} (tol {tol:g} of max |plain|)")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"wkv_bwd ({B}, {T}) {dt}: two runs differ")
+        worst["wkv_bwd"] = max(worst["wkv_bwd"], max(a for a, _ in errs))
+        phase("kernel", f"wkv backward ({B}, {T}, 64, 64) {dt}, final-state"
+              f" gradient {'given' if final else 'None'}: dr, dk, dv, dw, "
+              f"du, ds0 within " + ", ".join(f"{r:.2g}" for _, r in errs)
+              + f" of their scales (tol {tol:g}); scratch "
+              f"{ckpt.numel() * 4 / 2**20:.1f} MiB; two runs equal bit for "
+              f"bit")
+        del ckpt, want, got, again
+    torch.cuda.empty_cache()
+    return worst
+
+
+def reset_train_counts(flash_attention, rwkv6_wkv):
+    reset_counts(flash_attention, rwkv6_wkv)
+    flash_attention.BWD_LAUNCHES = rwkv6_wkv.BWD_LAUNCHES = 0
+
+
+def model_flops(cfg, params, B, T, kinds):
+    """Model FLOPs of one training step (forward and backward, remat's
+    recompute not counted): 6 x the tokens x the weights of every matrix
+    product (the layers' matrices and the head; the embedding is a
+    lookup), plus causal attention's 6 B H T^2 dh (QK^T and PV, half
+    the pairs, three passes) or wkv's 3 x 4 B T H dh^2."""
+    from repro_torch.core.tree import paths
+    mats = sum(t.numel() for p, t in paths(params["layers"])
+               if t.dim() >= 2 and p[-1] not in ("maa_wkvrg", "u"))
+    head = params["embed" if cfg.tie_embeddings else "head"].numel()
+    flops = 6 * B * T * (mats + head)
+    for kind, _ in kinds:
+        if kind == "attn":
+            flops += 6 * B * cfg.n_heads * T * T * cfg.d_head
+        elif kind == "rwkv":
+            dh = cfg.rwkv_head_dim
+            flops += 12 * B * T * (cfg.d_model // dh) * dh * dh
+    return flops
+
+
+def f32_kernel_fns():
+    """``ops.model_kernel_fns()`` for a float64 model: the kernels run
+    in float32 (inputs cast, outputs cast back), as the plain versions
+    compute in float32 whatever they are given."""
+    from repro_torch.kernels import ops
+
+    def attention(q, k, v, **kw):
+        return ops.attention(q.float(), k.float(), v.float(), **kw) \
+            .to(q.dtype)
+
+    def wkv(r, k, v, w, u, state):
+        y, s = ops.wkv(*(x.float() for x in (r, k, v, w, u, state)))
+        return y.to(r.dtype), s
+    return {"attention": attention, "wkv": wkv}
+
+
+def grad_check(torch, cfg, params, dev, name):
+    """The gradient check: the kernel path against the plain path over
+    the first GRAD_LAYERS layers at (1, GRAD_SEQ), in a float64 model.
+    Returns (worst share, its leaf, leaves)."""
+    from repro_torch.core.tree import leaves, paths, unflatten
+    from repro_torch.models import model as M
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (1, GRAD_SEQ), generator=g,
+                              device=dev) for k in ("tokens", "targets")}
+    head = dict(params, layers=params["layers"][:GRAD_LAYERS])
+    names = [".".join(map(str, p)) for p, _ in paths(head)]
+    cfgx = dataclasses.replace(cfg, n_layers=GRAD_LAYERS,
+                               dtype=torch.float64)
+    px = _cast(head, torch.float64)
+    out = {}
+    for label, kf in (("kernels", f32_kernel_fns()), ("plain", None)):
+        live = [t.detach().requires_grad_() for t in leaves(px)]
+        loss, _ = M.train_loss(cfgx, unflatten(px, live), batch,
+                               kernel_fns=kf)
+        out[label] = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize()
+    errs = [r for (_, r) in rel_errs(torch, out["kernels"], out["plain"])]
+    if not all(bool(torch.isfinite(a).all()) for a in out["kernels"]):
+        fail(f"{name}: non-finite gradients through the kernels")
+    r, leaf = max(zip(errs, names))
+    del px, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if r > GRAD_TOL:
+        fail(f"{name}: gradient leaf {leaf} through the float32 kernels "
+             f"differs from the plain versions' by {r:.3g} of its scale "
+             f"(tol {GRAD_TOL:g})")
+    return r, leaf, len(names)
+
+
+def train_phase(torch, arch, dev, card, tmp):
+    """The training path of ``arch`` at full width, TRAIN_LAYERS deep:
+    the float32 gradient check, then TRAIN_STEPS AdamW steps through
+    Trainer.run (a warm-up step, a timed window of TRAIN_WINDOW, one
+    under torch.profiler). Returns the kernel launches it made, by
+    kernel and shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_wkv
+    from repro_torch.models import model as M
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    name = f"train-{arch}"
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    kinds = M.layer_kinds(cfg)
+    n_attn = sum(k == "attn" for k, _ in kinds)
+    n_rwkv = sum(k == "rwkv" for k, _ in kinds)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, TRAIN_SEED, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in leaves(params))
+    phase(name, f"{TRAIN_LAYERS} of {full.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}: {n_par / 1e9:.2f} B parameters "
+          f"in {cfg.dtype} (seed {TRAIN_SEED}), remat {cfg.remat}, "
+          f"optimizer {cfg.optimizer}, in {time.perf_counter() - t0:.1f} s")
+    worst, at, n_leaves = grad_check(torch, cfg, params, dev, name)
+    phase(name, f"gradients over the first {GRAD_LAYERS} layers at (1, "
+          f"{GRAD_SEQ}), the float32 kernels (forward and backward) vs the "
+          f"float32 plain versions (autograd) in a float64 model: all "
+          f"{n_leaves} leaves within {worst:.3g} of their scale (worst "
+          f"{at}; tol {GRAD_TOL:g})")
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH)
+    tcfg = TrainerConfig(ckpt_dir=str(tmp / name), total_steps=1,
+                         ckpt_every=0, seed=TRAIN_SEED)
+    trainer = Trainer(cfg=cfg, tcfg=tcfg, data=data, device=dev)
+    opt_init, _ = make_optimizer(cfg)
+    state = {"params": params, "opt": opt_init(params)}
+    del params
+    flops = model_flops(cfg, state["params"], TRAIN_BATCH, TRAIN_SEQ, kinds)
+    reset_train_counts(fa, rwkv6_wkv)
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.run(state, 0)
+    trainer.tcfg.total_steps = 1 + TRAIN_WINDOW
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.run(state, 1)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_WINDOW
+    trainer.tcfg.total_steps = TRAIN_STEPS
+    box = []
+    own = "flash_bwd" if n_attn else "wkv_bwd_kernel"
+    wall, busy, n_launch, own_ms, top = profile_busy(
+        torch, lambda: box.append(trainer.run(state, TRAIN_STEPS - 1)), own)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    passes = 2 if cfg.remat else 1
+    want = {"flash_attention": passes * n_attn * TRAIN_STEPS,
+            "flash_attention_bwd": n_attn * TRAIN_STEPS,
+            "wkv": passes * n_rwkv * TRAIN_STEPS,
+            "wkv_bwd": n_rwkv * TRAIN_STEPS}
+    got = {"flash_attention": fa.LAUNCHES,
+           "flash_attention_bwd": fa.BWD_LAUNCHES,
+           "wkv": rwkv6_wkv.LAUNCHES, "wkv_bwd": rwkv6_wkv.BWD_LAUNCHES}
+    if got != want:
+        fail(f"{name}: launches {got}, expected {want} ({n_attn} attention "
+             f"and {n_rwkv} rwkv layers x {TRAIN_STEPS} steps, forward "
+             f"{passes}x with remat)")
+    if n_attn:
+        check_variant(fa, got["flash_attention"], fa.variant(
+            cfg.dtype, cfg.d_head, cfg.d_head), name)
+    log = trainer.metrics_log
+    for m in log:
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            fail(f"{name}: step {m['step']} loss {m['loss']} grad_norm "
+                 f"{m['grad_norm']}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    phase(name, "steps (loss, grad_norm, ms): " + "; ".join(
+        f"{m['step']}: {m['loss']:.4f}, {m['grad_norm']:.4g}, "
+        f"{m['step_time_s'] * 1e3:.1f}" for m in log)
+        + " (the first with the kernels' first launches, the last under "
+        "torch.profiler)")
+    phase(name, f"B={TRAIN_BATCH} T={TRAIN_SEQ} ({tokens} tokens a step): "
+          f"{step_s * 1e3:.1f} ms a step (the wall time of steps 1-"
+          f"{TRAIN_WINDOW} over {TRAIN_WINDOW}), {tokens / step_s:.0f}"
+          f" tokens/s; model FLOPs {flops / 1e12:.1f} T a step, "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+          f"{flops / step_s / BF16_OPS_PER_S:.3f} of 989 TFLOP/s; peak "
+          f"memory {peak:.1f} GiB; launches {got}; the last step under "
+          f"torch.profiler: {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} ms "
+          f"device busy, idle share {1 - busy / wall:.3f}, {n_launch} kernel"
+          f" launches, {own} {own_ms:.1f} ms; top kernels (name, calls, ms):"
+          f" {top}; card {card}")
+    del state, box, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    H = cfg.n_heads if n_attn else cfg.d_model // cfg.rwkv_head_dim
+    dh = cfg.d_head if n_attn else cfg.rwkv_head_dim
+    shape = (TRAIN_BATCH, TRAIN_SEQ, H, dh, dh) if n_attn else \
+        (TRAIN_BATCH, TRAIN_SEQ)
+    return {k: {"launches": n, "shapes": {shape: n} if n else {}}
+            for k, n in got.items()}
+
+
+def train_reduced_phase(torch, dev, card, tmp):
+    """tests/test_system.py's training run and
+    tests/test_checkpoint_trainer.py's failure and resume on the card,
+    through the kernels."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_wkv
+    from repro_torch.train.trainer import (SimulatedFailure, Trainer,
+                                           TrainerConfig)
+    name = "train-reduced"
+    base = reduced(get_config("qwen3-0.6b"))
+    cfg = dataclasses.replace(base, vocab=256)
+    trainer = Trainer(cfg=cfg, tcfg=TrainerConfig(
+        ckpt_dir=str(tmp / "reduced"), total_steps=REDUCED_STEPS,
+        ckpt_every=0, peak_lr=3e-3), data=DataConfig(
+            vocab=256, seq_len=32, global_batch=8), device=dev)
+    reset_train_counts(fa, rwkv6_wkv)
+    t0 = time.perf_counter()
+    trainer.run()
+    wall = time.perf_counter() - t0
+    losses = trainer.losses()
+    want = REDUCED_STEPS * cfg.n_layers
+    if (fa.LAUNCHES, fa.BWD_LAUNCHES) != (want, want):
+        fail(f"{name}: flash launches {fa.LAUNCHES}, backward "
+             f"{fa.BWD_LAUNCHES}, expected {want} each")
+    if not losses[-1] < losses[0] - REDUCED_FALL:
+        fail(f"{name}: the loss went from {losses[0]:.4f} to "
+             f"{losses[-1]:.4f} in {REDUCED_STEPS} steps (must fall by "
+             f"{REDUCED_FALL})")
+    phase(name, f"reduced qwen3-0.6b (vocab 256) {REDUCED_STEPS} steps of "
+          f"8 x 32 tokens through the flash kernels (forward and backward "
+          f"{want} launches each) in {wall:.2f} s: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (must fall by {REDUCED_FALL})")
+
+    cfg = dataclasses.replace(base, vocab=512)
+    data = DataConfig(vocab=512, seq_len=16, global_batch=4)
+
+    def make(path, fail_at=None):
+        return Trainer(cfg=cfg, tcfg=TrainerConfig(
+            ckpt_dir=str(tmp / path), total_steps=12, ckpt_every=4,
+            fail_at_step=fail_at), data=data, device=dev)
+    ref = make("uninterrupted")
+    ref.run()
+    killed = make("resumed", fail_at=8)
+    try:
+        killed.run()
+        fail(f"{name}: fail_at_step=8 did not raise")
+    except SimulatedFailure:
+        pass
+    resumed = make("resumed")
+    resumed.run()
+    a, b = resumed.losses(), ref.losses()[8:]
+    diff = max(abs(x - y) for x, y in zip(a, b))
+    exact = a == b
+    phase(name, f"killed after step 8 (checkpoints every 4), resumed from "
+          f"its checkpoint: steps 8-11 losses {a} against the uninterrupted"
+          f" run's {b}: " + ("equal bit for bit" if exact else
+                             f"NOT bit-exact, max diff {diff:.3g}"))
+    return exact, diff
+
+
+def hold_grads(torch, label, got, want, tol):
+    """A backward kernel's gradients against the plain version's: each
+    finite and within ``tol`` of the plain one's largest magnitude;
+    returns (max abs, share of scale) per gradient."""
+    torch.cuda.synchronize()
+    errs = rel_errs(torch, got, want)
+    if not all(bool(torch.isfinite(g).all()) for g in got) or any(
+            r > tol for _, r in errs):
+        fail(f"{label}: gradient errors {errs} (tol {tol:g} of max "
+             f"|plain|)")
+    return errs
+
+
+def hold_train_forward(torch, fa, ref, q, k, v, plain):
+    """At a training shape: the served forward and the training one
+    (with the log-sum-exp) against ``plain["out"]``, the plain output the
+    timing computed (else computed here), under FLASH_TOL and LSE_TOL;
+    returns the max abs."""
+    if "out" not in plain:
+        plain["out"] = ref.attention_ref(q, k, v, causal=True)
+    want = plain["out"]
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    err = 0.0
+    try:
+        for got in (fa.flash_attention(q, k, v, causal=True), out):
+            err = max(err, allclose_err(torch, got, want, tol, tol))
+        allclose_err(torch, lse, ref.attention_lse_ref(q, k), LSE_TOL,
+                     LSE_TOL)
+    except AssertionError as e:
+        fail(f"flash_attention {tuple(q.shape)} training shape: {e}")
+    return err
+
+
+def hold_train_wkv(torch, rwkv6_wkv, ref, args, y, s_out, plain):
+    """At a training shape: the served wkv (``y``, ``s_out``) and the
+    training one (saving the states) against ``plain["out"]``, the plain
+    version's output the timing computed (else computed here), y under
+    WKV_Y_TOL and the final state bit-identical, as in phase ``kernel``;
+    returns the max abs of y."""
+    if "out" not in plain:
+        plain["out"] = ref.wkv_ref(*args)
+    want_y, want_s = plain["out"]
+    yc, sc, _ = rwkv6_wkv.wkv_ckpt(*args)
+    tol = WKV_Y_TOL[str(y.dtype).split(".")[-1]]
+    err = 0.0
+    try:
+        for got_y, got_s in ((y, s_out), (yc, sc)):
+            err = max(err, allclose_err(torch, got_y, want_y, tol, tol))
+            if not torch.equal(got_s, want_s):
+                raise AssertionError("the final state differs from the "
+                                     "plain version's (must be "
+                                     "bit-identical)")
+    except AssertionError as e:
+        fail(f"wkv {tuple(y.shape)} training shape: {e}")
+    return err
+
+
+def event_turns(torch, fns):
+    """``turns`` with ``event_ms`` in place of CUDA-graph replay."""
+    first = {n: event_ms(torch, f, r) for n, (f, r) in fns.items()}
+    second = {n: event_ms(torch, f, r)
+              for n, (f, r) in reversed(list(fns.items()))}
+    return {n: (first[n] + second[n]) / 2 for n in fns}
+
+
+def event_ms(torch, fn, reps):
+    """Mean milliseconds per call between CUDA events around ``reps``
+    eager calls after one warm-up (the plain versions, whose Python
+    loops a CUDA graph would capture as tens of thousands of nodes)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def flash_bwd_bound(q, v, causal, window):
+    """q, k, v, o, dout and the log-sum-exp read once, dq, dk, dv
+    written once; 6 dq + 4 dv operations a visible pair (S, dP, dV, dK,
+    dQ), at the bf16 tensor rate."""
+    B, T, H, dq = q.shape
+    dv = v.shape[-1]
+    nbytes = (2 * 2 * B * T * H * dq + 3 * B * T * H * dv) * q.element_size() \
+        + B * H * T * 4
+    return bound(nbytes, (6 * dq + 4 * dv) * B * H * visible_pairs(
+        T, T, causal, window), BF16_OPS_PER_S)
+
+
+def wkv_bwd_bound(args, ckpt):
+    """r, k, v, w, u, dy and the saved states read once, the gradients
+    written once; 10 dh^2 float32 operations a token and head (dr, dk,
+    dv, dw and the state gradient's update), at the float32 rate."""
+    B, T, H, dh = args[0].shape
+    el = args[0].element_size()
+    nbytes = (5 * 2 * B * T * H * dh + 2 * H * dh) * el \
+        + ckpt.numel() * 4 + 2 * B * H * dh * dh * 4
+    return bound(nbytes, 10 * B * T * H * dh * dh, FP32_OPS_PER_S)
+
+
+def time_backward_kernels(torch, dev, card, paths, worst):
+    """Per-call card time of the two backward kernels at the training
+    shapes beside their bounds, plain versions and (flash) SDPA's
+    backward on the same tensors; returns their entries of the kernels
+    line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref, rwkv6_wkv
+    entries = []
+    rows = []
+    for (B, T, H, dq, dv), n in sorted(
+            paths["flash_attention_bwd"]["shapes"].items()):
+        q, k, v = attn_inputs(torch, B, T, H, dq, dv, torch.bfloat16, dev,
+                              800)
+        do = attn_inputs(torch, B, T, H, dv, dv, torch.bfloat16, dev, 801)[0]
+        out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        row = {"shape": [B, T, H, dq, dv], "launches": n}
+        row.update(event_turns(torch, {
+            "ms": (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                  causal=True), 5),
+            "library_ms": (lambda: torch.autograd.grad(
+                sdpa, (qt, kt, vt), dot, retain_graph=True), 10),
+        }))
+        plain = {}
+        row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
+            "grads", ref.attention_bwd_ref(q, k, v, out, lse, do,
+                                           causal=True)), 1)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        errs = hold_grads(torch, f"flash_attention_bwd ({B}, {T}, {H}, "
+                          f"{dq}, {dv}) bf16", got, plain.pop("grads"),
+                          FLASH_BWD_TOL["bfloat16"])
+        worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                           max(a for a, _ in errs))
+        del got
+        row["first_ms"] = row["ms"]
+        row["bound_ms"], row["bound_by"] = flash_bwd_bound(q, v, True, 0)
+        rows.append(row)
+        phase("time", f"flash_attention backward ({B}, {T}, {H}, {dq}) bf16 "
+              f"causal: kernel {row['ms']:.3f} ms/call (three launches), "
+              f"plain version {row['plain_ms']:.1f} ms, SDPA's backward "
+              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}): kernel {row['ms'] / row['library_ms']:.2f}"
+              f"x SDPA's, {row['ms'] / row['bound_ms']:.1f}x bound; {n} "
+              f"calls on the path; dq, dk, dv within "
+              + ", ".join(f"{r:.2g}" for _, r in errs)
+              + f" of the plain version's scales (tol "
+              f"{FLASH_BWD_TOL['bfloat16']:g}); card {card}")
+        del q, k, v, do, out, lse, qt, kt, vt, sdpa, dot
+    e = _entry("flash_attention_bwd", "flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:83",
+               paths["flash_attention_bwd"]["launches"],
+               worst["flash_attention_bwd"], rows, library=True)
+    e["note"] = ("port-side backward, no Pallas counterpart: pallas_call "
+                 "has no usable JVP in jax 0.9")
+    entries.append(e)
+    rows = []
+    for (B, T), n in sorted(paths["wkv_bwd"]["shapes"].items()):
+        args = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 820)
+        dy = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 821)[0]
+        _, _, ckpt = rwkv6_wkv.wkv_ckpt(*args)
+        row = {"shape": [B, T, 64, 64], "launches": n}
+        row.update(event_turns(torch, {
+            "ms": (lambda: rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy), 10)}))
+        plain = {}
+        row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
+            "grads", ref.wkv_bwd_ref(*args, dy)), 1)
+        got = rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy)
+        errs = hold_grads(torch, f"wkv_bwd ({B}, {T}, 64, 64) bf16", got,
+                          plain.pop("grads"), WKV_BWD_TOL["bfloat16"])
+        worst["wkv_bwd"] = max(worst["wkv_bwd"], max(a for a, _ in errs))
+        del got
+        row["first_ms"] = row["ms"]
+        row["bound_ms"], row["bound_by"] = wkv_bwd_bound(args, ckpt)
+        rows.append(row)
+        phase("time", f"wkv backward ({B}, {T}, 64, 64) bf16: kernel "
+              f"{row['ms']:.3f} ms/launch, plain version "
+              f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.3f} ms "
+              f"({row['bound_by']}): kernel {row['ms'] / row['bound_ms']:.1f}"
+              f"x bound; scratch {ckpt.numel() * 4 / 2**20:.0f} MiB a layer;"
+              f" {n} launches on the path; dr, dk, dv, dw, du, ds0 within "
+              + ", ".join(f"{r:.2g}" for _, r in errs)
+              + f" of the plain version's scales (tol "
+              f"{WKV_BWD_TOL['bfloat16']:g}); card {card}")
+        del args, dy, ckpt
+    e = _entry("wkv_bwd", "rwkv6_wkv.cu", "src/repro/kernels/rwkv6_wkv.py:78",
+               paths["wkv_bwd"]["launches"], worst["wkv_bwd"], rows,
+               library=False)
+    e["note"] = ("port-side backward, no Pallas counterpart: pallas_call "
+                 "has no usable JVP in jax 0.9")
+    entries.append(e)
+    torch.cuda.empty_cache()
+    return entries
 
 
 def main() -> None:
@@ -2123,12 +2807,16 @@ def main() -> None:
               f"as float32's in float64 ulp; max abs {err:.3g}")
 
     worst = check_attention_kernels(torch, dev)
+    worst_bwd = check_backward_kernels(torch, dev)
     phase("kernel", f"every kernel holds its plain version: switch_step "
           f"max rel {worst_step:.3g} (tol {FLOAT_RTOL:.3g}), switch_tiers "
           f"max abs {tiers_err:.3g}, float64 switch_step max rel "
           f"{worst_step64:.3g}, float64 switch_tiers max abs "
           f"{tiers_err64:.3g}, flash_attention max abs "
-          f"{worst['flash_attention']:.3g}, wkv max abs {worst['wkv']:.3g}")
+          f"{worst['flash_attention']:.3g}, wkv max abs {worst['wkv']:.3g}, "
+          f"flash_attention backward max abs "
+          f"{worst_bwd['flash_attention_bwd']:.3g}, wkv backward max abs "
+          f"{worst_bwd['wkv_bwd']:.3g}")
 
     # 3. golden on the card, the tick from a CUDA graph and eagerly ------
     golden = json.loads(GOLDEN.read_text())
@@ -2273,8 +2961,26 @@ def main() -> None:
             for key, n in got["shapes"].items():
                 paths[k]["shapes"][key] = paths[k]["shapes"].get(key, 0) + n
 
-    # 10. per-launch times of the serving kernels ------------------------
-    kernels += time_attention_kernels(torch, dev, card, paths, worst)
+    # 9c-9e. the training paths: full width at a depth cut, then the
+    # reduced run and the failure/resume round trip ------------------
+    for k in ("flash_attention_bwd", "wkv_bwd"):
+        paths[k] = {"launches": 0, "shapes": {}}
+    tmp = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(tmp, ignore_errors=True)
+    train_shapes = set()
+    for arch in TRAIN_ARCHS:
+        for k, got in train_phase(torch, arch, dev, card, tmp).items():
+            paths[k]["launches"] += got["launches"]
+            for key, n in got["shapes"].items():
+                paths[k]["shapes"][key] = paths[k]["shapes"].get(key, 0) + n
+                train_shapes.add(key)
+    train_reduced_phase(torch, dev, card, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    # 10. per-launch times of the serving and training kernels ----------
+    kernels += time_attention_kernels(torch, dev, card, paths, worst,
+                                      train_shapes)
+    kernels += time_backward_kernels(torch, dev, card, paths, worst_bwd)
     phase("done", f"every phase passed in {time.perf_counter() - t_start:.0f} s "
           f"(the build included); seconds by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))

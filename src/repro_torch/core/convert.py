@@ -133,3 +133,26 @@ def cache_from_numpy(cache, device="cpu") -> dict:
     the batch at axis 0."""
     return {"pos_offset": _tensor(cache["pos_offset"], device),
             "layers": _layers(cache, device)}
+
+
+def opt_state_from_numpy(opt, params_like, device="cpu") -> dict:
+    """The reference's optimizer state (leaves as numpy arrays) -> the
+    port's, on ``device``. AdamW (``step``, ``m``, ``v``): the moments
+    have the parameters' stacked layout and are un-stacked as
+    ``params_from_numpy`` does, one dict per layer, and must match
+    ``params_like`` (the port's parameters) leaf for leaf in shape.
+    Adafactor (``step``, ``v`` of ``vr``/``vc`` or ``v``): kept in the
+    reference's stacked layout, which is how the port's adafactor holds
+    it (its statistics span a stacked leaf's layers)."""
+    from repro_torch.core.tree import paths
+    step = _tensor(opt["step"], device)
+    if "m" not in opt:
+        return {"step": step, "v": _tree(opt["v"], device)}
+    m, v = (params_from_numpy(opt[k], device) for k in ("m", "v"))
+    want = [tuple(p.shape) for _, p in paths(params_like)]
+    for name, tree in (("m", m), ("v", v)):
+        got = [tuple(t.shape) for _, t in paths(tree)]
+        if got != want:
+            raise ValueError(f"opt_state_from_numpy: the {name} moments "
+                             f"do not match the parameters' layout")
+    return {"step": step, "m": m, "v": v}

@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import fma as _fma
 from repro_torch.kernels.ref import fma64_finite, veltkamp_split
 
 MASK32 = 0xFFFFFFFF
@@ -184,14 +185,24 @@ def words_to_unit64(hi, lo):
     return (mant | _ONE64).view(torch.float64) - 1.0
 
 
-def uniform(k, n: int, partitionable: bool = True, dtype=torch.float32):
-    """``jax.random.uniform(key, (n,), dtype)``: ``(..., n)``; float32
-    from 32 random bits a value, float64 (JAX's default dtype under
-    x64) from 64."""
+def uniform(k, n: int, partitionable: bool = True, dtype=torch.float32,
+            minval=0.0, maxval=1.0):
+    """``jax.random.uniform(key, (n,), dtype, minval, maxval)``:
+    ``(..., n)``; float32 from 32 random bits a value, float64 (JAX's
+    default dtype under x64) from 64. Other bounds than [0, 1) scale as
+    JAX does, ``max(minval, u * (maxval - minval) + minval)`` with the
+    bounds in ``dtype``, the product and sum one fused multiply-add as
+    XLA compiles it."""
     if dtype == torch.float64:
         x1, x2, _ = counter_words(n, partitionable, k.device, 64)
-        return words_to_unit64(*hash_counters64(k[..., None, :], x1, x2))
-    return bits_to_unit(random_bits(k, n, partitionable))
+        u = words_to_unit64(*hash_counters64(k[..., None, :], x1, x2))
+    else:
+        u = bits_to_unit(random_bits(k, n, partitionable))
+    if minval == 0.0 and maxval == 1.0:
+        return u                       # u * 1 + 0 and max(0, u) are u
+    lo = torch.tensor(minval, dtype=dtype, device=u.device)
+    hi = torch.tensor(maxval, dtype=dtype, device=u.device)
+    return torch.maximum(lo, _fma(u, hi - lo, lo))
 
 
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))

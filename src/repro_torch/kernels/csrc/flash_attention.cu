@@ -63,6 +63,22 @@
 //   (the float32 logit check of a serve path) need that, and TF32
 //   tensor cores would not give it. At d = dv = 128 a block needs
 //   115,712 bytes of shared memory; at MLA's (96, 64) 74,752.
+//
+// Training. Both variants write each row's log-sum-exp of its scaled
+// scores when given an `lse` pointer (serving passes null, and nothing
+// else changes). The backward (namespace bwd, flash_attention_bwd) has
+// no Pallas counterpart: the reference cannot differentiate its TPU
+// kernel and trains through the plain chunked attention. It runs on the
+// CUDA cores in float32 for every dtype and head dims the CUDA-core
+// forward takes: a pass for D = rowsum(dO * O), a dK/dV kernel (a block
+// a key tile, walking the query tiles that see it) and a dQ kernel (a
+// block a query tile, walking its key tiles), each recomputing its
+// scores from L, so no two blocks write one output: no atomics, and
+// the same bits every run. What bounds it: at qwen3-8b's training shape
+// (2, 4096, 32, 128) causal it does ~0.98 TFLOP (seven 64 x 64 x d
+// products a visible tile pair; five are the least) and moves ~0.27
+// GB, so the float32 operations bound it (~15 ms at 67 TFLOP/s); a
+// wgmma design (bf16 products, float32 sums) is the later lever.
 
 #include <cuda.h>          // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -109,18 +125,19 @@ __device__ __forceinline__ void unpack(const uint4& u, float* f,
 // (dst[r * ld + c]); rows past n_rows are zeros. 16-byte loads (d is a
 // multiple of 16 / sizeof(T)), kInFlight per thread issued before any
 // is stored.
-template <typename T>
+// NT threads share the copy.
+template <typename T, int NT = kThreads>
 __device__ __forceinline__ void load_tile(const T* __restrict__ src,
                                           int row0, int n_rows,
                                           size_t pitch, int d, float scale,
                                           float* dst, int ld) {
   constexpr int V = 16 / sizeof(T);
   const int n_vec = 64 * d / V;
-  for (int base = 0; base < n_vec; base += kInFlight * kThreads) {
+  for (int base = 0; base < n_vec; base += kInFlight * NT) {
     uint4 buf[kInFlight];
 #pragma unroll
     for (int u = 0; u < kInFlight; ++u) {
-      const int e0 = (base + u * kThreads + (int)threadIdx.x) * V;
+      const int e0 = (base + u * NT + (int)threadIdx.x) * V;
       const int r = e0 / d, c = e0 - r * d;
       const int i = row0 + r;
       buf[u] = (e0 < 64 * d && i < n_rows)
@@ -129,7 +146,7 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src,
     }
 #pragma unroll
     for (int u = 0; u < kInFlight; ++u) {
-      const int e0 = (base + u * kThreads + (int)threadIdx.x) * V;
+      const int e0 = (base + u * NT + (int)threadIdx.x) * V;
       if (e0 < 64 * d) {
         const int r = e0 / d, c = e0 - r * d;
         float f[V];
@@ -154,9 +171,9 @@ size_t smem_bytes(int d, int dv) {
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int n_q,
-                 int n_k, int n_heads, int d, int dv, int causal,
-                 int window, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int n_q, int n_k, int n_heads,
+                 int d, int dv, int causal, int window, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldk = d + kKPad;
   float* sQ = smem;                      // [kBQ][d], scaled
@@ -300,6 +317,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = lane + 32 * c;
       if (col < dv) store(&oh[i * pitch_v + col], acc[rr][c] / denom);
     }
+    // the row's log-sum-exp of its scaled scores, for the backward
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * n_heads + h) * n_q + i] = m_run[rr] + logf(denom);
   }
 }
 
@@ -315,9 +335,9 @@ cudaError_t opt_in_smem(K kernel) {
 }
 
 template <typename T, int NC>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int n_q, int n_k, int n_heads, int d, int dv, int causal,
-           int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int n_q, int n_k, int n_heads, int d, int dv,
+           int causal, int window, float scale, cudaStream_t stream) {
   // opt in once to the largest tile set (d = dv = kMaxD) and the largest
   // shared-memory carveout, before any launch (and so outside any
   // CUDA-graph capture)
@@ -326,24 +346,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   const dim3 grid((n_q + kBQ - 1) / kBQ, n_heads, batch);
   flash_fwd_kernel<T, NC><<<grid, kThreads, smem_bytes(d, dv), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n_q, n_k, n_heads, d,
-      dv, causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, n_q, n_k, n_heads,
+      d, dv, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o,
-             int batch, int n_q, int n_k, int n_heads, int d, int dv,
-             int causal, int window, float scale, cudaStream_t s) {
+             float* lse, int batch, int n_q, int n_k, int n_heads, int d,
+             int dv, int causal, int window, float scale, cudaStream_t s) {
   switch ((dv + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                dv, causal, window, scale, s);
-    case 2: return launch<T, 2>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                dv, causal, window, scale, s);
-    case 3: return launch<T, 3>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                dv, causal, window, scale, s);
-    default: return launch<T, 4>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                 dv, causal, window, scale, s);
+    case 1: return launch<T, 1>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
+                                d, dv, causal, window, scale, s);
+    case 2: return launch<T, 2>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
+                                d, dv, causal, window, scale, s);
+    case 3: return launch<T, 3>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
+                                d, dv, causal, window, scale, s);
+    default: return launch<T, 4>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
+                                 d, dv, causal, window, scale, s);
   }
 }
 
@@ -360,6 +380,7 @@ constexpr int kStages = 2;               // depth of the K/V ring
 constexpr int kAtom = 64 * 128;          // 64 rows of 128 bytes: one swizzle
                                          // atom column of 64 bf16
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 __host__ __device__ constexpr int tile_bytes() { return kBQ * D * 2; }
@@ -586,9 +607,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int n_q, int n_k,
-                   int n_heads, int causal, int window, float scale_log2,
-                   int per_block) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int n_q, int n_k, int n_heads, int causal, int window,
+                   float scale_log2, int per_block) {
   constexpr int kTile = tile_bytes<D>();
   constexpr int kAtoms = D / 64;         // swizzle atom columns of a row
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -837,6 +858,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       const float inv = 1.0f / fmaxf(l, 1e-30f);
       const int r = 16 * warp + (lane >> 2) + 8 * hh;
+      // the row's log-sum-exp of its scaled scores (m_run is in log2
+      // units), for the backward
+      if (lse != nullptr && (lane & 3) == 0 && qt * kBQ + r < n_q)
+        lse[((size_t)b * n_heads + h) * n_q + qt * kBQ + r] =
+            (m_run[hh] + log2f(fmaxf(l, 1e-30f))) * kLn2;
 #pragma unroll
       for (int jn = 0; jn < D / 8; ++jn)
         st_shared(stage_out + out_offset(r, jn, 2 * D) + 2 * col_in,
@@ -923,8 +949,8 @@ cudaError_t opt_in() {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int n_q, int n_k, int n_heads, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int n_q, int n_k, int n_heads, int causal, int window,
            float scale, cudaStream_t stream) {
   static cudaError_t opted = opt_in<D>();   // once, before any capture
   if (opted != cudaSuccess) return (int)opted;
@@ -937,12 +963,404 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
   const int n_tiles = (n_q + kBQ - 1) / kBQ;
   const dim3 grid((n_tiles + per - 1) / per, n_heads, batch);
   flash_wgmma_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), n_q, n_k, n_heads, causal,
-      window, scale * kLog2e, per);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, n_q, n_k, n_heads,
+      causal, window, scale * kLog2e, per);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------
+// The backward (training): float32 products and sums on the CUDA cores,
+// every dtype and head dims the CUDA-core forward takes. Given the
+// forward's output O and the log-sum-exp L of each row's scaled scores,
+// with P_ij = exp(scale q_i . k_j - L_i) on visible pairs (0 elsewhere):
+//     D_i   = dO_i . O_i                      (flash_bwd_delta_kernel)
+//     dS_ij = P_ij (dO_i . v_j - D_i)
+//     dV_j  = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij q_i
+//                                               (flash_bwd_dkdv_kernel)
+//     dQ_i  = scale sum_j dS_ij k_j            (flash_bwd_dq_kernel)
+// A dK/dV block owns a 64-key tile and walks the query tiles that can
+// see it; a dQ block owns a 64-query tile and walks its key tiles (the
+// forward's); each recomputes the scores it needs, so no block adds
+// into another's output and the sums run in one fixed order: no
+// atomics, the same bits every run. The tiles are staged as float32
+// in shared memory (rows padded by 4 floats: the 16-byte reads of 8
+// neighbouring rows hit distinct banks); a thread computes a 4 x 4
+// block of S and dP, then 8 rows x NC columns of its outputs.
+namespace bwd {
+
+constexpr int kB = 64;                  // rows of a query or key tile
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPad = 4;
+constexpr int kLdP = kB + 4;            // P and dS rows
+// output columns a lane owns: every head dim up to 128 (one
+// instantiation a dtype keeps the build short; narrower heads leave
+// columns idle)
+constexpr int NC = 4;
+
+// K [kB][d + kPad], V [kB][dv + kPad], Q [kB][d + kPad], dO
+// [kB][dv + kPad], P and dS [kB][kLdP], L and D [kB]
+inline size_t smem_bytes(int d, int dv) {
+  return sizeof(float) * (2 * (size_t)kB * (d + kPad) +
+                          2 * (size_t)kB * (dv + kPad) +
+                          2 * (size_t)kB * kLdP + 2 * kB);
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ bool visible(int i, int j, int n_q, int n_k,
+                                        int causal, int window) {
+  return i < n_q && j < n_k && (!causal || i >= j) &&
+         (window <= 0 || i - j < window);
+}
+
+// D_i = dO_i . O_i for every (batch, position, head) row, one warp a
+// row, written as (batch, head, position).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int n_rows, int n_q,
+                       int n_heads, int dv) {
+  const int row = (int)((blockIdx.x * (size_t)kThreads + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= n_rows) return;
+  const T* orow = o + (size_t)row * dv;
+  const T* drow = dout + (size_t)row * dv;
+  float s = 0.0f;
+  for (int c = lane; c < dv; c += 32)
+    s = fmaf(to_f32(orow[c]), to_f32(drow[c]), s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const int h = row % n_heads;
+    const int t = (row / n_heads) % n_q;
+    const int b = row / (n_heads * n_q);
+    delta[((size_t)b * n_heads + h) * n_q + t] = s;
+  }
+}
+
+// S (scores) and dP = dO V^T of rows ty + 16 a against keys tx + 16 b of
+// the staged tiles.
+__device__ __forceinline__ void scores(const float* sQ, const float* sK,
+                                       const float* sO, const float* sV,
+                                       int d, int dv, int ty, int tx,
+                                       float (&s)[4][4], float (&dp)[4][4]) {
+  const int ldq = d + kPad, ldv = dv + kPad;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) s[a][b] = dp[a][b] = 0.0f;
+  for (int c = 0; c < d; c += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      x[a] = *reinterpret_cast<const float4*>(&sQ[(ty + 16 * a) * ldq + c]);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      y[b] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * b) * ldq + c]);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        s[a][b] = fmaf(x[a].x, y[b].x, s[a][b]);
+        s[a][b] = fmaf(x[a].y, y[b].y, s[a][b]);
+        s[a][b] = fmaf(x[a].z, y[b].z, s[a][b]);
+        s[a][b] = fmaf(x[a].w, y[b].w, s[a][b]);
+      }
+  }
+  for (int c = 0; c < dv; c += 4) {
+    float4 x[4], y[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      x[a] = *reinterpret_cast<const float4*>(&sO[(ty + 16 * a) * ldv + c]);
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      y[b] = *reinterpret_cast<const float4*>(&sV[(tx + 16 * b) * ldv + c]);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        dp[a][b] = fmaf(x[a].x, y[b].x, dp[a][b]);
+        dp[a][b] = fmaf(x[a].y, y[b].y, dp[a][b]);
+        dp[a][b] = fmaf(x[a].z, y[b].z, dp[a][b]);
+        dp[a][b] = fmaf(x[a].w, y[b].w, dp[a][b]);
+      }
+  }
+}
+
+// P and dS of the tile pair (query rows q0.., keys k0..) into sP / sS
+// (either may be null), [query row][key].
+__device__ __forceinline__ void probs(const float (&s)[4][4],
+                                      const float (&dp)[4][4],
+                                      const float* sL, const float* sD,
+                                      int q0, int k0, int n_q, int n_k,
+                                      int causal, int window, float scale,
+                                      int ty, int tx, float* sP, float* sS) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int il = ty + 16 * a;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int jl = tx + 16 * b;
+      const float p =
+          visible(q0 + il, k0 + jl, n_q, n_k, causal, window)
+              ? expf(__fmul_rn(s[a][b], scale) - sL[il])
+              : 0.0f;
+      if (sP != nullptr) sP[il * kLdP + jl] = p;
+      sS[il * kLdP + jl] = p * (dp[a][b] - sD[il]);
+    }
+  }
+}
+
+// Rows i0.. i0 + kB - 1 of a (n,) float32 vector, zeros past n.
+__device__ __forceinline__ void load_rows(const float* __restrict__ src,
+                                          int i0, int n, float* dst) {
+  if (threadIdx.x < kB) {
+    const int i = i0 + (int)threadIdx.x;
+    dst[threadIdx.x] = i < n ? src[i] : 0.0f;
+  }
+}
+
+// One block per (64-key tile, head, batch): dK and dV of the tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv_out, int n_q, int n_k, int n_heads,
+                      int d, int dv, int causal, int window, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldq = d + kPad, ldv = dv + kPad;
+  float* sK = smem;
+  float* sV = sK + kB * ldq;
+  float* sQ = sV + kB * ldv;
+  float* sO = sQ + kB * ldq;
+  float* sP = sO + kB * ldv;
+  float* sS = sP + kB * kLdP;
+  float* sL = sS + kB * kLdP;
+  float* sD = sL + kB;
+
+  const int k0 = blockIdx.x * kB;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const size_t pitch = (size_t)n_heads * d, pitch_v = (size_t)n_heads * dv;
+  const T* qh = q + ((size_t)b * n_q * n_heads + h) * d;
+  const T* kh = k + ((size_t)b * n_k * n_heads + h) * d;
+  const T* vh = v + ((size_t)b * n_k * n_heads + h) * dv;
+  const T* oh = dout + ((size_t)b * n_q * n_heads + h) * dv;
+  const float* lh = lse + ((size_t)b * n_heads + h) * n_q;
+  const float* dh = delta + ((size_t)b * n_heads + h) * n_q;
+
+  load_tile<T, kThreads>(kh, k0, n_k, pitch, d, 1.0f, sK, ldq);
+  load_tile<T, kThreads>(vh, k0, n_k, pitch_v, dv, 1.0f, sV, ldv);
+
+  // query rows that can see a key of the tile: causal needs
+  // i >= j >= k0, the window i < j + window <= k0 + kB - 1 + window
+  const int i_begin = causal ? k0 : 0;
+  const int i_end = window > 0 ? min(n_q, k0 + kB - 1 + window) : n_q;
+  const int t_begin = i_begin / kB;
+  const int t_end = (i_end + kB - 1) / kB;
+
+  const int ty = tid >> 4, tx = tid & 15;      // S / dP: 4 x 4 a thread
+  const int wy = tid >> 5, lane = tid & 31;    // dK / dV: 8 rows x NC
+  float acc_k[8][NC], acc_v[8][NC];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc_k[a][c] = acc_v[a][c] = 0.0f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int q0 = t * kB;
+    __syncthreads();            // the last tile's Q, dO, P, dS are read
+    load_tile<T, kThreads>(qh, q0, n_q, pitch, d, 1.0f, sQ, ldq);
+    load_tile<T, kThreads>(oh, q0, n_q, pitch_v, dv, 1.0f, sO, ldv);
+    load_rows(lh, q0, n_q, sL);
+    load_rows(dh, q0, n_q, sD);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    scores(sQ, sK, sO, sV, d, dv, ty, tx, s, dp);
+    probs(s, dp, sL, sD, q0, k0, n_q, n_k, causal, window, scale, ty, tx,
+          sP, sS);
+    __syncthreads();
+    for (int i = 0; i < kB; ++i) {
+      float p[8], ds[8];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        p[a] = sP[i * kLdP + wy + 8 * a];
+        ds[a] = sS[i * kLdP + wy + 8 * a];
+      }
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int col = lane + 32 * c;
+        const float go = col < dv ? sO[i * ldv + col] : 0.0f;
+        const float qq = col < d ? sQ[i * ldq + col] : 0.0f;
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          acc_v[a][c] = fmaf(p[a], go, acc_v[a][c]);
+          acc_k[a][c] = fmaf(ds[a], qq, acc_k[a][c]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int j = k0 + wy + 8 * a;
+    if (j >= n_k) continue;
+    const size_t row = ((size_t)b * n_k + j) * n_heads + h;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d) store(&dk[row * d + col], __fmul_rn(acc_k[a][c], scale));
+      if (col < dv) store(&dv_out[row * dv + col], acc_v[a][c]);
+    }
+  }
+}
+
+// One block per (64-query tile, head, batch): dQ of the tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int n_q, int n_k, int n_heads, int d, int dv, int causal,
+                    int window, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldq = d + kPad, ldv = dv + kPad;
+  float* sK = smem;
+  float* sV = sK + kB * ldq;
+  float* sQ = sV + kB * ldv;
+  float* sO = sQ + kB * ldq;
+  float* sS = sO + kB * ldv + kB * kLdP;       // (the P buffer is unused)
+  float* sL = sS + kB * kLdP;
+  float* sD = sL + kB;
+
+  const int q0 = blockIdx.x * kB;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const size_t pitch = (size_t)n_heads * d, pitch_v = (size_t)n_heads * dv;
+  const T* qh = q + ((size_t)b * n_q * n_heads + h) * d;
+  const T* kh = k + ((size_t)b * n_k * n_heads + h) * d;
+  const T* vh = v + ((size_t)b * n_k * n_heads + h) * dv;
+  const T* oh = dout + ((size_t)b * n_q * n_heads + h) * dv;
+  const float* lh = lse + ((size_t)b * n_heads + h) * n_q;
+  const float* dh = delta + ((size_t)b * n_heads + h) * n_q;
+
+  load_tile<T, kThreads>(qh, q0, n_q, pitch, d, 1.0f, sQ, ldq);
+  load_tile<T, kThreads>(oh, q0, n_q, pitch_v, dv, 1.0f, sO, ldv);
+  load_rows(lh, q0, n_q, sL);
+  load_rows(dh, q0, n_q, sD);
+
+  // the forward's key tiles of this query tile
+  int k_begin = 0, k_end = n_k;
+  if (causal) k_end = min(n_k, q0 + kB);
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  const int t_begin = k_begin / kB;
+  const int t_end = (k_end + kB - 1) / kB;
+
+  const int ty = tid >> 4, tx = tid & 15;
+  const int wy = tid >> 5, lane = tid & 31;
+  float acc[8][NC];
+#pragma unroll
+  for (int a = 0; a < 8; ++a)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[a][c] = 0.0f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kB;
+    __syncthreads();            // Q, dO staged; the last K, V, dS read
+    load_tile<T, kThreads>(kh, k0, n_k, pitch, d, 1.0f, sK, ldq);
+    load_tile<T, kThreads>(vh, k0, n_k, pitch_v, dv, 1.0f, sV, ldv);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    scores(sQ, sK, sO, sV, d, dv, ty, tx, s, dp);
+    probs(s, dp, sL, sD, q0, k0, n_q, n_k, causal, window, scale, ty, tx,
+          nullptr, sS);
+    __syncthreads();
+    for (int j = 0; j < kB; ++j) {
+      float ds[8];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) ds[a] = sS[(wy + 8 * a) * kLdP + j];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int col = lane + 32 * c;
+        const float kk = col < d ? sK[j * ldq + col] : 0.0f;
+#pragma unroll
+        for (int a = 0; a < 8; ++a) acc[a][c] = fmaf(ds[a], kk, acc[a][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    const int i = q0 + wy + 8 * a;
+    if (i >= n_q) continue;
+    const size_t row = ((size_t)b * n_q + i) * n_heads + h;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < d) store(&dq[row * d + col], __fmul_rn(acc[a][c], scale));
+    }
+  }
+}
+
+template <typename K>
+cudaError_t opt_in(K kernel) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes(kMaxD, kMaxD));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv_out, int batch, int n_q, int n_k, int n_heads,
+           int d, int dv, int causal, int window, float scale,
+           cudaStream_t stream) {
+  static cudaError_t opted_kv = opt_in(flash_bwd_dkdv_kernel<T>);
+  static cudaError_t opted_q = opt_in(flash_bwd_dq_kernel<T>);
+  if (opted_kv != cudaSuccess) return (int)opted_kv;
+  if (opted_q != cudaSuccess) return (int)opted_q;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const int n_rows = batch * n_q * n_heads;
+  flash_bwd_delta_kernel<T><<<(n_rows + kWarps - 1) / kWarps, kThreads, 0,
+                              stream>>>(static_cast<const T*>(o), tdo, delta,
+                                        n_rows, n_q, n_heads, dv);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = smem_bytes(d, dv);
+  if (n_k > 0) {
+    const dim3 grid_kv((n_k + kB - 1) / kB, n_heads, batch);
+    flash_bwd_dkdv_kernel<T><<<grid_kv, kThreads, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv_out), n_q, n_k, n_heads, d, dv, causal, window,
+        scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid_q((n_q + kB - 1) / kB, n_heads, batch);
+  flash_bwd_dq_kernel<T><<<grid_q, kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), n_q, n_k, n_heads, d,
+      dv, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
 
 }  // namespace
 
@@ -953,11 +1371,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // n_heads, d), v (batch, n_k, n_heads, dv) and o (batch, n_q, n_heads,
 // dv) are contiguous device tensors of one dtype: float32 (dtype 0) or
 // bfloat16 (dtype 1), 16-byte aligned; 8 <= d, dv <= 128, both
-// multiples of 8.
+// multiples of 8. lse, null or float32 (batch, n_heads, n_q), gets each
+// row's log-sum-exp of its scaled scores (training passes it, serving
+// does not).
 // causal: mask key j > query i; window > 0: mask i - j >= window.
 // Launches on `stream` and returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype,
+                                   const void* v, void* o, float* lse,
+                                   int dtype,
                                    int batch, int n_q, int n_k, int n_heads,
                                    int d, int dv, int causal, int window,
                                    float scale, void* stream) {
@@ -966,29 +1387,59 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (batch == 0 || n_q == 0 || n_heads == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, batch, n_q, n_k, n_heads, d, dv,
-                           causal, window, scale, s);
+    return dispatch<float>(q, k, v, o, lse, batch, n_q, n_k, n_heads, d,
+                           dv, causal, window, scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, batch, n_q, n_k, n_heads, d,
-                                   dv, causal, window, scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, batch, n_q, n_k,
+                                   n_heads, d, dv, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core variant. q, k, v and o as above with dv = d, bfloat16
-// only, d 64 or 128; the rows of q, k and v are addressed through TMA maps, so the
-// tensors must be 16-byte aligned.
+// The tensor-core variant. q, k, v, o and lse as above with dv = d,
+// bfloat16 only, d 64 or 128; the rows of q, k and v are addressed
+// through TMA maps, so the tensors must be 16-byte aligned.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int batch,
+                                         const void* v, void* o, float* lse,
+                                         int batch,
                                          int n_q, int n_k, int n_heads,
                                          int d, int causal, int window,
                                          float scale, void* stream) {
   if (batch == 0 || n_q == 0 || n_heads == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return wg::launch<64>(q, k, v, o, batch, n_q, n_k, n_heads, causal,
+    return wg::launch<64>(q, k, v, o, lse, batch, n_q, n_k, n_heads, causal,
                           window, scale, s);
   if (d == 128)
-    return wg::launch<128>(q, k, v, o, batch, n_q, n_k, n_heads, causal,
+    return wg::launch<128>(q, k, v, o, lse, batch, n_q, n_k, n_heads, causal,
                            window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward of either variant. q, k, v, o as above, dout (the
+// gradient of o) like o, lse the forward's (batch, n_heads, n_q)
+// float32, delta a float32 scratch of the same shape; dq, dk, dv (like
+// q, k, v) are written whole. The CUDA-core forward's dtypes and head
+// dims. Three launches on `stream`; returns the first failing one's
+// cudaError_t.
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   float* delta, void* dq, void* dk,
+                                   void* dv_out, int dtype, int batch,
+                                   int n_q, int n_k, int n_heads, int d,
+                                   int dv, int causal, int window,
+                                   float scale, void* stream) {
+  if (d < 8 || d > kMaxD || d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (dv < 8 || dv > kMaxD || dv % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (batch == 0 || n_q == 0 || n_heads == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return bwd::launch<float>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
+                              batch, n_q, n_k, n_heads, d, dv, causal, window,
+                              scale, s);
+  if (dtype == 1)
+    return bwd::launch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv_out, batch, n_q, n_k, n_heads, d, dv,
+                                      causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -21,6 +21,15 @@ tensors of one dtype, q (B,T,H,dq), k (B,S,H,dq) and v (B,S,H,dv) with
 (B,T,H,dv) with ``torch.empty`` and launches on the current CUDA
 stream. ``LAUNCHES`` counts launches,
 ``VARIANT_LAUNCHES`` counts them by variant.
+
+Training: ``flash_attention_lse`` is the same launch, writing each row's
+log-sum-exp of its scaled scores beside the output (float32 (B,H,T));
+``flash_attention_bwd`` takes it back with the output and its gradient
+and returns dq, dk, dv from the hand-written backward (the CUDA cores,
+float32 sums; the CUDA-core forward's dtypes and head dims; three
+kernels a call, no atomics). The reference has no backward kernel: its
+Pallas kernel cannot be differentiated. ``BWD_LAUNCHES`` counts the
+backward's calls (each launches its three kernels).
 """
 from __future__ import annotations
 
@@ -38,13 +47,17 @@ WGMMA_HEAD_DIMS = (64, 128)
 #: one is launched), in all and by variant
 LAUNCHES = 0
 VARIANT_LAUNCHES = {"wgmma": 0, "cuda_core": 0}
+#: calls of the backward (each launches its three kernels)
+BWD_LAUNCHES = 0
 
 _ENTRIES = {
-    "cuda_core": ("flash_attention_fwd", [ctypes.c_void_p] * 4
+    "cuda_core": ("flash_attention_fwd", [ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]),
-    "wgmma": ("flash_attention_wgmma_fwd", [ctypes.c_void_p] * 4
+    "wgmma": ("flash_attention_wgmma_fwd", [ctypes.c_void_p] * 5
               + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]),
 }
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def variant(dtype, dq, dv) -> str:
@@ -63,6 +76,51 @@ def flash_attention(q, k, v, *, causal=True, swa_window=0):
     _check(q, k, v)
     return _launch(variant(q.dtype, q.shape[-1], v.shape[-1]), q, k, v,
                    causal, swa_window)
+
+
+def flash_attention_lse(q, k, v, *, causal=True, swa_window=0):
+    """``flash_attention`` that also returns each row's log-sum-exp of
+    its scaled scores, float32 (B, H, T): the forward of a training
+    step, for ``flash_attention_bwd``."""
+    _check(q, k, v)
+    B, T, H, _ = q.shape
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    out = _launch(variant(q.dtype, q.shape[-1], v.shape[-1]), q, k, v,
+                  causal, swa_window, lse)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
+                        swa_window=0):
+    """The gradients (dq, dk, dv), like q, k, v, of the attention
+    ``out = flash_attention(q, k, v)`` given ``lse`` from
+    ``flash_attention_lse`` and ``dout``, the gradient of ``out``."""
+    global BWD_LAUNCHES
+    _check(q, k, v)
+    B, T, H, d = q.shape
+    S, dv = k.shape[1], v.shape[-1]
+    dev = q.device
+    _build.check("flash_attention_bwd", "out", out, q.dtype, (B, T, H, dv),
+                 dev)
+    _build.check("flash_attention_bwd", "dout", dout, q.dtype,
+                 (B, T, H, dv), dev)
+    _build.check("flash_attention_bwd", "lse", lse, torch.float32,
+                 (B, H, T), dev)
+    if any(t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("flash_attention_bwd: out and dout must be "
+                         "16-byte aligned")
+    dq, dk, dv_ = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    fn = _build.function("flash_attention", "flash_attention_bwd",
+                         _BWD_ARGTYPES)
+    _build.launch("flash_attention_bwd", fn, dev, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
+                  DTYPES[q.dtype], B, T, S, H, d, dv, int(bool(causal)),
+                  int(swa_window), d ** -0.5)
+    BWD_LAUNCHES += 1
+    return dq, dk, dv_
 
 
 def _flash_attention_variant(q, k, v, name, *, causal=True, swa_window=0):
@@ -108,20 +166,21 @@ def _check(q, k, v):
                          "aligned (the kernels load 16 bytes at a time)")
 
 
-def _launch(name, q, k, v, causal, swa_window):
+def _launch(name, q, k, v, causal, swa_window, lse=None):
     global LAUNCHES
     B, T, H, d = q.shape
     S, dv = k.shape[1], v.shape[-1]
     out = torch.empty((B, T, H, dv), dtype=q.dtype, device=q.device)
+    lse_ptr = None if lse is None else lse.data_ptr()
     symbol, argtypes = _ENTRIES[name]
     fn = _build.function("flash_attention", symbol, argtypes)
     # the CUDA-core entry takes the dtype and dv; the wgmma one has dv = d
     dims = (d, dv) if name == "cuda_core" else (d,)
     dtype = (DTYPES[q.dtype],) if name == "cuda_core" else ()
     _build.launch("flash_attention", fn, q.device, q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), out.data_ptr(), *dtype, B, T,
-                  S, H, *dims, int(bool(causal)), int(swa_window),
-                  d ** -0.5)
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
+                  *dtype, B, T, S, H, *dims, int(bool(causal)),
+                  int(swa_window), d ** -0.5)
     LAUNCHES += 1
     VARIANT_LAUNCHES[name] += 1
     return out

@@ -16,6 +16,12 @@
 * attention_naive - the direct (T, S) softmax (small shapes only).
 * wkv_ref         - the sequential RWKV-6 recurrence (models/rwkv6.py),
   held against csrc/rwkv6_wkv.cu.
+* attention_lse_ref, attention_bwd_ref, wkv_bwd_ref - the training
+  side: the rows' log-sum-exp the flash forward writes, and the
+  gradients the two backward kernels compute, step by step in float32
+  (not through autograd). They serve the tests and the card's checks;
+  the training path runs the kernels (CUDA) or autograd through the
+  plain forwards (CPU).
 """
 from __future__ import annotations
 
@@ -32,19 +38,23 @@ from repro_torch.models.rwkv6 import wkv_scan as wkv_ref  # noqa: F401
 BIG = 1e30
 
 
+def _visible(T, S, causal, swa_window, device):
+    qp = torch.arange(T, device=device)[:, None]
+    kp = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qp >= kp
+    if swa_window:
+        mask &= (qp - kp) < swa_window
+    return mask
+
+
 def attention_naive(q, k, v, *, causal=True, swa_window=0):
     """q: (B,T,H,dq), k/v: (B,S,H,d) -> (B,T,H,dv): one float32 softmax
     over the whole (T, S) score matrix, masked scores at -1e30."""
     T, S, dq = q.shape[1], k.shape[1], q.shape[-1]
     s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * dq ** -0.5
-    qp = torch.arange(T, device=q.device)[:, None]
-    kp = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qp >= kp
-    if swa_window:
-        mask &= (qp - kp) < swa_window
-    s = torch.where(mask, s, -1e30)
+    s = torch.where(_visible(T, S, causal, swa_window, q.device), s, -BIG)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhts,bshd->bthd", p, v.float()).to(v.dtype)
 
@@ -311,3 +321,72 @@ def switch_tiers_ref(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
     fc_in = torch.sum(cserve, dim=1)
     return Tiers(rsw_q_new, rsw_wait, to_csw, csw_q_new, csw_wait, fc_in,
                  {k: new[k] for k in TIER_ACC})
+
+
+def attention_lse_ref(q, k, *, causal=True, swa_window=0):
+    """Each row's log-sum-exp of its visible scaled scores, float32
+    (B, H, T): what the flash forward writes for the backward."""
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    mask = _visible(q.shape[1], k.shape[1], causal, swa_window, q.device)
+    return torch.logsumexp(torch.where(mask, s, -BIG), dim=-1)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, swa_window=0):
+    """(dq, dk, dv) float32 of attention ``o`` = softmax(scale q k^T) v
+    given the rows' log-sum-exp ``lse`` (B, H, T) and ``do``, the
+    gradient of ``o``: P = exp(scale q.k - lse) on visible pairs,
+    D = rowsum(do * o), dS = P (do.v - D), dv = P^T do,
+    dk = scale dS^T q, dq = scale dS k."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    mask = _visible(q.shape[1], k.shape[1], causal, swa_window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    d = torch.einsum("bthd,bthd->bht", dof, of)
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dp - d[..., None])
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    return dq, dk, dv
+
+
+def wkv_bwd_ref(r, k, v, w, u, s0, dy, dsT=None):
+    """(dr, dk, dv, dw, du, ds0) float32 of ``wkv_ref``'s (y, final
+    state) given ``dy`` and ``dsT`` (the final state's gradient; None:
+    zeros). The states S_{t-1} are kept from a forward pass (never
+    recovered by dividing by w); G, the gradient of the state after
+    token t, runs backwards:
+        dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t)
+        dk_t = G_t v_t + r_t u (v_t . dy_t)
+        dv_t = G_t^T k_t + (sum r_t u k_t) dy_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du   = sum_t r_t k_t (v_t . dy_t)
+        G_{t-1} = w_t G_t + r_t dy_t^T,  ds0 = G_0."""
+    rf, kf, vf, wf, dyf = (t.float() for t in (r, k, v, w, dy))
+    uf = u.float()
+    T = r.shape[1]
+    s = s0.float()
+    states = []
+    for t in range(T):
+        states.append(s)
+        s = wf[:, t, :, :, None] * s + kf[:, t, :, :, None] \
+            * vf[:, t, :, None, :]
+    g = torch.zeros_like(s) if dsT is None else dsT.float()
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(T)):
+        sp = states[t]
+        rt, kt, vt, wt, dyt = (a[:, t] for a in (rf, kf, vf, wf, dyf))
+        b = (vt * dyt).sum(-1)                              # (B, H)
+        a = (rt * uf * kt).sum(-1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", sp, dyt) \
+            + uf * kt * b[..., None]
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", g, vt) \
+            + rt * uf * b[..., None]
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", g, kt) + a[..., None] * dyt
+        dw[:, t] = (g * sp).sum(-1)
+        du += (rt * kt * b[..., None]).sum(0)
+        g = wt[..., None] * g + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du, g

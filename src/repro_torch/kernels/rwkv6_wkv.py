@@ -15,6 +15,16 @@ and u (H,dh) of one dtype, float32 or bfloat16; state (B,H,dh,dh)
 float32; dh in {8, 16, 32, 64}; any T >= 0), allocates y and the final
 state with ``torch.empty`` and launches on the current CUDA stream.
 ``LAUNCHES`` counts launches.
+
+Training: ``wkv_ckpt`` is the same launch, also writing the state before
+every chunk of ``CHUNK`` tokens into a float32 scratch (B, H,
+ceil(T / CHUNK), dh, dh) that the caller keeps for the backward (at
+(2, 4096, 64, 64), 537 MB); ``wkv_bwd`` recomputes each chunk's states
+from it (never dividing by the decay, which reaches 0) and returns dr,
+dk, dv, dw, du and the initial state's gradient from the hand-written
+backward kernel (dh = 64 only, ``BWD_HEAD_DIMS``; no atomics).
+``BWD_LAUNCHES`` counts its launches. The reference has no backward
+kernel: its Pallas kernel cannot be differentiated.
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ from repro_torch.kernels import _build
 
 HEAD_DIMS = (8, 16, 32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BWD_HEAD_DIMS = (64,)
+CHUNK = 16                   # tokens between the forward's saved states
 GROUPS = (1, 2, 4, 8)        # threads per state column
 SPLITS = (1, 2, 4)           # blocks per (head, sequence)
 SMS = 132                    # streaming multiprocessors of an H100 SXM
@@ -33,8 +45,12 @@ SMS = 132                    # streaming multiprocessors of an H100 SXM
 #: number of times the kernel has been launched (incremented only where
 #: it is launched)
 LAUNCHES = 0
+#: launches of the backward kernel
+BWD_LAUNCHES = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
 
 
 def plan(B, T, H) -> tuple[int, int]:
@@ -64,6 +80,52 @@ def wkv(r, k, v, w, u, state):
     return _launch(r, k, v, w, u, state, *plan(B, T, H))
 
 
+def wkv_ckpt(r, k, v, w, u, state):
+    """``wkv`` that also returns the states before every chunk of
+    ``CHUNK`` tokens, float32 (B, H, ceil(T / CHUNK), dh, dh): the
+    forward of a training step, for ``wkv_bwd``."""
+    _check(r, k, v, w, u, state)
+    B, T, H, dh = r.shape
+    ckpt = torch.empty((B, H, -(-T // CHUNK), dh, dh), dtype=torch.float32,
+                       device=r.device)
+    y, s_out = _launch(r, k, v, w, u, state, *plan(B, T, H), ckpt)
+    return y, s_out, ckpt
+
+
+def wkv_bwd(r, k, v, w, u, ckpt, dy, ds_out=None):
+    """Gradients (dr, dk, dv, dw like r; du (H, dh) like u; ds0 float32
+    (B, H, dh, dh)) of ``wkv``'s (y, final state) given ``ckpt`` from
+    ``wkv_ckpt``, ``dy`` (like y) and ``ds_out``, the final state's
+    gradient (None: unused)."""
+    global BWD_LAUNCHES
+    B, T, H, dh = r.shape
+    dev = r.device
+    _check(r, k, v, w, u)
+    if dh not in BWD_HEAD_DIMS:
+        raise ValueError(f"wkv_bwd: the backward kernel takes head dims "
+                         f"{BWD_HEAD_DIMS}, got {dh}")
+    _build.check("wkv_bwd", "ckpt", ckpt, torch.float32,
+                 (B, H, -(-T // CHUNK), dh, dh), dev)
+    _build.check("wkv_bwd", "dy", dy, r.dtype, (B, T, H, dh), dev)
+    if ds_out is not None:
+        _build.check("wkv_bwd", "ds_out", ds_out, torch.float32,
+                     (B, H, dh, dh), dev)
+    if any(t.data_ptr() % 16 for t in (ckpt, dy)):
+        raise ValueError("wkv_bwd: ckpt and dy must be 16-byte aligned")
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)
+    fn = _build.function("rwkv6_wkv", "rwkv6_wkv_bwd", _BWD_ARGTYPES)
+    _build.launch("rwkv6_wkv_bwd", fn, dev, r.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), w.data_ptr(), u.data_ptr(), ckpt.data_ptr(),
+                  dy.data_ptr(),
+                  None if ds_out is None else ds_out.data_ptr(),
+                  dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                  du.data_ptr(), ds0.data_ptr(), DTYPES[r.dtype], B, T, H, dh)
+    BWD_LAUNCHES += 1
+    return dr, dk, dv, dw, du.sum(0).to(u.dtype), ds0
+
+
 def _wkv_planned(r, k, v, w, u, state, groups, splits):
     """``wkv`` with (groups, splits) given, not planned: for timing one
     layout against another on the same inputs."""
@@ -74,7 +136,7 @@ def _wkv_planned(r, k, v, w, u, state, groups, splits):
     return _launch(r, k, v, w, u, state, groups, splits)
 
 
-def _check(r, k, v, w, u, state):
+def _check(r, k, v, w, u, state=None):
     if not (isinstance(r, torch.Tensor) and r.is_cuda):
         raise ValueError("wkv runs on CUDA tensors only; ops.wkv takes "
                          "CPU tensors to the plain version")
@@ -91,13 +153,15 @@ def _check(r, k, v, w, u, state):
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
         _build.check("wkv", name, t, r.dtype, (B, T, H, dh), dev)
     _build.check("wkv", "u", u, r.dtype, (H, dh), dev)
-    _build.check("wkv", "state", state, torch.float32, (B, H, dh, dh), dev)
+    if state is not None:
+        _build.check("wkv", "state", state, torch.float32, (B, H, dh, dh),
+                     dev)
     if any(t.data_ptr() % 16 for t in (r, k, v, w)):
         raise ValueError("wkv: r, k, v and w must be 16-byte aligned (the "
                          "kernel copies 16 bytes at a time)")
 
 
-def _launch(r, k, v, w, u, state, groups, splits):
+def _launch(r, k, v, w, u, state, groups, splits, ckpt=None):
     global LAUNCHES
     B, T, H, dh = r.shape
     y = torch.empty_like(r)
@@ -106,6 +170,7 @@ def _launch(r, k, v, w, u, state, groups, splits):
     _build.launch("rwkv6_wkv", fn, r.device, r.data_ptr(), k.data_ptr(),
                   v.data_ptr(), w.data_ptr(), u.data_ptr(),
                   state.data_ptr(), y.data_ptr(), s_out.data_ptr(),
+                  None if ckpt is None else ckpt.data_ptr(),
                   DTYPES[r.dtype], B, T, H, dh, groups, splits)
     LAUNCHES += 1
     return y, s_out

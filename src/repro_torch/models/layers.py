@@ -1,5 +1,6 @@
 """Common model primitives (counterpart of ``repro/models/layers.py``):
-norms, RoPE, the SwiGLU/GELU MLP, initialisers and the output head.
+norms, RoPE, the SwiGLU/GELU MLP, initialisers, the output head and
+the training loss (``cross_entropy``).
 
 Norms and RoPE compute in float32 and cast back to the input's dtype at
 the same places as the reference. Initialisers draw float32 normals
@@ -72,9 +73,47 @@ def unembed(x, w):
     operands are cast (the CPU runs the float32 reduced configs).
     """
     B, T, d = x.shape
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
+    if x.dtype == w.dtype and x.dtype in (torch.float32, torch.float64):
         return x @ w.t()
     if x.is_cuda:
-        return torch.mm(x.reshape(B * T, d), w.t(),
-                        out_dtype=torch.float32).reshape(B, T, -1)
+        x2 = x.reshape(B * T, d)
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _Unembed.apply(x2, w).reshape(B, T, -1)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32).reshape(B, T, -1)
     return x.float() @ w.float().t()
+
+
+class _Unembed(torch.autograd.Function):
+    """x (N, d) @ w.t() with a float32 output from bf16/fp16 operands
+    (cuBLAS, float32 sums); the backward takes the float32 gradient of
+    the logits in the operands' dtype (the mixed-precision step's
+    rounding) into two GEMMs with float32 sums, each gradient in its
+    operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w, g.t() @ x
+
+
+def cross_entropy(logits, targets, mask=None):
+    """Mean negative log-likelihood over (optionally masked) positions;
+    logits float32 (B, T, V), targets (B, T) int.
+
+    The reference takes the gold logit with an iota-compare reduction
+    (its reason is GSPMD sharding of the vocab); a gather picks the same
+    value (the other terms of that sum are zeros) without a (B, T, V)
+    mask, which at full width is as large as the logits."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

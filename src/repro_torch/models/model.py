@@ -21,27 +21,35 @@ Entry points:
     prefill(cfg, params, batch, kernel_fns=None)  -> (last_logits, cache)
     decode_step(cfg, params, cache, token, pos, kernel_fns=None)
                                                   -> (logits, cache)
+    train_loss(cfg, params, batch, kernel_fns=None)
+                                  -> (loss, {"ce_loss", "aux_loss"})
 
 ``kernel_fns`` is ``kernels.ops.model_kernel_fns()`` to run attention
 and wkv through the port's CUDA kernels; without it the plain versions
 run. MLA decode, MoE and Mamba have no Pallas kernel in the reference
 (XLA compiles them) and run here as PyTorch ops. The MoE aux loss is
-dropped on this serving path, as the reference's ``prefill`` drops it.
-Training (``train_loss``) comes with the training slice.
+dropped on this serving path, as the reference's ``prefill`` drops it;
+``train_loss`` sums it over the layers. With ``cfg.remat`` (the full
+configs) each layer of a training step is recomputed in the backward
+(``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint(..., nothing_saveable)`` over a scanned period; here
+the unit is a layer, the same arithmetic).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
-from repro_torch.models.layers import (embed_init, rms_norm, swiglu_apply,
-                                       swiglu_init, unembed)
+from repro_torch.models.layers import (cross_entropy, embed_init, rms_norm,
+                                       swiglu_apply, swiglu_init, unembed)
 
 
 def layer_kinds(cfg) -> list[tuple[str, str]]:
@@ -49,6 +57,19 @@ def layer_kinds(cfg) -> list[tuple[str, str]]:
     'mlp' or 'moe' (an rwkv layer carries its own channel mix)."""
     return [(cfg.layer_kind(i), cfg.ffn_kind(i))
             for i in range(cfg.n_layers)]
+
+
+def stack_plan(cfg) -> tuple[int, int, int]:
+    """(n_prefix, n_scan, period): how the reference stores the layers,
+    ``n_prefix`` single layers then ``n_scan`` stacked copies of
+    ``period`` sublayers (its ``_stack_plan``). Layer ``n_prefix + s
+    period + j`` of the port is copy ``s`` of the reference's
+    ``stack["sub<j>"]``."""
+    if cfg.mamba is not None:
+        return 0, cfg.n_layers // cfg.attn_period, cfg.attn_period
+    if cfg.first_dense:
+        return cfg.first_dense, cfg.n_layers - cfg.first_dense, 1
+    return 0, cfg.n_layers, 1
 
 
 def _layer_init(gen, cfg, kind, ffn, dtype):
@@ -156,7 +177,8 @@ def _attn_layer(cfg, p, h, *, positions, kernel_fns, cache, pos,
 
 def _layer_apply(cfg, p, x, *, kind, ffn, positions, kernel_fns,
                  cache=None, pos=None, want_cache=False):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux): aux is the MoE FFN's auxiliary loss
+    (float32 scalar), None for other FFNs."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rwkv":
         st = cache or rw.rwkv_state_init(cfg, h.shape[0], h.dtype,
@@ -170,8 +192,8 @@ def _layer_apply(cfg, p, x, *, kind, ffn, positions, kernel_fns,
         x = x + out2
         if want_cache or cache is not None:
             return x, {"att_shift": att_shift, "wkv": wkv,
-                       "cm_shift": cm_shift}
-        return x, {}
+                       "cm_shift": cm_shift}, None
+        return x, {}, None
     if kind == "attn":
         out, new_cache = _attn_layer(cfg, p, h, positions=positions,
                                      kernel_fns=kernel_fns, cache=cache,
@@ -181,11 +203,12 @@ def _layer_apply(cfg, p, x, *, kind, ffn, positions, kernel_fns,
         new_cache = state if (want_cache or cache is not None) else {}
     x = x + out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    aux = None
     if ffn == "moe":
-        out2, _ = moe_mod.moe_apply(p["moe"], cfg, h2)    # aux dropped
+        out2, aux = moe_mod.moe_apply(p["moe"], cfg, h2)
     else:
         out2 = swiglu_apply(p["mlp"], h2)
-    return x + out2, new_cache
+    return x + out2, new_cache, aux
 
 
 def _run_stack(cfg, params, x, positions, kernel_fns, want_cache,
@@ -194,13 +217,36 @@ def _run_stack(cfg, params, x, positions, kernel_fns, want_cache,
     caches = []
     for i, ((kind, ffn), p) in enumerate(zip(layer_kinds(cfg),
                                              params["layers"])):
-        x, c = _layer_apply(cfg, p, x, kind=kind, ffn=ffn,
-                            positions=positions,
-                            kernel_fns=kernel_fns or {},
-                            cache=in_cache[i] if in_cache else None,
-                            pos=pos, want_cache=want_cache)
+        x, c, _ = _layer_apply(cfg, p, x, kind=kind, ffn=ffn,
+                               positions=positions,
+                               kernel_fns=kernel_fns or {},
+                               cache=in_cache[i] if in_cache else None,
+                               pos=pos, want_cache=want_cache)   # aux dropped
         caches.append(c)
     return x, caches
+
+
+def _train_stack(cfg, params, x, positions, kernel_fns):
+    """Every layer in order for a training step, each recomputed in the
+    backward when ``cfg.remat``. Returns (x, the MoE aux losses summed
+    over the layers, float32)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for (kind, ffn), p in zip(layer_kinds(cfg), params["layers"]):
+        def layer(x, p, kind=kind, ffn=ffn):
+            x, _, aux = _layer_apply(cfg, p, x, kind=kind, ffn=ffn,
+                                     positions=positions,
+                                     kernel_fns=kernel_fns)
+            if aux is None:
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            return x, aux
+
+        if cfg.remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                layer, x, p, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = layer(x, p)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _embed_tokens(cfg, params, batch):
@@ -208,7 +254,10 @@ def _embed_tokens(cfg, params, batch):
         raise NotImplementedError(
             f"{cfg.name}: the audio and vision frontends are not ported "
             "yet (ROADMAP Queue 1 item 13i)")
-    return params["embed"][batch["tokens"]]
+    # F.embedding: the same rows as indexing; its backward on the card
+    # sums a token's rows in a fixed order (a training resume is
+    # bit-exact)
+    return F.embedding(batch["tokens"], params["embed"])
 
 
 def _logits(cfg, params, x):
@@ -228,6 +277,20 @@ def prefill(cfg, params, batch, kernel_fns=None):
     logits = _logits(cfg, params, x)
     pos_offset = torch.full((B,), T, dtype=torch.int32, device=x.device)
     return logits[:, 0], {"pos_offset": pos_offset, "layers": caches}
+
+
+def train_loss(cfg, params, batch, kernel_fns=None):
+    """The reference's ``train_loss``: batch["tokens"], batch["targets"]
+    (B, T) int -> (cross entropy + 0.01 x the MoE aux loss, {"ce_loss",
+    "aux_loss"}), float32 scalars. Differentiable through every layer;
+    ``kernel_fns`` as ``prefill``'s (``ops.model_kernel_fns()`` runs the
+    CUDA kernels' forwards and backwards on the card)."""
+    x = _embed_tokens(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, aux = _train_stack(cfg, params, x, positions, kernel_fns or {})
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = cross_entropy(_logits(cfg, params, x), batch["targets"])
+    return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 def decode_step(cfg, params, cache, token, pos, kernel_fns=None):

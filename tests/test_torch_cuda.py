@@ -56,6 +56,15 @@ from repro_torch.kernels import (flash_attention, lcdc_switch, ops, ref,
 
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+#: the backward kernels against their plain versions, as a share of
+#: each gradient's largest magnitude: float32 sums in another order
+#: (1e-3, chip_smoke's bound; measured far below), and in bfloat16 the
+#: gradients' own rounding (2^-9) grown by sums over the sequence
+ATTN_BWD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+WKV_BWD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
+#: the rows' log-sum-exp, abs and rel: float32 sums of the scores in
+#: another order
+LSE_TOL = 1e-4
 ULP = 2.0 ** -23
 ULP64 = 2.0 ** -52
 #: the golden capture's site (tests/data/preflow_golden.json)
@@ -268,6 +277,176 @@ def test_wkv_every_layout_keeps_the_state_exact(cuda, B, T, groups, splits):
     _close(y, y_ref, WKV_TOL["bfloat16"])
 
 
+def _rel_err(got, want):
+    """max |got - want| over max |want|."""
+    scale = float(want.abs().max())
+    return float((got.float() - want.float()).abs().max()) / max(scale,
+                                                                1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,d,causal,window,dtype", [
+    (2, 256, 4, 128, True, 0, "bfloat16"),        # the wgmma variant
+    (1, 200, 3, 64, True, 64, "bfloat16"),
+    (2, 100, 3, 80, False, 0, "float32"),         # the CUDA-core variant
+    (1, 130, 2, 96, True, 48, "float32"),
+])
+def test_flash_lse_vs_plain_version(cuda, B, T, H, d, causal, window,
+                                    dtype):
+    """The forward's rows' log-sum-exp (training's) against the plain
+    logsumexp of the scaled scores; the output is serving's, bit for
+    bit."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((B, T, H, d), generator=g, device=cuda)
+               .to(getattr(torch, dtype)) for _ in range(3))
+    out, lse = flash_attention.flash_attention_lse(
+        q, k, v, causal=causal, swa_window=window)
+    want = ref.attention_lse_ref(q, k, causal=causal, swa_window=window)
+    served = flash_attention.flash_attention(q, k, v, causal=causal,
+                                             swa_window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, served)
+    _close(lse, want, LSE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,dq,dv,causal,window,dtype", [
+    (2, 256, 4, 128, 128, True, 0, "bfloat16"),
+    (1, 200, 3, 96, 64, True, 0, "bfloat16"),     # MLA's head dims
+    (1, 130, 2, 64, 64, True, 48, "float32"),
+    (2, 64, 2, 16, 16, False, 0, "float32"),
+    (1, 100, 2, 128, 128, True, 0, "float32"),
+])
+def test_flash_backward_vs_plain_version(cuda, B, T, H, dq, dv, causal,
+                                         window, dtype):
+    """ops.attention's gradients on CUDA tensors (the forward kernel
+    with its log-sum-exp, then the backward kernel: one launch of each)
+    against ``ref.attention_bwd_ref`` on the same output, each gradient
+    within ATTN_BWD_TOL of its largest magnitude; a second backward
+    gives the same bits."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k = (torch.randn((B, T, H, dq), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    v = torch.randn((B, T, H, dv), generator=g, device=cuda).to(dt)
+    do = torch.randn((B, T, H, dv), generator=g, device=cuda).to(dt)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES)
+    out = ops.attention(*leaves, causal=causal, swa_window=window)
+    grads = torch.autograd.grad(out, leaves, do)
+    again = torch.autograd.grad(
+        ops.attention(*leaves, causal=causal, swa_window=window), leaves,
+        do)
+    torch.cuda.synchronize()
+    assert (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    lse = ref.attention_lse_ref(q, k, causal=causal, swa_window=window)
+    want = ref.attention_bwd_ref(q, k, v, out.detach(), lse, do,
+                                 causal=causal, swa_window=window)
+    for name, got, w, g2 in zip("qkv", grads, want, again):
+        assert got.dtype == dt and got.shape == w.shape
+        assert torch.equal(got, g2), f"d{name} differs between two runs"
+        assert _rel_err(got, w) <= ATTN_BWD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,dtype,final,strong", [
+    (1, 256, 64, "bfloat16", False, False),
+    (2, 100, 8, "float32", True, False),
+    (1, 33, 2, "float32", True, True),            # decays near 0
+    (2, 16, 3, "float32", False, False),
+])
+def test_wkv_backward_vs_plain_version(cuda, B, T, H, dtype, final,
+                                       strong):
+    """ops.wkv's gradients on CUDA tensors (the forward kernel writing
+    the state every 16 tokens, then the backward kernel) against
+    ``ref.wkv_bwd_ref``, each within WKV_BWD_TOL of its largest
+    magnitude, with and without a gradient of the final state; a second
+    backward gives the same bits."""
+    dt = getattr(torch, dtype)
+    args = list(_wkv_args(cuda, B, T, H, 64, dt, 7))
+    if strong:                           # w = exp(-exp(x)) with x ~ 3..5
+        args[3] = torch.exp(-torch.exp(3 + 2 * torch.rand_like(
+            args[3].float()))).to(dt)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    dy = torch.randn(args[0].shape, generator=g, device=cuda).to(dt)
+    ds = torch.randn(args[5].shape, generator=g, device=cuda) if final \
+        else None
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = (rwkv6_wkv.LAUNCHES, rwkv6_wkv.BWD_LAUNCHES)
+    runs = []
+    for _ in range(2):
+        y, s = ops.wkv(*leaves)
+        outs, gos = ((y, s), (dy, ds)) if final else ((y,), (dy,))
+        runs.append(torch.autograd.grad(outs, leaves, gos))
+    torch.cuda.synchronize()
+    assert (rwkv6_wkv.LAUNCHES, rwkv6_wkv.BWD_LAUNCHES) == (
+        before[0] + 2, before[1] + 2)
+    want = ref.wkv_bwd_ref(*args, dy, ds)
+    for name, got, w, g2 in zip(("r", "k", "v", "w", "u", "s0"), runs[0],
+                                want, runs[1]):
+        assert got.shape == w.shape, name
+        assert torch.equal(got, g2), f"d{name} differs between two runs"
+        assert _rel_err(got, w) <= WKV_BWD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [
+    ("qwen3-0.6b", {}),
+    ("rwkv6-7b", {"rwkv_head_dim": 64, "remat": True}),  # the kernel's dh
+])
+def test_reduced_train_step_through_the_kernels(cuda, arch, over):
+    """A reduced float32 training step on the card through the kernels'
+    forwards and backwards against the plain versions (autograd): the
+    loss and every gradient within 1e-4 of its scale, each backward
+    kernel launched once a layer."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.models import model as M
+    cfg = reduced(get_config(arch), **over)
+    params = M.init_params(cfg, 0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, (2, 40), generator=g,
+                              device=cuda) for k in ("tokens", "targets")}
+    out = []
+    for fns in (ops.model_kernel_fns(), None):
+        live = [p.detach().clone().requires_grad_() for p in leaves(params)]
+        before = (flash_attention.BWD_LAUNCHES, rwkv6_wkv.BWD_LAUNCHES)
+        loss, _ = M.train_loss(cfg, unflatten(params, live), batch,
+                               kernel_fns=fns)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        moved = (flash_attention.BWD_LAUNCHES - before[0],
+                 rwkv6_wkv.BWD_LAUNCHES - before[1])
+        out.append((loss.detach(), grads, moved))
+    torch.cuda.synchronize()
+    n_attn = sum(k == "attn" for k, _ in M.layer_kinds(cfg))
+    n_rwkv = cfg.n_layers - n_attn
+    assert out[0][2] == (n_attn, n_rwkv) and out[1][2] == (0, 0)
+    assert abs(float(out[0][0]) - float(out[1][0])) <= 1e-4 * float(
+        out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        if b is None:
+            assert a is None or float(a.abs().max()) == 0.0
+            continue
+        assert _rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_serving_saves_nothing_for_a_backward(cuda):
+    """Without an input that requires grad, ops.attention and ops.wkv
+    launch serving's forward: no log-sum-exp, no saved states, no
+    graph."""
+    q = torch.randn((1, 64, 2, 64), device=cuda, dtype=torch.bfloat16)
+    out = ops.attention(q, q, q)
+    assert out.grad_fn is None
+    args = _wkv_args(cuda, 1, 40, 2, 64, torch.bfloat16, 9)
+    y, s = ops.wkv(*args)
+    assert y.grad_fn is None and s.grad_fn is None
+    leaf = q.clone().requires_grad_()
+    with torch.no_grad():
+        assert ops.attention(leaf, leaf, leaf).grad_fn is None
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros((1, 8, 2, 12), device=cuda)          # d % 8 != 0
@@ -283,6 +462,10 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         rwkv6_wkv.wkv(r, r, r, r, torch.zeros((2, 48), device=cuda),
                       torch.zeros((1, 2, 48, 48), device=cuda))
+    r = torch.zeros((1, 4, 2, 32), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="backward kernel takes"):
+        ops.wkv(r, r, r, r, torch.zeros((2, 32), device=cuda),
+                torch.zeros((1, 2, 32, 32), device=cuda))
 
 
 def tiers_inputs(sites, seed, fault_share, device):

@@ -12,9 +12,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
    spills and static shared memory for every kernel (every float32
    lcdc_switch kernel must have a stack frame of 0 bytes: its rows live
    in registers; the float64 ones' frames are printed); and the SASS
-   of the flash library (cuobjdump -sass), which must show the bf16
-   kernel's tensor-core instructions (HGMMA) and its asynchronous
-   copies (UTMALDG, TMA; or LDGSTS, cp.async);
+   of the flash library (cuobjdump -sass): each bf16 tensor-core kernel
+   (``WGMMA_KERNELS``: the forward and the backward's dK/dV and dQ
+   kernels, at d 64 and 128) must show wgmma (HGMMA) and TMA loads
+   (UTMALDG) and compile with 0 spill bytes; the backward's registers
+   and any ptxas warning about serialised wgmma are printed;
 2. ``kernel``: each kernel against its plain PyTorch version on the
    card, at the shapes its path gives it: switch_step at the
    simulator's two tier shapes and at odd switch counts; switch_tiers
@@ -34,8 +36,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
    final state equal to the plain version's bit for bit; then the
    training side: both flash variants' rows' log-sum-exp against the
    plain logsumexp (the output equal to serving's launch), the flash
-   backward kernel at (8, 256, 32, 128) bf16, (1, 384, 32, 128)
-   float32, MLA's (2, 256, 40, 96/64) and a sliding window, and the
+   backward through the variant its inputs pick (``bwd_variant``, its
+   counter checked; bf16 ones also through the CUDA-core design) at
+   (8, 256, 32, 128) bf16, d 64, a ragged T, non-causal with T != S, a
+   sliding window, (1, 384, 32, 128) float32 and MLA's (2, 256, 40,
+   96/64) (the CUDA-core variant), and the
    wkv backward kernel at (1, 256) and (2, 1024) in bf16 and float32,
    each against its plain version (``ref.attention_bwd_ref``,
    ``ref.wkv_bwd_ref``) and equal to itself over two runs;
@@ -122,7 +127,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
    torch.profiler; loss and grad_norm a step (finite), step ms and
    tokens/s over the window, the model FLOPs' share of 989 TFLOP/s, peak
    memory, and exact launch counts (forward twice a layer a step with
-   remat, backward once); 9d. ``train-reduced``: tests/test_system.py's
+   remat, backward once, every backward through the variant
+   ``bwd_variant`` picks: wgmma for qwen3-8b); for qwen3-8b also the
+   gradients of a 2-layer full-width bf16 model at (1, GRAD_SEQ) through
+   the wgmma backward and through the CUDA-core one (``kernel_fns``
+   built here), each leaf's difference as a share of its scale (a
+   reading, not a gate); 9d. ``train-reduced``: tests/test_system.py's
    30 steps of reduced qwen3-0.6b through the kernels (the loss falls by
    0.5) and tests/test_checkpoint_trainer.py's kill at step 8 and
    resume, the resumed losses against the uninterrupted run's (bit for
@@ -142,7 +152,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
    saving the wkv states), held against the plain versions' outputs
    the timing computed; the two backward kernels at the training
    shapes beside their plain versions (and held against them), their
-   bounds and, for flash, SDPA's backward on the same tensors.
+   bounds and, for flash, SDPA's backward on the same tensors and the
+   CUDA-core backward (the first design, ``first_ms``) timed in turns
+   in the same call (and held too; the picked design's two runs equal
+   bit for bit).
 
 The line before the last is a JSON object with one entry per kernel;
 the last line names the device. Imports neither JAX nor the JAX
@@ -1330,10 +1343,13 @@ WKV_CASES = [
     ("ragged T", 2, 100, 64, 64, "bfloat16"),
     ("float32", 1, 100, 64, 64, "float32"),
 ]
-# the flash library's bf16 kernel must run on the tensor cores with
-# asynchronous tile copies: SASS opcodes of wgmma and of TMA / cp.async
+# the flash library's bf16 kernels (forward and backward, each at d 64
+# and 128) must run on the tensor cores with TMA tile copies: SASS
+# opcodes of wgmma and of TMA loads
 WGMMA_OPS = ("HGMMA",)
-ASYNC_COPY_OPS = ("UTMALDG", "LDGSTS")
+ASYNC_COPY_OPS = ("UTMALDG",)
+WGMMA_KERNELS = ("flash_wgmma_kernel", "flash_bwd_wgmma_dkdv_kernel",
+                 "flash_bwd_wgmma_dq_kernel")
 
 
 def allclose_err(torch, got, want, atol, rtol):
@@ -1423,9 +1439,9 @@ def weighted(entries, key):
 
 
 def profile_busy(torch, fn, kernel_name):
-    """(wall s, device-busy s, kernel launches, ms of the kernels named
-    ``kernel_name``, top kernels) of ``fn`` under torch.profiler; busy is
-    the sum of kernel times."""
+    """(wall s, device-busy s, kernel launches, {kernel: ms} of the
+    kernels whose names hold ``kernel_name``, top kernels) of ``fn``
+    under torch.profiler; busy is the sum of kernel times."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1439,8 +1455,12 @@ def profile_busy(torch, fn, kernel_name):
               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     launches = sum(e.count for e in events)
-    own = sum(e.self_device_time_total for e in events
-              if kernel_name in e.key) / 1e3
+    own = {}
+    for e in events:
+        if kernel_name in e.key:
+            k = e.key.replace("(anonymous namespace)::", "")
+            k = re.sub(r"^void ", "", k).split("(", 1)[0]
+            own[k] = own.get(k, 0.0) + e.self_device_time_total / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
     return wall, busy, launches, own, [
         (e.key[:60], e.count, round(e.self_device_time_total / 1e3, 3))
@@ -1572,8 +1592,8 @@ def sass_counts(lib, ops):
 
 def build_report(libs):
     """Print ptxas's report of every kernel and check the SASS of the
-    flash library: each bf16 tensor-core kernel must hold wgmma (HGMMA)
-    and asynchronous copies (UTMALDG or LDGSTS)."""
+    flash library: each of WGMMA_KERNELS at d 64 and 128 must hold wgmma
+    (HGMMA) and TMA loads (UTMALDG) and spill nothing."""
     from repro_torch.kernels import _build
     reports = {n: ptxas_report(_build.build_log(n)) for n in libs}
     short = short_names(k for r in reports.values() for k in r)
@@ -1602,19 +1622,37 @@ def build_report(libs):
           f"{max(sw[k][2] for k in f64)}/{max(sw[k][3] for k in f64)}")
     ops = WGMMA_OPS + ASYNC_COPY_OPS
     counts = sass_counts(libs["flash_attention"], ops)
-    wgmma = {k: c for k, c in counts.items() if "flash_wgmma_kernel" in k}
-    if len(wgmma) != 2:
-        fail(f"build: expected 2 wgmma flash kernels in the SASS, found "
-             f"{sorted(wgmma)}")
     names = short_names(counts)
     for k, c in counts.items():
         phase("build", f"flash_attention SASS {names[k]}: " + ", ".join(
             f"{op} {c[op]}" for op in ops))
-    for k, c in wgmma.items():
-        if not (sum(c[op] for op in WGMMA_OPS) and
-                sum(c[op] for op in ASYNC_COPY_OPS)):
-            fail(f"build: {names[k]} has no tensor-core ({WGMMA_OPS}) or no "
-                 f"asynchronous-copy ({ASYNC_COPY_OPS}) instructions: {c}")
+    flash = reports["flash_attention"]
+    for base in WGMMA_KERNELS:
+        for d in (64, 128):
+            # the mangled name holds the template argument as ILi<d>E
+            tag = f"{base}ILi{d}E"
+            found = [k for k in counts if tag in k]
+            if len(found) != 1:
+                fail(f"build: expected one {base}<{d}> in the SASS, found "
+                     f"{found}")
+            c = counts[found[0]]
+            if not all(c[op] for op in ops):
+                fail(f"build: {base}<{d}> lacks tensor-core ({WGMMA_OPS}) "
+                     f"or TMA ({ASYNC_COPY_OPS}) instructions: {c}")
+            rep = [r for k, r in flash.items() if tag in k]
+            if len(rep) != 1 or rep[0][2] or rep[0][3]:
+                fail(f"build: {base}<{d}> must compile with 0 spill bytes; "
+                     f"ptxas (registers / stack / spill stores / spill "
+                     f"loads / smem): {rep}")
+            if "bwd" in base:
+                phase("build", f"{base}<{d}>: {rep[0][0]} registers, spill "
+                      f"stores / loads {rep[0][2]} / {rep[0][3]} bytes; "
+                      + ", ".join(f"{op} {c[op]}" for op in ops))
+    # ptxas says when it must serialise wgmma (an accumulator touched
+    # while a product is in flight): print each such warning
+    for line in _build.build_log("flash_attention").splitlines():
+        if "wgmma" in line.lower() and "warn" in line.lower():
+            phase("build", f"flash_attention ptxas: {line.strip()}")
 
 
 def attn_dims(cfg):
@@ -1768,6 +1806,7 @@ def serve_phase(torch, arch, dev):
     wall, busy, n_launch, own_ms, top = profile_busy(
         torch, lambda: serve.generate(cfg, params, prompts_b, SERVE_GEN,
                                       kernel_fns=fns), own)
+    own_ms = sum(own_ms.values())
     launched = "; ".join(f"{k} launches {n}" for k, n in got.items() if n)
     phase(name, f"launch.serve B={SERVE_BATCH} P={SERVE_PROMPT} gen "
           f"{SERVE_GEN}: prefill {res['prefill_tok_s']:.1f} tok/s "
@@ -1797,14 +1836,17 @@ def reset_counts(flash_attention, rwkv6_wkv):
         flash_attention.VARIANT_LAUNCHES[n] = 0
 
 
-def check_variant(flash_attention, launches, picked, name):
+def check_variant(flash_attention, launches, picked, name,
+                  counts="VARIANT_LAUNCHES"):
     """Fail unless the variant ``picked`` made all ``launches`` flash
-    launches since the counts were reset, and the other none."""
-    got = dict(flash_attention.VARIANT_LAUNCHES)
+    launches (of the forward, or with ``counts`` "BWD_VARIANT_LAUNCHES"
+    the backward's calls) since the counts were reset, and the other
+    none."""
+    got = dict(getattr(flash_attention, counts))
     want = {n: launches if n == picked else 0 for n in got}
     if got != want:
-        fail(f"{name}: flash launches by variant {got}, expected all "
-             f"{launches} through {picked}")
+        fail(f"{name}: flash {counts} {got}, expected all {launches} "
+             f"through {picked}")
 
 
 def sensitivity(torch, cfg, params, toks, dev):
@@ -2118,12 +2160,19 @@ WKV_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 # the forwards' rows' log-sum-exp against the plain logsumexp of the
 # scaled scores (abs and rel): float32 sums in another order
 LSE_TOL = 1e-4
-# (label, B, T, H, dq, dv, causal, window, dtype)
+# (label, B, T, S, H, dq, dv, causal, window, dtype): the wgmma
+# backward's edges (d 64, a ragged T, T != S without the causal mask, a
+# window), then the CUDA-core variant's float32 and MLA cases
 FLASH_BWD_CASES = [
-    ("batched prefill", 8, 256, 32, 128, 128, True, 0, "bfloat16"),
-    ("float32", 1, 384, 32, 128, 128, True, 0, "float32"),
-    ("MLA", 2, 256, 40, 96, 64, True, 0, "bfloat16"),
-    ("sliding window 128", 1, 384, 32, 128, 128, True, 128, "bfloat16"),
+    ("batched prefill", 8, 256, 256, 32, 128, 128, True, 0, "bfloat16"),
+    ("head dim 64", 2, 256, 256, 40, 64, 64, True, 0, "bfloat16"),
+    ("ragged T", 1, 200, 200, 32, 128, 128, True, 0, "bfloat16"),
+    ("non-causal, T != S", 2, 100, 160, 32, 128, 128, False, 0,
+     "bfloat16"),
+    ("sliding window 128", 1, 384, 384, 32, 128, 128, True, 128,
+     "bfloat16"),
+    ("float32", 1, 384, 384, 32, 128, 128, True, 0, "float32"),
+    ("MLA", 2, 256, 256, 40, 96, 64, True, 0, "bfloat16"),
 ]
 # (B, T, dtype, with a final-state gradient); H 64, dh 64
 WKV_BWD_CASES = [(1, 256, "bfloat16", False), (1, 256, "float32", True),
@@ -2173,37 +2222,58 @@ def check_backward_kernels(torch, dev):
               f"{want_variant} variant ({B}, {T}, {H}, {d}) {dt}: lse max "
               f"abs {err:.3g} (tol {LSE_TOL:g} abs + rel); the output "
               f"equals serving's bit for bit")
-    for i, (label, B, T, H, dq, dv, causal, win, dt) in enumerate(
+    for i, (label, B, T, S, H, dq, dv, causal, win, dt) in enumerate(
             FLASH_BWD_CASES):
-        q, k, v = attn_inputs(torch, B, T, H, dq, dv, getattr(torch, dt),
-                              dev, 720 + i)
-        do = attn_inputs(torch, B, T, H, dv, dv, q.dtype, dev, 740 + i)[0]
+        g = torch.Generator(device=dev).manual_seed(720 + i)
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                       .to(getattr(torch, dt)) for shape in (
+                           (B, T, H, dq), (B, S, H, dq), (B, S, H, dv),
+                           (B, T, H, dv)))
         out, lse = fa.flash_attention_lse(q, k, v, causal=causal,
                                           swa_window=win)
+        picked = fa.bwd_variant(q.dtype, dq, dv)
+        before = dict(fa.BWD_VARIANT_LAUNCHES)
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                      swa_window=win)
         again = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                        swa_window=win)
+        moved = {n: fa.BWD_VARIANT_LAUNCHES[n] - before[n] for n in before}
+        if moved != {n: 2 * int(n == picked) for n in before}:
+            fail(f"flash_attention_bwd {label}: picked {picked}, but the "
+                 f"variant counters moved {moved}")
         want = ref.attention_bwd_ref(
             q, k, v, out, ref.attention_lse_ref(q, k, causal=causal,
                                                 swa_window=win), do,
             causal=causal, swa_window=win)
-        torch.cuda.synchronize()
-        errs = rel_errs(torch, got, want)
         tol = FLASH_BWD_TOL[dt]
-        if not all(bool(torch.isfinite(g).all()) for g in got) or any(
-                r > tol for _, r in errs):
-            fail(f"flash_attention_bwd {label} {(B, T, H, dq, dv)} {dt}: "
-                 f"(dq, dk, dv) errors {errs} (tol {tol:g} of max |plain|)")
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            fail(f"flash_attention_bwd {label}: two runs differ")
+        designs = {picked: (got, again)}
+        if picked != "cuda_core":          # the first design, same inputs
+            designs["cuda_core"] = tuple(
+                fa._flash_attention_bwd_variant(
+                    q, k, v, out, lse, do, "cuda_core", causal=causal,
+                    swa_window=win) for _ in range(2))
+        torch.cuda.synchronize()
+        read = {}
+        for name, (a, b) in designs.items():
+            errs = rel_errs(torch, a, want)
+            if not all(bool(torch.isfinite(x).all()) for x in a) or any(
+                    r > tol for _, r in errs):
+                fail(f"flash_attention_bwd {label} {(B, T, S, H, dq, dv)} "
+                     f"{dt}, {name} variant: (dq, dk, dv) errors {errs} "
+                     f"(tol {tol:g} of max |plain|)")
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                fail(f"flash_attention_bwd {label}, {name} variant: two "
+                     f"runs differ")
+            read[name] = errs
         worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
-                                           max(a for a, _ in errs))
-        phase("kernel", f"flash_attention backward {label} ({B}, {T}, {H}, "
-              f"{dq}, {dv}) {dt} causal={causal} window={win}: dq, dk, dv "
-              f"max abs " + ", ".join(f"{a:.3g} ({r:.2g} of scale)"
-                                      for a, r in errs)
-              + f" (tol {tol:g} of scale); two runs equal bit for bit")
+                                           max(a for a, _ in read[picked]))
+        phase("kernel", f"flash_attention backward {label} ({B}, {T}, {S}, "
+              f"{H}, {dq}, {dv}) {dt} causal={causal} window={win}: "
+              + "; ".join(f"{name} variant dq, dk, dv max abs " + ", ".join(
+                  f"{a:.3g} ({r:.2g} of scale)" for a, r in errs)
+                  for name, errs in read.items())
+              + f" (tol {tol:g} of scale); each two runs equal bit for bit")
+        del q, k, v, do, out, lse, got, again, want, designs
     for i, (B, T, dt, final) in enumerate(WKV_BWD_CASES):
         args = wkv_inputs(torch, B, T, 64, 64, getattr(torch, dt), dev,
                           760 + i)
@@ -2243,6 +2313,8 @@ def check_backward_kernels(torch, dev):
 def reset_train_counts(flash_attention, rwkv6_wkv):
     reset_counts(flash_attention, rwkv6_wkv)
     flash_attention.BWD_LAUNCHES = rwkv6_wkv.BWD_LAUNCHES = 0
+    for n in flash_attention.BWD_VARIANT_LAUNCHES:
+        flash_attention.BWD_VARIANT_LAUNCHES[n] = 0
 
 
 def model_flops(cfg, params, B, T, kinds):
@@ -2316,6 +2388,71 @@ def grad_check(torch, cfg, params, dev, name):
     return r, leaf, len(names)
 
 
+def cuda_core_bwd_fns(torch):
+    """``ops.model_kernel_fns()`` with the flash backward through the
+    CUDA-core design whatever the inputs would pick: the forward kernel
+    with its log-sum-exp, then ``_flash_attention_bwd_variant(...,
+    "cuda_core")``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    class Attention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, swa_window):
+            out, lse = fa.flash_attention_lse(q, k, v, causal=causal,
+                                              swa_window=swa_window)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.mask = (causal, swa_window)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            causal, swa_window = ctx.mask
+            dq, dk, dv = fa._flash_attention_bwd_variant(
+                *ctx.saved_tensors, dout.contiguous(), "cuda_core",
+                causal=causal, swa_window=swa_window)
+            return dq, dk, dv, None, None
+
+    def attention(q, k, v, *, causal=True, swa_window=0):
+        return Attention.apply(q, k, v, causal, swa_window)
+    return dict(ops.model_kernel_fns(), attention=attention)
+
+
+def bwd_designs_reading(torch, cfg, params, dev):
+    """The gradients of the first GRAD_LAYERS layers (and the embedding,
+    norm and head) of the bf16 model at (1, GRAD_SEQ), once through the
+    flash backward ``bwd_variant`` picks and once through the CUDA-core
+    design: each leaf's max difference as a share of the CUDA-core
+    gradient's largest magnitude. Returns (worst share, its leaf, the
+    median share, leaves, the wgmma backward calls)."""
+    from repro_torch.core.tree import leaves, paths, unflatten
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {k: torch.randint(0, cfg.vocab, (1, GRAD_SEQ), generator=g,
+                              device=dev) for k in ("tokens", "targets")}
+    head = dict(params, layers=params["layers"][:GRAD_LAYERS])
+    names = [".".join(map(str, p)) for p, _ in paths(head)]
+    cfg2 = dataclasses.replace(cfg, n_layers=GRAD_LAYERS)
+    out = {}
+    before = fa.BWD_VARIANT_LAUNCHES["wgmma"]
+    for label, kf in (("picked", ops.model_kernel_fns()),
+                      ("cuda_core", cuda_core_bwd_fns(torch))):
+        live = [t.detach().requires_grad_() for t in leaves(head)]
+        loss, _ = M.train_loss(cfg2, unflatten(head, live), batch,
+                               kernel_fns=kf)
+        out[label] = torch.autograd.grad(loss, live)
+    torch.cuda.synchronize()
+    calls = fa.BWD_VARIANT_LAUNCHES["wgmma"] - before
+    shares = [r for _, r in rel_errs(torch, out["picked"], out["cuda_core"])]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst, leaf = max(zip(shares, names))
+    return worst, leaf, sorted(shares)[len(shares) // 2], len(names), calls
+
+
 def train_phase(torch, arch, dev, card, tmp):
     """The training path of ``arch`` at full width, TRAIN_LAYERS deep:
     the float32 gradient check, then TRAIN_STEPS AdamW steps through
@@ -2351,6 +2488,15 @@ def train_phase(torch, arch, dev, card, tmp):
           f"float32 plain versions (autograd) in a float64 model: all "
           f"{n_leaves} leaves within {worst:.3g} of their scale (worst "
           f"{at}; tol {GRAD_TOL:g})")
+    if n_attn and fa.bwd_variant(cfg.dtype, cfg.d_head,
+                                 cfg.d_head) != "cuda_core":
+        worst, at, median, n_leaves, calls = bwd_designs_reading(
+            torch, cfg, params, dev)
+        phase(name, f"bf16 gradients over the first {GRAD_LAYERS} layers at "
+              f"(1, {GRAD_SEQ}) through the wgmma flash backward ({calls} "
+              f"calls) vs the CUDA-core one: the {n_leaves} leaves differ by "
+              f"a median {median:.3g} and at most {worst:.3g} of their scale "
+              f"({at}); a reading, not a gate")
 
     data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH)
@@ -2391,6 +2537,9 @@ def train_phase(torch, arch, dev, card, tmp):
     if n_attn:
         check_variant(fa, got["flash_attention"], fa.variant(
             cfg.dtype, cfg.d_head, cfg.d_head), name)
+        check_variant(fa, got["flash_attention_bwd"], fa.bwd_variant(
+            cfg.dtype, cfg.d_head, cfg.d_head), name,
+            "BWD_VARIANT_LAUNCHES")
     log = trainer.metrics_log
     for m in log:
         if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
@@ -2408,10 +2557,13 @@ def train_phase(torch, arch, dev, card, tmp):
           f" tokens/s; model FLOPs {flops / 1e12:.1f} T a step, "
           f"{flops / step_s / 1e12:.1f} TFLOP/s = "
           f"{flops / step_s / BF16_OPS_PER_S:.3f} of 989 TFLOP/s; peak "
-          f"memory {peak:.1f} GiB; launches {got}; the last step under "
+          f"memory {peak:.1f} GiB; launches {got}, the backward's by "
+          f"variant {dict(fa.BWD_VARIANT_LAUNCHES)}; the last step under "
           f"torch.profiler: {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} ms "
           f"device busy, idle share {1 - busy / wall:.3f}, {n_launch} kernel"
-          f" launches, {own} {own_ms:.1f} ms; top kernels (name, calls, ms):"
+          f" launches, {own} {sum(own_ms.values()):.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in own_ms.items())
+          + "); top kernels (name, calls, ms):"
           f" {top}; card {card}")
     del state, box, trainer
     gc.collect()
@@ -2612,9 +2764,14 @@ def time_backward_kernels(torch, dev, card, paths, worst):
         sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         dot = do.transpose(1, 2)
         row = {"shape": [B, T, H, dq, dv], "launches": n}
+        picked = fa.bwd_variant(q.dtype, dq, dv)
+        # the picked design, the CUDA-core first design and SDPA's
+        # backward on the same tensors, in turns
         row.update(event_turns(torch, {
             "ms": (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
                                                   causal=True), 5),
+            "first_ms": (lambda: fa._flash_attention_bwd_variant(
+                q, k, v, out, lse, do, "cuda_core", causal=True), 2),
             "library_ms": (lambda: torch.autograd.grad(
                 sdpa, (qt, kt, vt), dot, retain_graph=True), 10),
         }))
@@ -2622,26 +2779,39 @@ def time_backward_kernels(torch, dev, card, paths, worst):
         row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
             "grads", ref.attention_bwd_ref(q, k, v, out, lse, do,
                                            causal=True)), 1)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-        errs = hold_grads(torch, f"flash_attention_bwd ({B}, {T}, {H}, "
-                          f"{dq}, {dv}) bf16", got, plain.pop("grads"),
+        want = plain.pop("grads")
+        label = f"flash_attention_bwd ({B}, {T}, {H}, {dq}, {dv}) bf16"
+        got = [fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+               for _ in range(2)]
+        errs = hold_grads(torch, f"{label}, {picked} variant", got[0], want,
                           FLASH_BWD_TOL["bfloat16"])
+        if not all(torch.equal(a, b) for a, b in zip(*got)):
+            fail(f"{label}, {picked} variant: two runs differ")
+        del got
+        first = hold_grads(torch, f"{label}, cuda_core variant",
+                           fa._flash_attention_bwd_variant(
+                               q, k, v, out, lse, do, "cuda_core",
+                               causal=True), want,
+                           FLASH_BWD_TOL["bfloat16"])
         worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
                                            max(a for a, _ in errs))
-        del got
-        row["first_ms"] = row["ms"]
+        del want
         row["bound_ms"], row["bound_by"] = flash_bwd_bound(q, v, True, 0)
         rows.append(row)
         phase("time", f"flash_attention backward ({B}, {T}, {H}, {dq}) bf16 "
-              f"causal: kernel {row['ms']:.3f} ms/call (three launches), "
-              f"plain version {row['plain_ms']:.1f} ms, SDPA's backward "
+              f"causal: {picked} variant {row['ms']:.3f} ms/call (three "
+              f"launches), the CUDA-core first design {row['first_ms']:.3f} "
+              f"ms ({row['first_ms'] / row['ms']:.1f}x the {picked}), plain "
+              f"version {row['plain_ms']:.1f} ms, SDPA's backward "
               f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
               f"({row['bound_by']}): kernel {row['ms'] / row['library_ms']:.2f}"
               f"x SDPA's, {row['ms'] / row['bound_ms']:.1f}x bound; {n} "
               f"calls on the path; dq, dk, dv within "
               + ", ".join(f"{r:.2g}" for _, r in errs)
-              + f" of the plain version's scales (tol "
-              f"{FLASH_BWD_TOL['bfloat16']:g}); card {card}")
+              + " of the plain version's scales, two runs equal bit for bit"
+              " (the CUDA-core design "
+              + ", ".join(f"{r:.2g}" for _, r in first)
+              + f"; tol {FLASH_BWD_TOL['bfloat16']:g}); card {card}")
         del q, k, v, do, out, lse, qt, kt, vt, sdpa, dot
     e = _entry("flash_attention_bwd", "flash_attention.cu",
                "src/repro/kernels/flash_attention.py:83",

@@ -1,4 +1,5 @@
-// Flash attention forward (online softmax) for NVIDIA Hopper (sm_90a).
+// Flash attention (online softmax) and its backward for NVIDIA Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention -> _kernel): every attention layer of a prefill.
@@ -66,19 +67,61 @@
 //
 // Training. Both variants write each row's log-sum-exp of its scaled
 // scores when given an `lse` pointer (serving passes null, and nothing
-// else changes). The backward (namespace bwd, flash_attention_bwd) has
-// no Pallas counterpart: the reference cannot differentiate its TPU
-// kernel and trains through the plain chunked attention. It runs on the
-// CUDA cores in float32 for every dtype and head dims the CUDA-core
-// forward takes: a pass for D = rowsum(dO * O), a dK/dV kernel (a block
-// a key tile, walking the query tiles that see it) and a dQ kernel (a
-// block a query tile, walking its key tiles), each recomputing its
-// scores from L, so no two blocks write one output: no atomics, and
-// the same bits every run. What bounds it: at qwen3-8b's training shape
-// (2, 4096, 32, 128) causal it does ~0.98 TFLOP (seven 64 x 64 x d
-// products a visible tile pair; five are the least) and moves ~0.27
-// GB, so the float32 operations bound it (~15 ms at 67 TFLOP/s); a
-// wgmma design (bf16 products, float32 sums) is the later lever.
+// else changes). The backward has no Pallas counterpart: the reference
+// cannot differentiate its TPU kernel and trains through the plain
+// chunked attention. Given O, L and dO it launches three kernels: a
+// pass for D = rowsum(dO * O), a dK/dV kernel (a block a key tile,
+// walking the query tiles that see it) and a dQ kernel (a block a
+// query tile, walking its key tiles). Each recomputes the scores it
+// needs, so no two blocks write one output: no atomics, and the same
+// bits every run (the bit-exact resume of a training run rests on it).
+// The price is seven 64 x 64 x d products a visible tile pair (dK/dV:
+// S^T, dV, dP^T, dK; dQ: S, dP, dQ) where FlashAttention-2/3 do five
+// and add dQ with atomics. Two variants, picked as the forward's:
+//
+// * flash_bwd_wgmma_dkdv_kernel / flash_bwd_wgmma_dq_kernel (namespace
+//   wgb, flash_attention_wgmma_bwd), bfloat16 at d = dv in {64, 128}:
+//   every product on wgmma (bf16 operands, float32 sums). A block is a
+//   consumer warpgroup (the tile's 64 rows are wgmma's M) and a
+//   producer warp: lane 0 brings the block's own tile pair (dK/dV: K,
+//   V; dQ: Q, dO) once and the partner tiles through a two-stage
+//   mbarrier ring with TMA over the forward's rank-4 maps (rows past T
+//   or S zero-filled, never the next sequence's), bf16 in 128-byte
+//   swizzled shared memory; the 32 lanes bring the partner tile's rows
+//   of L (times log2 e) and D beside it (dK/dV; in dQ the block's own).
+//   dK/dV a query tile: S^T = K Q^T (SS, both K-major); P^T = exp2(S^T
+//   scale log2 e - L[col]) on the fragment, rounded to bf16 as the A
+//   fragment; dV += P^T dO (RS, dO read N-major as the forward reads V)
+//   and dP^T = V dO^T (SS) in one group; dS^T = P^T (dP^T - D[col])
+//   from the bf16 P^T; dK += dS^T Q (RS). dQ a key tile: S = Q K^T and
+//   dP = dO V^T in one group; P and dS = P (dP - D[row]) in float32;
+//   dQ += dS K (RS). The masks only on the tile pairs a causal or
+//   window edge or the end of T or S reaches; fully masked pairs are
+//   not visited; the grid starts with the blocks that walk the most
+//   partners (the first key tiles, the last query tiles). dK and dQ are
+//   scaled by d^-1/2 once, and the outputs staged through shared memory
+//   and written with 16-byte stores, as the forward's epilogue. What
+//   bounds it: the dK/dV kernel holds dK and dV (64 + 64 float32 a
+//   thread at d = 128), P^T as bf16 (16) and dP^T (32) at once: ptxas
+//   gives it 234 registers, so one block an SM (capping it at two
+//   blocks makes ptxas spill, and was measured slower); each SM then has
+//   one consumer warpgroup whose softmax work stalls the tensor cores,
+//   and the dQ kernel (155 registers) two. Two consumer warpgroups
+//   sharing each Q/dO tile would need a producer warpgroup giving its
+//   registers away (setmaxnreg): the next lever. P^T is kept only in bf16
+//   across the group that computes dP^T, for the registers; dS^T takes
+//   it as it is (the product rounds dS^T to bf16 anyway).
+// * flash_bwd_dkdv_kernel / flash_bwd_dq_kernel (namespace bwd,
+//   flash_attention_bwd), float32 at any head dims and bfloat16 at
+//   other head dims or dv != d (MLA's (96, 64)): float32 products and
+//   sums on the CUDA cores, the tiles staged as float32; the float32
+//   gradient check of a training run needs full float32 products.
+// At qwen3-8b's training shape (2, 4096, 32, 128) bf16 causal the work
+// is ~0.98 TFLOP of products (0.69 TFLOP the least: ~0.70 ms at 989
+// TFLOP/s) over ~0.27 GB, so the products bound it. Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 2.82 ms
+// a call through wgmma (4.1x the bound, 1.87x SDPA's backward), 40.61
+// ms on the CUDA cores.
 
 #include <cuda.h>          // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -323,11 +366,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Let `kernel` take `bytes` of dynamic shared memory and the largest
+// carveout; once a kernel, before any launch (and so outside any
+// CUDA-graph capture).
 template <typename K>
-cudaError_t opt_in_smem(K kernel) {
+cudaError_t opt_in(K kernel, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxD, kMaxD));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -341,8 +386,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   // opt in once to the largest tile set (d = dv = kMaxD) and the largest
   // shared-memory carveout, before any launch (and so outside any
   // CUDA-graph capture)
-  static cudaError_t opt_in = opt_in_smem(flash_fwd_kernel<T, NC>);
-  if (opt_in != cudaSuccess) return (int)opt_in;
+  static cudaError_t opted =
+      opt_in(flash_fwd_kernel<T, NC>, smem_bytes(kMaxD, kMaxD));
+  if (opted != cudaSuccess) return (int)opted;
   const dim3 grid((n_q + kBQ - 1) / kBQ, n_heads, batch);
   flash_fwd_kernel<T, NC><<<grid, kThreads, smem_bytes(d, dv), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -597,6 +643,46 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// One TMA copy of rows [row0, row0 + 64) of head h of sequence b from
+// `map` into the tile at `dst` (D / 64 swizzle atom columns).
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         int h, int row0, int b,
+                                         uint32_t bar) {
+#pragma unroll
+  for (int a = 0; a < D / 64; ++a)
+    tma_load(dst + a * kAtom, map, 64 * a, h, row0, b, bar);
+}
+
+// D (64 x D) += A B over a 64-deep K, A the four k16 register fragments
+// `a`, B a 64-row tile in shared memory read N-major (its rows are K).
+template <int D>
+__device__ __forceinline__ void wgmma_rs_tile(float (&d)[D / 2],
+                                              const uint32_t (&a)[4][4],
+                                              uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = desc_sw128(b_tile + kk * 16 * 128, kAtom, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128(d, a[kk], desc);
+    else
+      wgmma_rs_n64(d, a[kk], desc);
+  }
+}
+
+// D (64 x 64) = A B^T over K = D, A and B 64-row tiles in shared memory
+// (both K-major: their rows are M and N).
+template <int D>
+__device__ __forceinline__ void wgmma_ss_tile(float (&d)[32], uint32_t a_tile,
+                                              uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kAtom + (kk % 4) * 32;
+    wgmma_ss_n64(d, desc_sw128(a_tile + off, 16, 1024),
+                 desc_sw128(b_tile + off, 16, 1024), kk > 0);
+  }
+}
+
 // A block walks query tiles [first, first + count) of one (head,
 // batch) pair: warps 0-3 form the consumer warpgroup, warp 4 the
 // producer. The producer keeps a two-deep Q ring and a kStages-deep K/V
@@ -611,7 +697,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    int n_q, int n_k, int n_heads, int causal, int window,
                    float scale_log2, int per_block) {
   constexpr int kTile = tile_bytes<D>();
-  constexpr int kAtoms = D / 64;         // swizzle atom columns of a row
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = base + (2 + 2 * kStages) * kTile;
@@ -670,10 +755,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int qs = qi & 1;
         if (qi >= 2) mbar_wait(q_empty(qs), ((qi >> 1) - 1) & 1);
         mbar_expect_tx(q_full(qs), kTile);
-#pragma unroll
-        for (int a = 0; a < kAtoms; ++a)
-          tma_load(s_q(qs) + a * kAtom, &tq, 64 * a, h, qt * kBQ, b,
-                   q_full(qs));
+        tma_tile<D>(s_q(qs), &tq, h, qt * kBQ, b, q_full(qs));
         int t_begin, t_end;
         key_tiles(qt, t_begin, t_end);
         for (int t = t_begin; t < t_end; ++t, ++n) {
@@ -683,15 +765,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           // K and V on barriers of their own: S = Q K^T starts while
           // V is still on its way
           mbar_expect_tx(k_full(s), kTile);
-#pragma unroll
-          for (int a = 0; a < kAtoms; ++a)
-            tma_load(s_k(s) + a * kAtom, &tk, 64 * a, h, t * kBK, b,
-                     k_full(s));
+          tma_tile<D>(s_k(s), &tk, h, t * kBK, b, k_full(s));
           mbar_expect_tx(v_full(s), kTile);
-#pragma unroll
-          for (int a = 0; a < kAtoms; ++a)
-            tma_load(s_v(s) + a * kAtom, &tv, 64 * a, h, t * kBK, b,
-                     v_full(s));
+          tma_tile<D>(s_v(s), &tv, h, t * kBK, b, v_full(s));
         }
       }
     }
@@ -727,12 +803,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int e = 0; e < 32; ++e) sacc[e] = 0.0f;
       fence_regs(sacc);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kAtom + (kk % 4) * 32;
-        wgmma_ss_n64(sacc, desc_sw128(s_q(qs) + off, 16, 1024),
-                     desc_sw128(s_k(s) + off, 16, 1024), kk > 0);
-      }
+      wgmma_ss_tile<D>(sacc, s_q(qs), s_k(s));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sacc);
@@ -834,14 +905,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       fence_regs(oacc);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dv = desc_sw128(s_v(s) + kk * 16 * 128, kAtom, 1024);
-        if constexpr (D == 128)
-          wgmma_rs_n128(oacc, pa[kk], dv);
-        else
-          wgmma_rs_n64(oacc, pa[kk], dv);
-      }
+      wgmma_rs_tile<D>(oacc, pa, s_v(s));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(oacc);
@@ -938,21 +1002,10 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int n,
 }
 
 template <int D>
-cudaError_t opt_in() {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<D>());
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(flash_wgmma_kernel<D>,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
-template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int n_q, int n_k, int n_heads, int causal, int window,
            float scale, cudaStream_t stream) {
-  static cudaError_t opted = opt_in<D>();   // once, before any capture
+  static cudaError_t opted = opt_in(flash_wgmma_kernel<D>, smem_bytes<D>());
   if (opted != cudaSuccess) return (int)opted;
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map(&tq, q, batch, n_q, n_heads, D);
@@ -1312,25 +1365,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename K>
-cudaError_t opt_in(K kernel) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(kMaxD, kMaxD));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv_out, int batch, int n_q, int n_k, int n_heads,
            int d, int dv, int causal, int window, float scale,
            cudaStream_t stream) {
-  static cudaError_t opted_kv = opt_in(flash_bwd_dkdv_kernel<T>);
-  static cudaError_t opted_q = opt_in(flash_bwd_dq_kernel<T>);
+  static cudaError_t opted_kv =
+      opt_in(flash_bwd_dkdv_kernel<T>, smem_bytes(kMaxD, kMaxD));
+  static cudaError_t opted_q =
+      opt_in(flash_bwd_dq_kernel<T>, smem_bytes(kMaxD, kMaxD));
   if (opted_kv != cudaSuccess) return (int)opted_kv;
   if (opted_q != cudaSuccess) return (int)opted_q;
   const T* tq = static_cast<const T*>(q);
@@ -1361,6 +1405,485 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------
+// The tensor-core backward: bfloat16 with d = dv in {64, 128}, the
+// inputs the wgmma forward takes. The same three launches and the same
+// split as namespace bwd (D pass, then a dK/dV kernel a key tile and a
+// dQ kernel a query tile, one writer an output), with every product on
+// wgmma (bf16 operands, float32 sums) and the tiles brought in by TMA.
+namespace wgb {
+
+using wg::kLog2e;
+constexpr int kB = 64;                    // rows of a query or key tile
+constexpr int kConsumers = 128;           // one warpgroup runs the math
+constexpr int kThreads = kConsumers + 32; // and one warp feeds it
+constexpr int kRowBytes = 2 * kB * 4;     // a tile's L and D rows (float32)
+
+// The fixed pair of tiles (dK/dV: K, V; dQ: Q, dO), the two-stage ring
+// of pairs (dK/dV: Q, dO; dQ: K, V), each tile 1024-byte aligned; the L
+// and D rows of the ring's stages (dK/dV) or of the fixed tile (dQ);
+// the barriers fixed_full, full[2], empty[2]; the slack that aligns the
+// base.
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return 6 * wg::tile_bytes<D>() + 2 * kRowBytes + 8 * 5 + 1024;
+}
+
+// Rows [row0, row0 + kB) of a (batch, head)'s L (times log2 e) and D
+// into shared memory, zeros past n; the producer warp's 32 lanes, two
+// rows each.
+__device__ __forceinline__ void load_rows(const float* __restrict__ lh,
+                                          const float* __restrict__ dh,
+                                          int row0, int n, float* dst,
+                                          int lane) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int r = lane + 32 * u, i = row0 + r;
+    dst[r] = i < n ? lh[i] * kLog2e : 0.0f;
+    dst[kB + r] = i < n ? dh[i] : 0.0f;
+  }
+}
+
+// A tile pair that the causal or window mask, or the end of T or S,
+// reaches: only these take the per-element masks.
+__device__ __forceinline__ bool edge(int q0, int k0, int n_q, int n_k,
+                                     int causal, int window) {
+  return (causal && k0 + kB - 1 > q0) ||
+         (window > 0 && q0 + kB - 1 - k0 >= window) || k0 + kB > n_k ||
+         q0 + kB > n_q;
+}
+
+// The block's (tile, head, batch) from a 1-D grid whose slowest index
+// is the tile: `reverse` starts with the last tile.
+__device__ __forceinline__ void block_coords(int n_heads, int batch,
+                                             int n_tiles, bool reverse,
+                                             int& tile, int& h, int& b) {
+  const int bh = (int)(blockIdx.x % (unsigned)(n_heads * batch));
+  const int t = (int)(blockIdx.x / (unsigned)(n_heads * batch));
+  tile = reverse ? n_tiles - 1 - t : t;
+  h = bh % n_heads;
+  b = bh / n_heads;
+}
+
+// The output tile of 64 rows x D (float32 accumulator fragments `acc`
+// times `scale`) rounded to bf16 and staged at `stage` (swizzled
+// chunks, as the forward's epilogue), for store_rows.
+template <int D>
+__device__ __forceinline__ void stage_rows(const float (&acc)[D / 2],
+                                           float scale, uint32_t stage,
+                                           int warp, int lane) {
+  const int col_in = 2 * (lane & 3);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + (lane >> 2) + 8 * hh;
+#pragma unroll
+    for (int jn = 0; jn < D / 8; ++jn)
+      wg::st_shared(stage + wg::out_offset(r, jn, 2 * D) + 2 * col_in,
+                    wg::pack_bf16(acc[4 * jn + 2 * hh] * scale,
+                                  acc[4 * jn + 2 * hh + 1] * scale));
+  }
+}
+
+// The staged tile's rows row0.. (those below n) to a (batch, n, heads,
+// D) tensor with 16-byte stores, a row's chunks by neighbouring threads.
+template <int D>
+__device__ __forceinline__ void store_rows(uint32_t stage,
+                                           __nv_bfloat16* __restrict__ out,
+                                           int row0, int n, int n_heads,
+                                           int h, int b, int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int e = tid; e < kB * kChunks; e += kConsumers) {
+    const int r = e / kChunks, c = e % kChunks;
+    const int row = row0 + r;
+    const uint4 x = wg::ld_shared16(stage + wg::out_offset(r, c, 2 * D));
+    if (row < n)
+      *reinterpret_cast<uint4*>(
+          out + ((size_t)(b * n + row) * n_heads + h) * D + 8 * c) = x;
+  }
+}
+
+// Accumulator element x (x = 4 jj + 2 hh + e) of a 64 x 64 fragment:
+// row 16 warp + lane / 4 + 8 hh, column 8 jj + 2 (lane % 4) + e. Its
+// k16 A fragment: register r of chunk kk holds elements 8 kk + 2 r
+// and + 1.
+__device__ __forceinline__ int frag_row(int x, int warp, int lane) {
+  return 16 * warp + (lane >> 2) + 8 * ((x >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int x, int lane) {
+  return 8 * (x >> 2) + 2 * (lane & 3) + (x & 1);
+}
+
+// One block per (64-key tile, head, batch): dK and dV of the tile.
+// Warps 0-3 are the consumer warpgroup (the tile's 64 keys are wgmma's
+// M), warp 4 the producer: K and V once, then Q, dO and the rows' L
+// and D of each query tile that sees the key tile through a two-stage
+// ring. A query tile: S^T = K Q^T, P^T = exp2(S^T scale log2 e -
+// L[col]) in bf16, dV += P^T dO and dP^T = V dO^T in one wgmma group,
+// dS^T = P^T (dP^T - D[col]), dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            __nv_bfloat16* __restrict__ dk,
+                            __nv_bfloat16* __restrict__ dv, int batch,
+                            int n_q, int n_k, int n_heads, int causal,
+                            int window, float scale, float scale_log2) {
+  constexpr int kTile = wg::tile_bytes<D>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + 6 * kTile);
+  const uint32_t bars = base + 6 * kTile + 2 * kRowBytes;
+  const uint32_t s_k = base, s_v = base + kTile;
+  auto s_q = [&](int s) { return base + (2 + 2 * s) * kTile; };
+  auto s_do = [&](int s) { return base + (3 + 2 * s) * kTile; };
+  const uint32_t fixed_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (3 + s); };
+
+  // key tile 0 sees the most query tiles under a causal mask: the grid
+  // starts with the first key tiles
+  int kt, h, b;
+  block_coords(n_heads, batch, (n_k + kB - 1) / kB, false, kt, h, b);
+  const int k0 = kt * kB;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // query rows that can see a key of the tile: causal needs
+  // i >= j >= k0, the window i < j + window <= k0 + kB - 1 + window
+  const int i_begin = causal ? k0 : 0;
+  const int i_end = window > 0 ? min(n_q, k0 + kB - 1 + window) : n_q;
+  const int t_begin = i_begin / kB;
+  const int t_end = (i_end + kB - 1) / kB;
+
+  if (tid == 0) {
+    wg::mbar_init(fixed_full, 1);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      wg::mbar_init(full(s), 1 + 32);   // the copies' arrival + 32 lanes
+      wg::mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // producer: lane 0 issues the copies, every lane brings two rows of
+    // L and D and arrives
+    const size_t bh = (size_t)b * n_heads + h;
+    if (lane == 0) {
+      wg::mbar_expect_tx(fixed_full, 2 * kTile);
+      wg::tma_tile<D>(s_k, &tk, h, k0, b, fixed_full);
+      wg::tma_tile<D>(s_v, &tv, h, k0, b, fixed_full);
+    }
+    for (int t = t_begin, n = 0; t < t_end; ++t, ++n) {
+      const int s = n & 1;
+      if (n >= 2) wg::mbar_wait(empty(s), ((n >> 1) - 1) & 1);
+      if (lane == 0) {
+        wg::mbar_expect_tx(full(s), 2 * kTile);
+        wg::tma_tile<D>(s_q(s), &tq, h, t * kB, b, full(s));
+        wg::tma_tile<D>(s_do(s), &tdo, h, t * kB, b, full(s));
+      }
+      load_rows(lse + bh * n_q, delta + bh * n_q, t * kB, n_q,
+                rows + s * 2 * kB, lane);
+      wg::mbar_arrive(full(s));
+    }
+    return;
+  }
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.0f;
+  wg::mbar_wait(fixed_full, 0);
+  for (int t = t_begin, n = 0; t < t_end; ++t, ++n) {
+    const int s = n & 1;
+    const int q0 = t * kB;
+    wg::mbar_wait(full(s), (n >> 1) & 1);
+    __syncwarp();                       // converged for the .aligned wgmma
+
+    // S^T = K Q^T (keys x queries)
+    float sacc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = 0.0f;
+    wg::fence_regs(sacc);
+    wg::wgmma_fence();
+    wg::wgmma_ss_tile<D>(sacc, s_k, s_q(s));
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(sacc);
+
+    // P^T, rounded to bf16 as the A fragment of dV += P^T dO; the masks
+    // only on the tiles an edge reaches
+    const float* L = rows + s * 2 * kB;
+    const float* Dl = L + kB;
+    const bool masked = edge(q0, k0, n_q, n_k, causal, window);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      float p = exp2f(__fmaf_rn(sacc[x], scale_log2, -L[frag_col(x, lane)]));
+      if (masked) {
+        const int j = k0 + frag_row(x, warp, lane);
+        const int i = q0 + frag_col(x, lane);
+        const bool vis = i < n_q && j < n_k && (!causal || i >= j) &&
+                         (window <= 0 || i - j < window);
+        p = vis ? p : 0.0f;
+      }
+      sacc[x] = p;
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = wg::pack_bf16(sacc[8 * kk + 2 * r],
+                                  sacc[8 * kk + 2 * r + 1]);
+
+    // dV += P^T dO (dO read N-major) and dP^T = V dO^T: one group
+    float dpacc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dpacc[e] = 0.0f;
+    wg::fence_regs(dpacc);
+    wg::fence_regs(dv_acc);
+    wg::wgmma_fence();
+    wg::wgmma_rs_tile<D>(dv_acc, pa, s_do(s));
+    wg::wgmma_ss_tile<D>(dpacc, s_v, s_do(s));
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(dv_acc);
+    wg::fence_regs(dpacc);
+
+    // dS^T = P^T (dP^T - D[col]) from the bf16 P^T (its float32 copy is
+    // not kept across the group: registers), rounded to bf16
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int x = 8 * kk + 2 * r;
+        const float2 p = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&pa[kk][r]));
+        const float2 dd =
+            *reinterpret_cast<const float2*>(&Dl[frag_col(x, lane)]);
+        da[kk][r] = wg::pack_bf16(p.x * (dpacc[x] - dd.x),
+                                  p.y * (dpacc[x + 1] - dd.y));
+      }
+
+    // dK += dS^T Q (Q read N-major)
+    wg::fence_regs(dk_acc);
+    wg::wgmma_fence();
+    wg::wgmma_rs_tile<D>(dk_acc, da, s_q(s));
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(dk_acc);
+    wg::mbar_arrive(empty(s));          // this thread is done with stage s
+  }
+
+  // dK scale and dV in bf16, staged in the K and V tiles (their last
+  // readers, the wgmmas, are done), then 16-byte stores
+  stage_rows<D>(dk_acc, scale, s_k, warp, lane);
+  stage_rows<D>(dv_acc, 1.0f, s_v, warp, lane);
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  store_rows<D>(s_k, dk, k0, n_k, n_heads, h, b, tid);
+  store_rows<D>(s_v, dv, k0, n_k, n_heads, h, b, tid);
+}
+
+// One block per (64-query tile, head, batch): dQ of the tile. The
+// producer brings Q, dO and the rows' L and D once, then K and V of
+// each key tile the query tile sees through a two-stage ring. A key
+// tile: S = Q K^T and dP = dO V^T in one wgmma group, P = exp2(S scale
+// log2 e - L[row]) and dS = P (dP - D[row]) in float32, dS rounded to
+// bf16, dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int batch,
+                          int n_q, int n_k, int n_heads, int causal,
+                          int window, float scale, float scale_log2) {
+  constexpr int kTile = wg::tile_bytes<D>();
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t raw = wg::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + 6 * kTile);
+  const uint32_t bars = base + 6 * kTile + 2 * kRowBytes;
+  const uint32_t s_q = base, s_do = base + kTile;
+  auto s_k = [&](int s) { return base + (2 + 2 * s) * kTile; };
+  auto s_v = [&](int s) { return base + (3 + 2 * s) * kTile; };
+  const uint32_t fixed_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (3 + s); };
+
+  // the last query tiles see the most key tiles under a causal mask:
+  // the grid starts with them
+  int qt, h, b;
+  block_coords(n_heads, batch, (n_q + kB - 1) / kB, true, qt, h, b);
+  const int q0 = qt * kB;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // the forward's key tiles of this query tile
+  int k_begin = 0, k_end = n_k;
+  if (causal) k_end = min(n_k, q0 + kB);
+  if (window > 0) k_begin = max(0, q0 - window + 1);
+  const int t_begin = k_begin / kB;
+  const int t_end = (k_end + kB - 1) / kB;
+
+  if (tid == 0) {
+    wg::mbar_init(fixed_full, 1 + 32);  // the copies' arrival + 32 lanes
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      wg::mbar_init(full(s), 1);
+      wg::mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    const size_t bh = (size_t)b * n_heads + h;
+    if (lane == 0) {
+      wg::mbar_expect_tx(fixed_full, 2 * kTile);
+      wg::tma_tile<D>(s_q, &tq, h, q0, b, fixed_full);
+      wg::tma_tile<D>(s_do, &tdo, h, q0, b, fixed_full);
+    }
+    load_rows(lse + bh * n_q, delta + bh * n_q, q0, n_q, rows, lane);
+    wg::mbar_arrive(fixed_full);
+    if (lane == 0) {
+      for (int t = t_begin, n = 0; t < t_end; ++t, ++n) {
+        const int s = n & 1;
+        if (n >= 2) wg::mbar_wait(empty(s), ((n >> 1) - 1) & 1);
+        wg::mbar_expect_tx(full(s), 2 * kTile);
+        wg::tma_tile<D>(s_k(s), &tk, h, t * kB, b, full(s));
+        wg::tma_tile<D>(s_v(s), &tv, h, t * kB, b, full(s));
+      }
+    }
+    return;
+  }
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dq_acc[e] = 0.0f;
+  wg::mbar_wait(fixed_full, 0);
+  // this thread's two rows' L (times log2 e) and D
+  float l2[2], dd[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + (lane >> 2) + 8 * hh;
+    l2[hh] = rows[r];
+    dd[hh] = rows[kB + r];
+  }
+  for (int t = t_begin, n = 0; t < t_end; ++t, ++n) {
+    const int s = n & 1;
+    const int k0 = t * kB;
+    wg::mbar_wait(full(s), (n >> 1) & 1);
+    __syncwarp();
+
+    // S = Q K^T and dP = dO V^T (queries x keys)
+    float sacc[32], dpacc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) sacc[e] = dpacc[e] = 0.0f;
+    wg::fence_regs(sacc);
+    wg::fence_regs(dpacc);
+    wg::wgmma_fence();
+    wg::wgmma_ss_tile<D>(sacc, s_q, s_k(s));
+    wg::wgmma_ss_tile<D>(dpacc, s_do, s_v(s));
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(sacc);
+    wg::fence_regs(dpacc);
+
+    // P and dS = P (dP - D[row]) in float32, dS rounded to bf16 as the
+    // A fragment of dQ += dS K
+    const bool masked = edge(q0, k0, n_q, n_k, causal, window);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      const int hh = (x >> 1) & 1;
+      float p = exp2f(__fmaf_rn(sacc[x], scale_log2, -l2[hh]));
+      if (masked) {
+        const int i = q0 + frag_row(x, warp, lane);
+        const int j = k0 + frag_col(x, lane);
+        const bool vis = i < n_q && j < n_k && (!causal || i >= j) &&
+                         (window <= 0 || i - j < window);
+        p = vis ? p : 0.0f;
+      }
+      sacc[x] = p * (dpacc[x] - dd[hh]);
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = wg::pack_bf16(sacc[8 * kk + 2 * r],
+                                  sacc[8 * kk + 2 * r + 1]);
+
+    // dQ += dS K (K read N-major)
+    wg::fence_regs(dq_acc);
+    wg::wgmma_fence();
+    wg::wgmma_rs_tile<D>(dq_acc, da, s_k(s));
+    wg::wgmma_commit();
+    wg::wgmma_wait_all();
+    wg::fence_regs(dq_acc);
+    wg::mbar_arrive(empty(s));
+  }
+
+  // dQ scale in bf16, staged in the Q tile, then 16-byte stores
+  stage_rows<D>(dq_acc, scale, s_q, warp, lane);
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+  store_rows<D>(s_q, dq, q0, n_q, n_heads, h, b, tid);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv_out, int batch, int n_q, int n_k, int n_heads,
+           int causal, int window, float scale, cudaStream_t stream) {
+  static cudaError_t opted_kv =
+      opt_in(flash_bwd_wgmma_dkdv_kernel<D>, smem_bytes<D>());
+  static cudaError_t opted_q =
+      opt_in(flash_bwd_wgmma_dq_kernel<D>, smem_bytes<D>());
+  if (opted_kv != cudaSuccess) return (int)opted_kv;
+  if (opted_q != cudaSuccess) return (int)opted_q;
+  using T = __nv_bfloat16;
+  const int n_rows = batch * n_q * n_heads;
+  bwd::flash_bwd_delta_kernel<T>
+      <<<(n_rows + bwd::kWarps - 1) / bwd::kWarps, bwd::kThreads, 0,
+         stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
+                   delta, n_rows, n_q, n_heads, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tq, tk, tv, tdo;
+  err = wg::make_map(&tq, q, batch, n_q, n_heads, D);
+  if (err == cudaSuccess) err = wg::make_map(&tk, k, batch, n_k, n_heads, D);
+  if (err == cudaSuccess) err = wg::make_map(&tv, v, batch, n_k, n_heads, D);
+  if (err == cudaSuccess)
+    err = wg::make_map(&tdo, dout, batch, n_q, n_heads, D);
+  if (err != cudaSuccess) return (int)err;
+  const float scale_log2 = scale * kLog2e;
+  if (n_k > 0) {
+    const unsigned grid = (unsigned)((n_k + kB - 1) / kB) * n_heads * batch;
+    flash_bwd_wgmma_dkdv_kernel<D><<<grid, kThreads, smem_bytes<D>(),
+                                     stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv_out), batch, n_q, n_k, n_heads, causal, window,
+        scale, scale_log2);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned grid = (unsigned)((n_q + kB - 1) / kB) * n_heads * batch;
+  flash_bwd_wgmma_dq_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), batch, n_q, n_k,
+      n_heads, causal, window, scale, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wgb
 
 }  // namespace
 
@@ -1415,8 +1938,8 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward of either variant. q, k, v, o as above, dout (the
-// gradient of o) like o, lse the forward's (batch, n_heads, n_q)
+// The CUDA-core backward (of either forward). q, k, v, o as above, dout
+// (the gradient of o) like o, lse the forward's (batch, n_heads, n_q)
 // float32, delta a float32 scratch of the same shape; dq, dk, dv (like
 // q, k, v) are written whole. The CUDA-core forward's dtypes and head
 // dims. Three launches on `stream`; returns the first failing one's
@@ -1441,5 +1964,30 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     return bwd::launch<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
                                       dv_out, batch, n_q, n_k, n_heads, d, dv,
                                       causal, window, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core backward: q, k, v, o, dout, lse, delta, dq, dk, dv as
+// for flash_attention_bwd, bfloat16 only, with one head dim d (64 or
+// 128) for q, k and v; q, k, v and dout are read through TMA maps, so
+// they must be 16-byte aligned. Three launches on `stream`; returns the
+// first failing one's cudaError_t.
+extern "C" int flash_attention_wgmma_bwd(const void* q, const void* k,
+                                         const void* v, const void* o,
+                                         const void* dout, const float* lse,
+                                         float* delta, void* dq, void* dk,
+                                         void* dv_out, int batch, int n_q,
+                                         int n_k, int n_heads, int d,
+                                         int causal, int window, float scale,
+                                         void* stream) {
+  if (batch == 0 || n_q == 0 || n_heads == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return wgb::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
+                           batch, n_q, n_k, n_heads, causal, window, scale, s);
+  if (d == 128)
+    return wgb::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
+                            batch, n_q, n_k, n_heads, causal, window, scale,
+                            s);
   return (int)cudaErrorInvalidValue;
 }

@@ -25,11 +25,26 @@ stream. ``LAUNCHES`` counts launches,
 Training: ``flash_attention_lse`` is the same launch, writing each row's
 log-sum-exp of its scaled scores beside the output (float32 (B,H,T));
 ``flash_attention_bwd`` takes it back with the output and its gradient
-and returns dq, dk, dv from the hand-written backward (the CUDA cores,
-float32 sums; the CUDA-core forward's dtypes and head dims; three
-kernels a call, no atomics). The reference has no backward kernel: its
-Pallas kernel cannot be differentiated. ``BWD_LAUNCHES`` counts the
-backward's calls (each launches its three kernels).
+and returns dq, dk, dv from a hand-written backward: three kernels a
+call (a pass for D = rowsum(dO * O), a dK/dV kernel a key tile, a dQ
+kernel a query tile), each output written by one block, no atomics, so
+two calls give the same bits. ``bwd_variant(dtype, dq, dv)`` picks its
+variant where ``variant`` picks the forward's, and nothing else picks:
+
+* ``"wgmma"``: bfloat16 at dq = dv in ``WGMMA_HEAD_DIMS``, every product
+  on wgmma (bf16 operands, float32 sums) fed by TMA;
+* ``"cuda_core"``: float32 FMAs, for float32 (the float32 gradient
+  check needs full float32 products) and every other head dim.
+
+Seven 64 x 64 x d products a visible tile pair (dK/dV: S^T, dV, dP^T,
+dK; dQ: S, dP, dQ) where FlashAttention-2/3 do five with an atomic dQ:
+recomputing S and dP in the dQ kernel is the price of one writer an
+output. Measured by ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at
+700 W, at (2, 4096, 32, 128) bf16 causal: 2.82 ms a call through
+wgmma (4.1x its bound, 1.87x SDPA's backward), 40.61 ms through the
+CUDA cores (PERF.md). The reference has no backward
+kernel: its Pallas kernel cannot be differentiated. ``BWD_LAUNCHES``
+counts the backward's calls, ``BWD_VARIANT_LAUNCHES`` by variant.
 """
 from __future__ import annotations
 
@@ -47,8 +62,10 @@ WGMMA_HEAD_DIMS = (64, 128)
 #: one is launched), in all and by variant
 LAUNCHES = 0
 VARIANT_LAUNCHES = {"wgmma": 0, "cuda_core": 0}
-#: calls of the backward (each launches its three kernels)
+#: calls of the backward (each launches its three kernels), in all and
+#: by variant
 BWD_LAUNCHES = 0
+BWD_VARIANT_LAUNCHES = {"wgmma": 0, "cuda_core": 0}
 
 _ENTRIES = {
     "cuda_core": ("flash_attention_fwd", [ctypes.c_void_p] * 5
@@ -56,8 +73,12 @@ _ENTRIES = {
     "wgmma": ("flash_attention_wgmma_fwd", [ctypes.c_void_p] * 5
               + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]),
 }
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ENTRIES = {
+    "cuda_core": ("flash_attention_bwd", [ctypes.c_void_p] * 10
+                  + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]),
+    "wgmma": ("flash_attention_wgmma_bwd", [ctypes.c_void_p] * 10
+              + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]),
+}
 
 
 def variant(dtype, dq, dv) -> str:
@@ -67,6 +88,13 @@ def variant(dtype, dq, dv) -> str:
     if dtype == torch.bfloat16 and dq == dv and dq in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_core"
+
+
+def bwd_variant(dtype, dq, dv) -> str:
+    """The backward's variant for inputs of ``dtype`` with head dims
+    ``dq`` and ``dv``: "wgmma" exactly where ``variant`` picks it, else
+    "cuda_core"."""
+    return variant(dtype, dq, dv)
 
 
 def flash_attention(q, k, v, *, causal=True, swa_window=0):
@@ -94,33 +122,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True,
                         swa_window=0):
     """The gradients (dq, dk, dv), like q, k, v, of the attention
     ``out = flash_attention(q, k, v)`` given ``lse`` from
-    ``flash_attention_lse`` and ``dout``, the gradient of ``out``."""
-    global BWD_LAUNCHES
+    ``flash_attention_lse`` and ``dout``, the gradient of ``out``; the
+    variant ``bwd_variant(q.dtype, dq, dv)``."""
     _check(q, k, v)
-    B, T, H, d = q.shape
-    S, dv = k.shape[1], v.shape[-1]
-    dev = q.device
-    _build.check("flash_attention_bwd", "out", out, q.dtype, (B, T, H, dv),
-                 dev)
-    _build.check("flash_attention_bwd", "dout", dout, q.dtype,
-                 (B, T, H, dv), dev)
-    _build.check("flash_attention_bwd", "lse", lse, torch.float32,
-                 (B, H, T), dev)
-    if any(t.data_ptr() % 16 for t in (out, dout)):
-        raise ValueError("flash_attention_bwd: out and dout must be "
-                         "16-byte aligned")
-    dq, dk, dv_ = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
-    fn = _build.function("flash_attention", "flash_attention_bwd",
-                         _BWD_ARGTYPES)
-    _build.launch("flash_attention_bwd", fn, dev, q.data_ptr(),
-                  k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
-                  DTYPES[q.dtype], B, T, S, H, d, dv, int(bool(causal)),
-                  int(swa_window), d ** -0.5)
-    BWD_LAUNCHES += 1
-    return dq, dk, dv_
+    return _launch_bwd(bwd_variant(q.dtype, q.shape[-1], v.shape[-1]), q,
+                       k, v, out, lse, dout, causal, swa_window)
+
+
+def _flash_attention_bwd_variant(q, k, v, out, lse, dout, name, *,
+                                 causal=True, swa_window=0):
+    """``flash_attention_bwd`` through the variant ``name`` whatever the
+    inputs would pick (it must take them): for timing one design against
+    the other on the same inputs."""
+    _check(q, k, v)
+    _check_variant(name, q.dtype, q.shape[-1], v.shape[-1])
+    return _launch_bwd(name, q, k, v, out, lse, dout, causal, swa_window)
 
 
 def _flash_attention_variant(q, k, v, name, *, causal=True, swa_window=0):
@@ -128,14 +144,17 @@ def _flash_attention_variant(q, k, v, name, *, causal=True, swa_window=0):
     inputs would pick (it must take them): for timing one variant
     against the other on the same inputs."""
     _check(q, k, v)
-    dq, dv = q.shape[-1], v.shape[-1]
-    if name == "wgmma" and variant(q.dtype, dq, dv) != "wgmma":
-        raise ValueError(f"flash_attention: the wgmma variant takes "
-                         f"bfloat16 at dq = dv in {WGMMA_HEAD_DIMS}, got "
-                         f"{q.dtype} at (dq, dv) = ({dq}, {dv})")
+    _check_variant(name, q.dtype, q.shape[-1], v.shape[-1])
+    return _launch(name, q, k, v, causal, swa_window)
+
+
+def _check_variant(name, dtype, dq, dv):
     if name not in _ENTRIES:
         raise ValueError(f"flash_attention: no variant {name!r}")
-    return _launch(name, q, k, v, causal, swa_window)
+    if name == "wgmma" and variant(dtype, dq, dv) != "wgmma":
+        raise ValueError(f"flash_attention: the wgmma variant takes "
+                         f"bfloat16 at dq = dv in {WGMMA_HEAD_DIMS}, got "
+                         f"{dtype} at (dq, dv) = ({dq}, {dv})")
 
 
 def _check(q, k, v):
@@ -184,3 +203,34 @@ def _launch(name, q, k, v, causal, swa_window, lse=None):
     LAUNCHES += 1
     VARIANT_LAUNCHES[name] += 1
     return out
+
+
+def _launch_bwd(name, q, k, v, out, lse, dout, causal, swa_window):
+    global BWD_LAUNCHES
+    B, T, H, d = q.shape
+    S, dv = k.shape[1], v.shape[-1]
+    dev = q.device
+    _build.check("flash_attention_bwd", "out", out, q.dtype, (B, T, H, dv),
+                 dev)
+    _build.check("flash_attention_bwd", "dout", dout, q.dtype,
+                 (B, T, H, dv), dev)
+    _build.check("flash_attention_bwd", "lse", lse, torch.float32,
+                 (B, H, T), dev)
+    if any(t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("flash_attention_bwd: out and dout must be "
+                         "16-byte aligned")
+    dq, dk, dv_ = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    symbol, argtypes = _BWD_ENTRIES[name]
+    fn = _build.function("flash_attention", symbol, argtypes)
+    # the CUDA-core entry takes the dtype and dv; the wgmma one has dv = d
+    dims = (d, dv) if name == "cuda_core" else (d,)
+    dtype = (DTYPES[q.dtype],) if name == "cuda_core" else ()
+    _build.launch("flash_attention_bwd", fn, dev, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), *dtype, B, T,
+                  S, H, *dims, int(bool(causal)), int(swa_window), d ** -0.5)
+    BWD_LAUNCHES += 1
+    BWD_VARIANT_LAUNCHES[name] += 1
+    return dq, dk, dv_

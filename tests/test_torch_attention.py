@@ -222,6 +222,43 @@ def test_flash_variant_of_each_served_config(arch, want):
     assert flash_attention.variant(cfg.dtype, dq, dv) == want
 
 
+@pytest.mark.parametrize("dtype,dq,dv,want", [
+    (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 128, 128, "wgmma"),
+    (torch.float32, 128, 128, "cuda_core"),
+    (torch.float32, 64, 64, "cuda_core"),
+    (torch.bfloat16, 96, 64, "cuda_core"),          # MLA (minicpm3-4b)
+    (torch.bfloat16, 16, 16, "cuda_core"),
+    (torch.bfloat16, 128, 64, "cuda_core"),
+])
+def test_flash_bwd_variant_follows_the_forward(dtype, dq, dv, want):
+    """The backward takes the tensor cores exactly where the forward
+    does: bfloat16 at dq = dv in {64, 128}; float32 (the gradient
+    check's full float32 products) and every other head dim the CUDA
+    cores."""
+    assert flash_attention.bwd_variant(dtype, dq, dv) == want
+    assert flash_attention.variant(dtype, dq, dv) == want
+
+
+def test_flash_backward_refuses_cpu_tensors():
+    """The backward launches a kernel or raises: CPU tensors go to the
+    plain version through ops.attention, never through the kernels'
+    wrapper, which counts nothing."""
+    (_, _, _), (tq, tk, tv) = _qkv(6, 1, 16, 16, 2, 64, "bfloat16")
+    out = tref.attention_ref(tq, tk, tv)
+    lse = tref.attention_lse_ref(tq, tk)
+    before = (flash_attention.BWD_LAUNCHES,
+              dict(flash_attention.BWD_VARIANT_LAUNCHES))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention.flash_attention_bwd(tq, tk, tv, out, lse, out)
+    for name in ("wgmma", "cuda_core"):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            flash_attention._flash_attention_bwd_variant(
+                tq, tk, tv, out, lse, out, name)
+    assert (flash_attention.BWD_LAUNCHES,
+            flash_attention.BWD_VARIANT_LAUNCHES) == before
+
+
 def test_flash_variant_entry_refuses_cpu_and_unknown_variants():
     (_, _, _), (tq, tk, tv) = _qkv(5, 1, 16, 16, 2, 16, "float32")
     before = dict(flash_attention.VARIANT_LAUNCHES)

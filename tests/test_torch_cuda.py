@@ -311,7 +311,9 @@ def test_flash_lse_vs_plain_version(cuda, B, T, H, d, causal, window,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,dq,dv,causal,window,dtype", [
-    (2, 256, 4, 128, 128, True, 0, "bfloat16"),
+    (2, 256, 4, 128, 128, True, 0, "bfloat16"),   # wgmma
+    (1, 200, 3, 64, 64, True, 48, "bfloat16"),    # wgmma, window, ragged
+    (1, 130, 2, 128, 128, False, 0, "bfloat16"),  # wgmma, non-causal
     (1, 200, 3, 96, 64, True, 0, "bfloat16"),     # MLA's head dims
     (1, 130, 2, 64, 64, True, 48, "float32"),
     (2, 64, 2, 16, 16, False, 0, "float32"),
@@ -320,10 +322,11 @@ def test_flash_lse_vs_plain_version(cuda, B, T, H, d, causal, window,
 def test_flash_backward_vs_plain_version(cuda, B, T, H, dq, dv, causal,
                                          window, dtype):
     """ops.attention's gradients on CUDA tensors (the forward kernel
-    with its log-sum-exp, then the backward kernel: one launch of each)
-    against ``ref.attention_bwd_ref`` on the same output, each gradient
-    within ATTN_BWD_TOL of its largest magnitude; a second backward
-    gives the same bits."""
+    with its log-sum-exp, then the backward kernel through the variant
+    ``bwd_variant`` picks: one launch of each) against
+    ``ref.attention_bwd_ref`` on the same output, each gradient within
+    ATTN_BWD_TOL of its largest magnitude; a second backward gives the
+    same bits."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(6)
     q, k = (torch.randn((B, T, H, dq), generator=g, device=cuda).to(dt)
@@ -332,6 +335,8 @@ def test_flash_backward_vs_plain_version(cuda, B, T, H, dq, dv, causal,
     do = torch.randn((B, T, H, dv), generator=g, device=cuda).to(dt)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES)
+    by_variant = dict(flash_attention.BWD_VARIANT_LAUNCHES)
+    picked = flash_attention.bwd_variant(dt, dq, dv)
     out = ops.attention(*leaves, causal=causal, swa_window=window)
     grads = torch.autograd.grad(out, leaves, do)
     again = torch.autograd.grad(
@@ -340,6 +345,8 @@ def test_flash_backward_vs_plain_version(cuda, B, T, H, dq, dv, causal,
     torch.cuda.synchronize()
     assert (flash_attention.LAUNCHES, flash_attention.BWD_LAUNCHES) == (
         before[0] + 2, before[1] + 2)
+    assert flash_attention.BWD_VARIANT_LAUNCHES == {
+        n: c + 2 * (n == picked) for n, c in by_variant.items()}
     lse = ref.attention_lse_ref(q, k, causal=causal, swa_window=window)
     want = ref.attention_bwd_ref(q, k, v, out.detach(), lse, do,
                                  causal=causal, swa_window=window)

@@ -4,6 +4,11 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
+``--serve ARCH`` (repeatable) runs only the build and phase
+``serve-ARCH``: copied into an unpacked earlier commit, it times that
+tree's serving path with the same code, so that two trees can run in
+turns in one call.
+
 Phases (one line each; any failure exits non-zero and prints no result):
 
 1. ``build``: the card's name and power limit (nvidia-smi), then every
@@ -13,10 +18,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
    lcdc_switch kernel must have a stack frame of 0 bytes: its rows live
    in registers; the float64 ones' frames are printed); and the SASS
    of the flash library (cuobjdump -sass): each bf16 tensor-core kernel
-   (``WGMMA_KERNELS``: the forward and the backward's dK/dV and dQ
-   kernels, at d 64 and 128) must show wgmma (HGMMA) and TMA loads
-   (UTMALDG) and compile with 0 spill bytes; the backward's registers
-   and any ptxas warning about serialised wgmma are printed;
+   (``WGMMA_KERNELS``: the forward at (64, 64), (128, 128) and MLA's
+   (96, 64), the backward's dK/dV and dQ kernels at d 64 and 128) must
+   show wgmma (HGMMA) and TMA loads
+   (UTMALDG) and compile with 0 spill bytes; their registers, any ptxas
+   warning about serialised wgmma, and the wkv backward's SASS
+   instructions a token (what bounds it) are printed;
 2. ``kernel``: each kernel against its plain PyTorch version on the
    card, at the shapes its path gives it: switch_step at the
    simulator's two tier shapes and at odd switch counts; switch_tiers
@@ -28,22 +35,25 @@ Phases (one line each; any failure exits non-zero and prints no result):
    non-causal and d = 64 cases (each through the variant its inputs
    pick, which must be the one whose counter moved; bf16 ones also
    through the CUDA-core variant) and one float32 case, and at
-   minicpm3-4b's MLA shapes (q/k 96, v 64, 40 heads: the CUDA-core
-   variant) for each batcher prompt, the batched prefill and float32;
+   minicpm3-4b's MLA shapes (q/k 96, v 64, 40 heads: bf16 through the
+   wgmma variant and the CUDA-core one) for each batcher prompt, the
+   batched prefill, a ragged non-causal batch and float32;
    wkv at the
    serve shapes of rwkv6-7b (prefill at B = 1 and 8, decode T = 1, a
    ragged T, float32), planned and with one thread per column, the
    final state equal to the plain version's bit for bit; then the
-   training side: both flash variants' rows' log-sum-exp against the
-   plain logsumexp (the output equal to serving's launch), the flash
+   training side: both flash variants' rows' log-sum-exp (wgmma at d
+   128 and at MLA's (96, 64)) against the plain logsumexp (the output
+   equal to serving's launch), the flash
    backward through the variant its inputs pick (``bwd_variant``, its
    counter checked; bf16 ones also through the CUDA-core design) at
    (8, 256, 32, 128) bf16, d 64, a ragged T, non-causal with T != S, a
    sliding window, (1, 384, 32, 128) float32 and MLA's (2, 256, 40,
-   96/64) (the CUDA-core variant), and the
-   wkv backward kernel at (1, 256) and (2, 1024) in bf16 and float32,
-   each against its plain version (``ref.attention_bwd_ref``,
-   ``ref.wkv_bwd_ref``) and equal to itself over two runs;
+   96/64) (the CUDA-core backward, its log-sum-exp from the wgmma
+   forward), and the wkv backward kernel at (1, 256), a ragged (2, 77)
+   and (2, 1024) in bf16 and float32, each against its plain version
+   (``ref.attention_bwd_ref``, ``ref.wkv_bwd_ref``) and equal to itself
+   over two runs;
 3. ``golden``: the committed golden results
    (tests/data/preflow_golden.json, "results") reproduced by
    ``run_sweep`` on the card with the tick replayed from a CUDA graph
@@ -115,10 +125,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
    requests of 64-384 prompt tokens, 32 new tokens each; the
    launch.serve path batched (B=8, P=256, gen 32); exact kernel launch
    counts (flash once an attention layer a prefill, every launch
-   through the variant the prefill's head dims pick: wgmma at d = 128,
-   the CUDA cores for MLA's (96, 64); wkv once an rwkv layer a prefill
+   through the variant the prefill's head dims pick: wgmma at d = 128
+   and at MLA's (96, 64); wkv once an rwkv layer a prefill
    and a decode step); prefill and decode tokens/s and the device's
-   idle share (torch.profiler);
+   idle share (torch.profiler); then the batched prefill alone, warm
+   (the median of PREFILL_REPS calls; one more under torch.profiler:
+   device busy, idle share);
 9c. ``train-qwen3-8b`` and ``train-rwkv6-7b``: the training path at
    full width and 8 layers (TRAIN_LAYERS; bf16, remat, AdamW): the
    gradient check (GRAD_TOL), then TRAIN_STEPS steps of B = 2 x 4,096
@@ -153,7 +165,7 @@ Phases (one line each; any failure exits non-zero and prints no result):
    the timing computed; the two backward kernels at the training
    shapes beside their plain versions (and held against them), their
    bounds and, for flash, SDPA's backward on the same tensors and the
-   CUDA-core backward (the first design, ``first_ms``) timed in turns
+   CUDA-core backward (the first design, ``first_ms``), timed in turns
    in the same call (and held too; the picked design's two runs equal
    bit for bit).
 
@@ -163,6 +175,7 @@ package.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import dataclasses
 import gc
@@ -224,6 +237,10 @@ SERVE_SEED = 0
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 SERVE_PROMPTS = (64, 96, 128, 200, 256, 384)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 256, 32
+# the batched prefill again, warm, after launch.serve's: its wall time
+# over PREFILL_REPS calls, then one call under torch.profiler (device
+# busy, idle share); launch.serve's own prefill is one cold call
+PREFILL_REPS = 5
 # attention and wkv kernels vs plain versions (allclose: atol + rtol *
 # |plain|), as tests/test_kernels.py holds the TPU kernels: the kernels
 # sum in another order, and in bf16 that flips roundings of the output
@@ -1319,7 +1336,7 @@ def bucket_fault_phase(torch, S, dev):
 # and float32 (the CUDA-core variant)
 # (label, B, T, H, dq, dv, causal, window, dtype): the serve shapes of
 # qwen3-8b, mixtral-8x7b and jamba-v0.1-52b (H 32, d 128) and of
-# minicpm3-4b's MLA (H 40, q/k 96, v 64: the CUDA-core variant)
+# minicpm3-4b's MLA (H 40, q/k 96, v 64: the wgmma variant in bf16)
 FLASH_CASES = [
     ("batched prefill", 8, 256, 32, 128, 128, True, 0, "bfloat16"),
     ("request", 1, 64, 32, 128, 128, True, 0, "bfloat16"),
@@ -1333,6 +1350,7 @@ FLASH_CASES = [
 ] + [("MLA request", 1, n, 40, 96, 64, True, 0, "bfloat16")
      for n in SERVE_PROMPTS] + [
     ("MLA batched prefill", 8, 256, 40, 96, 64, True, 0, "bfloat16"),
+    ("MLA non-causal, ragged T", 2, 100, 40, 96, 64, False, 0, "bfloat16"),
     ("MLA float32", 1, 384, 40, 96, 64, True, 0, "float32"),
 ]
 # (label, B, T, H, dh, dtype): the rwkv6-7b serve shapes
@@ -1343,13 +1361,16 @@ WKV_CASES = [
     ("ragged T", 2, 100, 64, 64, "bfloat16"),
     ("float32", 1, 100, 64, 64, "float32"),
 ]
-# the flash library's bf16 kernels (forward and backward, each at d 64
-# and 128) must run on the tensor cores with TMA tile copies: SASS
-# opcodes of wgmma and of TMA loads
+# the flash library's bf16 kernels (the forward at each of its (dq, dv),
+# the backward at d 64 and 128) must run on the tensor cores with TMA
+# tile copies: SASS opcodes of wgmma and of TMA loads
 WGMMA_OPS = ("HGMMA",)
 ASYNC_COPY_OPS = ("UTMALDG",)
-WGMMA_KERNELS = ("flash_wgmma_kernel", "flash_bwd_wgmma_dkdv_kernel",
-                 "flash_bwd_wgmma_dq_kernel")
+WGMMA_KERNELS = {
+    "flash_wgmma_kernel": ((64, 64), (128, 128), (96, 64)),
+    "flash_bwd_wgmma_dkdv_kernel": ((64,), (128,)),
+    "flash_bwd_wgmma_dq_kernel": ((64,), (128,)),
+}
 
 
 def allclose_err(torch, got, want, atol, rtol):
@@ -1577,7 +1598,8 @@ def short_names(names):
 
 
 def sass_counts(lib, ops):
-    """{kernel: {opcode: count}} of the SASS in ``lib``."""
+    """{kernel: {opcode: count}} of the SASS in ``lib``, with the count of
+    all its instructions under "all"."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc_path()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(lib)],
@@ -1587,13 +1609,15 @@ def sass_counts(lib, ops):
     for chunk in re.split(r"\n\s*Function : ", text)[1:]:
         name = chunk.split("\n", 1)[0].strip()
         out[name] = {op: len(re.findall(rf"\b{op}\b", chunk)) for op in ops}
+        out[name]["all"] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", chunk))
     return out
 
 
 def build_report(libs):
     """Print ptxas's report of every kernel and check the SASS of the
-    flash library: each of WGMMA_KERNELS at d 64 and 128 must hold wgmma
-    (HGMMA) and TMA loads (UTMALDG) and spill nothing."""
+    flash library: each of WGMMA_KERNELS at each of its template
+    arguments must hold wgmma (HGMMA) and TMA loads (UTMALDG) and spill
+    nothing."""
     from repro_torch.kernels import _build
     reports = {n: ptxas_report(_build.build_log(n)) for n in libs}
     short = short_names(k for r in reports.values() for k in r)
@@ -1627,27 +1651,38 @@ def build_report(libs):
         phase("build", f"flash_attention SASS {names[k]}: " + ", ".join(
             f"{op} {c[op]}" for op in ops))
     flash = reports["flash_attention"]
-    for base in WGMMA_KERNELS:
-        for d in (64, 128):
-            # the mangled name holds the template argument as ILi<d>E
-            tag = f"{base}ILi{d}E"
+    for base, instances in WGMMA_KERNELS.items():
+        for dims in instances:
+            # the mangled name holds the template arguments as
+            # I Li<a>E Li<b>E ... E
+            tag = base + "I" + "".join(f"Li{d}E" for d in dims) + "E"
+            name = f"{base}<{', '.join(map(str, dims))}>"
             found = [k for k in counts if tag in k]
             if len(found) != 1:
-                fail(f"build: expected one {base}<{d}> in the SASS, found "
+                fail(f"build: expected one {name} in the SASS, found "
                      f"{found}")
             c = counts[found[0]]
             if not all(c[op] for op in ops):
-                fail(f"build: {base}<{d}> lacks tensor-core ({WGMMA_OPS}) "
+                fail(f"build: {name} lacks tensor-core ({WGMMA_OPS}) "
                      f"or TMA ({ASYNC_COPY_OPS}) instructions: {c}")
             rep = [r for k, r in flash.items() if tag in k]
             if len(rep) != 1 or rep[0][2] or rep[0][3]:
-                fail(f"build: {base}<{d}> must compile with 0 spill bytes; "
+                fail(f"build: {name} must compile with 0 spill bytes; "
                      f"ptxas (registers / stack / spill stores / spill "
                      f"loads / smem): {rep}")
-            if "bwd" in base:
-                phase("build", f"{base}<{d}>: {rep[0][0]} registers, spill "
-                      f"stores / loads {rep[0][2]} / {rep[0][3]} bytes; "
-                      + ", ".join(f"{op} {c[op]}" for op in ops))
+            phase("build", f"{name}: {rep[0][0]} registers, spill stores / "
+                  f"loads {rep[0][2]} / {rep[0][3]} bytes; "
+                  + ", ".join(f"{op} {c[op]}" for op in ops))
+    # the wkv backward is bound by the instructions each SM dispatches:
+    # its SASS (the 16 tokens of a chunk unrolled) a token, and the
+    # convergence checks (WARPSYNC) a branch around its shuffles would add
+    wkv = {k: c for k, c in sass_counts(libs["rwkv6_wkv"], (
+        "SHFL", "WARPSYNC")).items() if "wkv_bwd_kernel" in k}
+    wkv_names = short_names(wkv)
+    for k, c in wkv.items():
+        phase("build", f"rwkv6_wkv SASS {wkv_names[k]}: {c['all']} "
+              f"instructions (~{c['all'] / 16:.0f} a token of a chunk of "
+              f"16), SHFL {c['SHFL']}, WARPSYNC {c['WARPSYNC']}")
     # ptxas says when it must serialise wgmma (an accumulator touched
     # while a product is in flight): print each such warning
     for line in _build.build_log("flash_attention").splitlines():
@@ -1818,6 +1853,7 @@ def serve_phase(torch, arch, dev):
           f" launches ({n_launch / SERVE_GEN:.0f} a step), {own} "
           f"{own_ms:.1f} ms of the device time; top kernels (name, calls, "
           f"ms): {top}")
+    time_prefill(torch, name, cfg, params, prompts_b, fns, own)
     for k in counted:
         if sum(shapes[k].values()) != counted[k]:
             fail(f"{name}: {counted[k]} {k} launches, "
@@ -1827,6 +1863,33 @@ def serve_phase(torch, arch, dev):
     torch.cuda.empty_cache()
     return {k: {"launches": counted[k], "shapes": shapes[k]}
             for k in counted}
+
+
+def time_prefill(torch, name, cfg, params, prompts, fns, own):
+    """The batched prefill alone, warm: the wall time of PREFILL_REPS
+    calls (median, min, max), then one call under torch.profiler (wall,
+    device busy, idle share, the attention or wkv kernel's share). Its
+    launches are not counted: the serve path's were read before it."""
+    from repro_torch.models import model as M
+
+    def prefill():
+        M.prefill(cfg, params, {"tokens": prompts}, kernel_fns=fns)
+
+    walls = []
+    for _ in range(PREFILL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall, busy, n_launch, own_ms, _ = profile_busy(torch, prefill, own)
+    B, P = prompts.shape
+    phase(name, f"prefill alone (B={B}, P={P}), warm: "
+          f"{sorted(walls)[len(walls) // 2]:.1f} ms wall, median of "
+          f"{len(walls)} ({min(walls):.1f}-{max(walls):.1f}); under "
+          f"torch.profiler {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} ms "
+          f"device busy, idle share {1 - busy / wall:.3f}, {n_launch} kernel"
+          f" launches, {own} {sum(own_ms.values()):.1f} ms")
 
 
 def reset_counts(flash_attention, rwkv6_wkv):
@@ -2029,12 +2092,12 @@ def _entry(name, source, replaces, launches, max_abs_err, rows, library):
     """A kernels-line entry: times, bound and library time as the mean
     per launch on the path (weighted by each shape's launches), with
     the per-shape rows beside them; ``first_ms`` is the first design's
-    time on the same inputs."""
+    time on the same inputs, where every row has one."""
     share = {}
     for r in rows:
         share[r["bound_by"]] = share.get(r["bound_by"], 0.0) \
             + r["bound_ms"] * r["launches"]
-    return {
+    entry = {
         "name": name,
         "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2046,9 +2109,11 @@ def _entry(name, source, replaces, launches, max_abs_err, rows, library):
         "bound_ms": weighted(rows, "bound_ms"),
         "bound_by": max(share, key=share.get),
         "library_ms": weighted(rows, "library_ms") if library else None,
-        "first_ms": weighted(rows, "first_ms"),
-        "shapes": rows,
     }
+    if all("first_ms" in r for r in rows):
+        entry["first_ms"] = weighted(rows, "first_ms")
+    entry["shapes"] = rows
+    return entry
 
 
 def golden_phase(torch, S, dev, name, batch, rows, cfg, x64):
@@ -2162,7 +2227,8 @@ WKV_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LSE_TOL = 1e-4
 # (label, B, T, S, H, dq, dv, causal, window, dtype): the wgmma
 # backward's edges (d 64, a ragged T, T != S without the causal mask, a
-# window), then the CUDA-core variant's float32 and MLA cases
+# window), then the CUDA-core variant's float32 and MLA cases (MLA's L
+# from the wgmma forward)
 FLASH_BWD_CASES = [
     ("batched prefill", 8, 256, 256, 32, 128, 128, True, 0, "bfloat16"),
     ("head dim 64", 2, 256, 256, 40, 64, 64, True, 0, "bfloat16"),
@@ -2176,6 +2242,7 @@ FLASH_BWD_CASES = [
 ]
 # (B, T, dtype, with a final-state gradient); H 64, dh 64
 WKV_BWD_CASES = [(1, 256, "bfloat16", False), (1, 256, "float32", True),
+                 (2, 77, "bfloat16", True),
                  (2, 1024, "bfloat16", True), (2, 1024, "float32", False)]
 # train-reduced: tests/test_system.py's run (reduced qwen3-0.6b, vocab
 # 256, 30 steps of B = 8 x 32 tokens at peak lr 3e-3; the loss must fall
@@ -2200,27 +2267,29 @@ def check_backward_kernels(torch, dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref, rwkv6_wkv
     worst = {"flash_attention_bwd": 0.0, "wkv_bwd": 0.0}
-    for i, (want_variant, B, T, H, d, dt) in enumerate(
-            (("wgmma", 8, 256, 32, 128, "bfloat16"),
-             ("cuda_core", 1, 384, 32, 128, "float32"))):
-        q, k, v = attn_inputs(torch, B, T, H, d, d, getattr(torch, dt), dev,
-                              700 + i)
-        if fa.variant(q.dtype, d, d) != want_variant:
-            fail(f"flash_attention_lse: ({B}, {T}, {H}, {d}) {dt} picks "
-                 f"{fa.variant(q.dtype, d, d)}, expected {want_variant}")
+    for i, (want_variant, B, T, H, d, dv, dt) in enumerate(
+            (("wgmma", 8, 256, 32, 128, 128, "bfloat16"),
+             ("wgmma", 2, 256, 40, 96, 64, "bfloat16"),     # MLA
+             ("cuda_core", 1, 384, 32, 128, 128, "float32"))):
+        q, k, v = attn_inputs(torch, B, T, H, d, dv, getattr(torch, dt),
+                              dev, 700 + i)
+        if fa.variant(q.dtype, d, dv) != want_variant:
+            fail(f"flash_attention_lse: ({B}, {T}, {H}, {d}, {dv}) {dt} "
+                 f"picks {fa.variant(q.dtype, d, dv)}, expected "
+                 f"{want_variant}")
         out, lse = fa.flash_attention_lse(q, k, v, causal=True)
         served = fa.flash_attention(q, k, v, causal=True)
         try:
             err = allclose_err(torch, lse, ref.attention_lse_ref(q, k),
                                LSE_TOL, LSE_TOL)
         except AssertionError as e:
-            fail(f"flash_attention_lse {want_variant}: {e}")
+            fail(f"flash_attention_lse {want_variant} {(d, dv)}: {e}")
         if not torch.equal(out, served):
-            fail(f"flash_attention_lse {want_variant}: the output differs "
-                 f"from serving's launch")
+            fail(f"flash_attention_lse {want_variant} {(d, dv)}: the "
+                 f"output differs from serving's launch")
         phase("kernel", f"flash_attention forward with log-sum-exp, "
-              f"{want_variant} variant ({B}, {T}, {H}, {d}) {dt}: lse max "
-              f"abs {err:.3g} (tol {LSE_TOL:g} abs + rel); the output "
+              f"{want_variant} variant ({B}, {T}, {H}, {d}, {dv}) {dt}: lse "
+              f"max abs {err:.3g} (tol {LSE_TOL:g} abs + rel); the output "
               f"equals serving's bit for bit")
     for i, (label, B, T, S, H, dq, dv, causal, win, dt) in enumerate(
             FLASH_BWD_CASES):
@@ -2229,8 +2298,15 @@ def check_backward_kernels(torch, dev):
                        .to(getattr(torch, dt)) for shape in (
                            (B, T, H, dq), (B, S, H, dq), (B, S, H, dv),
                            (B, T, H, dv)))
+        fwd = fa.variant(q.dtype, dq, dv)
+        fwd_before = dict(fa.VARIANT_LAUNCHES)
         out, lse = fa.flash_attention_lse(q, k, v, causal=causal,
                                           swa_window=win)
+        moved = {n: fa.VARIANT_LAUNCHES[n] - fwd_before[n]
+                 for n in fwd_before}
+        if moved != {n: int(n == fwd) for n in fwd_before}:
+            fail(f"flash_attention_lse {label}: picked {fwd}, but the "
+                 f"variant counters moved {moved}")
         picked = fa.bwd_variant(q.dtype, dq, dv)
         before = dict(fa.BWD_VARIANT_LAUNCHES)
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
@@ -2268,7 +2344,8 @@ def check_backward_kernels(torch, dev):
         worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
                                            max(a for a, _ in read[picked]))
         phase("kernel", f"flash_attention backward {label} ({B}, {T}, {S}, "
-              f"{H}, {dq}, {dv}) {dt} causal={causal} window={win}: "
+              f"{H}, {dq}, {dv}) {dt} causal={causal} window={win}, L from "
+              f"the {fwd} forward: "
               + "; ".join(f"{name} variant dq, dk, dv max abs " + ", ".join(
                   f"{a:.3g} ({r:.2g} of scale)" for a, r in errs)
                   for name, errs in read.items())
@@ -2286,12 +2363,12 @@ def check_backward_kernels(torch, dev):
         y0, s0 = rwkv6_wkv.wkv(*args)
         if not (torch.equal(y, y0) and torch.equal(s, s0)):
             fail(f"wkv_ckpt ({B}, {T}) {dt}: differs from serving's launch")
+        want = ref.wkv_bwd_ref(*args, dy, ds)
+        tol = WKV_BWD_TOL[dt]
         got = rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy, ds)
         again = rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy, ds)
-        want = ref.wkv_bwd_ref(*args, dy, ds)
         torch.cuda.synchronize()
         errs = rel_errs(torch, got, want)
-        tol = WKV_BWD_TOL[dt]
         if not all(bool(torch.isfinite(x).all()) for x in got) or any(
                 r > tol for _, r in errs):
             fail(f"wkv_bwd ({B}, {T}, 64, 64) {dt}: (dr, dk, dv, dw, du, "
@@ -2825,29 +2902,32 @@ def time_backward_kernels(torch, dev, card, paths, worst):
         args = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 820)
         dy = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 821)[0]
         _, _, ckpt = rwkv6_wkv.wkv_ckpt(*args)
-        row = {"shape": [B, T, 64, 64], "launches": n}
-        row.update(event_turns(torch, {
-            "ms": (lambda: rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy), 10)}))
+        row = {"shape": [B, T, 64, 64], "launches": n,
+               "ms": event_ms(torch, lambda: rwkv6_wkv.wkv_bwd(
+                   *args[:5], ckpt, dy), 10)}
         plain = {}
         row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
             "grads", ref.wkv_bwd_ref(*args, dy)), 1)
-        got = rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy)
-        errs = hold_grads(torch, f"wkv_bwd ({B}, {T}, 64, 64) bf16", got,
-                          plain.pop("grads"), WKV_BWD_TOL["bfloat16"])
-        worst["wkv_bwd"] = max(worst["wkv_bwd"], max(a for a, _ in errs))
+        want = plain.pop("grads")
+        got = [rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy) for _ in range(2)]
+        errs = hold_grads(torch, f"wkv_bwd ({B}, {T}, 64, 64) bf16", got[0],
+                          want, WKV_BWD_TOL["bfloat16"])
+        if not all(torch.equal(a, b) for a, b in zip(*got)):
+            fail(f"wkv_bwd ({B}, {T}, 64, 64) bf16: two runs differ")
         del got
-        row["first_ms"] = row["ms"]
+        worst["wkv_bwd"] = max(worst["wkv_bwd"], max(a for a, _ in errs))
+        del want
         row["bound_ms"], row["bound_by"] = wkv_bwd_bound(args, ckpt)
         rows.append(row)
         phase("time", f"wkv backward ({B}, {T}, 64, 64) bf16: kernel "
               f"{row['ms']:.3f} ms/launch, plain version "
               f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.3f} ms "
-              f"({row['bound_by']}): kernel {row['ms'] / row['bound_ms']:.1f}"
+              f"({row['bound_by']}): kernel {row['ms'] / row['bound_ms']:.2f}"
               f"x bound; scratch {ckpt.numel() * 4 / 2**20:.0f} MiB a layer;"
               f" {n} launches on the path; dr, dk, dv, dw, du, ds0 within "
               + ", ".join(f"{r:.2g}" for _, r in errs)
-              + f" of the plain version's scales (tol "
-              f"{WKV_BWD_TOL['bfloat16']:g}); card {card}")
+              + " of the plain version's scales, two runs equal bit for bit"
+              f" (tol {WKV_BWD_TOL['bfloat16']:g}); card {card}")
         del args, dy, ckpt
     e = _entry("wkv_bwd", "rwkv6_wkv.cu", "src/repro/kernels/rwkv6_wkv.py:78",
                paths["wkv_bwd"]["launches"], worst["wkv_bwd"], rows,
@@ -2860,6 +2940,14 @@ def time_backward_kernels(torch, dev, card, paths, worst):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(
+        description="Drive the port's main paths on one GPU and check them; "
+        "with --serve, only the build and the named serve phases (to time "
+        "one tree's serving path against another's, in turns).")
+    ap.add_argument("--serve", action="append", choices=SERVE_ARCHS,
+                    metavar="ARCH", help="run only phase serve-ARCH "
+                    "(repeatable); prints no kernels or device line")
+    serve_only = ap.parse_args().serve
     try:
         import torch
     except ImportError:
@@ -2887,6 +2975,12 @@ def main() -> None:
     phase("build", f"{len(libs)} CUDA source(s) built with nvcc for sm_90a "
           f"in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs.values()))
+    if serve_only:
+        for arch in serve_only:
+            serve_phase(torch, arch, dev)
+        phase("done", f"serve phases {', '.join(serve_only)} passed in "
+              f"{time.perf_counter() - t_start:.0f} s; card {card}")
+        return
     build_report(libs)
 
     # 2. kernel vs plain version ----------------------------------------

@@ -18,9 +18,11 @@
 // it before the tensor cores do (4.3 GFLOP causal, ~4.4 us at 989
 // TFLOP/s). Two variants; the wrapper picks one from (dtype, d, dv):
 //
-// * flash_wgmma_kernel (namespace wg), bfloat16 with d = dv in
-//   {64, 128}: the tensor-core design. A block is a consumer warpgroup (warps 0-3,
-//   64 query rows: wgmma's M) and a producer warp, and walks one or more
+// * flash_wgmma_kernel<DQK, DV> (namespace wg), bfloat16 with (d, dv)
+//   (64, 64), (128, 128) or MLA's (96, 64) (minicpm3-4b's prefill: nope
+//   64 + rope 32 for q and k, 64 for v): the tensor-core design. A
+//   block is a consumer warpgroup (warps 0-3, 64 query rows: wgmma's
+//   M) and a producer warp, and walks one or more
 //   64-row query tiles of one (head, batch) pair: as many as it takes to
 //   give each SM two blocks (all 4 at (8, 256), 1 for a single request).
 //   The producer keeps a two-deep Q ring and a two-stage K/V ring of
@@ -28,16 +30,21 @@
 //   (d, head, position, batch) map, so rows past S are zero-filled and
 //   never the next sequence's), K and V on mbarriers of their own, so
 //   the next tiles' copies overlap this tile's math. Tiles stay bf16 in
-//   shared memory with the 128-byte swizzle (a d = 128 row is two
-//   swizzle atom columns), 16 KB per 64 x 128 tile, 97 KB a block, two
-//   blocks an SM. S = Q K^T is wgmma m64n64k16 from shared memory (K
-//   row-major is the K-major B operand); the softmax runs on the
+//   shared memory with the 128-byte swizzle in whole atom columns of 64
+//   (a d = 128 row is two; so is MLA's 96-wide q/k row: its second box
+//   starts at column 64 of a 96-wide map, so the copy zero-fills columns
+//   96-127, and S = Q K^T takes 6 k-steps, 4 in the first atom and 2 in
+//   the second, never multiplying the zeros; the scale stays 96^-1/2),
+//   16 KB per 64 x 128 tile, 8 KB per 64 x 64, 97 KB a block at
+//   (128, 128), 81 KB at (96, 64): two blocks an SM. S = Q K^T is
+//   wgmma m64n64k16 from shared memory (K row-major is the K-major B
+//   operand); the softmax runs on the
 //   accumulator fragment (thread lane of warp w holds rows
 //   16 w + lane / 4 and + 8, columns 8 j + 2 (lane % 4) + {0, 1}; row max
 //   and sum over the quad with two shuffles), with the per-element masks
 //   only on the tiles a mask or the end of S reaches; P is rounded to
 //   bf16 in registers and is wgmma's A fragment as it stands; O += P V
-//   is wgmma m64n{d}k16 with V as the transposed (d-contiguous) B
+//   is wgmma m64n{dv}k16 with V as the transposed (dv-contiguous) B
 //   operand. The output is divided once a row, staged through the
 //   tile's Q buffer (swizzled chunks) and written with 16-byte stores.
 //   Measured on an H100 (PERF.md): the copies hide behind the
@@ -48,10 +55,10 @@
 //   next tile's S before this tile's softmax (two S accumulators, 181
 //   registers) was measured slower and is not used.
 // * flash_fwd_kernel, float32 at any d and bfloat16 at other head dims
-//   or with dv != d (8 <= d, dv <= 128, both multiples of 8; MLA's
-//   prefill gives d = 96 (nope 64 + rope 32), dv = 64): the CUDA-core
-//   design. One block of
-//   four warps per (64-row query tile, head, batch); the query tile is
+//   (8 <= d, dv <= 128, both multiples of 8; hubert's 80, MLA's float32
+//   (96, 64)): the CUDA-core design, bf16 MLA's too before the wgmma
+//   one took (96, 64). One block of four warps per (64-row query
+//   tile, head, batch); the query tile is
 //   staged once in shared memory, pre-scaled by d^-1/2; a loop over key
 //   tiles of 64 stages K (row-major, rows padded by 4 floats so the
 //   lanes' 16-byte reads of 32 different keys do not collide in a bank)
@@ -77,7 +84,9 @@
 // bits every run (the bit-exact resume of a training run rests on it).
 // The price is seven 64 x 64 x d products a visible tile pair (dK/dV:
 // S^T, dV, dP^T, dK; dQ: S, dP, dQ) where FlashAttention-2/3 do five
-// and add dQ with atomics. Two variants, picked as the forward's:
+// and add dQ with atomics. Two variants, picked from (dtype, d, dv) as
+// the forward's but for MLA, whose backward stays on the CUDA cores (it
+// takes the wgmma forward's L as it takes its own):
 //
 // * flash_bwd_wgmma_dkdv_kernel / flash_bwd_wgmma_dq_kernel (namespace
 //   wgb, flash_attention_wgmma_bwd), bfloat16 at d = dv in {64, 128}:
@@ -113,7 +122,7 @@
 //   it as it is (the product rounds dS^T to bf16 anyway).
 // * flash_bwd_dkdv_kernel / flash_bwd_dq_kernel (namespace bwd,
 //   flash_attention_bwd), float32 at any head dims and bfloat16 at
-//   other head dims or dv != d (MLA's (96, 64)): float32 products and
+//   other head dims or dv != d (MLA's (96, 64) too): float32 products and
 //   sums on the CUDA cores, the tiles staged as float32; the float32
 //   gradient check of a training run needs full float32 products.
 // At qwen3-8b's training shape (2, 4096, 32, 128) bf16 causal the work
@@ -428,15 +437,22 @@ constexpr int kAtom = 64 * 128;          // 64 rows of 128 bytes: one swizzle
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
+// A 64-row tile of D bf16 columns in whole swizzle atom columns: a row
+// of 96 (MLA's q/k) takes two atoms, its columns 96-127 zero-filled by
+// the copy and never multiplied
 template <int D>
-__host__ __device__ constexpr int tile_bytes() { return kBQ * D * 2; }
+__host__ __device__ constexpr int tile_bytes() {
+  return kBQ * ((D + 63) / 64) * 64 * 2;
+}
 
-// Q of two query tiles, then K and V of each stage, each tile 1024-byte
-// aligned; then the barriers (q_full[2], q_empty[2], k_full[kStages],
-// v_full[kStages], empty[kStages]); plus the slack that aligns the base
-template <int D>
+// Q of two query tiles, K of each stage, V of each stage, each tile
+// 1024-byte aligned; then the barriers (q_full[2], q_empty[2],
+// k_full[kStages], v_full[kStages], empty[kStages]); plus the slack that
+// aligns the base
+template <int DQK, int DV>
 __host__ __device__ constexpr int smem_bytes() {
-  return (2 + 2 * kStages) * tile_bytes<D>() + 8 * (4 + 3 * kStages) + 1024;
+  return (2 + kStages) * tile_bytes<DQK>() + kStages * tile_bytes<DV>() +
+         8 * (4 + 3 * kStages) + 1024;
 }
 
 // Query tiles a block walks: enough blocks to give every SM two (the
@@ -644,13 +660,14 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 // One TMA copy of rows [row0, row0 + 64) of head h of sequence b from
-// `map` into the tile at `dst` (D / 64 swizzle atom columns).
+// `map` into the tile at `dst` (ceil(D / 64) swizzle atom columns; the
+// columns of the last box past D lie outside the map and read as zeros).
 template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          int h, int row0, int b,
                                          uint32_t bar) {
 #pragma unroll
-  for (int a = 0; a < D / 64; ++a)
+  for (int a = 0; a < (D + 63) / 64; ++a)
     tma_load(dst + a * kAtom, map, 64 * a, h, row0, b, bar);
 }
 
@@ -671,7 +688,9 @@ __device__ __forceinline__ void wgmma_rs_tile(float (&d)[D / 2],
 }
 
 // D (64 x 64) = A B^T over K = D, A and B 64-row tiles in shared memory
-// (both K-major: their rows are M and N).
+// (both K-major: their rows are M and N); D a multiple of 16, so that a
+// 96-wide tile takes four k-steps in its first atom and two in its
+// second.
 template <int D>
 __device__ __forceinline__ void wgmma_ss_tile(float (&d)[32], uint32_t a_tile,
                                               uint32_t b_tile) {
@@ -687,8 +706,9 @@ __device__ __forceinline__ void wgmma_ss_tile(float (&d)[32], uint32_t a_tile,
 // batch) pair: warps 0-3 form the consumer warpgroup, warp 4 the
 // producer. The producer keeps a two-deep Q ring and a kStages-deep K/V
 // ring filled across the block's query tiles, so the next tile's copies
-// overlap this tile's math and output.
-template <int D>
+// overlap this tile's math and output. Q and K have DQK columns, V and
+// the output DV.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
@@ -696,13 +716,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int n_q, int n_k, int n_heads, int causal, int window,
                    float scale_log2, int per_block) {
-  constexpr int kTile = tile_bytes<D>();
+  static_assert(DQK % 16 == 0 && DQK <= 128 && (DV == 64 || DV == 128),
+                "wgmma tiles: q/k a multiple of 16 up to 128, v 64 or 128");
+  static_assert(tile_bytes<DV>() <= tile_bytes<DQK>(),
+                "the output is staged in the Q tile");
+  constexpr int kTile = tile_bytes<DQK>();   // a Q or K tile
+  constexpr int kTileV = tile_bytes<DV>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t bars = base + (2 + 2 * kStages) * kTile;
+  const uint32_t v_base = base + (2 + kStages) * kTile;
+  const uint32_t bars = v_base + kStages * kTileV;
   auto s_q = [&](int s) { return base + s * kTile; };
-  auto s_k = [&](int s) { return base + (2 + 2 * s) * kTile; };
-  auto s_v = [&](int s) { return base + (3 + 2 * s) * kTile; };
+  auto s_k = [&](int s) { return base + (2 + s) * kTile; };
+  auto s_v = [&](int s) { return v_base + s * kTileV; };
   auto q_full = [&](int s) { return bars + 8 * s; };
   auto q_empty = [&](int s) { return bars + 8 * (2 + s); };
   auto k_full = [&](int s) { return bars + 8 * (4 + s); };
@@ -755,7 +781,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int qs = qi & 1;
         if (qi >= 2) mbar_wait(q_empty(qs), ((qi >> 1) - 1) & 1);
         mbar_expect_tx(q_full(qs), kTile);
-        tma_tile<D>(s_q(qs), &tq, h, qt * kBQ, b, q_full(qs));
+        tma_tile<DQK>(s_q(qs), &tq, h, qt * kBQ, b, q_full(qs));
         int t_begin, t_end;
         key_tiles(qt, t_begin, t_end);
         for (int t = t_begin; t < t_end; ++t, ++n) {
@@ -765,9 +791,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           // K and V on barriers of their own: S = Q K^T starts while
           // V is still on its way
           mbar_expect_tx(k_full(s), kTile);
-          tma_tile<D>(s_k(s), &tk, h, t * kBK, b, k_full(s));
-          mbar_expect_tx(v_full(s), kTile);
-          tma_tile<D>(s_v(s), &tv, h, t * kBK, b, v_full(s));
+          tma_tile<DQK>(s_k(s), &tk, h, t * kBK, b, k_full(s));
+          mbar_expect_tx(v_full(s), kTileV);
+          tma_tile<DV>(s_v(s), &tv, h, t * kBK, b, v_full(s));
         }
       }
     }
@@ -785,9 +811,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int row_top = qt * kBQ + 16 * warp + (lane >> 2);
     int t_begin, t_end;
     key_tiles(qt, t_begin, t_end);
-    float oacc[D / 2];
+    float oacc[DV / 2];
 #pragma unroll
-    for (int e = 0; e < D / 2; ++e) oacc[e] = 0.0f;
+    for (int e = 0; e < DV / 2; ++e) oacc[e] = 0.0f;
     float m_run[2] = {kNegInf, kNegInf};
     float l_run[2] = {0.0f, 0.0f};     // this thread's columns only
     mbar_wait(q_full(qs), (qi >> 1) & 1);
@@ -797,13 +823,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(k_full(s), (n / kStages) & 1);
       __syncwarp();                    // converged for the .aligned wgmma
 
-      // S = Q K^T: 64 x 64, float32, D / 16 k-steps
+      // S = Q K^T: 64 x 64, float32, DQK / 16 k-steps
       float sacc[32];
 #pragma unroll
       for (int e = 0; e < 32; ++e) sacc[e] = 0.0f;
       fence_regs(sacc);
       wgmma_fence();
-      wgmma_ss_tile<D>(sacc, s_q(qs), s_k(s));
+      wgmma_ss_tile<DQK>(sacc, s_q(qs), s_k(s));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sacc);
@@ -883,7 +909,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int hh = 0; hh < 2; ++hh)
         l_run[hh] = l_run[hh] * alpha[hh] + ps[hh];
 #pragma unroll
-      for (int jn = 0; jn < D / 8; ++jn) {
+      for (int jn = 0; jn < DV / 8; ++jn) {
         oacc[4 * jn + 0] *= alpha[0];
         oacc[4 * jn + 1] *= alpha[0];
         oacc[4 * jn + 2] *= alpha[1];
@@ -891,8 +917,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
 
       // O += P V: P in bf16 as the register A fragment (two adjacent n8
-      // chunks of the accumulator are one k16 fragment), V (keys x d,
-      // d contiguous) as the transposed B from shared memory
+      // chunks of the accumulator are one k16 fragment), V (keys x DV,
+      // DV contiguous) as the transposed B from shared memory
       uint32_t pa[4][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
@@ -905,7 +931,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       fence_regs(oacc);
       wgmma_fence();
-      wgmma_rs_tile<D>(oacc, pa, s_v(s));
+      wgmma_rs_tile<DV>(oacc, pa, s_v(s));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(oacc);
@@ -928,21 +954,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         lse[((size_t)b * n_heads + h) * n_q + qt * kBQ + r] =
             (m_run[hh] + log2f(fmaxf(l, 1e-30f))) * kLn2;
 #pragma unroll
-      for (int jn = 0; jn < D / 8; ++jn)
-        st_shared(stage_out + out_offset(r, jn, 2 * D) + 2 * col_in,
+      for (int jn = 0; jn < DV / 8; ++jn)
+        st_shared(stage_out + out_offset(r, jn, 2 * DV) + 2 * col_in,
                   pack_bf16(oacc[4 * jn + 2 * hh] * inv,
                             oacc[4 * jn + 2 * hh + 1] * inv));
     }
     asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-    constexpr int kChunks = D / 8;         // 16-byte chunks of a row
+    constexpr int kChunks = DV / 8;        // 16-byte chunks of a row
 #pragma unroll
     for (int e = tid; e < kBQ * kChunks; e += kConsumers) {
       const int r = e / kChunks, c = e % kChunks;
       const int row = qt * kBQ + r;
-      const uint4 x = ld_shared16(stage_out + out_offset(r, c, 2 * D));
+      const uint4 x = ld_shared16(stage_out + out_offset(r, c, 2 * DV));
       if (row < n_q)
         *reinterpret_cast<uint4*>(
-            o + ((size_t)(b * n_q + row) * n_heads + h) * D + 8 * c) = x;
+            o + ((size_t)(b * n_q + row) * n_heads + h) * DV + 8 * c) = x;
     }
     // the buffer goes back to the producer's copies (the async proxy)
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -980,7 +1006,8 @@ EncodeTiled encode_tiled() {
 // A rank-4 map over a contiguous (batch, n, heads, d) bf16 tensor,
 // innermost first: (d, head, position, batch), boxes of 64 d-columns
 // x 1 head x 64 positions x 1 sequence, 128-byte swizzle. Positions
-// past n read as zeros, never the next sequence's rows.
+// past n, and columns past d (the second box of a 96-wide row), read as
+// zeros, never the next sequence's rows or the next head's columns.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int n,
                      int heads, int d) {
   const EncodeTiled enc = encode_tiled();
@@ -1001,21 +1028,22 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int batch, int n,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int n_q, int n_k, int n_heads, int causal, int window,
            float scale, cudaStream_t stream) {
-  static cudaError_t opted = opt_in(flash_wgmma_kernel<D>, smem_bytes<D>());
+  constexpr int kSmem = smem_bytes<DQK, DV>();
+  static cudaError_t opted = opt_in(flash_wgmma_kernel<DQK, DV>, kSmem);
   if (opted != cudaSuccess) return (int)opted;
   CUtensorMap tq, tk, tv;
-  cudaError_t err = make_map(&tq, q, batch, n_q, n_heads, D);
-  if (err == cudaSuccess) err = make_map(&tk, k, batch, n_k, n_heads, D);
-  if (err == cudaSuccess) err = make_map(&tv, v, batch, n_k, n_heads, D);
+  cudaError_t err = make_map(&tq, q, batch, n_q, n_heads, DQK);
+  if (err == cudaSuccess) err = make_map(&tk, k, batch, n_k, n_heads, DQK);
+  if (err == cudaSuccess) err = make_map(&tv, v, batch, n_k, n_heads, DV);
   if (err != cudaSuccess) return (int)err;
   const int per = tiles_per_block(batch, n_q, n_heads);
   const int n_tiles = (n_q + kBQ - 1) / kBQ;
   const dim3 grid((n_tiles + per - 1) / per, n_heads, batch);
-  flash_wgmma_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+  flash_wgmma_kernel<DQK, DV><<<grid, kThreads, kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, n_q, n_k, n_heads,
       causal, window, scale * kLog2e, per);
   return (int)cudaGetLastError();
@@ -1918,23 +1946,28 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core variant. q, k, v, o and lse as above with dv = d,
-// bfloat16 only, d 64 or 128; the rows of q, k and v are addressed
-// through TMA maps, so the tensors must be 16-byte aligned.
+// The tensor-core variant. q, k, v, o and lse as above, bfloat16 only,
+// (d, dv) one of (64, 64), (128, 128) and MLA's (96, 64); the rows of
+// q, k and v are addressed through TMA maps, so the tensors must be
+// 16-byte aligned.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
                                          const void* v, void* o, float* lse,
                                          int batch,
                                          int n_q, int n_k, int n_heads,
-                                         int d, int causal, int window,
-                                         float scale, void* stream) {
+                                         int d, int dv, int causal,
+                                         int window, float scale,
+                                         void* stream) {
   if (batch == 0 || n_q == 0 || n_heads == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return wg::launch<64>(q, k, v, o, lse, batch, n_q, n_k, n_heads, causal,
-                          window, scale, s);
-  if (d == 128)
-    return wg::launch<128>(q, k, v, o, lse, batch, n_q, n_k, n_heads, causal,
-                           window, scale, s);
+  if (d == 64 && dv == 64)
+    return wg::launch<64, 64>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
+                              causal, window, scale, s);
+  if (d == 128 && dv == 128)
+    return wg::launch<128, 128>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
+                                causal, window, scale, s);
+  if (d == 96 && dv == 64)
+    return wg::launch<96, 64>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
+                              causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

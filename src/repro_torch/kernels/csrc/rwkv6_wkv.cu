@@ -324,51 +324,147 @@ int dispatch(const void* r, const void* k, const void* v, const void* w,
 // S_{t-1} is never recovered by dividing by w (w = exp(-exp(x)) reaches
 // 0): the forward writes the state before every chunk of 16 tokens into
 // a scratch the caller owns (B, H, ceil(T/16), 64, 64) float32, and
-// the backward recomputes a chunk's states from it, the plain version's
-// roundings, eight at a time into shared memory (each thread its own),
-// 24 update steps for 16 tokens.
+// the backward recomputes a chunk's states from it with the plain
+// version's roundings (__fmul_rn / __fadd_rn). G's update is one fused
+// multiply-add, fmaf(w, G, r dy), where the plain version also rounds
+// w G on its own: ds0 agrees with it to float32 rounding, not bit for
+// bit.
 //
-// A block is one (head, sequence) pair, 128 threads: thread (i, half)
-// owns row i of S and G over 32 columns, so the row sums of dr, dk and
-// dw are its own plus the other half's (through shared memory once a
-// chunk), and the column sum of dv is a 31-shuffle reduce-scatter over
-// the warp's 32 rows plus the other warp's. No atomics: the same bits
-// every run. What bounds it: ~10 float32 operations an element a token
-// (4 dh^2 of recompute x 1.5, 6 dh^2 of backward), so at (2, 4096, 64,
-// 64) ~22 GFLOP (0.3 ms at 67 TFLOP/s); the token loop is sequential
-// and a pair is one block of four warps, so it is latency-bound.
+// A block is one (head, sequence) pair, 256 threads. Thread (p, g) owns
+// two rows (2 p, 2 p + 1) of S and G at 8 columns, {4 g .. 4 g + 3} and
+// {32 + 4 g .. 35 + 4 g} (so that the 8 column groups' 16-byte reads of
+// a staged row are one contiguous 128 bytes), with the 8 threads of a
+// row group in neighbouring lanes: 8 rows a warp, 16 entries a thread.
+// The recomputed states stay in registers: a first pass over the chunk keeps the states
+// before tokens 4, 8 and 12 in shared memory (each thread its own), and
+// each quarter of the chunk, latest first, recomputes its four states
+// from its start in registers (24 update steps for 16 tokens). A token
+// costs a thread 2 x 8 x 6 float32 operations and two reductions, each
+// a reduce-scatter by xor shuffles:
+//   - dr, dk, dw are row sums: the two rows' 6 partial sums (padded to
+//     8) over the group's 8 lanes (three steps), each lane ending with
+//     one whole;
+//   - dv is a column sum: the thread's two rows, then the warp's four row
+//     groups (two steps, 6 shuffles), each lane ending with two columns,
+//     written a warp a token into shared memory; the warps' partials of
+//     a column are summed in warp order at the end of the chunk.
+// Every sum has one fixed order and there are no atomics: two runs give
+// the same bits. The next chunk's r, k, w, v, dy and its checkpointed
+// state are loaded into registers while this chunk runs, and staged as
+// float32 rows at its start.
+// Tokens past the end of the sequence are staged as zeros with w = 1,
+// which leave the states and G as they are: every chunk runs all 16
+// tokens with no branch on its length, so the shuffles need no
+// convergence checks.
+// What bounds it: ~10 float32 operations an element a token (4 dh^2 of
+// recompute x 1.5, 6 dh^2 of backward), so at (2, 4096, 64, 64) ~22
+// GFLOP (0.3 ms at 67 TFLOP/s) against 537 MB of saved states (the
+// bytes bound, 0.36 ms). As compiled, with the row and column sums'
+// shuffles and selects and the staged rows' shared-memory reads, a
+// token costs a warp ~320 instructions (the kernel's SASS over the 16
+// tokens of a chunk, which chip_smoke.py's build phase prints),
+// 60% of them the float32 operations above; the token
+// loop is sequential, one pair a block and one block an SM (128 pairs
+// at the training shape), so the instructions each SM dispatches a
+// cycle bound it.
+// Measured on an H100 at (2, 4096, 64, 64) bf16 (PERF.md): 1.79 ms;
+// a row a thread over 512 threads, 8 entries each, 2.22 ms (more
+// shuffles and staged reads per entry); the first design (128 threads
+// a pair, a thread a row at 32 columns, its states in shared memory: 4
+// warps an SM) 3.80 ms.
 namespace bwd {
 
 constexpr int kDH = 64;                 // the head dim it takes
-constexpr int kThreads = 2 * kDH;
-constexpr int kHalf = kDH / 2;          // columns a thread owns
-constexpr int kSub = 8;                 // states kept at once
+constexpr int kCols = 8;                // columns a thread owns
+constexpr int kGroups = kDH / kCols;    // threads of a row group
+constexpr int kQuarter = kChunk / 4;    // states kept in registers
+constexpr int kRowLd = kDH + 8;         // padded row of the row sums
+constexpr int kRows = 2;                // rows a thread owns
+constexpr int kThreads = kDH / kRows * kGroups;
+constexpr int kWarps = kThreads / 32;
+constexpr int E = kRows * kCols;        // a thread's entries
 
-// staged r, k, v, w, dy [kChunk][kDH], a and b [kChunk], u [kDH], the
-// states [kSub][2][kHalf][kDH], the partial row sums of dr, dk, dw
-// [kChunk][2][kDH] and of dv's column sums [kChunk][2][kDH]
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (5 * kChunk * kDH + 2 * kChunk + kDH +
-                          (size_t)kSub * kDH * kDH + 4 * kChunk * 2 * kDH);
+// staged r, k, w, v, dy [kChunk][kDH]; a, b [kChunk]; u [kDH]; the
+// states before tokens 0, 4, 8, 12 [4][E / 4][kThreads][4]; the row sums
+// dr, dk, dw [kChunk][3][kRowLd]; dv's warp partials
+// [kChunk][kWarps][kDH]
+constexpr size_t kSmemBytes =
+    sizeof(float) * (5 * kChunk * kDH + 2 * kChunk + kDH + 4 * kThreads * E +
+                     3 * kChunk * kRowLd + kChunk * kWarps * kDH);
+
+// The next chunk's r, k, w, v, dy as 16-byte pieces, kPer a thread.
+template <typename T, int NT>
+struct Pieces {
+  static constexpr int kVec = 16 / sizeof(T);        // elements a piece
+  static constexpr int kCpr = kDH / kVec;            // pieces a token row
+  static constexpr int kAll = 5 * kChunk * kCpr;
+  static constexpr int kPer = (kAll + NT - 1) / NT;
+};
+
+__device__ __forceinline__ void unpack(const uint4& x, float* f, float) {
+  *reinterpret_cast<float4*>(f) = *reinterpret_cast<const float4*>(&x);
+}
+__device__ __forceinline__ void unpack(const uint4& x, float* f,
+                                       __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const float2 p0 = __bfloat1622float2(h[0]), p1 = __bfloat1622float2(h[1]);
+  const float2 p2 = __bfloat1622float2(h[2]), p3 = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(f)[0] = make_float4(p0.x, p0.y, p1.x, p1.y);
+  reinterpret_cast<float4*>(f)[1] = make_float4(p2.x, p2.y, p3.x, p3.y);
 }
 
-// One step of a reduce-scatter over a warp: lanes l and l ^ S swap the
-// halves [0, S) / [S, 2S) of x[0, 2S) and keep the sum of the half
-// their bit S picks. After S = 16, 8, 4, 2, 1, lane l holds in x[0] the
-// warp's sum of x[l].
-template <int S>
-__device__ __forceinline__ void rs_step(float (&x)[kHalf], int lane) {
+// A thread's N entries (N / 8 rows, 8 columns each) of a 64 x 64
+// float32 matrix whose row `i` starts at p + i * kDH: x[8 e + c] is row
+// i + e at column (c < 4 ? c : 28 + c), relative to p.
+template <int N>
+__device__ __forceinline__ void load_rows(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q) {
+    const float4 f = *reinterpret_cast<const float4*>(
+        p + (q >> 1) * kDH + (q & 1) * 32);
+    x[4 * q] = f.x; x[4 * q + 1] = f.y; x[4 * q + 2] = f.z;
+    x[4 * q + 3] = f.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_rows(float* p, const float (&x)[N]) {
+#pragma unroll
+  for (int q = 0; q < N / 4; ++q)
+    *reinterpret_cast<float4*>(p + (q >> 1) * kDH + (q & 1) * 32) =
+        make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+}
+
+// the two staged floats at p (a thread's rows of r, k or w)
+__device__ __forceinline__ void own_rows(const float* p, float (&x)[kRows]) {
+  const float2 f = *reinterpret_cast<const float2*>(p);
+  x[0] = f.x;
+  x[1] = f.y;
+}
+
+// A 16-byte piece of ones (the decay of a token past the sequence's end:
+// it leaves the state and its gradient as they are)
+template <typename T>
+__device__ __forceinline__ uint4 ones() {
+  const uint32_t one = sizeof(T) == 4 ? 0x3F800000u : 0x3F803F80u;
+  return make_uint4(one, one, one, one);
+}
+
+// One xor-shuffle step of a reduce-scatter: lanes l and l ^ S swap the
+// halves [0, N/2) / [N/2, N) of x[0, N) and keep, summed, the half that
+// bit S of the lane picks, in x[0, N/2).
+template <int N, int S>
+__device__ __forceinline__ void rs_step(float* x, int lane) {
   const bool upper = (lane & S) != 0;
 #pragma unroll
-  for (int c = 0; c < S; ++c) {
-    const float send = upper ? x[c] : x[c + S];
-    const float keep = upper ? x[c + S] : x[c];
+  for (int c = 0; c < N / 2; ++c) {
+    const float send = upper ? x[c] : x[c + N / 2];
+    const float keep = upper ? x[c + N / 2] : x[c];
     x[c] = keep + __shfl_xor_sync(0xffffffffu, send, S);
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ w,
                const T* __restrict__ u, const float* __restrict__ ckpt,
@@ -376,57 +472,129 @@ wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
                T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
                T* __restrict__ dw, float* __restrict__ du,
                float* __restrict__ ds_in, int n_t, int n_heads) {
+  using P = Pieces<T, kThreads>;
+  constexpr int NT = kThreads;
+  constexpr int NX = 4 * kRows;           // 3 kRows row sums, padded
   extern __shared__ __align__(16) float sm[];
-  float* s_r = sm;
+  float* s_in = sm;                       // r, k, w, v, dy
+  float* s_r = s_in;
   float* s_k = s_r + kChunk * kDH;
-  float* s_v = s_k + kChunk * kDH;
-  float* s_w = s_v + kChunk * kDH;
-  float* s_dy = s_w + kChunk * kDH;
+  float* s_w = s_k + kChunk * kDH;
+  float* s_v = s_w + kChunk * kDH;
+  float* s_dy = s_v + kChunk * kDH;
   float* s_a = s_dy + kChunk * kDH;
   float* s_b = s_a + kChunk;
   float* s_u = s_b + kChunk;
-  float* s_st = s_u + kDH;
-  float* p_r = s_st + kSub * kDH * kDH;
-  float* p_k = p_r + kChunk * 2 * kDH;
-  float* p_w = p_k + kChunk * 2 * kDH;
-  float* p_v = p_w + kChunk * 2 * kDH;
+  float* s_ck = s_u + kDH;
+  float* s_rows = s_ck + 4 * NT * E;
+  float* p_v = s_rows + 3 * kChunk * kRowLd;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = tid & (kDH - 1);          // the row this thread owns
-  const int hf = tid / kDH;               // and its half of the columns
-  const int rw = warp & 1;                // its warp's 32 rows
+  const int g = lane & (kGroups - 1);     // the column group
+  const int i = 4 * kRows * warp + kRows * (lane >> 3);  // the first row
+  const int c0 = 4 * g;                   // columns c0.. and 32 + c0..
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const size_t pitch = (size_t)n_heads * kDH;
   const size_t row0 = ((size_t)b * n_t * n_heads + h) * kDH;
-  const size_t st = ((size_t)b * n_heads + h) * kDH * kDH + (size_t)i * kDH
-                    + hf * kHalf;
+  const size_t st = (((size_t)b * n_heads + h) * kDH + i) * kDH + c0;
   const int n_chunks = (n_t + kChunk - 1) / kChunk;
   const float* cp0 = ckpt + ((size_t)b * n_heads + h) * n_chunks * kDH * kDH
-                     + (size_t)i * kDH + hf * kHalf;
-
-  float G[kHalf];
+                     + (size_t)i * kDH + c0;
+  // a thread's checkpoint slot q: E / 4 float4, NT apart
+  auto ck_store = [&](int q, const float (&x)[E]) {
+    float4* s = reinterpret_cast<float4*>(s_ck) + (size_t)q * E / 4 * NT + tid;
 #pragma unroll
-  for (int c = 0; c < kHalf; ++c)
-    G[c] = ds_out != nullptr ? ds_out[st + c] : 0.0f;
+    for (int e = 0; e < E / 4; ++e)
+      s[e * NT] = make_float4(x[4 * e], x[4 * e + 1], x[4 * e + 2],
+                              x[4 * e + 3]);
+  };
+  auto ck_load = [&](int q, float (&x)[E]) {
+    const float4* s =
+        reinterpret_cast<const float4*>(s_ck) + (size_t)q * E / 4 * NT + tid;
+#pragma unroll
+    for (int e = 0; e < E / 4; ++e) {
+      const float4 f = s[e * NT];
+      x[4 * e] = f.x; x[4 * e + 1] = f.y; x[4 * e + 2] = f.z;
+      x[4 * e + 3] = f.w;
+    }
+  };
+  // one step of the state: S = w S + k v, the plain version's roundings
+  auto advance = [&](float (&S)[E], int tt) {
+    float kk[kRows], ww[kRows], vv[kCols];
+    own_rows(s_k + tt * kDH + i, kk);
+    own_rows(s_w + tt * kDH + i, ww);
+    load_rows<kCols>(s_v + tt * kDH + c0, vv);
+#pragma unroll
+    for (int e = 0; e < kRows; ++e)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        S[kCols * e + c] = __fadd_rn(__fmul_rn(ww[e], S[kCols * e + c]),
+                                     __fmul_rn(kk[e], vv[c]));
+  };
+  // chunk ch's r, k, w, v, dy into registers; tokens past n_t read as
+  // zeros with w = 1, which leave the states and G as they are, so that
+  // every chunk runs all its 16 tokens (the outputs past n_t are not
+  // written)
+  auto fetch = [&](int ch, uint4 (&buf)[P::kPer]) {
+    const int t0 = ch * kChunk;
+#pragma unroll
+    for (int q = 0; q < P::kPer; ++q) {
+      const int p = tid + q * NT;
+      const int a = p / (kChunk * P::kCpr);
+      const int rem = p - a * (kChunk * P::kCpr);
+      const int tt = rem / P::kCpr, cc = rem - tt * P::kCpr;
+      const T* src = a == 0 ? r : a == 1 ? k : a == 2 ? w : a == 3 ? v : dy;
+      buf[q] = a == 2 ? ones<T>() : make_uint4(0u, 0u, 0u, 0u);
+      if (p < P::kAll && t0 + tt < n_t)
+        buf[q] = *reinterpret_cast<const uint4*>(
+            src + row0 + (size_t)(t0 + tt) * pitch + cc * P::kVec);
+    }
+  };
+
+  float G[E];
+  if (ds_out != nullptr) {
+    load_rows<E>(ds_out + st, G);
+  } else {
+#pragma unroll
+    for (int c = 0; c < E; ++c) G[c] = 0.0f;
+  }
   if (tid < kDH) s_u[tid] = to_f32(u[h * kDH + tid]);
   float du_acc = 0.0f;
 
+  uint4 buf[P::kPer];
+  float s_next[E];
+  if (n_chunks > 0) {
+    fetch(n_chunks - 1, buf);
+    load_rows<E>(cp0 + (size_t)(n_chunks - 1) * kDH * kDH, s_next);
+  }
+
   for (int ch = n_chunks - 1; ch >= 0; --ch) {
     const int t0 = ch * kChunk, n = min(kChunk, n_t - t0);
-    __syncthreads();            // the last chunk's rows and partials read
-    for (int e = tid; e < n * kDH; e += kThreads) {
-      const int tt = e / kDH, x = e - tt * kDH;
-      const size_t at = row0 + (size_t)(t0 + tt) * pitch + x;
-      s_r[e] = to_f32(r[at]);
-      s_k[e] = to_f32(k[at]);
-      s_v[e] = to_f32(v[at]);
-      s_w[e] = to_f32(w[at]);
-      s_dy[e] = to_f32(dy[at]);
+    __syncthreads();            // the last chunk's rows and sums are read
+#pragma unroll
+    for (int q = 0; q < P::kPer; ++q) {
+      const int p = tid + q * NT;
+      if (p < P::kAll) {
+        const int a = p / (kChunk * P::kCpr);
+        const int rem = p - a * (kChunk * P::kCpr);
+        const int tt = rem / P::kCpr, cc = rem - tt * P::kCpr;
+        unpack(buf[q], s_in + (a * kChunk + tt) * kDH + cc * P::kVec, T());
+      }
     }
+    float st4[kQuarter][E];     // the states of a quarter of the chunk
+#pragma unroll
+    for (int c = 0; c < E; ++c) st4[0][c] = s_next[c];
+    ck_store(0, st4[0]);
     __syncthreads();
-    for (int tt = warp; tt < n; tt += kThreads / 32) {   // a, b a token
+    if (ch > 0) {               // the next chunk's loads fly meanwhile
+      fetch(ch - 1, buf);
+      load_rows<E>(cp0 + (size_t)(ch - 1) * kDH * kDH, s_next);
+    }
+#pragma unroll
+    for (int tt = warp; tt < kChunk; tt += kWarps) {  // a, b a token
       float a = 0.0f, bb = 0.0f;
+#pragma unroll
       for (int x = lane; x < kDH; x += 32) {
         a += s_r[tt * kDH + x] * s_u[x] * s_k[tt * kDH + x];
         bb += s_v[tt * kDH + x] * s_dy[tt * kDH + x];
@@ -441,81 +609,84 @@ wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
         s_b[tt] = bb;
       }
     }
-    const float* cp = cp0 + (size_t)ch * kDH * kDH;
-    for (int part = (n - 1) / kSub; part >= 0; --part) {
-      const int lo = part * kSub, hi = min(n, lo + kSub);
-      // recompute S_{t-1} for the tokens [lo, hi) of the chunk from the
-      // state before it; each thread keeps its own entries
-      float S[kHalf];
+    // the first pass: the states before tokens 4 and 8 to shared
+    // memory, the one before 12 stays in st4[0] for the last quarter
 #pragma unroll
-      for (int c = 0; c < kHalf; c += 4) {
-        const float4 x4 = *reinterpret_cast<const float4*>(cp + c);
-        S[c] = x4.x;
-        S[c + 1] = x4.y;
-        S[c + 2] = x4.z;
-        S[c + 3] = x4.w;
+    for (int tt = 0; tt < 3 * kQuarter; ++tt) {
+      if (tt > 0 && tt % kQuarter == 0) ck_store(tt / kQuarter, st4[0]);
+      advance(st4[0], tt);
+    }
+#pragma unroll
+    for (int qr = 3; qr >= 0; --qr) {
+      const int lo = qr * kQuarter;
+      if (qr < 3) ck_load(qr, st4[0]);
+#pragma unroll
+      for (int q = 1; q < kQuarter; ++q) {
+#pragma unroll
+        for (int c = 0; c < E; ++c) st4[q][c] = st4[q - 1][c];
+        advance(st4[q], lo + q - 1);
       }
-      for (int tt = 0; tt < hi - 1; ++tt) {
-        if (tt >= lo) {
-          float* sp = s_st + ((tt - lo) * 2 + hf) * kHalf * kDH + i;
 #pragma unroll
-          for (int c = 0; c < kHalf; ++c) sp[c * kDH] = S[c];
+      for (int q = kQuarter - 1; q >= 0; --q) {
+        const int tt = lo + q;
+        float rr[kRows], kk[kRows], ww[kRows], vv[kCols], gy[kCols];
+        own_rows(s_r + tt * kDH + i, rr);
+        own_rows(s_k + tt * kDH + i, kk);
+        own_rows(s_w + tt * kDH + i, ww);
+        load_rows<kCols>(s_v + tt * kDH + c0, vv);
+        load_rows<kCols>(s_dy + tt * kDH + c0, gy);
+        // x: dr, dk, dw of each row (and zeros); pv: the rows' share of
+        // dv at the 8 columns
+        float x[NX], pv[kCols];
+#pragma unroll
+        for (int e = 0; e < NX; ++e) x[e] = 0.0f;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const float* S = st4[q];
+#pragma unroll
+          for (int e = 0; e < kRows; ++e) {
+            const float ge = G[kCols * e + c], se = S[kCols * e + c];
+            x[3 * e] = fmaf(gy[c], se, x[3 * e]);
+            x[3 * e + 1] = fmaf(ge, vv[c], x[3 * e + 1]);
+            x[3 * e + 2] = fmaf(ge, se, x[3 * e + 2]);
+            pv[c] = e == 0 ? __fmul_rn(ge, kk[0]) : fmaf(ge, kk[e], pv[c]);
+            G[kCols * e + c] = fmaf(ww[e], ge, __fmul_rn(rr[e], gy[c]));
+          }
         }
-        const float ki = s_k[tt * kDH + i], wi = s_w[tt * kDH + i];
-        const float* vv = s_v + tt * kDH + hf * kHalf;
-#pragma unroll
-        for (int c = 0; c < kHalf; ++c)
-          S[c] = __fadd_rn(__fmul_rn(wi, S[c]), __fmul_rn(ki, vv[c]));
-      }
-      {
-        float* sp = s_st + ((hi - 1 - lo) * 2 + hf) * kHalf * kDH + i;
-#pragma unroll
-        for (int c = 0; c < kHalf; ++c) sp[c * kDH] = S[c];
-      }
-      for (int tt = hi - 1; tt >= lo; --tt) {
-        const float ri = s_r[tt * kDH + i], ki = s_k[tt * kDH + i];
-        const float wi = s_w[tt * kDH + i];
-        const float* sp = s_st + ((tt - lo) * 2 + hf) * kHalf * kDH + i;
-        const float* vv = s_v + tt * kDH + hf * kHalf;
-        const float* gy = s_dy + tt * kDH + hf * kHalf;
-        float pr = 0.0f, pk = 0.0f, pw = 0.0f, pv[kHalf];
-#pragma unroll
-        for (int c = 0; c < kHalf; ++c) {
-          const float sv = sp[c * kDH];
-          pw = fmaf(G[c], sv, pw);
-          pk = fmaf(G[c], vv[c], pk);
-          pr = fmaf(gy[c], sv, pr);
-          pv[c] = __fmul_rn(G[c], ki);
-          G[c] = __fadd_rn(__fmul_rn(wi, G[c]), __fmul_rn(ri, gy[c]));
-        }
-        p_r[(tt * 2 + hf) * kDH + i] = pr;
-        p_k[(tt * 2 + hf) * kDH + i] = pk;
-        p_w[(tt * 2 + hf) * kDH + i] = pw;
-        rs_step<16>(pv, lane);
-        rs_step<8>(pv, lane);
-        rs_step<4>(pv, lane);
-        rs_step<2>(pv, lane);
-        rs_step<1>(pv, lane);
-        p_v[(tt * 2 + rw) * kDH + hf * kHalf + lane] = pv[0];
+        // row sums over the group's 8 lanes: three steps leave lane g
+        // with x[g] whole
+        rs_step<NX, 4>(x, lane);
+        rs_step<NX / 2, 2>(x, lane);
+        rs_step<2, 1>(x, lane);
+        if (g < 6) s_rows[(tt * 3 + g % 3) * kRowLd + i + g / 3] = x[0];
+        // column sums over the warp's four row groups
+        rs_step<8, 16>(pv, lane);
+        rs_step<4, 8>(pv, lane);
+        *reinterpret_cast<float2*>(
+            p_v + (tt * kWarps + warp) * kDH + ((lane & 16) ? 32 : 0) +
+            c0 + ((lane & 8) ? 2 : 0)) = make_float2(pv[0], pv[1]);
       }
     }
-    __syncthreads();            // every partial of the chunk is in
-    for (int e = tid; e < n * kDH; e += kThreads) {
+    __syncthreads();            // every row sum and partial is in
+    for (int e = tid; e < n * kDH; e += NT) {
       const int tt = e / kDH, x = e - tt * kDH;
       const size_t at = row0 + (size_t)(t0 + tt) * pitch + x;
       const float bb = s_b[tt];
-      const int p0 = tt * 2 * kDH + x, p1 = p0 + kDH;
-      store(&dr[at], p_r[p0] + p_r[p1] + s_u[x] * s_k[e] * bb);
-      store(&dk[at], p_k[p0] + p_k[p1] + s_r[e] * s_u[x] * bb);
-      store(&dw[at], p_w[p0] + p_w[p1]);
-      store(&dv[at], p_v[p0] + p_v[p1] + s_a[tt] * s_dy[e]);
+      const float* rows = s_rows + tt * 3 * kRowLd + x;
+      float sv = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q)
+        sv += p_v[(tt * kWarps + q) * kDH + x];
+      store(&dr[at], rows[0] + s_u[x] * s_k[e] * bb);
+      store(&dk[at], rows[kRowLd] + s_r[e] * s_u[x] * bb);
+      store(&dw[at], rows[2 * kRowLd]);
+      store(&dv[at], sv + s_a[tt] * s_dy[e]);
     }
     if (tid < kDH)
       for (int tt = n - 1; tt >= 0; --tt)
         du_acc += s_r[tt * kDH + tid] * s_k[tt * kDH + tid] * s_b[tt];
   }
-#pragma unroll
-  for (int c = 0; c < kHalf; ++c) ds_in[st + c] = G[c];
+  store_rows<E>(ds_in + st, G);
   if (tid < kDH) du[((size_t)b * n_heads + h) * kDH + tid] = du_acc;
 }
 
@@ -527,16 +698,32 @@ int launch(const void* r, const void* k, const void* v, const void* w,
            cudaStream_t stream) {
   static cudaError_t opt_in = cudaFuncSetAttribute(
       wkv_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes());
+      (int)kSmemBytes);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 grid(n_heads, batch);
-  wkv_bwd_kernel<T><<<grid, kThreads, smem_bytes(), stream>>>(
+  wkv_bwd_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const T*>(u), ckpt, static_cast<const T*>(dy), ds_out,
       static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv),
       static_cast<T*>(dw), du, ds_in, n_t, n_heads);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const void* r, const void* k, const void* v, const void* w,
+             const void* u, const float* ckpt, const void* dy,
+             const float* ds_out, void* dr, void* dk, void* dv, void* dw,
+             float* du, float* ds_in, int dtype, int batch, int n_t,
+             int n_heads, int dh, cudaStream_t s) {
+  if (dh != kDH) return (int)cudaErrorInvalidValue;
+  if (batch == 0 || n_heads == 0) return (int)cudaSuccess;
+  if (dtype == 0)
+    return launch<float>(r, k, v, w, u, ckpt, dy, ds_out, dr, dk, dv, dw,
+                         du, ds_in, batch, n_t, n_heads, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(r, k, v, w, u, ckpt, dy, ds_out, dr, dk,
+                                 dv, dw, du, ds_in, batch, n_t, n_heads, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace bwd
@@ -587,15 +774,7 @@ extern "C" int rwkv6_wkv_bwd(const void* r, const void* k, const void* v,
                              void* dv, void* dw, float* du, float* ds_in,
                              int dtype, int batch, int n_t, int n_heads,
                              int dh, void* stream) {
-  if (dh != bwd::kDH) return (int)cudaErrorInvalidValue;
-  if (batch == 0 || n_heads == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bwd::launch<float>(r, k, v, w, u, ckpt, dy, ds_out, dr, dk, dv,
-                              dw, du, ds_in, batch, n_t, n_heads, s);
-  if (dtype == 1)
-    return bwd::launch<__nv_bfloat16>(r, k, v, w, u, ckpt, dy, ds_out, dr,
-                                      dk, dv, dw, du, ds_in, batch, n_t,
-                                      n_heads, s);
-  return (int)cudaErrorInvalidValue;
+  return bwd::dispatch(r, k, v, w, u, ckpt, dy, ds_out, dr, dk, dv, dw, du,
+                       ds_in, dtype, batch, n_t, n_heads, dh,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -8,10 +8,11 @@ at the top of the source for their design and what bounds them on an
 H100. Two variants:
 
 * ``"wgmma"``: tensor cores (wgmma) fed by TMA copies, for bfloat16
-  with one head dim for q, k and v in ``WGMMA_HEAD_DIMS``;
+  at (dq, dv) in ``WGMMA_SHAPES``: (64, 64), (128, 128) and MLA's q/k
+  of 96 with v of 64 (minicpm3-4b's prefill);
 * ``"cuda_core"``: float32 FMAs on the CUDA cores, for float32 (whose
   callers need full float32 products) and bfloat16 at any other head
-  dims, MLA's q/k of 96 and v of 64 among them.
+  dims.
 
 ``variant(dtype, dq, dv)`` picks one from the inputs' dtype and head
 dims, and nothing else picks. ``flash_attention`` checks what the
@@ -29,12 +30,15 @@ and returns dq, dk, dv from a hand-written backward: three kernels a
 call (a pass for D = rowsum(dO * O), a dK/dV kernel a key tile, a dQ
 kernel a query tile), each output written by one block, no atomics, so
 two calls give the same bits. ``bwd_variant(dtype, dq, dv)`` picks its
-variant where ``variant`` picks the forward's, and nothing else picks:
+variant, and nothing else picks:
 
-* ``"wgmma"``: bfloat16 at dq = dv in ``WGMMA_HEAD_DIMS``, every product
-  on wgmma (bf16 operands, float32 sums) fed by TMA;
+* ``"wgmma"``: bfloat16 at (dq, dv) in ``WGMMA_BWD_SHAPES``, (64, 64)
+  and (128, 128), every product on wgmma (bf16 operands, float32 sums)
+  fed by TMA;
 * ``"cuda_core"``: float32 FMAs, for float32 (the float32 gradient
-  check needs full float32 products) and every other head dim.
+  check needs full float32 products) and every other head dim, MLA's
+  (96, 64) among them: its backward on wgmma is still to come, and it
+  takes the wgmma forward's log-sum-exp as it takes its own.
 
 Seven 64 x 64 x d products a visible tile pair (dK/dV: S^T, dV, dP^T,
 dK; dQ: S, dP, dQ) where FlashAttention-2/3 do five with an atomic dQ:
@@ -56,7 +60,9 @@ from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-WGMMA_HEAD_DIMS = (64, 128)
+#: (dq, dv) of bfloat16 inputs the wgmma forward takes, and its backward
+WGMMA_SHAPES = ((64, 64), (128, 128), (96, 64))
+WGMMA_BWD_SHAPES = ((64, 64), (128, 128))
 
 #: number of times a kernel has been launched (incremented only where
 #: one is launched), in all and by variant
@@ -71,7 +77,7 @@ _ENTRIES = {
     "cuda_core": ("flash_attention_fwd", [ctypes.c_void_p] * 5
                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]),
     "wgmma": ("flash_attention_wgmma_fwd", [ctypes.c_void_p] * 5
-              + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]),
+              + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]),
 }
 _BWD_ENTRIES = {
     "cuda_core": ("flash_attention_bwd", [ctypes.c_void_p] * 10
@@ -83,18 +89,21 @@ _BWD_ENTRIES = {
 
 def variant(dtype, dq, dv) -> str:
     """The kernel variant for inputs of ``dtype`` with head dims ``dq``
-    (q, k) and ``dv`` (v): "wgmma" for bfloat16 at dq = dv in
-    WGMMA_HEAD_DIMS, else "cuda_core"."""
-    if dtype == torch.bfloat16 and dq == dv and dq in WGMMA_HEAD_DIMS:
-        return "wgmma"
-    return "cuda_core"
+    (q, k) and ``dv`` (v): "wgmma" for bfloat16 at (dq, dv) in
+    WGMMA_SHAPES, else "cuda_core"."""
+    return _pick(dtype, dq, dv, WGMMA_SHAPES)
 
 
 def bwd_variant(dtype, dq, dv) -> str:
     """The backward's variant for inputs of ``dtype`` with head dims
-    ``dq`` and ``dv``: "wgmma" exactly where ``variant`` picks it, else
-    "cuda_core"."""
-    return variant(dtype, dq, dv)
+    ``dq`` and ``dv``: "wgmma" for bfloat16 at (dq, dv) in
+    WGMMA_BWD_SHAPES, else "cuda_core"."""
+    return _pick(dtype, dq, dv, WGMMA_BWD_SHAPES)
+
+
+def _pick(dtype, dq, dv, shapes) -> str:
+    return ("wgmma" if dtype == torch.bfloat16 and (dq, dv) in shapes
+            else "cuda_core")
 
 
 def flash_attention(q, k, v, *, causal=True, swa_window=0):
@@ -135,7 +144,7 @@ def _flash_attention_bwd_variant(q, k, v, out, lse, dout, name, *,
     inputs would pick (it must take them): for timing one design against
     the other on the same inputs."""
     _check(q, k, v)
-    _check_variant(name, q.dtype, q.shape[-1], v.shape[-1])
+    _check_variant(name, q.dtype, q.shape[-1], v.shape[-1], bwd=True)
     return _launch_bwd(name, q, k, v, out, lse, dout, causal, swa_window)
 
 
@@ -148,13 +157,17 @@ def _flash_attention_variant(q, k, v, name, *, causal=True, swa_window=0):
     return _launch(name, q, k, v, causal, swa_window)
 
 
-def _check_variant(name, dtype, dq, dv):
+def _check_variant(name, dtype, dq, dv, bwd=False):
+    """Raise unless the variant ``name`` of the forward (or, with
+    ``bwd``, the backward) takes ``dtype`` at (dq, dv)."""
     if name not in _ENTRIES:
         raise ValueError(f"flash_attention: no variant {name!r}")
-    if name == "wgmma" and variant(dtype, dq, dv) != "wgmma":
-        raise ValueError(f"flash_attention: the wgmma variant takes "
-                         f"bfloat16 at dq = dv in {WGMMA_HEAD_DIMS}, got "
-                         f"{dtype} at (dq, dv) = ({dq}, {dv})")
+    shapes = WGMMA_BWD_SHAPES if bwd else WGMMA_SHAPES
+    if name == "wgmma" and _pick(dtype, dq, dv, shapes) != "wgmma":
+        raise ValueError(f"flash_attention: the wgmma "
+                         f"{'backward' if bwd else 'variant'} takes "
+                         f"bfloat16 at (dq, dv) in {shapes}, got {dtype} "
+                         f"at ({dq}, {dv})")
 
 
 def _check(q, k, v):
@@ -193,12 +206,11 @@ def _launch(name, q, k, v, causal, swa_window, lse=None):
     lse_ptr = None if lse is None else lse.data_ptr()
     symbol, argtypes = _ENTRIES[name]
     fn = _build.function("flash_attention", symbol, argtypes)
-    # the CUDA-core entry takes the dtype and dv; the wgmma one has dv = d
-    dims = (d, dv) if name == "cuda_core" else (d,)
+    # the CUDA-core entry takes the dtype; the wgmma one is bfloat16
     dtype = (DTYPES[q.dtype],) if name == "cuda_core" else ()
     _build.launch("flash_attention", fn, q.device, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
-                  *dtype, B, T, S, H, *dims, int(bool(causal)),
+                  *dtype, B, T, S, H, d, dv, int(bool(causal)),
                   int(swa_window), d ** -0.5)
     LAUNCHES += 1
     VARIANT_LAUNCHES[name] += 1

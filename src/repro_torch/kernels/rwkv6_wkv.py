@@ -22,7 +22,10 @@ ceil(T / CHUNK), dh, dh) that the caller keeps for the backward (at
 (2, 4096, 64, 64), 537 MB); ``wkv_bwd`` recomputes each chunk's states
 from it (never dividing by the decay, which reaches 0) and returns dr,
 dk, dv, dw, du and the initial state's gradient from the hand-written
-backward kernel (dh = 64 only, ``BWD_HEAD_DIMS``; no atomics).
+backward kernel (dh = 64 only, ``BWD_HEAD_DIMS``; no atomics, the same
+bits every run): one block of 256 threads a (head, sequence) pair, a
+thread two rows of the state at 8 columns, the recomputed states in
+registers.
 ``BWD_LAUNCHES`` counts its launches. The reference has no backward
 kernel: its Pallas kernel cannot be differentiated.
 """
@@ -110,8 +113,9 @@ def wkv_bwd(r, k, v, w, u, ckpt, dy, ds_out=None):
     if ds_out is not None:
         _build.check("wkv_bwd", "ds_out", ds_out, torch.float32,
                      (B, H, dh, dh), dev)
-    if any(t.data_ptr() % 16 for t in (ckpt, dy)):
-        raise ValueError("wkv_bwd: ckpt and dy must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (ckpt, dy, ds_out) if t is not None):
+        raise ValueError("wkv_bwd: ckpt, dy and ds_out must be 16-byte "
+                         "aligned (the kernel reads 16 bytes at a time)")
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
     ds0 = torch.empty((B, H, dh, dh), dtype=torch.float32, device=dev)

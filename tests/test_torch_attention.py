@@ -192,28 +192,29 @@ def test_flash_variant_from_dtype_and_head_dim(dtype, d, want):
 
 
 @pytest.mark.parametrize("dtype,dq,dv,want", [
-    (torch.bfloat16, 96, 64, "cuda_core"),          # MLA (minicpm3-4b)
+    (torch.bfloat16, 96, 64, "wgmma"),              # MLA (minicpm3-4b)
     (torch.bfloat16, 128, 64, "cuda_core"),
     (torch.bfloat16, 64, 128, "cuda_core"),
     (torch.float32, 96, 64, "cuda_core"),
     (torch.bfloat16, 64, 64, "wgmma"),
 ])
 def test_flash_variant_with_dv_unlike_dq(dtype, dq, dv, want):
-    """wgmma's tiles are whole 128-byte swizzle atoms of one head dim:
-    a value head dim unlike the query's goes to the CUDA-core variant."""
+    """A value head dim unlike the query's takes the tensor cores only
+    at MLA's (96, 64) in bfloat16 (q/k in two swizzle atoms, the second
+    zero-filled past 96; v in one); every other pair the CUDA cores."""
     assert flash_attention.variant(dtype, dq, dv) == want
 
 
 @pytest.mark.parametrize("arch,want", [
     ("qwen3-8b", "wgmma"), ("granite-34b", "wgmma"),
     ("mixtral-8x7b", "wgmma"), ("jamba-v0.1-52b", "wgmma"),
-    ("minicpm3-4b", "cuda_core"), ("hubert-xlarge", "cuda_core"),
+    ("minicpm3-4b", "wgmma"), ("hubert-xlarge", "cuda_core"),
 ])
 def test_flash_variant_of_each_served_config(arch, want):
     """At its own dtype and the head dims its prefill hands the kernel,
     each attention config reaches the variant the kernel note promises:
-    d = 128 and 64 the tensor cores; hubert's d = 80 and MLA's q/k of
-    96 with v of 64 (minicpm3-4b) the CUDA cores."""
+    d = 128 and 64 and MLA's q/k of 96 with v of 64 (minicpm3-4b) the
+    tensor cores; hubert's d = 80 the CUDA cores."""
     cfg = t_get_config(arch)
     dq = dv = cfg.d_head
     if cfg.attn_type == "mla":
@@ -222,22 +223,53 @@ def test_flash_variant_of_each_served_config(arch, want):
     assert flash_attention.variant(cfg.dtype, dq, dv) == want
 
 
-@pytest.mark.parametrize("dtype,dq,dv,want", [
-    (torch.bfloat16, 64, 64, "wgmma"),
-    (torch.bfloat16, 128, 128, "wgmma"),
-    (torch.float32, 128, 128, "cuda_core"),
-    (torch.float32, 64, 64, "cuda_core"),
-    (torch.bfloat16, 96, 64, "cuda_core"),          # MLA (minicpm3-4b)
-    (torch.bfloat16, 16, 16, "cuda_core"),
-    (torch.bfloat16, 128, 64, "cuda_core"),
+@pytest.mark.parametrize("dtype,dq,dv,want,want_fwd", [
+    (torch.bfloat16, 64, 64, "wgmma", "wgmma"),
+    (torch.bfloat16, 128, 128, "wgmma", "wgmma"),
+    (torch.float32, 128, 128, "cuda_core", "cuda_core"),
+    (torch.float32, 64, 64, "cuda_core", "cuda_core"),
+    (torch.bfloat16, 96, 64, "cuda_core", "wgmma"),  # MLA (minicpm3-4b)
+    (torch.bfloat16, 16, 16, "cuda_core", "cuda_core"),
+    (torch.bfloat16, 128, 64, "cuda_core", "cuda_core"),
 ])
-def test_flash_bwd_variant_follows_the_forward(dtype, dq, dv, want):
-    """The backward takes the tensor cores exactly where the forward
-    does: bfloat16 at dq = dv in {64, 128}; float32 (the gradient
-    check's full float32 products) and every other head dim the CUDA
-    cores."""
+def test_flash_bwd_variant_follows_the_forward(dtype, dq, dv, want,
+                                               want_fwd):
+    """The backward takes the tensor cores where the forward does at
+    dq = dv: bfloat16 at {64, 128}; float32 (the gradient check's full
+    float32 products) and every other head dim the CUDA cores. MLA's
+    (96, 64) is the one pair that parts them: its forward runs wgmma,
+    its backward the CUDA cores (the wgmma backward at 96 is still to
+    come)."""
     assert flash_attention.bwd_variant(dtype, dq, dv) == want
-    assert flash_attention.variant(dtype, dq, dv) == want
+    assert flash_attention.variant(dtype, dq, dv) == want_fwd
+
+
+def test_flash_wgmma_backward_refuses_mla():
+    """The private variant entries check the pair they are asked for:
+    the wgmma forward takes MLA's bfloat16 (96, 64), the wgmma backward
+    refuses it (the CUDA-core one takes it), and neither takes it in
+    float32."""
+    flash_attention._check_variant("wgmma", torch.bfloat16, 96, 64)
+    flash_attention._check_variant("cuda_core", torch.bfloat16, 96, 64,
+                                   bwd=True)
+    with pytest.raises(ValueError, match="wgmma backward"):
+        flash_attention._check_variant("wgmma", torch.bfloat16, 96, 64,
+                                       bwd=True)
+    for bwd in (False, True):
+        with pytest.raises(ValueError, match="wgmma"):
+            flash_attention._check_variant("wgmma", torch.float32, 96, 64,
+                                           bwd=bwd)
+    flash_attention._check_variant("wgmma", torch.bfloat16, 128, 128,
+                                   bwd=True)
+
+
+@pytest.mark.parametrize("dq,dv", [(96, 64), (64, 64), (128, 128)])
+def test_flash_float32_takes_the_cuda_cores(dq, dv):
+    """float32 (the float32 logit and gradient checks need full float32
+    products) stays on the CUDA cores forward and backward at every pair
+    the wgmma kernels take in bfloat16, MLA's among them."""
+    assert flash_attention.variant(torch.float32, dq, dv) == "cuda_core"
+    assert flash_attention.bwd_variant(torch.float32, dq, dv) == "cuda_core"
 
 
 def test_flash_backward_refuses_cpu_tensors():

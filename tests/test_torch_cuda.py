@@ -149,35 +149,77 @@ def test_flash_wgmma_variant_vs_plain_version(cuda, B, T, H, d, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,dq,dv,causal,dtype", [
-    (1, 64, 40, 96, 64, True, "bfloat16"),        # minicpm3-4b's MLA
-    (1, 384, 40, 96, 64, True, "bfloat16"),
-    (8, 256, 40, 96, 64, True, "bfloat16"),
-    (1, 200, 40, 96, 64, True, "float32"),
-    (2, 100, 4, 96, 64, False, "bfloat16"),
-    (1, 130, 2, 32, 48, True, "float32"),         # dv > dq
+@pytest.mark.parametrize("B,T,H,dq,dv,causal,dtype,picked", [
+    (1, 64, 40, 96, 64, True, "bfloat16", "wgmma"),   # minicpm3-4b's MLA
+    (1, 384, 40, 96, 64, True, "bfloat16", "wgmma"),
+    (8, 256, 40, 96, 64, True, "bfloat16", "wgmma"),
+    (1, 200, 40, 96, 64, True, "float32", "cuda_core"),
+    (2, 100, 4, 96, 64, False, "bfloat16", "wgmma"),
+    (1, 200, 40, 96, 64, True, "bfloat16", "wgmma"),  # T % 64 != 0
+    (3, 130, 5, 96, 64, False, "bfloat16", "wgmma"),
+    (1, 130, 2, 32, 48, True, "float32", "cuda_core"),  # dv > dq
 ])
 def test_flash_kernel_dv_unlike_dq_vs_plain_version(cuda, B, T, H, dq, dv,
-                                                    causal, dtype):
-    """v's head dim unlike q's: the CUDA-core variant launches (the
-    wgmma one takes dq = dv only), the output is (B, T, H, dv) and
-    agrees with the plain version."""
+                                                    causal, dtype, picked):
+    """v's head dim unlike q's: the variant ``variant`` picks launches
+    (the wgmma one for MLA's bfloat16 (96, 64), the CUDA-core one
+    otherwise), the output is (B, T, H, dv) and agrees with the plain
+    version; where wgmma ran, the CUDA-core variant agrees too, and
+    elsewhere the wgmma one refuses the inputs."""
     g = torch.Generator(device=cuda).manual_seed(4)
     dt = getattr(torch, dtype)
     q, k = (torch.randn((B, T, H, dq), generator=g, device=cuda).to(dt)
             for _ in range(2))
     v = torch.randn((B, T, H, dv), generator=g, device=cuda).to(dt)
-    assert flash_attention.variant(dt, dq, dv) == "cuda_core"
+    assert flash_attention.variant(dt, dq, dv) == picked
     before = dict(flash_attention.VARIANT_LAUNCHES)
     got = ops.attention(q, k, v, causal=causal)
     want = ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.VARIANT_LAUNCHES == {
-        "wgmma": before["wgmma"], "cuda_core": before["cuda_core"] + 1}
+        n: c + (n == picked) for n, c in before.items()}
     assert got.dtype == dt and tuple(got.shape) == (B, T, H, dv)
     _close(got, want, ATTN_TOL[dtype])
-    with pytest.raises(ValueError, match="wgmma variant"):
-        flash_attention._flash_attention_variant(q, k, v, "wgmma")
+    if picked == "wgmma":
+        _close(flash_attention._flash_attention_variant(
+            q, k, v, "cuda_core", causal=causal), want, ATTN_TOL[dtype])
+    else:
+        with pytest.raises(ValueError, match="wgmma variant"):
+            flash_attention._flash_attention_variant(q, k, v, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,causal", [(1, 200, 3, True),
+                                          (2, 100, 4, False)])
+def test_flash_mla_wgmma_forward_feeds_the_cuda_core_backward(cuda, B, T, H,
+                                                              causal):
+    """MLA's bfloat16 (96, 64) trains through the wgmma forward and the
+    CUDA-core backward: the forward's log-sum-exp is the plain one's
+    within LSE_TOL, and the gradients the backward computes from it are
+    within ATTN_BWD_TOL of ``ref.attention_bwd_ref``'s, as they are from
+    the CUDA-core forward's."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dt = torch.bfloat16
+    q, k = (torch.randn((B, T, H, 96), generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    v, do = (torch.randn((B, T, H, 64), generator=g, device=cuda).to(dt)
+             for _ in range(2))
+    before = dict(flash_attention.VARIANT_LAUNCHES)
+    bwd_before = dict(flash_attention.BWD_VARIANT_LAUNCHES)
+    out, lse = flash_attention.flash_attention_lse(q, k, v, causal=causal)
+    grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do,
+                                                causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.VARIANT_LAUNCHES == {
+        n: c + (n == "wgmma") for n, c in before.items()}
+    assert flash_attention.BWD_VARIANT_LAUNCHES == {
+        n: c + (n == "cuda_core") for n, c in bwd_before.items()}
+    plain_lse = ref.attention_lse_ref(q, k, causal=causal)
+    _close(lse, plain_lse, LSE_TOL)
+    want = ref.attention_bwd_ref(q, k, v, out, plain_lse, do, causal=causal)
+    for name, got, w in zip("qkv", grads, want):
+        assert got.dtype == dt and got.shape == w.shape
+        assert _rel_err(got, w) <= ATTN_BWD_TOL["bfloat16"], name
 
 
 @pytest.mark.cuda
@@ -362,6 +404,9 @@ def test_flash_backward_vs_plain_version(cuda, B, T, H, dq, dv, causal,
     (2, 100, 8, "float32", True, False),
     (1, 33, 2, "float32", True, True),            # decays near 0
     (2, 16, 3, "float32", False, False),
+    (2, 256, 64, "bfloat16", True, False),        # the training shape
+    (2, 77, 64, "bfloat16", False, False),        # T % 16 != 0
+    (3, 200, 5, "float32", True, True),
 ])
 def test_wkv_backward_vs_plain_version(cuda, B, T, H, dtype, final,
                                        strong):

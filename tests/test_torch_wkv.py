@@ -140,6 +140,46 @@ def test_wkv_plan_is_always_a_built_layout():
                 assert B * H * splits >= min(rwkv6_wkv.SMS // 2, B * H)
 
 
+@pytest.mark.parametrize("T,final", [(77, True), (33, False), (16, True)])
+def test_wkv_bwd_padding_tokens_are_inert(T, final):
+    """The backward kernel runs every chunk's 16 tokens, staging those
+    past the sequence's end as zeros with w = 1. Such tokens leave the
+    state and its gradient as they are: the plain backward over the
+    padded sequence (their dy zero) gives the unpadded one's gradients
+    for the real tokens and the initial state, bit for bit, and zeros
+    for the padding's r, k, v."""
+    _, (r, k, v, w, u, s0) = _inputs(11, 2, T, 3, 64, "float32")
+    rng = np.random.default_rng(12)
+    dy = torch.as_tensor(rng.standard_normal(r.shape).astype(np.float32))
+    ds = torch.as_tensor(rng.standard_normal(s0.shape).astype(np.float32)) \
+        if final else None
+    pad = -T % 16 or 16
+    z = torch.zeros((2, pad, 3, 64))
+    padded = [torch.cat([x, fill], dim=1) for x, fill in (
+        (r, z), (k, z), (v, z), (w, torch.ones_like(z)), (dy, z))]
+    want = tref.wkv_bwd_ref(r, k, v, w, u, s0, dy, ds)
+    got = tref.wkv_bwd_ref(*padded[:4], u, s0, padded[4], ds)
+    for name, g, x in zip(("r", "k", "v", "w"), got[:4], want[:4]):
+        assert torch.equal(g[:, :T], x), name
+    for name, g in zip(("r", "k", "v"), got[:3]):
+        assert not g[:, T:].any(), name
+    assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+
+
+def test_wkv_bwd_refuses_cpu_tensors_and_counts_nothing():
+    """The backward kernel's wrapper takes CUDA tensors only (ops and
+    the autograd function take CPU tensors to the plain version), with
+    or without a final-state gradient, and counts nothing it does not
+    launch."""
+    _, (r, k, v, w, u, s0) = _inputs(13, 1, 20, 2, 64, "float32")
+    ckpt = torch.zeros((1, 2, 2, 64, 64))
+    before = rwkv6_wkv.BWD_LAUNCHES
+    for ds in (None, s0):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            rwkv6_wkv.wkv_bwd(r, k, v, w, u, ckpt, r, ds)
+    assert rwkv6_wkv.BWD_LAUNCHES == before
+
+
 @pytest.mark.parametrize("groups", rwkv6_wkv.GROUPS)
 def test_split_column_arithmetic_vs_reference(groups):
     """The kernel's arithmetic written out in float32 on the CPU: y_j as

@@ -41,16 +41,19 @@ Phases (one line each; any failure exits non-zero and prints no result):
    wkv at the
    serve shapes of rwkv6-7b (prefill at B = 1 and 8, decode T = 1, a
    ragged T, float32), planned and with one thread per column, the
-   final state equal to the plain version's bit for bit; then the
-   training side: both flash variants' rows' log-sum-exp (wgmma at d
+   final state equal to the plain version's bit for bit;
+   flash_attention also at hubert-xlarge's bf16 d 80 non-causal shapes
+   (the batched encode and a ragged clip: the CUDA-core variant); then
+   the training side: both flash variants' rows' log-sum-exp (wgmma at d
    128 and at MLA's (96, 64)) against the plain logsumexp (the output
    equal to serving's launch), the flash
    backward through the variant its inputs pick (``bwd_variant``, its
    counter checked; bf16 ones also through the CUDA-core design) at
    (8, 256, 32, 128) bf16, d 64, a ragged T, non-causal with T != S, a
-   sliding window, (1, 384, 32, 128) float32 and MLA's (2, 256, 40,
+   sliding window, (1, 384, 32, 128) float32, MLA's (2, 256, 40,
    96/64) (the CUDA-core backward, its log-sum-exp from the wgmma
-   forward), and the wkv backward kernel at (1, 256), a ragged (2, 77)
+   forward) and hubert-xlarge's bf16 (2, 1024, 16, 80) non-causal (the
+   CUDA-core backward), and the wkv backward kernel at (1, 256), a ragged (2, 77)
    and (2, 1024) in bf16 and float32, each against its plain version
    (``ref.attention_bwd_ref``, ``ref.wkv_bwd_ref``) and equal to itself
    over two runs;
@@ -131,6 +134,17 @@ Phases (one line each; any failure exits non-zero and prints no result):
    idle share (torch.profiler); then the batched prefill alone, warm
    (the median of PREFILL_REPS calls; one more under torch.profiler:
    device busy, idle share);
+9x. ``serve-hubert-xlarge`` (audio frames, all 48 layers, bidirectional
+   at d 80: flash through the CUDA-core variant) and
+   ``serve-internvl2-76b`` (vision patches, 8 of 80 layers: flash on
+   wgmma), their inputs the port's ``configs.input_specs`` (standard
+   normal features or patches in bf16, from a numpy generator): the
+   same float32 logit check (one request of 384 positions: frames, or
+   256 patches and 128 tokens) and bf16 reading; hubert a batched
+   encode of 8 clips of 512 frames and one clip of each SERVE_PROMPTS
+   length (no decode: ``cells_for`` skips its decode cells); internvl
+   launch.serve at B = 8 of 256 patches and 256 tokens, gen 32; the
+   same launch counts, warm prefill and idle shares;
 9c. ``train-qwen3-8b`` and ``train-rwkv6-7b``: the training path at
    full width and 8 layers (TRAIN_LAYERS; bf16, remat, AdamW): the
    gradient check (GRAD_TOL), then TRAIN_STEPS steps of B = 2 x 4,096
@@ -144,11 +158,21 @@ Phases (one line each; any failure exits non-zero and prints no result):
    gradients of a 2-layer full-width bf16 model at (1, GRAD_SEQ) through
    the wgmma backward and through the CUDA-core one (``kernel_fns``
    built here), each leaf's difference as a share of its scale (a
-   reading, not a gate); 9d. ``train-reduced``: tests/test_system.py's
+   reading, not a gate); ``train-hubert-xlarge``: all 48 layers, the
+   same gradient check (its features float64) and step accounting
+   through ``make_train_step`` on one batch of B = 2 clips of 4,096
+   frames with a span loss mask over about half of them (the loss must
+   fall), every flash call, forward and backward, through the CUDA-core
+   variant; 9d. ``train-reduced``: tests/test_system.py's
    30 steps of reduced qwen3-0.6b through the kernels (the loss falls by
    0.5) and tests/test_checkpoint_trainer.py's kill at step 8 and
    resume, the resumed losses against the uninterrupted run's (bit for
-   bit, or the difference printed);
+   bit, or the difference printed); 9e. ``examples``: the port's three
+   examples on the card through their ``main``: torch_quickstart (the
+   loss falls by 0.5), torch_serve_batched (launch.serve.generate's
+   (8, 16) tokens, within padded_vocab) and torch_train_100m for 30 steps into a
+   fresh checkpoint directory, then 35 from it (it must resume at step
+   30), each through the flash kernels;
 10. ``time``: card time under CUDA-graph replay: switch_tiers a tick
    beside its first design (two switch_step launches and their
    glue), the plain version, the bound and an empty kernel's graph
@@ -156,12 +180,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
    (printed right after ``main``); the float64 switch_tiers a tick
    beside the float32 kernel on the same inputs, its plain version and
    bound (printed right after ``main-x64``);
-   flash_attention and wkv at each serve shape, timed in turns: the
+   flash_attention (with each shape's own mask: hubert-xlarge's are
+   non-causal) and wkv at each serve shape, timed in turns: the
    kernel, the first design on the same inputs (flash's CUDA-core
    variant, wkv with one thread per column), the plain version, the
-   bound and, for flash_attention, scaled_dot_product_attention; at the
-   training shapes also the training forward (with the log-sum-exp, or
-   saving the wkv states), held against the plain versions' outputs
+   bound and, for flash_attention, scaled_dot_product_attention; the
+   flash output held against the plain version's at every shape; at
+   the training shapes also the training forward (with the log-sum-exp,
+   or saving the wkv states), held against the plain versions' outputs
    the timing computed; the two backward kernels at the training
    shapes beside their plain versions (and held against them), their
    bounds and, for flash, SDPA's backward on the same tensors and the
@@ -225,18 +251,28 @@ PARITY_TOL = 1e-3          # run level, the reference's own parity band
 
 # serving: the full-width models, one at a time, in this order
 SERVE_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "mixtral-8x7b",
-               "jamba-v0.1-52b")
+               "jamba-v0.1-52b", "hubert-xlarge", "internvl2-76b")
 # the depth served on the card where the whole model does not fit its
 # 80 GB beside the float32 check: mixtral-8x7b's 32 layers are 93 GB of
 # bf16, its first 8 (~11.9 B parameters) 23.7 GB; jamba-v0.1-52b's one
 # hybrid period of 8 layers (Mamba at 0-3 and 5-7, attention at 4, MoE
-# at the odd layers; ~13.3 B parameters) 26.6 GB. The others serve all
-# their layers.
-SERVE_LAYERS = {"mixtral-8x7b": 8, "jamba-v0.1-52b": 8}
+# at the odd layers; ~13.3 B parameters) 26.6 GB; internvl2-76b's 80
+# layers are ~141 GB, its first 8 with the embedding and head (~9.0 B
+# parameters) 17.9 GB. The others serve all their layers.
+SERVE_LAYERS = {"mixtral-8x7b": 8, "jamba-v0.1-52b": 8, "internvl2-76b": 8}
 SERVE_SEED = 0
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 SERVE_PROMPTS = (64, 96, 128, 200, 256, 384)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 256, 32
+# the frontends (stubs, as in the reference: precomputed embeddings,
+# standard normal from a numpy generator, in the model's dtype):
+# hubert-xlarge encodes ENCODE_BATCH clips of ENCODE_FRAMES frames (~10 s
+# of audio at HuBERT's 50 frames/s) and one clip of each SERVE_PROMPTS
+# length, and has no decode (``cells_for``); internvl2-76b serves the
+# batched request with its n_frontend_tokens (256) patches before the
+# SERVE_PROMPT text tokens, and the float32 check's request with them
+# before SERVE_PROMPTS[-1] - 256 tokens
+ENCODE_BATCH, ENCODE_FRAMES = 8, 512
 # the batched prefill again, warm, after launch.serve's: its wall time
 # over PREFILL_REPS calls, then one call under torch.profiler (device
 # busy, idle share); launch.serve's own prefill is one cold call
@@ -263,9 +299,11 @@ WKV_STATE_TOL = 2e-3
 # 16.4, rwkv6-7b ~7.3 beside 15, minicpm3-4b ~3.5 beside 8.5;
 # mixtral-8x7b's 2 layers (two 8-expert MoE FFNs) ~12.7 beside 23.7;
 # jamba-v0.1-52b's 5 (Mamba 0-3, MoE at 1 and 3, attention at 4) ~29
-# beside 26.6 (at 8 layers it would be ~54 GB: the two no longer fit).
+# beside 26.6 (at 8 layers it would be ~54 GB: the two no longer fit);
+# hubert-xlarge's 8 ~0.7 beside 1.9; internvl2-76b's 8 ~35.8 beside 17.9.
 LOGIT_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 8, "minicpm3-4b": 8,
-                "mixtral-8x7b": 2, "jamba-v0.1-52b": 5}
+                "mixtral-8x7b": 2, "jamba-v0.1-52b": 5, "hubert-xlarge": 8,
+                "internvl2-76b": 8}
 LOGIT_TOL = 1e-4
 NOISE = 2e-3
 
@@ -1335,8 +1373,9 @@ def bucket_fault_phase(torch, S, dev):
 # then ragged, non-causal and d = 64 (minicpm3's head dim) bf16 cases,
 # and float32 (the CUDA-core variant)
 # (label, B, T, H, dq, dv, causal, window, dtype): the serve shapes of
-# qwen3-8b, mixtral-8x7b and jamba-v0.1-52b (H 32, d 128) and of
-# minicpm3-4b's MLA (H 40, q/k 96, v 64: the wgmma variant in bf16)
+# qwen3-8b, mixtral-8x7b and jamba-v0.1-52b (H 32, d 128), of
+# minicpm3-4b's MLA (H 40, q/k 96, v 64: the wgmma variant in bf16), of
+# hubert-xlarge (H 16, d 80, non-causal) and of internvl2-76b (H 64)
 FLASH_CASES = [
     ("batched prefill", 8, 256, 32, 128, 128, True, 0, "bfloat16"),
     ("request", 1, 64, 32, 128, 128, True, 0, "bfloat16"),
@@ -1352,6 +1391,11 @@ FLASH_CASES = [
     ("MLA batched prefill", 8, 256, 40, 96, 64, True, 0, "bfloat16"),
     ("MLA non-causal, ragged T", 2, 100, 40, 96, 64, False, 0, "bfloat16"),
     ("MLA float32", 1, 384, 40, 96, 64, True, 0, "float32"),
+    # hubert-xlarge: bidirectional at d 80, the CUDA-core variant in bf16
+    ("hubert encode", 8, 512, 16, 80, 80, False, 0, "bfloat16"),
+    ("hubert clip, ragged T", 1, 200, 16, 80, 80, False, 0, "bfloat16"),
+    # internvl2-76b's batched prefill: 256 patches and 256 tokens, H 64
+    ("internvl batched prefill", 8, 512, 64, 128, 128, True, 0, "bfloat16"),
 ]
 # (label, B, T, H, dh, dtype): the rwkv6-7b serve shapes
 WKV_CASES = [
@@ -1700,16 +1744,45 @@ def attn_dims(cfg):
     return cfg.n_heads, cfg.d_head, cfg.d_head
 
 
+def request_batch(torch, cfg, n, dev, rng, batch=1):
+    """A prefill batch of ``n`` positions in ``cfg``'s own inputs (its
+    ``configs.input_specs``): tokens; hubert's standard-normal features
+    in cfg.dtype; internvl's standard-normal patches (n_frontend_tokens
+    of them) before n - n_frontend_tokens tokens. Draws from the numpy
+    generator ``rng``."""
+    def normal(m):
+        return torch.as_tensor(rng.standard_normal(
+            (batch, m, cfg.d_model), dtype="float32"), device=dev).to(
+                cfg.dtype)
+    if cfg.frontend == "audio_frames":
+        return {"features": normal(n)}
+    out = {}
+    if cfg.frontend == "vision_patches":
+        out["patches"] = normal(cfg.n_frontend_tokens)
+        n -= cfg.n_frontend_tokens
+    out["tokens"] = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, n)),
+                                    device=dev)
+    return out
+
+
+def _as(batch, dtype):
+    """``batch`` with its floating tensors (features, patches) cast."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in batch.items()}
+
+
 def serve_phase(torch, arch, dev):
     """The serving path of ``arch`` at full width (at the depth
-    SERVE_LAYERS gives it). Returns the kernel launches it made, by
-    kernel and shape, and its numbers."""
+    SERVE_LAYERS gives it): text models through the batcher and
+    launch.serve, internvl2-76b's patches and tokens through
+    launch.serve, hubert-xlarge's frames through batched and
+    single-clip encodes (prefill; no decode). Returns the kernel
+    launches it made, by kernel and shape, and its numbers."""
     import numpy as np
-    from repro_torch.configs import get_config
+    from repro_torch.configs import cells_for, get_config
     from repro_torch.kernels import flash_attention, ops, rwkv6_wkv
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    from repro_torch.serving import ContinuousBatcher, Request
 
     name = f"serve-{arch}"
     cfg = get_config(arch)
@@ -1731,9 +1804,9 @@ def serve_phase(torch, arch, dev):
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in _leaves(params))
     phase(name, f"{L}{depth} layers ({mix}; {n_moe} MoE FFNs), d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab}: {n_par / 1e9:.2f} B "
-          f"parameters in {cfg.dtype} (seed {SERVE_SEED}) on cuda in "
-          f"{time.perf_counter() - t0:.1f} s, "
+          f"{cfg.d_model}, vocab {cfg.vocab}, causal {cfg.causal}, frontend "
+          f"{cfg.frontend}: {n_par / 1e9:.2f} B parameters in {cfg.dtype} "
+          f"(seed {SERVE_SEED}) on cuda in {time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
 
     def expect(what, prefills, decode_steps):
@@ -1752,29 +1825,35 @@ def serve_phase(torch, arch, dev):
         return got
 
     rng = np.random.default_rng(SERVE_SEED)
-    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in SERVE_PROMPTS]
-    toks = torch.tensor([prompts[-1]], device=dev)
+    if cfg.frontend == "none":
+        prompts = [rng.integers(0, cfg.vocab, n).tolist()
+                   for n in SERVE_PROMPTS]
+        request = {"tokens": torch.tensor([prompts[-1]], device=dev)}
+    else:
+        request = request_batch(torch, cfg, SERVE_PROMPTS[-1], dev, rng)
     n32 = LOGIT_LAYERS[arch]
     cfg32 = dataclasses.replace(cfg, n_layers=n32, dtype=torch.float32)
     params32 = _cast(dict(params, layers=params["layers"][:n32]),
                      torch.float32)
-    kern, _ = M.prefill(cfg32, params32, {"tokens": toks},
+    request32 = _as(request, torch.float32)
+    kern, _ = M.prefill(cfg32, params32, request32,
                         kernel_fns=ops.model_kernel_fns())
-    plain, _ = M.prefill(cfg32, params32, {"tokens": toks})
+    plain, _ = M.prefill(cfg32, params32, request32)
     torch.cuda.synchronize()
     gib32 = sum(t.numel() for t in _leaves(params32)) * 4 / 2**30
-    del params32
+    del params32, request32
     scale = float(plain.abs().max())
     diff = float((kern - plain).abs().max())
     if not (bool(torch.isfinite(kern).all()) and diff <= LOGIT_TOL * scale):
         fail(f"{name}: prefill logits through the kernels differ from the "
              f"plain path by {diff:.3g} (scale {scale:.3g}, tol "
              f"{LOGIT_TOL:g} of it)")
-    phase(name, f"prefill of {toks.shape[1]} tokens through the first "
+    what = " + ".join(f"{v.shape[1]} {k}" for k, v in request.items())
+    phase(name, f"prefill of one request ({what}) through the first "
           f"{n32} layers in float32 ({gib32:.1f} GiB), kernels vs plain "
           f"versions on the same weights: logits max abs diff {diff:.3g} of "
           f"max |logit| {scale:.3g} (tol {LOGIT_TOL:g} of it)")
-    share = sensitivity(torch, cfg, params, toks, dev)
+    share = sensitivity(torch, cfg, params, request, dev)
     phase(name, f"the same request through all {L} layers in bf16: the "
           f"kernels move the plain path's logits by {share['kernels']:.3g}"
           f" of their scale, a relative noise of {NOISE:g} on the plain "
@@ -1786,6 +1865,80 @@ def serve_phase(torch, arch, dev):
         if n:
             shapes[kernel][key] = shapes[kernel].get(key, 0) + n
 
+    fns = ops.model_kernel_fns()
+    variants = f", all through the {picked} variant" if n_attn else ""
+    own = ("flash_wgmma_kernel" if picked == "wgmma" else "flash_fwd_kernel") \
+        if n_attn else "wkv_kernel"
+    if cfg.frontend == "audio_frames":
+        counted, batch = encode_phase(torch, name, cfg, params, rng, dev,
+                                      fns, expect, add, variants)
+        skipped = [c.shape.name for c in cells_for(cfg) if not c.run]
+        phase(name, f"no decode: cells_for skips {skipped} "
+              f"({cells_for(cfg)[2].skip_reason})")
+    else:
+        counted = {"flash_attention": 0, "wkv": 0}
+        if cfg.frontend == "none":
+            counted = batcher_phase(torch, name, cfg, params, prompts,
+                                    expect, add, variants)
+        T = SERVE_PROMPT + cfg.n_frontend_tokens
+        batch = request_batch(torch, cfg, T, dev, rng, SERVE_BATCH)
+        reset_counts(flash_attention, rwkv6_wkv)
+
+        def generate():
+            return serve.generate(cfg, params, batch["tokens"], SERVE_GEN,
+                                  kernel_fns=fns,
+                                  patches=batch.get("patches"))
+        res = generate()
+        got = expect("launch.serve", 1, SERVE_GEN - 1)
+        for k, n in got.items():
+            counted[k] += n
+        tokens = res["tokens"]
+        if tuple(tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
+                ((tokens >= 0) & (tokens < cfg.padded_vocab)).all()):
+            fail(f"{name}: launch.serve gave tokens of shape "
+                 f"{tuple(tokens.shape)}")
+        add("flash_attention", (SERVE_BATCH, T, H, dq, dv, cfg.causal),
+            n_attn)
+        add("wkv", (SERVE_BATCH, T), n_rwkv)
+        add("wkv", (SERVE_BATCH, 1), n_rwkv * (SERVE_GEN - 1))
+        wall, busy, n_launch, own_ms, top = profile_busy(torch, generate,
+                                                         own)
+        own_ms = sum(own_ms.values())
+        launched = "; ".join(f"{k} launches {n}" for k, n in got.items()
+                             if n)
+        phase(name, f"launch.serve B={SERVE_BATCH} T={T} ("
+              + " + ".join(f"{v.shape[1]} {k}" for k, v in batch.items())
+              + f") gen {SERVE_GEN}: prefill {res['prefill_tok_s']:.1f} "
+              f"positions/s ({res['prefill_s'] * 1e3:.1f} ms), decode "
+              f"{res['decode_tok_s']:.1f} tok/s ({res['decode_s'] * 1e3:.1f}"
+              f" ms for {SERVE_GEN - 1} steps); {launched}{variants}; under "
+              f"torch.profiler: {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} "
+              f"ms device busy, idle share {1 - busy / wall:.3f}, {n_launch} "
+              f"kernel launches ({n_launch / SERVE_GEN:.0f} a step), {own} "
+              f"{own_ms:.1f} ms of the device time; top kernels (name, "
+              f"calls, ms): {top}")
+    time_prefill(torch, name, cfg, params, batch, fns, own)
+    for k in counted:
+        if sum(shapes[k].values()) != counted[k]:
+            fail(f"{name}: {counted[k]} {k} launches, "
+                 f"{sum(shapes[k].values())} by shape")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: {"launches": counted[k], "shapes": shapes[k]}
+            for k in counted}
+
+
+def batcher_phase(torch, name, cfg, params, prompts, expect, add,
+                  variants):
+    """A text model's ContinuousBatcher serving the ``prompts`` (one of
+    each SERVE_PROMPTS length); returns the kernel launches it made."""
+    from repro_torch.kernels import flash_attention, rwkv6_wkv
+    from repro_torch.models import model as M
+    from repro_torch.serving import ContinuousBatcher, Request
+    H, dq, dv = attn_dims(cfg)
+    kinds = [k for k, _ in M.layer_kinds(cfg)]
+    n_attn, n_rwkv = kinds.count("attn"), kinds.count("rwkv")
     b = ContinuousBatcher(cfg, params, n_slots=SERVE_SLOTS,
                           max_len=SERVE_MAX_LEN)
     reqs = [Request(rid=i, tokens=p, max_new=SERVE_NEW)
@@ -1805,67 +1958,71 @@ def serve_phase(torch, arch, dev):
             fail(f"{name}: request {r.rid} ended with {len(r.out)} tokens, "
                  f"done={r.done}")
     for n in SERVE_PROMPTS:
-        add("flash_attention", (1, n, H, dq, dv), n_attn)
+        add("flash_attention", (1, n, H, dq, dv, cfg.causal), n_attn)
         add("wkv", (1, n), n_rwkv)
     add("wkv", (SERVE_SLOTS, 1), n_rwkv * b.decode_steps)
     generated = sum(len(r.out) for r in reqs)
     launched = "; ".join(f"{k} launches {n}" for k, n in counted.items()
                          if n)
-    variants = f", all through the {picked} variant" if n_attn else ""
     phase(name, f"ContinuousBatcher {SERVE_SLOTS} slots, max_len "
           f"{SERVE_MAX_LEN}: {len(reqs)} requests (prompts {SERVE_PROMPTS},"
           f" {SERVE_NEW} new tokens each) in {b.ticks} ticks, {b.prefills} "
           f"prefills, {b.decode_steps} decode steps, {wall:.2f} s wall, "
           f"{generated / wall:.1f} generated tok/s, idle_fraction "
           f"{b.idle_fraction():.3f}; {launched}{variants}")
-    del b, reqs
+    return dict(counted)
 
-    prompts_b = torch.as_tensor(rng.integers(
-        0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT)), device=dev)
-    fns = ops.model_kernel_fns()
+
+def encode_phase(torch, name, cfg, params, rng, dev, fns, expect, add,
+                 variants):
+    """hubert-xlarge's serving path: a batched encode (prefill) of
+    ENCODE_BATCH clips of ENCODE_FRAMES frames, then one clip of each
+    SERVE_PROMPTS length; returns the kernel launches and the batch."""
+    from repro_torch.kernels import flash_attention, rwkv6_wkv
+    from repro_torch.models import model as M
+    H, dq, dv = attn_dims(cfg)
+    n_attn = sum(k == "attn" for k, _ in M.layer_kinds(cfg))
+    batch = request_batch(torch, cfg, ENCODE_FRAMES, dev, rng, ENCODE_BATCH)
+    clips = [request_batch(torch, cfg, n, dev, rng) for n in SERVE_PROMPTS]
     reset_counts(flash_attention, rwkv6_wkv)
-    res = serve.generate(cfg, params, prompts_b, SERVE_GEN, kernel_fns=fns)
-    got = expect("launch.serve", 1, SERVE_GEN - 1)
-    for k, n in got.items():
-        counted[k] += n
-    tokens = res["tokens"]
-    if tuple(tokens.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
-            ((tokens >= 0) & (tokens < cfg.padded_vocab)).all()):
-        fail(f"{name}: launch.serve gave tokens of shape "
-             f"{tuple(tokens.shape)}")
-    add("flash_attention", (SERVE_BATCH, SERVE_PROMPT, H, dq, dv), n_attn)
-    add("wkv", (SERVE_BATCH, SERVE_PROMPT), n_rwkv)
-    add("wkv", (SERVE_BATCH, 1), n_rwkv * (SERVE_GEN - 1))
-    own = ("flash_wgmma_kernel" if picked == "wgmma" else "flash_fwd_kernel") \
-        if n_attn else "wkv_kernel"
-    wall, busy, n_launch, own_ms, top = profile_busy(
-        torch, lambda: serve.generate(cfg, params, prompts_b, SERVE_GEN,
-                                      kernel_fns=fns), own)
-    own_ms = sum(own_ms.values())
-    launched = "; ".join(f"{k} launches {n}" for k, n in got.items() if n)
-    phase(name, f"launch.serve B={SERVE_BATCH} P={SERVE_PROMPT} gen "
-          f"{SERVE_GEN}: prefill {res['prefill_tok_s']:.1f} tok/s "
-          f"({res['prefill_s'] * 1e3:.1f} ms), decode "
-          f"{res['decode_tok_s']:.1f} tok/s ({res['decode_s'] * 1e3:.1f} ms"
-          f" for {SERVE_GEN - 1} steps); {launched}{variants}; under "
-          f"torch.profiler: {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} ms "
-          f"device busy, idle share {1 - busy / wall:.3f}, {n_launch} kernel"
-          f" launches ({n_launch / SERVE_GEN:.0f} a step), {own} "
-          f"{own_ms:.1f} ms of the device time; top kernels (name, calls, "
-          f"ms): {top}")
-    time_prefill(torch, name, cfg, params, prompts_b, fns, own)
-    for k in counted:
-        if sum(shapes[k].values()) != counted[k]:
-            fail(f"{name}: {counted[k]} {k} launches, "
-                 f"{sum(shapes[k].values())} by shape")
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {k: {"launches": counted[k], "shapes": shapes[k]}
-            for k in counted}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, params, batch, kernel_fns=fns)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    if tuple(logits.shape) != (ENCODE_BATCH, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()) or int(
+                cache["pos_offset"][0]) != ENCODE_FRAMES:
+        fail(f"{name}: the batched encode gave logits "
+             f"{tuple(logits.shape)} (finite: "
+             f"{bool(torch.isfinite(logits).all())})")
+    del logits, cache
+    walls = []
+    for clip in clips:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = M.prefill(cfg, params, clip, kernel_fns=fns)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(logits).all()):
+            fail(f"{name}: a clip of {clip['features'].shape[1]} frames "
+                 f"gave non-finite logits")
+    counted = expect("the encodes", 1 + len(clips), 0)
+    add("flash_attention", (ENCODE_BATCH, ENCODE_FRAMES, H, dq, dv,
+                            cfg.causal), n_attn)
+    for n in SERVE_PROMPTS:
+        add("flash_attention", (1, n, H, dq, dv, cfg.causal), n_attn)
+    frames = ENCODE_BATCH * ENCODE_FRAMES
+    phase(name, f"batched encode B={ENCODE_BATCH} T={ENCODE_FRAMES} frames "
+          f"(~{ENCODE_FRAMES / 50:.0f} s of audio a clip at 50 frames/s), "
+          f"cold: {cold * 1e3:.1f} ms, {frames / cold:.0f} frames/s; one "
+          f"clip of each of {SERVE_PROMPTS} frames: "
+          + ", ".join(f"{w * 1e3:.1f}" for w in walls)
+          + f" ms; flash launches {counted['flash_attention']}{variants}")
+    return dict(counted), batch
 
 
-def time_prefill(torch, name, cfg, params, prompts, fns, own):
+def time_prefill(torch, name, cfg, params, batch, fns, own):
     """The batched prefill alone, warm: the wall time of PREFILL_REPS
     calls (median, min, max), then one call under torch.profiler (wall,
     device busy, idle share, the attention or wkv kernel's share). Its
@@ -1873,7 +2030,7 @@ def time_prefill(torch, name, cfg, params, prompts, fns, own):
     from repro_torch.models import model as M
 
     def prefill():
-        M.prefill(cfg, params, {"tokens": prompts}, kernel_fns=fns)
+        M.prefill(cfg, params, batch, kernel_fns=fns)
 
     walls = []
     for _ in range(PREFILL_REPS):
@@ -1883,8 +2040,9 @@ def time_prefill(torch, name, cfg, params, prompts, fns, own):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall, busy, n_launch, own_ms, _ = profile_busy(torch, prefill, own)
-    B, P = prompts.shape
-    phase(name, f"prefill alone (B={B}, P={P}), warm: "
+    what = " + ".join(f"{v.shape[1]} {k}" for k, v in batch.items())
+    phase(name, f"prefill alone (B={len(next(iter(batch.values())))}, "
+          f"{what}), warm: "
           f"{sorted(walls)[len(walls) // 2]:.1f} ms wall, median of "
           f"{len(walls)} ({min(walls):.1f}-{max(walls):.1f}); under "
           f"torch.profiler {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} ms "
@@ -1912,7 +2070,7 @@ def check_variant(flash_attention, launches, picked, name,
              f"through {picked}")
 
 
-def sensitivity(torch, cfg, params, toks, dev):
+def sensitivity(torch, cfg, params, batch, dev):
     """Full-depth bf16 prefill logits: the kernels' difference from the
     plain path, and that of the plain path with a relative noise of
     NOISE on its attention/wkv outputs, as shares of the logits'
@@ -1929,7 +2087,6 @@ def sensitivity(torch, cfg, params, toks, dev):
         "attention": lambda *a, **kw: noisy(ref.attention_ref(*a, **kw)),
         "wkv": lambda *a: (lambda y, s: (noisy(y), s))(*ref.wkv_ref(*a)),
     }
-    batch = {"tokens": toks}
     plain, _ = M.prefill(cfg, params, batch)
     kern, _ = M.prefill(cfg, params, batch, kernel_fns=ops.model_kernel_fns())
     noise, _ = M.prefill(cfg, params, batch, kernel_fns=noise_fns)
@@ -1971,61 +2128,66 @@ def time_attention_kernels(torch, dev, card, paths, worst, train=()):
     """Per-launch card time of flash_attention and wkv at each shape of
     their serve and train paths, beside their first designs on the same
     inputs; at the shapes in ``train`` also the training forward's
-    (with the log-sum-exp or the saved states); returns their entries
-    of the kernels line."""
+    (with the log-sum-exp or the saved states). flash_attention's
+    output is held to the plain version's at every shape of its path,
+    wkv's at the training shapes; returns their entries of the kernels
+    line."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref, rwkv6_wkv
     entries = []
     rows = []
-    for (B, T, H, dq, dv), n in sorted(
-            paths["flash_attention"]["shapes"].items()):
+    for key, n in sorted(paths["flash_attention"]["shapes"].items()):
+        B, T, H, dq, dv, causal = key
         q, k, v = attn_inputs(torch, B, T, H, dq, dv, torch.bfloat16, dev,
                               500)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        row = {"shape": [B, T, H, dq, dv], "launches": n,
+        row = {"shape": [B, T, H, dq, dv], "causal": causal, "launches": n,
                "variant": fa.variant(q.dtype, dq, dv)}
         # fewer replays where a call is long (the training shape's
         # causal work is 64x that of (8, 256))
         reps = max(3, 200 * 8 * 256 * 256 // max(B * T * T, 1) // 1)
         reps = min(200, reps)
         fns = {
-            "ms": (lambda: fa.flash_attention(q, k, v, causal=True), reps),
+            "ms": (lambda: fa.flash_attention(q, k, v, causal=causal), reps),
             "library_ms": (lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), reps),
+                qt, kt, vt, is_causal=causal), reps),
         }
         plain = {}
         if T <= 1024:
             fns["plain_ms"] = (lambda: ref.attention_ref(q, k, v,
-                                                         causal=True), 20)
+                                                         causal=causal), 20)
         if row["variant"] != "cuda_core":
             fns["first_ms"] = (lambda: fa._flash_attention_variant(
-                q, k, v, "cuda_core", causal=True), reps)
-        if (B, T, H, dq, dv) in train:
+                q, k, v, "cuda_core", causal=causal), reps)
+        if key in train:
             fns["lse_ms"] = (lambda: fa.flash_attention_lse(
-                q, k, v, causal=True), reps)
+                q, k, v, causal=causal), reps)
         row.update(turns(torch, fns))
         if "plain_ms" not in row:
             row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
-                "out", ref.attention_ref(q, k, v, causal=True)), 2)
-        held = ""
-        if (B, T, H, dq, dv) in train:
-            err = hold_train_forward(torch, fa, ref, q, k, v, plain)
-            worst["flash_attention"] = max(worst["flash_attention"], err)
-            held = (f"; the served and training forwards hold the plain "
-                    f"version here (max abs {err:.3g}, tol "
-                    f"{FLASH_TOL['bfloat16']:g}; lse tol {LSE_TOL:g})")
+                "out", ref.attention_ref(q, k, v, causal=causal)), 2)
+        err = hold_forward(torch, fa, ref, q, k, v, causal, plain,
+                           key in train)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        held = (f"; the served forward holds the plain version here (max "
+                f"abs {err:.3g}, tol {FLASH_TOL['bfloat16']:g})"
+                if key not in train else
+                f"; the served and training forwards hold the plain "
+                f"version here (max abs {err:.3g}, tol "
+                f"{FLASH_TOL['bfloat16']:g}; lse tol {LSE_TOL:g})")
         first = "the first design itself"
         if "first_ms" not in row:             # the kernel is the first design
             row["first_ms"] = row["ms"]
         else:
             first = f"first design (cuda_core) {row['first_ms'] * 1e3:.1f} us"
-        row["bound_ms"], row["bound_by"] = flash_bound(q, k, v, True, 0)
+        row["bound_ms"], row["bound_by"] = flash_bound(q, k, v, causal, 0)
         rows.append(row)
         dims = f"{dq}" if dq == dv else f"q/k {dq}, v {dv}"
         lse = (f" (training's, with the log-sum-exp: "
                f"{row['lse_ms'] * 1e3:.1f} us)" if "lse_ms" in row else "")
-        phase("time", f"flash_attention ({B}, {T}, {H}, {dims}) bf16 causal: "
+        mask = "causal" if causal else "non-causal"
+        phase("time", f"flash_attention ({B}, {T}, {H}, {dims}) bf16 {mask}: "
               f"kernel ({row['variant']}) {row['ms'] * 1e3:.1f} us/launch{lse}, "
               f"{first}, plain version {row['plain_ms'] * 1e3:.1f} us, sdpa "
               f"{row['library_ms'] * 1e3:.1f} us, bound "
@@ -2192,9 +2354,21 @@ def golden_phase(torch, S, dev, name, batch, rows, cfg, x64):
 # float32 moments is ~98 GB; 8 of its 36 layers are ~2.79 B parameters,
 # ~33.5 GB of weights, gradients and moments, 8 of rwkv6-7b's 32 ~2.28 B,
 # ~27 GB; B = 2 sequences of the reference launcher's 4,096 tokens
-# (8,192 tokens a step, against its global batch of 256).
-TRAIN_ARCHS = ("qwen3-8b", "rwkv6-7b")
-TRAIN_LAYERS = 8
+# (8,192 tokens a step, against its global batch of 256). hubert-xlarge
+# (flash on the CUDA cores at d 80, bidirectional) trains all its 48
+# layers (~0.96 B parameters, ~11.5 GB with the moments) on B = 2 clips
+# of 4,096 frames through make_train_step itself: the port has no frame
+# pipeline, as the reference has none. Its batch is the same every step
+# (so that the loss's fall is the optimizer's): standard-normal features
+# from a numpy generator, targets in [0, 504), and a loss mask of spans
+# of MASK_SPAN frames from random starts over about MASK_SHARE of the
+# frames (HuBERT masks spans of 10 from ~8% of the starts); the lr at
+# make_train_step's peak (3e-4) from the first step (warm-up 1), so
+# that TRAIN_STEPS steps move the loss.
+TRAIN_ARCHS = ("qwen3-8b", "rwkv6-7b", "hubert-xlarge")
+TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 8}
+MASK_SPAN, MASK_SHARE = 10, 0.5
+FRAME_WARMUP = 1
 # steps: the first (the kernels' first launches) apart, a timed window
 # of TRAIN_WINDOW, then one under torch.profiler
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WINDOW = 2, 4096, 3
@@ -2227,8 +2401,8 @@ WKV_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LSE_TOL = 1e-4
 # (label, B, T, S, H, dq, dv, causal, window, dtype): the wgmma
 # backward's edges (d 64, a ragged T, T != S without the causal mask, a
-# window), then the CUDA-core variant's float32 and MLA cases (MLA's L
-# from the wgmma forward)
+# window), then the CUDA-core variant's float32, MLA (its L from the
+# wgmma forward) and hubert-xlarge's bf16 d 80 cases
 FLASH_BWD_CASES = [
     ("batched prefill", 8, 256, 256, 32, 128, 128, True, 0, "bfloat16"),
     ("head dim 64", 2, 256, 256, 40, 64, 64, True, 0, "bfloat16"),
@@ -2239,6 +2413,7 @@ FLASH_BWD_CASES = [
      "bfloat16"),
     ("float32", 1, 384, 384, 32, 128, 128, True, 0, "float32"),
     ("MLA", 2, 256, 256, 40, 96, 64, True, 0, "bfloat16"),
+    ("hubert, non-causal", 2, 1024, 1024, 16, 80, 80, False, 0, "bfloat16"),
 ]
 # (B, T, dtype, with a final-state gradient); H 64, dh 64
 WKV_BWD_CASES = [(1, 256, "bfloat16", False), (1, 256, "float32", True),
@@ -2399,7 +2574,8 @@ def model_flops(cfg, params, B, T, kinds):
     recompute not counted): 6 x the tokens x the weights of every matrix
     product (the layers' matrices and the head; the embedding is a
     lookup), plus causal attention's 6 B H T^2 dh (QK^T and PV, half
-    the pairs, three passes) or wkv's 3 x 4 B T H dh^2."""
+    the pairs, three passes; twice that without the causal mask) or
+    wkv's 3 x 4 B T H dh^2."""
     from repro_torch.core.tree import paths
     mats = sum(t.numel() for p, t in paths(params["layers"])
                if t.dim() >= 2 and p[-1] not in ("maa_wkvrg", "u"))
@@ -2407,7 +2583,8 @@ def model_flops(cfg, params, B, T, kinds):
     flops = 6 * B * T * (mats + head)
     for kind, _ in kinds:
         if kind == "attn":
-            flops += 6 * B * cfg.n_heads * T * T * cfg.d_head
+            flops += (6 if cfg.causal else 12) * B * cfg.n_heads * T * T \
+                * cfg.d_head
         elif kind == "rwkv":
             dh = cfg.rwkv_head_dim
             flops += 12 * B * T * (cfg.d_model // dh) * dh * dh
@@ -2430,15 +2607,39 @@ def f32_kernel_fns():
     return {"attention": attention, "wkv": wkv}
 
 
+def frame_batch(torch, cfg, B, T, dev, seed, dtype=None):
+    """hubert's training batch (``configs.input_specs``'s): request_batch's
+    features (B, T, d_model), cast to ``dtype`` where given, ``targets``
+    in [0, vocab), and a loss ``mask`` of spans of MASK_SPAN frames from
+    random starts over about MASK_SHARE of each clip's frames."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    batch = request_batch(torch, cfg, T, dev, rng, B)
+    if dtype is not None:
+        batch = _as(batch, dtype)
+    mask = np.zeros((B, T), bool)
+    for row in mask:
+        while row.mean() < MASK_SHARE:
+            start = rng.integers(0, T)
+            row[start:start + MASK_SPAN] = True
+    batch["mask"] = torch.as_tensor(mask, device=dev)
+    batch["targets"] = torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)),
+                                       device=dev)
+    return batch
+
+
 def grad_check(torch, cfg, params, dev, name):
     """The gradient check: the kernel path against the plain path over
     the first GRAD_LAYERS layers at (1, GRAD_SEQ), in a float64 model.
     Returns (worst share, its leaf, leaves)."""
     from repro_torch.core.tree import leaves, paths, unflatten
     from repro_torch.models import model as M
-    g = torch.Generator(device=dev).manual_seed(1)
-    batch = {k: torch.randint(0, cfg.vocab, (1, GRAD_SEQ), generator=g,
-                              device=dev) for k in ("tokens", "targets")}
+    if cfg.frontend == "audio_frames":
+        batch = frame_batch(torch, cfg, 1, GRAD_SEQ, dev, 1, torch.float64)
+    else:
+        g = torch.Generator(device=dev).manual_seed(1)
+        batch = {k: torch.randint(0, cfg.vocab, (1, GRAD_SEQ), generator=g,
+                                  device=dev) for k in ("tokens", "targets")}
     head = dict(params, layers=params["layers"][:GRAD_LAYERS])
     names = [".".join(map(str, p)) for p, _ in paths(head)]
     cfgx = dataclasses.replace(cfg, n_layers=GRAD_LAYERS,
@@ -2449,7 +2650,10 @@ def grad_check(torch, cfg, params, dev, name):
         live = [t.detach().requires_grad_() for t in leaves(px)]
         loss, _ = M.train_loss(cfgx, unflatten(px, live), batch,
                                kernel_fns=kf)
-        out[label] = torch.autograd.grad(loss, live)
+        # hubert's embedding is on no path of its (frame) batch: zeros
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+        out[label] = [torch.zeros_like(t) if g is None else g
+                      for g, t in zip(grads, live)]
     torch.cuda.synchronize()
     errs = [r for (_, r) in rel_errs(torch, out["kernels"], out["plain"])]
     if not all(bool(torch.isfinite(a).all()) for a in out["kernels"]):
@@ -2530,12 +2734,36 @@ def bwd_designs_reading(torch, cfg, params, dev):
     return worst, leaf, sorted(shares)[len(shares) // 2], len(names), calls
 
 
+def frame_steps(torch, cfg, state, batch):
+    """hubert's steps: ``run(lo, hi)`` runs steps lo..hi-1 of
+    make_train_step (the kernels, warm-up FRAME_WARMUP) on ``batch``,
+    each logged as Trainer.run logs it (its metrics as floats, then the
+    step and its wall time)."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.steps import make_train_step
+    step_fn = make_train_step(cfg, kernel_fns=ops.model_kernel_fns(),
+                              warmup=FRAME_WARMUP)
+    log = []
+
+    def run(lo, hi):
+        for step in range(lo, hi):
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(state["params"], state["opt"], batch,
+                                     step)
+            m = {k: float(v) for k, v in m.items()}
+            state.update(params=params, opt=opt)
+            log.append(dict(m, step=step,
+                            step_time_s=time.perf_counter() - t0))
+    return run, log
+
+
 def train_phase(torch, arch, dev, card, tmp):
-    """The training path of ``arch`` at full width, TRAIN_LAYERS deep:
-    the float32 gradient check, then TRAIN_STEPS AdamW steps through
-    Trainer.run (a warm-up step, a timed window of TRAIN_WINDOW, one
-    under torch.profiler). Returns the kernel launches it made, by
-    kernel and shape."""
+    """The training path of ``arch`` at full width, TRAIN_LAYERS[arch]
+    deep (all its layers where it has none): the float32 gradient check,
+    then TRAIN_STEPS AdamW steps (a warm-up step, a timed window of
+    TRAIN_WINDOW, one under torch.profiler) through Trainer.run on
+    batch_at's tokens, or for hubert's frames through make_train_step.
+    Returns the kernel launches it made, by kernel and shape."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import leaves
     from repro_torch.data.pipeline import DataConfig
@@ -2547,7 +2775,9 @@ def train_phase(torch, arch, dev, card, tmp):
 
     name = f"train-{arch}"
     full = get_config(arch)
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS.get(
+        arch, full.n_layers))
+    frames = cfg.frontend == "audio_frames"
     kinds = M.layer_kinds(cfg)
     n_attn = sum(k == "attn" for k, _ in kinds)
     n_rwkv = sum(k == "rwkv" for k, _ in kinds)
@@ -2555,10 +2785,11 @@ def train_phase(torch, arch, dev, card, tmp):
     params = M.init_params(cfg, TRAIN_SEED, device=dev)
     torch.cuda.synchronize()
     n_par = sum(t.numel() for t in leaves(params))
-    phase(name, f"{TRAIN_LAYERS} of {full.n_layers} layers, d_model "
+    phase(name, f"{cfg.n_layers} of {full.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}: {n_par / 1e9:.2f} B parameters "
           f"in {cfg.dtype} (seed {TRAIN_SEED}), remat {cfg.remat}, "
-          f"optimizer {cfg.optimizer}, in {time.perf_counter() - t0:.1f} s")
+          f"optimizer {cfg.optimizer}, causal {cfg.causal}, in "
+          f"{time.perf_counter() - t0:.1f} s")
     worst, at, n_leaves = grad_check(torch, cfg, params, dev, name)
     phase(name, f"gradients over the first {GRAD_LAYERS} layers at (1, "
           f"{GRAD_SEQ}), the float32 kernels (forward and backward) vs the "
@@ -2575,29 +2806,37 @@ def train_phase(torch, arch, dev, card, tmp):
               f"a median {median:.3g} and at most {worst:.3g} of their scale "
               f"({at}); a reading, not a gate")
 
-    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                      global_batch=TRAIN_BATCH)
-    tcfg = TrainerConfig(ckpt_dir=str(tmp / name), total_steps=1,
-                         ckpt_every=0, seed=TRAIN_SEED)
-    trainer = Trainer(cfg=cfg, tcfg=tcfg, data=data, device=dev)
     opt_init, _ = make_optimizer(cfg)
     state = {"params": params, "opt": opt_init(params)}
     del params
     flops = model_flops(cfg, state["params"], TRAIN_BATCH, TRAIN_SEQ, kinds)
+    if frames:
+        batch = frame_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, dev,
+                            TRAIN_SEED)
+        masked = float(batch["mask"].float().mean())
+        run, log = frame_steps(torch, cfg, state, batch)
+    else:
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+        tcfg = TrainerConfig(ckpt_dir=str(tmp / name), total_steps=1,
+                             ckpt_every=0, seed=TRAIN_SEED)
+        trainer = Trainer(cfg=cfg, tcfg=tcfg, data=data, device=dev)
+        log = trainer.metrics_log
+
+        def run(lo, hi):
+            trainer.tcfg.total_steps = hi
+            state.update(trainer.run(state, lo))
     reset_train_counts(fa, rwkv6_wkv)
     torch.cuda.reset_peak_memory_stats()
-    state = trainer.run(state, 0)
-    trainer.tcfg.total_steps = 1 + TRAIN_WINDOW
+    run(0, 1)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = trainer.run(state, 1)
+    run(1, 1 + TRAIN_WINDOW)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_WINDOW
-    trainer.tcfg.total_steps = TRAIN_STEPS
-    box = []
     own = "flash_bwd" if n_attn else "wkv_bwd_kernel"
     wall, busy, n_launch, own_ms, top = profile_busy(
-        torch, lambda: box.append(trainer.run(state, TRAIN_STEPS - 1)), own)
+        torch, lambda: run(TRAIN_STEPS - 1, TRAIN_STEPS), own)
     peak = torch.cuda.max_memory_allocated() / 2**30
     passes = 2 if cfg.remat else 1
     want = {"flash_attention": passes * n_attn * TRAIN_STEPS,
@@ -2617,21 +2856,29 @@ def train_phase(torch, arch, dev, card, tmp):
         check_variant(fa, got["flash_attention_bwd"], fa.bwd_variant(
             cfg.dtype, cfg.d_head, cfg.d_head), name,
             "BWD_VARIANT_LAUNCHES")
-    log = trainer.metrics_log
     for m in log:
         if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
             fail(f"{name}: step {m['step']} loss {m['loss']} grad_norm "
                  f"{m['grad_norm']}")
+    fell = ""
+    if frames:
+        if not log[-1]["loss"] < log[0]["loss"]:
+            fail(f"{name}: the loss did not fall over {TRAIN_STEPS} steps "
+                 f"on one batch: {[m['loss'] for m in log]}")
+        fell = (f"; one batch every step, its loss mask over {masked:.3f} "
+                f"of the frames (spans of {MASK_SPAN}): the loss fell "
+                f"{log[0]['loss']:.4f} -> {log[-1]['loss']:.4f}")
+    unit = "frames" if frames else "tokens"
     tokens = TRAIN_BATCH * TRAIN_SEQ
     phase(name, "steps (loss, grad_norm, ms): " + "; ".join(
         f"{m['step']}: {m['loss']:.4f}, {m['grad_norm']:.4g}, "
         f"{m['step_time_s'] * 1e3:.1f}" for m in log)
         + " (the first with the kernels' first launches, the last under "
-        "torch.profiler)")
-    phase(name, f"B={TRAIN_BATCH} T={TRAIN_SEQ} ({tokens} tokens a step): "
+        f"torch.profiler){fell}")
+    phase(name, f"B={TRAIN_BATCH} T={TRAIN_SEQ} ({tokens} {unit} a step): "
           f"{step_s * 1e3:.1f} ms a step (the wall time of steps 1-"
           f"{TRAIN_WINDOW} over {TRAIN_WINDOW}), {tokens / step_s:.0f}"
-          f" tokens/s; model FLOPs {flops / 1e12:.1f} T a step, "
+          f" {unit}/s; model FLOPs {flops / 1e12:.1f} T a step, "
           f"{flops / step_s / 1e12:.1f} TFLOP/s = "
           f"{flops / step_s / BF16_OPS_PER_S:.3f} of 989 TFLOP/s; peak "
           f"memory {peak:.1f} GiB; launches {got}, the backward's by "
@@ -2642,12 +2889,12 @@ def train_phase(torch, arch, dev, card, tmp):
           + ", ".join(f"{k} {v:.1f}" for k, v in own_ms.items())
           + "); top kernels (name, calls, ms):"
           f" {top}; card {card}")
-    del state, box, trainer
+    del state, log, run
     gc.collect()
     torch.cuda.empty_cache()
     H = cfg.n_heads if n_attn else cfg.d_model // cfg.rwkv_head_dim
     dh = cfg.d_head if n_attn else cfg.rwkv_head_dim
-    shape = (TRAIN_BATCH, TRAIN_SEQ, H, dh, dh) if n_attn else \
+    shape = (TRAIN_BATCH, TRAIN_SEQ, H, dh, dh, cfg.causal) if n_attn else \
         (TRAIN_BATCH, TRAIN_SEQ)
     return {k: {"launches": n, "shapes": {shape: n} if n else {}}
             for k, n in got.items()}
@@ -2715,6 +2962,85 @@ def train_reduced_phase(torch, dev, card, tmp):
     return exact, diff
 
 
+def run_example(stem, argv):
+    """``examples/<stem>.py``'s ``main(argv)``, its printed lines
+    captured; returns (its result, its lines)."""
+    import contextlib
+    import io
+    import runpy
+    main = runpy.run_path(str(ROOT / "examples" / f"{stem}.py"))["main"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return out, buf.getvalue().strip().splitlines()
+
+
+def examples_phase(torch, dev, card, tmp):
+    """The port's examples on the card through their ``main(argv)``:
+    quickstart (its loss must fall by REDUCED_FALL), the batched server
+    (through launch.serve.generate: (8, 16) tokens within the logits'
+    padded_vocab) and the
+    100M trainer, 30 steps into a fresh checkpoint
+    directory and then 35 from it (the second run must resume at the
+    first one's last checkpoint); each through the flash kernels (its
+    counts must move, forward and, training, backward)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_wkv
+    name = "examples"
+    ckpt = tmp / "torch_train_100m"
+    runs = [("torch_quickstart", []), ("torch_serve_batched", []),
+            ("torch_train_100m", ["--steps", "30", "--ckpt-dir", str(ckpt)]),
+            ("torch_train_100m", ["--steps", "35", "--ckpt-dir", str(ckpt)])]
+    for stem, argv in runs:
+        reset_train_counts(fa, rwkv6_wkv)
+        t0 = time.perf_counter()
+        out, lines = run_example(stem, ["--device", dev.type] + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"flash_attention": fa.LAUNCHES,
+                  "flash_attention_bwd": fa.BWD_LAUNCHES}
+        variants = dict(fa.VARIANT_LAUNCHES)
+        trains = stem != "torch_serve_batched"
+        if not counts["flash_attention"] or (
+                trains and not counts["flash_attention_bwd"]):
+            fail(f"{name}: {stem} {argv} made flash launches {counts}")
+        if stem == "torch_quickstart":
+            losses = out["losses"]
+            if not (all(math.isfinite(x) for x in losses)
+                    and losses[-1] < losses[0] - REDUCED_FALL):
+                fail(f"{name}: quickstart's loss {losses[0]:.4f} -> "
+                     f"{losses[-1]:.4f} (must fall by {REDUCED_FALL})")
+            said = f"loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+        elif stem == "torch_serve_batched":
+            toks = out["tokens"]
+            width = out["cfg"].padded_vocab     # greedy over the logits
+            if tuple(toks.shape) != (8, 16) or not bool(
+                    ((toks >= 0) & (toks < width)).all()):
+                fail(f"{name}: serve_batched gave tokens of shape "
+                     f"{tuple(toks.shape)} (want (8, 16), in [0, {width}))")
+            said = f"tokens {tuple(toks.shape)}, in [0, {width})"
+            del out, toks
+        else:
+            steps = [m["step"] for m in out["metrics"]]
+            n = int(argv[1])
+            first = n == 30
+            if out["start"] != (0 if first else 30) or steps != list(
+                    range(out["start"], n)) or not all(
+                        math.isfinite(m["loss"]) for m in out["metrics"]):
+                fail(f"{name}: train_100m {argv} started at "
+                     f"{out['start']} and ran steps {steps}")
+            said = (f"steps {steps[0]}-{steps[-1]} from "
+                    + ("step 0" if first else
+                       f"the first run's checkpoint at step {out['start']}")
+                    + f", loss {out['metrics'][0]['loss']:.4f} -> "
+                    f"{out['metrics'][-1]['loss']:.4f}")
+        phase(name, f"{stem} {' '.join(argv)}: {wall:.1f} s, {said}; flash "
+              f"launches {counts}, the forward's by variant {variants}; it "
+              f"printed: " + " | ".join(line for line in lines if line))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    phase(name, f"the three examples ran on the card; card {card}")
+
+
 def hold_grads(torch, label, got, want, tol):
     """A backward kernel's gradients against the plain version's: each
     finite and within ``tol`` of the plain one's largest magnitude;
@@ -2728,24 +3054,28 @@ def hold_grads(torch, label, got, want, tol):
     return errs
 
 
-def hold_train_forward(torch, fa, ref, q, k, v, plain):
-    """At a training shape: the served forward and the training one
-    (with the log-sum-exp) against ``plain["out"]``, the plain output the
-    timing computed (else computed here), under FLASH_TOL and LSE_TOL;
-    returns the max abs."""
+def hold_forward(torch, fa, ref, q, k, v, causal, plain, train):
+    """At a shape of the path: the served forward, and at a training shape
+    (``train``) also the training one (with the log-sum-exp), against
+    ``plain["out"]``, the plain output the timing computed (else computed
+    here), under FLASH_TOL and LSE_TOL; returns the max abs."""
     if "out" not in plain:
-        plain["out"] = ref.attention_ref(q, k, v, causal=True)
+        plain["out"] = ref.attention_ref(q, k, v, causal=causal)
     want = plain["out"]
-    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
     tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
     err = 0.0
     try:
-        for got in (fa.flash_attention(q, k, v, causal=True), out):
+        outs = [fa.flash_attention(q, k, v, causal=causal)]
+        if train:
+            out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+            outs.append(out)
+            allclose_err(torch, lse, ref.attention_lse_ref(
+                q, k, causal=causal), LSE_TOL, LSE_TOL)
+        for got in outs:
             err = max(err, allclose_err(torch, got, want, tol, tol))
-        allclose_err(torch, lse, ref.attention_lse_ref(q, k), LSE_TOL,
-                     LSE_TOL)
     except AssertionError as e:
-        fail(f"flash_attention {tuple(q.shape)} training shape: {e}")
+        fail(f"flash_attention {tuple(q.shape)} "
+             f"{'training' if train else 'served'} shape: {e}")
     return err
 
 
@@ -2830,55 +3160,65 @@ def time_backward_kernels(torch, dev, card, paths, worst):
     from repro_torch.kernels import ref, rwkv6_wkv
     entries = []
     rows = []
-    for (B, T, H, dq, dv), n in sorted(
+    for (B, T, H, dq, dv, causal), n in sorted(
             paths["flash_attention_bwd"]["shapes"].items()):
         q, k, v = attn_inputs(torch, B, T, H, dq, dv, torch.bfloat16, dev,
                               800)
         do = attn_inputs(torch, B, T, H, dv, dv, torch.bfloat16, dev, 801)[0]
-        out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2)
-        row = {"shape": [B, T, H, dq, dv], "launches": n}
+        row = {"shape": [B, T, H, dq, dv], "causal": causal, "launches": n}
         picked = fa.bwd_variant(q.dtype, dq, dv)
-        # the picked design, the CUDA-core first design and SDPA's
-        # backward on the same tensors, in turns
-        row.update(event_turns(torch, {
+        # the picked design, the CUDA-core first design (where it is
+        # another) and SDPA's backward on the same tensors, in turns
+        fns = {
             "ms": (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                                  causal=True), 5),
-            "first_ms": (lambda: fa._flash_attention_bwd_variant(
-                q, k, v, out, lse, do, "cuda_core", causal=True), 2),
+                                                  causal=causal), 5),
             "library_ms": (lambda: torch.autograd.grad(
                 sdpa, (qt, kt, vt), dot, retain_graph=True), 10),
-        }))
+        }
+        if picked != "cuda_core":
+            fns["first_ms"] = (lambda: fa._flash_attention_bwd_variant(
+                q, k, v, out, lse, do, "cuda_core", causal=causal), 2)
+        row.update(event_turns(torch, fns))
         plain = {}
         row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
             "grads", ref.attention_bwd_ref(q, k, v, out, lse, do,
-                                           causal=True)), 1)
+                                           causal=causal)), 1)
         want = plain.pop("grads")
-        label = f"flash_attention_bwd ({B}, {T}, {H}, {dq}, {dv}) bf16"
-        got = [fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        mask = "causal" if causal else "non-causal"
+        label = f"flash_attention_bwd ({B}, {T}, {H}, {dq}, {dv}) bf16 {mask}"
+        got = [fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
                for _ in range(2)]
         errs = hold_grads(torch, f"{label}, {picked} variant", got[0], want,
                           FLASH_BWD_TOL["bfloat16"])
         if not all(torch.equal(a, b) for a, b in zip(*got)):
             fail(f"{label}, {picked} variant: two runs differ")
         del got
-        first = hold_grads(torch, f"{label}, cuda_core variant",
-                           fa._flash_attention_bwd_variant(
-                               q, k, v, out, lse, do, "cuda_core",
-                               causal=True), want,
-                           FLASH_BWD_TOL["bfloat16"])
+        first = errs
+        if picked != "cuda_core":
+            first = hold_grads(torch, f"{label}, cuda_core variant",
+                               fa._flash_attention_bwd_variant(
+                                   q, k, v, out, lse, do, "cuda_core",
+                                   causal=causal), want,
+                               FLASH_BWD_TOL["bfloat16"])
         worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
                                            max(a for a, _ in errs))
         del want
-        row["bound_ms"], row["bound_by"] = flash_bwd_bound(q, v, True, 0)
+        row["bound_ms"], row["bound_by"] = flash_bwd_bound(q, v, causal, 0)
+        if "first_ms" in row:
+            also = (f"the CUDA-core first design {row['first_ms']:.3f} ms "
+                    f"({row['first_ms'] / row['ms']:.1f}x the {picked})")
+        else:                   # the picked design is the first design
+            row["first_ms"] = row["ms"]
+            also = "the first design itself"
         rows.append(row)
         phase("time", f"flash_attention backward ({B}, {T}, {H}, {dq}) bf16 "
-              f"causal: {picked} variant {row['ms']:.3f} ms/call (three "
-              f"launches), the CUDA-core first design {row['first_ms']:.3f} "
-              f"ms ({row['first_ms'] / row['ms']:.1f}x the {picked}), plain "
+              f"{mask}: {picked} variant {row['ms']:.3f} ms/call (three "
+              f"launches), {also}, plain "
               f"version {row['plain_ms']:.1f} ms, SDPA's backward "
               f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
               f"({row['bound_by']}): kernel {row['ms'] / row['library_ms']:.2f}"
@@ -3239,6 +3579,7 @@ def main() -> None:
                 paths[k]["shapes"][key] = paths[k]["shapes"].get(key, 0) + n
                 train_shapes.add(key)
     train_reduced_phase(torch, dev, card, tmp)
+    examples_phase(torch, dev, card, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
 
     # 10. per-launch times of the serving and training kernels ----------

@@ -2,8 +2,9 @@
 models as ``repro.configs``."""
 from __future__ import annotations
 
-from repro_torch.configs.base import (MambaConfig, MLAConfig, ModelConfig,
-                                      reduced)
+from repro_torch.configs.base import (Cell, MambaConfig, MLAConfig,
+                                      ModelConfig, ShapeConfig, SHAPES,
+                                      cells_for, input_specs, reduced)
 
 from repro_torch.configs.kimi_k2_1t_a32b import CONFIG as _kimi
 from repro_torch.configs.mixtral_8x7b import CONFIG as _mixtral
@@ -32,5 +33,6 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ARCH_IDS", "MambaConfig", "MLAConfig", "ModelConfig",
-           "REGISTRY", "get_config", "reduced"]
+__all__ = ["ARCH_IDS", "Cell", "MambaConfig", "MLAConfig", "ModelConfig",
+           "REGISTRY", "SHAPES", "ShapeConfig", "cells_for", "get_config",
+           "input_specs", "reduced"]

@@ -3,8 +3,9 @@
 Every architecture is a ``ModelConfig`` in ``configs/<id>.py``, with the
 same fields and values as the reference; ``dtype`` is a ``torch.dtype``
 (bfloat16 by default, float32 in ``reduced``). The shape cells
-(``SHAPES``, ``cells_for``, ``input_specs``) serve the dry-run launcher
-and are not ported yet.
+(``SHAPES``, ``cells_for``) and ``input_specs`` say what a batch of each
+cell holds: the names, shapes and dtypes the model's entry points take,
+a frontend's ``features`` or ``patches`` among them.
 """
 from __future__ import annotations
 
@@ -172,6 +173,99 @@ class ModelConfig:
             else:
                 total += d * int(3.5 * d) * 2         # rwkv channel mix
         return total
+
+
+# ---------------------------------------------------------------------------
+# Shape cells
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                   # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class Cell:
+    arch: str
+    shape: ShapeConfig
+    run: bool
+    skip_reason: str = ""
+
+
+def _subquadratic(cfg: ModelConfig) -> bool:
+    """long_500k eligibility: SSM / hybrid / linear-attn / sliding-window."""
+    return (cfg.family in ("ssm", "hybrid")) or (cfg.swa_window > 0)
+
+
+def cells_for(cfg: ModelConfig) -> list[Cell]:
+    out = []
+    for shape in SHAPES.values():
+        if shape.kind == "decode" and cfg.is_encoder:
+            out.append(Cell(cfg.name, shape, False,
+                            "encoder-only arch has no decode step"))
+            continue
+        if shape.name == "long_500k" and not _subquadratic(cfg):
+            out.append(Cell(cfg.name, shape, False,
+                            "pure full-attention arch; 500k decode needs "
+                            "sub-quadratic attention (see DESIGN.md)"))
+            continue
+        out.append(Cell(cfg.name, shape, True))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Input specs (tensors on the meta device, never allocated)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig,
+                shape: ShapeConfig) -> dict[str, torch.Tensor]:
+    """Model inputs for one cell as ``meta`` tensors (the reference's
+    ``jax.ShapeDtypeStruct``s): the names, shapes and dtypes a batch of
+    the cell holds."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.frontend == "audio_frames":
+        # HuBERT-style: precomputed frame embeddings + mask + frame targets.
+        return {
+            "features": _spec((B, S, cfg.d_model), cfg.dtype),
+            "mask": _spec((B, S), torch.bool),
+            "targets": _spec((B, S), torch.int32),
+        }
+    if cfg.frontend == "vision_patches":
+        P = cfg.n_frontend_tokens
+        if shape.kind == "decode":
+            return {
+                "token": _spec((B, 1), torch.int32),
+                "pos": _spec((B,), torch.int32),
+            }
+        return {
+            "patches": _spec((B, P, cfg.d_model), cfg.dtype),
+            "tokens": _spec((B, S - P), torch.int32),
+            "targets": _spec((B, S - P), torch.int32),
+        }
+    if shape.kind == "decode":
+        return {
+            "token": _spec((B, 1), torch.int32),
+            "pos": _spec((B,), torch.int32),
+        }
+    specs = {"tokens": _spec((B, S), torch.int32)}
+    if shape.kind == "train":
+        specs["targets"] = _spec((B, S), torch.int32)
+    return specs
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,9 +1,11 @@
 """HuBERT X-Large — encoder-only audio transformer.
 
 48L d_model=1280 16H (kv=16) d_ff=5120 vocab=504 (masked-frame cluster
-targets). The CNN waveform frontend is a STUB: input_specs() feeds
-precomputed frame embeddings (B, T, d_model). Bidirectional attention,
-masked-prediction CE loss; no decode shapes. [arXiv:2106.07447; unverified]
+targets). The CNN waveform frontend is a STUB, as in the reference:
+``repro_torch.configs.base.input_specs`` feeds precomputed frame
+embeddings (B, T, d_model), which ``models.model`` takes as they are.
+Bidirectional attention, masked-prediction CE loss; no decode shapes.
+[arXiv:2106.07447; unverified]
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -30,18 +30,26 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def generate(cfg, params, prompts, gen, kernel_fns=None) -> dict:
+def generate(cfg, params, prompts, gen, kernel_fns=None,
+             patches=None) -> dict:
     """Greedy generation of ``gen`` tokens for each row of ``prompts``
     (B, P): one batched prefill, then gen - 1 lock-step decode steps
-    over a cache of P + gen positions. Returns the tokens (B, gen) and
-    the prefill and decode times (the device synchronised) and rates."""
+    over a cache of P + gen positions. A vision config's ``patches``
+    (B, n_frontend_tokens, d_model) go before the prompts (the prefill
+    and the cache take them as P more positions). Returns the tokens
+    (B, gen) and the prefill and decode times (the device synchronised)
+    and rates (of the positions prefilled, patches included, and of the
+    generated tokens)."""
     dev = prompts.device
     B, P = prompts.shape
+    batch = {"tokens": prompts}
+    if patches is not None:
+        batch["patches"] = patches
+        P += patches.shape[1]
     max_len = P + gen
     _sync(dev)
     t0 = time.perf_counter()
-    logits, pre = M.prefill(cfg, params, {"tokens": prompts},
-                            kernel_fns=kernel_fns)
+    logits, pre = M.prefill(cfg, params, batch, kernel_fns=kernel_fns)
     tok = torch.argmax(logits, dim=-1)[:, None]
     _sync(dev)
     prefill_s = time.perf_counter() - t0

@@ -19,10 +19,18 @@ Entry points:
     init_cache(cfg, batch, cache_len, device=...) -> cache
     write_cache(cache, part, rows)                -> None (in place)
     prefill(cfg, params, batch, kernel_fns=None)  -> (last_logits, cache)
+        batch: tokens (B, T); hubert's features (B, T, d_model) [+ mask,
+        targets]; internvl's patches (B, P, d_model) + tokens
     decode_step(cfg, params, cache, token, pos, kernel_fns=None)
                                                   -> (logits, cache)
     train_loss(cfg, params, batch, kernel_fns=None)
                                   -> (loss, {"ce_loss", "aux_loss"})
+        batch: prefill's, with targets (and a frontend's loss mask)
+
+The batch of each cell is ``configs.input_specs``'s: the audio and
+vision frontends are stubs, as in the reference (precomputed frame or
+patch embeddings); ``decode_step`` embeds a token whatever the
+frontend.
 
 ``kernel_fns`` is ``kernels.ops.model_kernel_fns()`` to run attention
 and wkv through the port's CUDA kernels; without it the plain versions
@@ -249,15 +257,56 @@ def _train_stack(cfg, params, x, positions, kernel_fns):
     return x, aux_total
 
 
-def _embed_tokens(cfg, params, batch):
-    if "features" in batch or "patches" in batch:
-        raise NotImplementedError(
-            f"{cfg.name}: the audio and vision frontends are not ported "
-            "yet (ROADMAP Queue 1 item 13i)")
-    # F.embedding: the same rows as indexing; its backward on the card
-    # sums a token's rows in a fixed order (a training resume is
-    # bit-exact)
-    return F.embedding(batch["tokens"], params["embed"])
+def _embed_inputs(cfg, params, batch):
+    """(x, positions, targets, loss mask) of a batch, the reference's
+    ``_embed_inputs`` branch for branch:
+
+    * ``audio_frames``: x is ``batch["features"]`` (B, T, d_model) as
+      given, in ``cfg.dtype`` (``configs.input_specs``); targets and
+      mask are ``batch.get``'s;
+    * ``vision_patches`` with ``batch["patches"]`` (B, P, d_model), P =
+      ``cfg.n_frontend_tokens``: the patches (cast to the embedding's
+      dtype) before the tokens' embeddings; given targets, they gain P
+      zeros in front and the mask is False over the patches;
+    * otherwise the tokens' embeddings (``F.embedding``: the same rows
+      as indexing; its backward on the card sums a token's rows in a
+      fixed order, so a training resume is bit-exact)."""
+    emb = params["embed"]
+    if cfg.frontend == "audio_frames":
+        if "features" not in batch:
+            raise ValueError(f"{cfg.name}: an audio_frames batch needs "
+                             f"'features' (B, T, {cfg.d_model}), got keys "
+                             f"{sorted(batch)}")
+        x = batch["features"]
+        if x.dtype != cfg.dtype:
+            # the reference promotes float32 features against bf16
+            # weights and runs the residual stream in float32: a cast
+            # here would compute something else
+            raise ValueError(f"{cfg.name}: features must be {cfg.dtype}, "
+                             f"as configs.input_specs declares them; got "
+                             f"{x.dtype}")
+        T = x.shape[1]
+        return (x, torch.arange(T, device=x.device)[None, :],
+                batch.get("targets"), batch.get("mask"))
+    if cfg.frontend == "vision_patches" and "patches" in batch:
+        patches = batch["patches"]
+        P = cfg.n_frontend_tokens
+        if patches.dim() != 3 or patches.shape[1] != P:
+            raise ValueError(f"{cfg.name}: patches must be (B, {P}, "
+                             f"{cfg.d_model}) (n_frontend_tokens = {P}), "
+                             f"got {tuple(patches.shape)}")
+        tok_emb = F.embedding(batch["tokens"], emb)
+        x = torch.cat([patches.to(tok_emb.dtype), tok_emb], dim=1)
+        B, T = x.shape[:2]
+        positions = torch.arange(T, device=x.device)[None, :]
+        tgt, mask = batch.get("targets"), None
+        if tgt is not None:
+            tgt = torch.cat([tgt.new_zeros((B, P)), tgt], dim=1)
+            mask = (positions >= P).expand(B, T)
+        return x, positions, tgt, mask
+    x = F.embedding(batch["tokens"], emb)
+    return (x, torch.arange(x.shape[1], device=x.device)[None, :],
+            batch.get("targets"), None)
 
 
 def _logits(cfg, params, x):
@@ -266,11 +315,12 @@ def _logits(cfg, params, x):
 
 
 def prefill(cfg, params, batch, kernel_fns=None):
-    """batch["tokens"]: (B, T) int. Returns (float32 logits of the last
-    position (B, padded_vocab), cache)."""
-    x = _embed_tokens(cfg, params, batch)
+    """batch: ``tokens`` (B, T) int, or a frontend's inputs (see
+    ``_embed_inputs``). Returns (float32 logits of the last position
+    (B, padded_vocab), cache); the cache's ``pos_offset`` is the whole
+    sequence's length, patches included."""
+    x, positions, _, _ = _embed_inputs(cfg, params, batch)
     B, T = x.shape[:2]
-    positions = torch.arange(T, device=x.device)[None, :]
     x, caches = _run_stack(cfg, params, x, positions, kernel_fns,
                            want_cache=True)
     x = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
@@ -280,16 +330,17 @@ def prefill(cfg, params, batch, kernel_fns=None):
 
 
 def train_loss(cfg, params, batch, kernel_fns=None):
-    """The reference's ``train_loss``: batch["tokens"], batch["targets"]
-    (B, T) int -> (cross entropy + 0.01 x the MoE aux loss, {"ce_loss",
+    """The reference's ``train_loss``: a batch of ``tokens`` and
+    ``targets`` (B, T) int, or a frontend's (``features``, ``mask``,
+    ``targets``; ``patches``, ``tokens``, ``targets``) -> (cross
+    entropy over the loss mask + 0.01 x the MoE aux loss, {"ce_loss",
     "aux_loss"}), float32 scalars. Differentiable through every layer;
     ``kernel_fns`` as ``prefill``'s (``ops.model_kernel_fns()`` runs the
     CUDA kernels' forwards and backwards on the card)."""
-    x = _embed_tokens(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    x, positions, targets, mask = _embed_inputs(cfg, params, batch)
     x, aux = _train_stack(cfg, params, x, positions, kernel_fns or {})
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = cross_entropy(_logits(cfg, params, x), batch["targets"])
+    loss = cross_entropy(_logits(cfg, params, x), targets, mask)
     return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
 
 

@@ -100,6 +100,7 @@ def _close(got, want, tol):
     (1, 200, 32, 128, True, 0, "bfloat16"),
     (1, 384, 32, 128, True, 128, "bfloat16"),
     (2, 100, 3, 80, False, 0, "float32"),
+    (2, 200, 16, 80, False, 0, "bfloat16"),   # hubert: the CUDA-core variant
     (1, 128, 2, 32, False, 32, "float32"),
     (1, 64, 2, 16, True, 0, "float32"),
 ])
@@ -357,6 +358,7 @@ def test_flash_lse_vs_plain_version(cuda, B, T, H, d, causal, window,
     (1, 200, 3, 64, 64, True, 48, "bfloat16"),    # wgmma, window, ragged
     (1, 130, 2, 128, 128, False, 0, "bfloat16"),  # wgmma, non-causal
     (1, 200, 3, 96, 64, True, 0, "bfloat16"),     # MLA's head dims
+    (2, 200, 4, 80, 80, False, 0, "bfloat16"),    # hubert's, CUDA cores
     (1, 130, 2, 64, 64, True, 48, "float32"),
     (2, 64, 2, 16, 16, False, 0, "float32"),
     (1, 100, 2, 128, 128, True, 0, "float32"),

@@ -15,9 +15,12 @@ and a sum that cancels to a small value (a wkv state entry) keeps the
 rounding error of its larger terms.
 
 The configs must name the same models with the same fields, layer kinds
-and parameter counts; the frontends the port does not run yet must
-raise. ``convert`` must lay the reference's stacks (jamba's period of 8,
-kimi-k2's ``prefix0``) out in model order, float32 leaves kept float32.
+and parameter counts. ``convert`` must lay the reference's stacks
+(jamba's period of 8, kimi-k2's ``prefix0``) out in model order, float32
+leaves kept float32; ``init_params`` gives its layout for every family,
+the frontends' (hubert's GELU MLP and untied head, internvl's
+backbone) too. The frontends themselves are held in
+tests/test_torch_frontends.py.
 """
 import dataclasses
 
@@ -39,6 +42,8 @@ ARCHS = ["qwen3-0.6b", "qwen3-8b", "rwkv6-7b", "minicpm3-4b",
 #: the families this slice adds, for the port-side decode-consistency
 #: checks (the reference's tests/test_decode_consistency.py)
 NEW_ARCHS = ARCHS[3:]
+#: the audio and vision frontends (tests/test_torch_frontends.py)
+FRONTEND_ARCHS = ["hubert-xlarge", "internvl2-76b"]
 RTOL, ATOL = 1e-4, 1e-5
 
 
@@ -127,7 +132,7 @@ def test_decode_matches_full_forward():
                                rtol=RTOL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + FRONTEND_ARCHS)
 def test_init_matches_reference_layout(arch):
     """init_params / init_cache give the reference's leaves, shapes and
     dtypes (values differ: another generator)."""
@@ -305,10 +310,3 @@ def test_convert_lays_out_the_stack_in_model_order(arch, n_layers):
         if kind == "mamba":
             assert want["conv"].dtype == want["h"].dtype == torch.float32
 
-
-def test_frontends_raise():
-    tcfg = tconfigs.reduced(tconfigs.get_config("qwen3-8b"))
-    tp = TM.init_params(tcfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13i"):
-        TM.prefill(tcfg, tp, {"patches": torch.zeros(1, 4, 64),
-                              "tokens": torch.zeros(1, 4, dtype=torch.long)})

@@ -18,8 +18,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
    lcdc_switch kernel must have a stack frame of 0 bytes: its rows live
    in registers; the float64 ones' frames are printed); and the SASS
    of the flash library (cuobjdump -sass): each bf16 tensor-core kernel
-   (``WGMMA_KERNELS``: the forward at (64, 64), (128, 128) and MLA's
-   (96, 64), the backward's dK/dV and dQ kernels at d 64 and 128) must
+   (``WGMMA_KERNELS``: the forward at (64, 64), (128, 128), MLA's
+   (96, 64) and hubert-xlarge's (80, 80), the backward's dK/dV and dQ
+   kernels at d 64, 128 and 80) must
    show wgmma (HGMMA) and TMA loads
    (UTMALDG) and compile with 0 spill bytes; their registers, any ptxas
    warning about serialised wgmma, and the wkv backward's SASS
@@ -43,17 +44,20 @@ Phases (one line each; any failure exits non-zero and prints no result):
    ragged T, float32), planned and with one thread per column, the
    final state equal to the plain version's bit for bit;
    flash_attention also at hubert-xlarge's bf16 d 80 non-causal shapes
-   (the batched encode and a ragged clip: the CUDA-core variant); then
-   the training side: both flash variants' rows' log-sum-exp (wgmma at d
-   128 and at MLA's (96, 64)) against the plain logsumexp (the output
+   (the batched encode and a ragged clip: the wgmma variant and the
+   CUDA-core one); then the training side: both flash variants' rows'
+   log-sum-exp (wgmma at d 128, at MLA's (96, 64) and at d 80) against
+   the plain logsumexp (the output
    equal to serving's launch), the flash
    backward through the variant its inputs pick (``bwd_variant``, its
    counter checked; bf16 ones also through the CUDA-core design) at
    (8, 256, 32, 128) bf16, d 64, a ragged T, non-causal with T != S, a
    sliding window, (1, 384, 32, 128) float32, MLA's (2, 256, 40,
    96/64) (the CUDA-core backward, its log-sum-exp from the wgmma
-   forward) and hubert-xlarge's bf16 (2, 1024, 16, 80) non-causal (the
-   CUDA-core backward), and the wkv backward kernel at (1, 256), a ragged (2, 77)
+   forward) and hubert-xlarge's bf16 d 80 non-causal at (2, 1024, 16)
+   and with T != S, both ragged, at (2, 100, 160, 16) (the wgmma
+   backward and the CUDA-core one), and the wkv backward kernel at (1,
+   256), a ragged (2, 77)
    and (2, 1024) in bf16 and float32, each against its plain version
    (``ref.attention_bwd_ref``, ``ref.wkv_bwd_ref``) and equal to itself
    over two runs;
@@ -120,7 +124,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
    ``serve-minicpm3-4b`` (MLA), ``serve-mixtral-8x7b`` (MoE, sliding
    window) and ``serve-jamba-v0.1-52b`` (Mamba + attention + MoE): the
    serving path at full width (random bf16 weights from a seed, loaded
-   one model at a time; mixtral and jamba at 8 layers, SERVE_LAYERS):
+   one model at a time; minicpm3-4b at 16 layers, mixtral and jamba at
+   8, SERVE_LAYERS):
    one request's prefill logits through the kernels against the plain
    versions (float32, over the first LOGIT_LAYERS[arch] layers; and in
    bf16 at the served depth beside the effect of a small noise, for
@@ -135,7 +140,7 @@ Phases (one line each; any failure exits non-zero and prints no result):
    (the median of PREFILL_REPS calls; one more under torch.profiler:
    device busy, idle share);
 9x. ``serve-hubert-xlarge`` (audio frames, all 48 layers, bidirectional
-   at d 80: flash through the CUDA-core variant) and
+   at d 80: flash through the wgmma variant) and
    ``serve-internvl2-76b`` (vision patches, 8 of 80 layers: flash on
    wgmma), their inputs the port's ``configs.input_specs`` (standard
    normal features or patches in bf16, from a numpy generator): the
@@ -154,16 +159,19 @@ Phases (one line each; any failure exits non-zero and prints no result):
    tokens/s over the window, the model FLOPs' share of 989 TFLOP/s, peak
    memory, and exact launch counts (forward twice a layer a step with
    remat, backward once, every backward through the variant
-   ``bwd_variant`` picks: wgmma for qwen3-8b); for qwen3-8b also the
-   gradients of a 2-layer full-width bf16 model at (1, GRAD_SEQ) through
-   the wgmma backward and through the CUDA-core one (``kernel_fns``
+   ``bwd_variant`` picks: wgmma for qwen3-8b); for qwen3-8b (and
+   hubert-xlarge, below) also the gradients of a 2-layer full-width
+   bf16 model at (1,
+   GRAD_SEQ) through the wgmma backward and through the CUDA-core one
+   (``kernel_fns``
    built here), each leaf's difference as a share of its scale (a
    reading, not a gate); ``train-hubert-xlarge``: all 48 layers, the
    same gradient check (its features float64) and step accounting
    through ``make_train_step`` on one batch of B = 2 clips of 4,096
    frames with a span loss mask over about half of them (the loss must
-   fall), every flash call, forward and backward, through the CUDA-core
-   variant; 9d. ``train-reduced``: tests/test_system.py's
+   fall), every flash call, forward and backward, through the wgmma
+   variant, and the same bf16 gradient reading of the two backward
+   designs on a frame batch; 9d. ``train-reduced``: tests/test_system.py's
    30 steps of reduced qwen3-0.6b through the kernels (the loss falls by
    0.5) and tests/test_checkpoint_trainer.py's kill at step 8 and
    resume, the resumed losses against the uninterrupted run's (bit for
@@ -193,7 +201,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
    bounds and, for flash, SDPA's backward on the same tensors and the
    CUDA-core backward (the first design, ``first_ms``), timed in turns
    in the same call (and held too; the picked design's two runs equal
-   bit for bit).
+   bit for bit); then the flash backward's readings off the training
+   paths (``BWD_READINGS``: hubert's d 80 at (8, 512), MLA's (2, 4096,
+   40, 96/64) causal on the CUDA cores) beside SDPA's fused backward
+   (or the note that it refuses them) and the bound.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line names the device. Imports neither JAX nor the JAX
@@ -258,8 +269,15 @@ SERVE_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "mixtral-8x7b",
 # hybrid period of 8 layers (Mamba at 0-3 and 5-7, attention at 4, MoE
 # at the odd layers; ~13.3 B parameters) 26.6 GB; internvl2-76b's 80
 # layers are ~141 GB, its first 8 with the embedding and head (~9.0 B
-# parameters) 17.9 GB. The others serve all their layers.
-SERVE_LAYERS = {"mixtral-8x7b": 8, "jamba-v0.1-52b": 8, "internvl2-76b": 8}
+# parameters) 17.9 GB. minicpm3-4b fits whole, but its 62 layers are
+# ~7,600 eager launches a decode step: with the torch.profiler pass over
+# launch.serve the phase took 231 of the script's 987 s on an NVIDIA
+# H100 80GB HBM3 (700 W) with a slow host. 16 layers keep every shape of
+# its path (the flash launches a prefill fall from 62 to 16) and the
+# script well inside its 1,200 s limit. The others serve all their
+# layers.
+SERVE_LAYERS = {"minicpm3-4b": 16, "mixtral-8x7b": 8, "jamba-v0.1-52b": 8,
+                "internvl2-76b": 8}
 SERVE_SEED = 0
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 SERVE_PROMPTS = (64, 96, 128, 200, 256, 384)
@@ -1374,8 +1392,9 @@ def bucket_fault_phase(torch, S, dev):
 # and float32 (the CUDA-core variant)
 # (label, B, T, H, dq, dv, causal, window, dtype): the serve shapes of
 # qwen3-8b, mixtral-8x7b and jamba-v0.1-52b (H 32, d 128), of
-# minicpm3-4b's MLA (H 40, q/k 96, v 64: the wgmma variant in bf16), of
-# hubert-xlarge (H 16, d 80, non-causal) and of internvl2-76b (H 64)
+# minicpm3-4b's MLA (H 40, q/k 96, v 64), of hubert-xlarge (H 16, d 80,
+# non-causal) and of internvl2-76b (H 64), all on the wgmma variant in
+# bf16 and held through the CUDA-core one beside it
 FLASH_CASES = [
     ("batched prefill", 8, 256, 32, 128, 128, True, 0, "bfloat16"),
     ("request", 1, 64, 32, 128, 128, True, 0, "bfloat16"),
@@ -1391,7 +1410,7 @@ FLASH_CASES = [
     ("MLA batched prefill", 8, 256, 40, 96, 64, True, 0, "bfloat16"),
     ("MLA non-causal, ragged T", 2, 100, 40, 96, 64, False, 0, "bfloat16"),
     ("MLA float32", 1, 384, 40, 96, 64, True, 0, "float32"),
-    # hubert-xlarge: bidirectional at d 80, the CUDA-core variant in bf16
+    # hubert-xlarge: bidirectional at d 80, the wgmma variant in bf16
     ("hubert encode", 8, 512, 16, 80, 80, False, 0, "bfloat16"),
     ("hubert clip, ragged T", 1, 200, 16, 80, 80, False, 0, "bfloat16"),
     # internvl2-76b's batched prefill: 256 patches and 256 tokens, H 64
@@ -1406,14 +1425,14 @@ WKV_CASES = [
     ("float32", 1, 100, 64, 64, "float32"),
 ]
 # the flash library's bf16 kernels (the forward at each of its (dq, dv),
-# the backward at d 64 and 128) must run on the tensor cores with TMA
-# tile copies: SASS opcodes of wgmma and of TMA loads
+# the backward at d 64, 80 and 128) must run on the tensor cores with
+# TMA tile copies: SASS opcodes of wgmma and of TMA loads
 WGMMA_OPS = ("HGMMA",)
 ASYNC_COPY_OPS = ("UTMALDG",)
 WGMMA_KERNELS = {
-    "flash_wgmma_kernel": ((64, 64), (128, 128), (96, 64)),
-    "flash_bwd_wgmma_dkdv_kernel": ((64,), (128,)),
-    "flash_bwd_wgmma_dq_kernel": ((64,), (128,)),
+    "flash_wgmma_kernel": ((64, 64), (128, 128), (96, 64), (80, 80)),
+    "flash_bwd_wgmma_dkdv_kernel": ((64,), (128,), (80,)),
+    "flash_bwd_wgmma_dq_kernel": ((64,), (128,), (80,)),
 }
 
 
@@ -2401,8 +2420,9 @@ WKV_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LSE_TOL = 1e-4
 # (label, B, T, S, H, dq, dv, causal, window, dtype): the wgmma
 # backward's edges (d 64, a ragged T, T != S without the causal mask, a
-# window), then the CUDA-core variant's float32, MLA (its L from the
-# wgmma forward) and hubert-xlarge's bf16 d 80 cases
+# window), then the CUDA-core variant's float32 and MLA (its L from the
+# wgmma forward) cases, and hubert-xlarge's bf16 d 80 (the wgmma
+# variant: non-causal, then T != S with both ragged)
 FLASH_BWD_CASES = [
     ("batched prefill", 8, 256, 256, 32, 128, 128, True, 0, "bfloat16"),
     ("head dim 64", 2, 256, 256, 40, 64, 64, True, 0, "bfloat16"),
@@ -2414,7 +2434,15 @@ FLASH_BWD_CASES = [
     ("float32", 1, 384, 384, 32, 128, 128, True, 0, "float32"),
     ("MLA", 2, 256, 256, 40, 96, 64, True, 0, "bfloat16"),
     ("hubert, non-causal", 2, 1024, 1024, 16, 80, 80, False, 0, "bfloat16"),
+    ("hubert, non-causal, T != S, ragged", 2, 100, 160, 16, 80, 80, False,
+     0, "bfloat16"),
 ]
+# (B, T, H, dq, dv, causal): flash backward readings off the training
+# paths, timed in phase `time` beside the CUDA-core design, SDPA's
+# backward and the bound, and not in the kernels line: hubert-xlarge's
+# d 80 at its encode's (8, 512), and minicpm3-4b's MLA at its training
+# shape, whose CUDA-core backward ranks the next redesign
+BWD_READINGS = [(8, 512, 16, 80, 80, False), (2, 4096, 40, 96, 64, True)]
 # (B, T, dtype, with a final-state gradient); H 64, dh 64
 WKV_BWD_CASES = [(1, 256, "bfloat16", False), (1, 256, "float32", True),
                  (2, 77, "bfloat16", True),
@@ -2445,7 +2473,8 @@ def check_backward_kernels(torch, dev):
     for i, (want_variant, B, T, H, d, dv, dt) in enumerate(
             (("wgmma", 8, 256, 32, 128, 128, "bfloat16"),
              ("wgmma", 2, 256, 40, 96, 64, "bfloat16"),     # MLA
-             ("cuda_core", 1, 384, 32, 128, 128, "float32"))):
+             ("cuda_core", 1, 384, 32, 128, 128, "float32"),
+             ("wgmma", 2, 200, 16, 80, 80, "bfloat16"))):  # hubert's d
         q, k, v = attn_inputs(torch, B, T, H, d, dv, getattr(torch, dt),
                               dev, 700 + i)
         if fa.variant(q.dtype, d, dv) != want_variant:
@@ -2628,38 +2657,49 @@ def frame_batch(torch, cfg, B, T, dev, seed, dtype=None):
     return batch
 
 
-def grad_check(torch, cfg, params, dev, name):
-    """The gradient check: the kernel path against the plain path over
-    the first GRAD_LAYERS layers at (1, GRAD_SEQ), in a float64 model.
-    Returns (worst share, its leaf, leaves)."""
+def head_grads(torch, cfg, params, dev, seed, fns, dtype=None):
+    """The gradients of the first GRAD_LAYERS layers (and the embedding,
+    norm and head) at (1, GRAD_SEQ), once through each of ``fns``
+    ({label: kernel_fns}), the model's weights and frames cast to
+    ``dtype`` where given; a token batch from ``seed``, or hubert's
+    frame batch. Returns ({label: gradients}, the leaves' names)."""
     from repro_torch.core.tree import leaves, paths, unflatten
     from repro_torch.models import model as M
     if cfg.frontend == "audio_frames":
-        batch = frame_batch(torch, cfg, 1, GRAD_SEQ, dev, 1, torch.float64)
+        batch = frame_batch(torch, cfg, 1, GRAD_SEQ, dev, seed, dtype)
     else:
-        g = torch.Generator(device=dev).manual_seed(1)
+        g = torch.Generator(device=dev).manual_seed(seed)
         batch = {k: torch.randint(0, cfg.vocab, (1, GRAD_SEQ), generator=g,
                                   device=dev) for k in ("tokens", "targets")}
     head = dict(params, layers=params["layers"][:GRAD_LAYERS])
-    names = [".".join(map(str, p)) for p, _ in paths(head)]
-    cfgx = dataclasses.replace(cfg, n_layers=GRAD_LAYERS,
-                               dtype=torch.float64)
-    px = _cast(head, torch.float64)
+    cfg2 = dataclasses.replace(cfg, n_layers=GRAD_LAYERS)
+    if dtype is not None:
+        head = _cast(head, dtype)
+        cfg2 = dataclasses.replace(cfg2, dtype=dtype)
     out = {}
-    for label, kf in (("kernels", f32_kernel_fns()), ("plain", None)):
-        live = [t.detach().requires_grad_() for t in leaves(px)]
-        loss, _ = M.train_loss(cfgx, unflatten(px, live), batch,
+    for label, kf in fns.items():
+        live = [t.detach().requires_grad_() for t in leaves(head)]
+        loss, _ = M.train_loss(cfg2, unflatten(head, live), batch,
                                kernel_fns=kf)
         # hubert's embedding is on no path of its (frame) batch: zeros
         grads = torch.autograd.grad(loss, live, allow_unused=True)
         out[label] = [torch.zeros_like(t) if g is None else g
                       for g, t in zip(grads, live)]
+    return out, [".".join(map(str, p)) for p, _ in paths(head)]
+
+
+def grad_check(torch, cfg, params, dev, name):
+    """The gradient check: the kernel path against the plain path over
+    the first GRAD_LAYERS layers at (1, GRAD_SEQ), in a float64 model.
+    Returns (worst share, its leaf, leaves)."""
+    out, names = head_grads(torch, cfg, params, dev, 1, {
+        "kernels": f32_kernel_fns(), "plain": None}, torch.float64)
     torch.cuda.synchronize()
     errs = [r for (_, r) in rel_errs(torch, out["kernels"], out["plain"])]
     if not all(bool(torch.isfinite(a).all()) for a in out["kernels"]):
         fail(f"{name}: non-finite gradients through the kernels")
     r, leaf = max(zip(errs, names))
-    del px, out
+    del out
     gc.collect()
     torch.cuda.empty_cache()
     if r > GRAD_TOL:
@@ -2703,27 +2743,16 @@ def bwd_designs_reading(torch, cfg, params, dev):
     """The gradients of the first GRAD_LAYERS layers (and the embedding,
     norm and head) of the bf16 model at (1, GRAD_SEQ), once through the
     flash backward ``bwd_variant`` picks and once through the CUDA-core
-    design: each leaf's max difference as a share of the CUDA-core
-    gradient's largest magnitude. Returns (worst share, its leaf, the
-    median share, leaves, the wgmma backward calls)."""
-    from repro_torch.core.tree import leaves, paths, unflatten
+    design (hubert-xlarge's on a frame batch): each leaf's max
+    difference as a share of the CUDA-core gradient's largest magnitude.
+    Returns (worst share, its leaf, the median share, leaves, the wgmma
+    backward calls)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
-    from repro_torch.models import model as M
-    g = torch.Generator(device=dev).manual_seed(2)
-    batch = {k: torch.randint(0, cfg.vocab, (1, GRAD_SEQ), generator=g,
-                              device=dev) for k in ("tokens", "targets")}
-    head = dict(params, layers=params["layers"][:GRAD_LAYERS])
-    names = [".".join(map(str, p)) for p, _ in paths(head)]
-    cfg2 = dataclasses.replace(cfg, n_layers=GRAD_LAYERS)
-    out = {}
     before = fa.BWD_VARIANT_LAUNCHES["wgmma"]
-    for label, kf in (("picked", ops.model_kernel_fns()),
-                      ("cuda_core", cuda_core_bwd_fns(torch))):
-        live = [t.detach().requires_grad_() for t in leaves(head)]
-        loss, _ = M.train_loss(cfg2, unflatten(head, live), batch,
-                               kernel_fns=kf)
-        out[label] = torch.autograd.grad(loss, live)
+    out, names = head_grads(torch, cfg, params, dev, 2, {
+        "picked": ops.model_kernel_fns(),
+        "cuda_core": cuda_core_bwd_fns(torch)})
     torch.cuda.synchronize()
     calls = fa.BWD_VARIANT_LAUNCHES["wgmma"] - before
     shares = [r for _, r in rel_errs(torch, out["picked"], out["cuda_core"])]
@@ -3152,34 +3181,50 @@ def wkv_bwd_bound(args, ckpt):
 
 def time_backward_kernels(torch, dev, card, paths, worst):
     """Per-call card time of the two backward kernels at the training
-    shapes beside their bounds, plain versions and (flash) SDPA's
-    backward on the same tensors; returns their entries of the kernels
-    line."""
+    shapes (and the flash backward at BWD_READINGS, outside the kernels
+    line) beside their bounds, plain versions and (flash) SDPA's
+    backward through its fused kernels on the same tensors; returns
+    their entries of the kernels line."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref, rwkv6_wkv
+    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION]
     entries = []
     rows = []
     for (B, T, H, dq, dv, causal), n in sorted(
-            paths["flash_attention_bwd"]["shapes"].items()):
+            paths["flash_attention_bwd"]["shapes"].items()) + [
+                (r, 0) for r in BWD_READINGS]:
         q, k, v = attn_inputs(torch, B, T, H, dq, dv, torch.bfloat16, dev,
                               800)
         do = attn_inputs(torch, B, T, H, dv, dv, torch.bfloat16, dev, 801)[0]
         out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         dot = do.transpose(1, 2)
+        mask = "causal" if causal else "non-causal"
+        label = f"flash_attention_bwd ({B}, {T}, {H}, {dq}, {dv}) bf16 {mask}"
+        sdpa, refused = None, None
+        try:
+            with sdpa_kernel(fused):
+                sdpa = F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+            torch.autograd.grad(sdpa, (qt, kt, vt), dot, retain_graph=True)
+        except RuntimeError as e:       # no fused SDPA kernel takes these
+            refused = str(e).splitlines()[0][:160]
+            if n:
+                fail(f"{label}: SDPA's fused kernels refuse a path shape: "
+                     f"{refused}")
         row = {"shape": [B, T, H, dq, dv], "causal": causal, "launches": n}
         picked = fa.bwd_variant(q.dtype, dq, dv)
         # the picked design, the CUDA-core first design (where it is
         # another) and SDPA's backward on the same tensors, in turns
-        fns = {
-            "ms": (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
-                                                  causal=causal), 5),
-            "library_ms": (lambda: torch.autograd.grad(
-                sdpa, (qt, kt, vt), dot, retain_graph=True), 10),
-        }
+        fns = {"ms": (lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                     causal=causal), 5)}
+        if refused is None:
+            fns["library_ms"] = (lambda: torch.autograd.grad(
+                sdpa, (qt, kt, vt), dot, retain_graph=True), 10)
         if picked != "cuda_core":
             fns["first_ms"] = (lambda: fa._flash_attention_bwd_variant(
                 q, k, v, out, lse, do, "cuda_core", causal=causal), 2)
@@ -3189,8 +3234,6 @@ def time_backward_kernels(torch, dev, card, paths, worst):
             "grads", ref.attention_bwd_ref(q, k, v, out, lse, do,
                                            causal=causal)), 1)
         want = plain.pop("grads")
-        mask = "causal" if causal else "non-causal"
-        label = f"flash_attention_bwd ({B}, {T}, {H}, {dq}, {dv}) bf16 {mask}"
         got = [fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
                for _ in range(2)]
         errs = hold_grads(torch, f"{label}, {picked} variant", got[0], want,
@@ -3215,15 +3258,21 @@ def time_backward_kernels(torch, dev, card, paths, worst):
         else:                   # the picked design is the first design
             row["first_ms"] = row["ms"]
             also = "the first design itself"
-        rows.append(row)
-        phase("time", f"flash_attention backward ({B}, {T}, {H}, {dq}) bf16 "
-              f"{mask}: {picked} variant {row['ms']:.3f} ms/call (three "
+        if n:                   # BWD_READINGS stay out of the kernels line
+            rows.append(row)
+        dims = f"{dq}" if dq == dv else f"q/k {dq}, v {dv}"
+        sdpa_txt = (f"SDPA's backward {row['library_ms']:.3f} ms (kernel "
+                    f"{row['ms'] / row['library_ms']:.2f}x it)"
+                    if refused is None else
+                    f"SDPA's fused kernels refuse these tensors ({refused})")
+        phase("time", f"flash_attention backward ({B}, {T}, {H}, {dims}) "
+              f"bf16 {mask}: {picked} variant {row['ms']:.3f} ms/call (three "
               f"launches), {also}, plain "
-              f"version {row['plain_ms']:.1f} ms, SDPA's backward "
-              f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-              f"({row['bound_by']}): kernel {row['ms'] / row['library_ms']:.2f}"
-              f"x SDPA's, {row['ms'] / row['bound_ms']:.1f}x bound; {n} "
-              f"calls on the path; dq, dk, dv within "
+              f"version {row['plain_ms']:.1f} ms, {sdpa_txt}, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}): kernel "
+              f"{row['ms'] / row['bound_ms']:.1f}x bound; "
+              + (f"{n} calls on the path" if n else "a reading, on no path")
+              + "; dq, dk, dv within "
               + ", ".join(f"{r:.2g}" for _, r in errs)
               + " of the plain version's scales, two runs equal bit for bit"
               " (the CUDA-core design "

@@ -19,11 +19,12 @@
 // TFLOP/s). Two variants; the wrapper picks one from (dtype, d, dv):
 //
 // * flash_wgmma_kernel<DQK, DV> (namespace wg), bfloat16 with (d, dv)
-//   (64, 64), (128, 128) or MLA's (96, 64) (minicpm3-4b's prefill: nope
-//   64 + rope 32 for q and k, 64 for v): the tensor-core design. A
-//   block is a consumer warpgroup (warps 0-3, 64 query rows: wgmma's
-//   M) and a producer warp, and walks one or more
-//   64-row query tiles of one (head, batch) pair: as many as it takes to
+//   (64, 64), (128, 128), MLA's (96, 64) (minicpm3-4b's prefill: nope
+//   64 + rope 32 for q and k, 64 for v) or hubert-xlarge's (80, 80)
+//   (bidirectional): the tensor-core design. A block is a consumer
+//   warpgroup (warps 0-3, 64 query rows: wgmma's M) and a producer
+//   warp, and walks one or more 64-row query tiles of one (head, batch)
+//   pair: as many as it takes to
 //   give each SM two blocks (all 4 at (8, 256), 1 for a single request).
 //   The producer keeps a two-deep Q ring and a two-stage K/V ring of
 //   64-key tiles filled with TMA (cp.async.bulk.tensor over a rank-4
@@ -31,14 +32,17 @@
 //   never the next sequence's), K and V on mbarriers of their own, so
 //   the next tiles' copies overlap this tile's math. Tiles stay bf16 in
 //   shared memory with the 128-byte swizzle in whole atom columns of 64
-//   (a d = 128 row is two; so is MLA's 96-wide q/k row: its second box
-//   starts at column 64 of a 96-wide map, so the copy zero-fills columns
-//   96-127, and S = Q K^T takes 6 k-steps, 4 in the first atom and 2 in
-//   the second, never multiplying the zeros; the scale stays 96^-1/2),
-//   16 KB per 64 x 128 tile, 8 KB per 64 x 64, 97 KB a block at
-//   (128, 128), 81 KB at (96, 64): two blocks an SM. S = Q K^T is
-//   wgmma m64n64k16 from shared memory (K row-major is the K-major B
-//   operand); the softmax runs on the
+//   (a d = 128 row is two; so are MLA's 96-wide q/k row and hubert's
+//   80-wide rows: the second box starts at column 64 of a 96- or
+//   80-wide map, so the copy zero-fills the columns past 96 or 80, and
+//   S = Q K^T takes 6 or 5 k-steps, 4 in the first atom and the rest in
+//   the second, never multiplying the zeros; the scale stays d^-1/2),
+//   16 KB per 64 x 128 (or 80) tile, 8 KB per 64 x 64, 97 KB a block at
+//   (128, 128) and (80, 80), 81 KB at (96, 64): two blocks an SM. At
+//   (80, 80) O += P V is one m64n80k16 a k-step, its N-major B spanning
+//   the first atom and two chunks of the second, so V's zeros are not
+//   multiplied either. S = Q K^T is wgmma m64n64k16 from shared memory
+//   (K row-major is the K-major B operand); the softmax runs on the
 //   accumulator fragment (thread lane of warp w holds rows
 //   16 w + lane / 4 and + 8, columns 8 j + 2 (lane % 4) + {0, 1}; row max
 //   and sum over the quad with two shuffles), with the per-element masks
@@ -46,7 +50,9 @@
 //   bf16 in registers and is wgmma's A fragment as it stands; O += P V
 //   is wgmma m64n{dv}k16 with V as the transposed (dv-contiguous) B
 //   operand. The output is divided once a row, staged through the
-//   tile's Q buffer (swizzled chunks) and written with 16-byte stores.
+//   tile's Q buffer (rows of whole 128-byte atoms, the chunks swizzled
+//   within their atom: an 80-wide row's 10 chunks stay in its 256
+//   bytes) and written with 16-byte stores.
 //   Measured on an H100 (PERF.md): the copies hide behind the
 //   math; what held earlier versions back was the epilogue (a division
 //   and a scattered 4-byte store an element) and the masks on every
@@ -55,11 +61,11 @@
 //   next tile's S before this tile's softmax (two S accumulators, 181
 //   registers) was measured slower and is not used.
 // * flash_fwd_kernel, float32 at any d and bfloat16 at other head dims
-//   (8 <= d, dv <= 128, both multiples of 8; hubert's 80, MLA's float32
-//   (96, 64)): the CUDA-core design, bf16 MLA's too before the wgmma
-//   one took (96, 64). One block of four warps per (64-row query
-//   tile, head, batch); the query tile is
-//   staged once in shared memory, pre-scaled by d^-1/2; a loop over key
+//   (8 <= d, dv <= 128, both multiples of 8; MLA's and hubert's
+//   float32): the CUDA-core design, bf16 MLA's and hubert's too before
+//   the wgmma one took (96, 64) and (80, 80). One block of four warps
+//   per (64-row query tile, head, batch); the query tile is staged
+//   once in shared memory, pre-scaled by d^-1/2; a loop over key
 //   tiles of 64 stages K (row-major, rows padded by 4 floats so the
 //   lanes' 16-byte reads of 32 different keys do not collide in a bank)
 //   and V in shared memory as float32, computes each warp's 16 x 64
@@ -89,8 +95,10 @@
 // takes the wgmma forward's L as it takes its own):
 //
 // * flash_bwd_wgmma_dkdv_kernel / flash_bwd_wgmma_dq_kernel (namespace
-//   wgb, flash_attention_wgmma_bwd), bfloat16 at d = dv in {64, 128}:
-//   every product on wgmma (bf16 operands, float32 sums). A block is a
+//   wgb, flash_attention_wgmma_bwd), bfloat16 at d = dv in {64, 80,
+//   128}: every product on wgmma (bf16 operands, float32 sums; at d 80
+//   the d-deep products take 5 k-steps and dV, dK and dQ are m64n80k16,
+//   as the forward's; dK and dV hold 40 accumulators each). A block is a
 //   consumer warpgroup (the tile's 64 rows are wgmma's M) and a
 //   producer warp: lane 0 brings the block's own tile pair (dK/dV: K,
 //   V; dQ: Q, dO) once and the partner tiles through a two-stage
@@ -130,7 +138,11 @@
 // TFLOP/s) over ~0.27 GB, so the products bound it. Measured by
 // chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md): 2.82 ms
 // a call through wgmma (4.1x the bound, 1.87x SDPA's backward), 40.61
-// ms on the CUDA cores.
+// ms on the CUDA cores. At hubert-xlarge's (2, 4096, 16, 80) bf16
+// non-causal (0.434 ms bound, operations): 2.34 ms through wgmma (dK/dV
+// 188 registers, so two blocks an SM; dQ 131), 32.90 ms on the CUDA
+// cores, SDPA's backward 1.25 ms; its forward 553 us (7,957 on the CUDA
+// cores, SDPA 415, bound 174).
 
 #include <cuda.h>          // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -423,7 +435,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------
-// The tensor-core variant: bfloat16 with d in {64, 128}.
+// The tensor-core variant: bfloat16 at (d, dv) (64, 64), (128, 128),
+// (96, 64) and (80, 80).
 
 namespace wg {
 
@@ -565,12 +578,16 @@ __device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
   return x;
 }
 
-// Byte offset of 16-byte chunk c of row r in a staged output tile with
-// rows of `row_bytes`: chunks XOR-swizzled by the row, so that neither a
-// warp's 4-byte writes (8 rows, one chunk) nor its 16-byte reads (one
-// row, 8 chunks) collide in a bank.
-__device__ __forceinline__ uint32_t out_offset(int r, int c, int row_bytes) {
-  return r * row_bytes + ((c ^ (r & 7)) << 4);
+// Byte offset of 16-byte chunk c of row r in a staged output tile of D
+// columns: rows of whole 128-byte atoms (tile_bytes<D>() / kBQ: 128 at
+// d 64, 256 at 80 and 128), each atom's 8 chunks XOR-swizzled by the
+// row, so that neither a warp's 4-byte writes (8 rows, one chunk) nor
+// its 16-byte reads (one row, 8 chunks) collide in a bank. The swizzle
+// stays inside the chunk's atom: a row of 10 chunks (d 80) never
+// reaches the next row's bytes.
+template <int D>
+__device__ __forceinline__ uint32_t out_offset(int r, int c) {
+  return r * (tile_bytes<D>() / kBQ) + (((c & ~7) | ((c ^ r) & 7)) << 4);
 }
 
 // D (64 x 64, float32) += A (64 x 16) B (16 x 64), A and B bf16 in
@@ -619,6 +636,36 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 80, float32) += A (64 x 16) B (16 x 80): A bf16 in registers
+// (the k16 fragment), B bf16 in shared memory, N-major (transposed): its
+// columns 0-63 in one swizzle atom, 64-79 the first two chunks of the
+// next, `kAtom` bytes on (the descriptor's leading byte offset).
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
@@ -672,16 +719,21 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 }
 
 // D (64 x D) += A B over a 64-deep K, A the four k16 register fragments
-// `a`, B a 64-row tile in shared memory read N-major (its rows are K).
+// `a`, B a 64-row tile in shared memory read N-major (its rows are K):
+// one product a k-step, N = D (64, 80 or 128), so an 80-wide B is never
+// multiplied past its column 80.
 template <int D>
 __device__ __forceinline__ void wgmma_rs_tile(float (&d)[D / 2],
                                               const uint32_t (&a)[4][4],
                                               uint32_t b_tile) {
+  static_assert(D == 64 || D == 80 || D == 128, "wgmma N of 64, 80, 128");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t desc = desc_sw128(b_tile + kk * 16 * 128, kAtom, 1024);
     if constexpr (D == 128)
       wgmma_rs_n128(d, a[kk], desc);
+    else if constexpr (D == 80)
+      wgmma_rs_n80(d, a[kk], desc);
     else
       wgmma_rs_n64(d, a[kk], desc);
   }
@@ -716,8 +768,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int n_q, int n_k, int n_heads, int causal, int window,
                    float scale_log2, int per_block) {
-  static_assert(DQK % 16 == 0 && DQK <= 128 && (DV == 64 || DV == 128),
-                "wgmma tiles: q/k a multiple of 16 up to 128, v 64 or 128");
+  static_assert(DQK % 16 == 0 && DQK <= 128 && DV % 16 == 0 && DV <= 128,
+                "wgmma tiles: q/k and v multiples of 16 up to 128");
   static_assert(tile_bytes<DV>() <= tile_bytes<DQK>(),
                 "the output is staged in the Q tile");
   constexpr int kTile = tile_bytes<DQK>();   // a Q or K tile
@@ -955,7 +1007,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
             (m_run[hh] + log2f(fmaxf(l, 1e-30f))) * kLn2;
 #pragma unroll
       for (int jn = 0; jn < DV / 8; ++jn)
-        st_shared(stage_out + out_offset(r, jn, 2 * DV) + 2 * col_in,
+        st_shared(stage_out + out_offset<DV>(r, jn) + 2 * col_in,
                   pack_bf16(oacc[4 * jn + 2 * hh] * inv,
                             oacc[4 * jn + 2 * hh + 1] * inv));
     }
@@ -965,7 +1017,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int e = tid; e < kBQ * kChunks; e += kConsumers) {
       const int r = e / kChunks, c = e % kChunks;
       const int row = qt * kBQ + r;
-      const uint4 x = ld_shared16(stage_out + out_offset(r, c, 2 * DV));
+      const uint4 x = ld_shared16(stage_out + out_offset<DV>(r, c));
       if (row < n_q)
         *reinterpret_cast<uint4*>(
             o + ((size_t)(b * n_q + row) * n_heads + h) * DV + 8 * c) = x;
@@ -1435,8 +1487,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace bwd
 
 // ---------------------------------------------------------------------
-// The tensor-core backward: bfloat16 with d = dv in {64, 128}, the
-// inputs the wgmma forward takes. The same three launches and the same
+// The tensor-core backward: bfloat16 with d = dv in {64, 80, 128}, the
+// inputs the wgmma forward takes at dv = d. The same three launches and the same
 // split as namespace bwd (D pass, then a dK/dV kernel a key tile and a
 // dQ kernel a query tile, one writer an output), with every product on
 // wgmma (bf16 operands, float32 sums) and the tiles brought in by TMA.
@@ -1507,7 +1559,7 @@ __device__ __forceinline__ void stage_rows(const float (&acc)[D / 2],
     const int r = 16 * warp + (lane >> 2) + 8 * hh;
 #pragma unroll
     for (int jn = 0; jn < D / 8; ++jn)
-      wg::st_shared(stage + wg::out_offset(r, jn, 2 * D) + 2 * col_in,
+      wg::st_shared(stage + wg::out_offset<D>(r, jn) + 2 * col_in,
                     wg::pack_bf16(acc[4 * jn + 2 * hh] * scale,
                                   acc[4 * jn + 2 * hh + 1] * scale));
   }
@@ -1525,7 +1577,7 @@ __device__ __forceinline__ void store_rows(uint32_t stage,
   for (int e = tid; e < kB * kChunks; e += kConsumers) {
     const int r = e / kChunks, c = e % kChunks;
     const int row = row0 + r;
-    const uint4 x = wg::ld_shared16(stage + wg::out_offset(r, c, 2 * D));
+    const uint4 x = wg::ld_shared16(stage + wg::out_offset<D>(r, c));
     if (row < n)
       *reinterpret_cast<uint4*>(
           out + ((size_t)(b * n + row) * n_heads + h) * D + 8 * c) = x;
@@ -1947,7 +1999,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // The tensor-core variant. q, k, v, o and lse as above, bfloat16 only,
-// (d, dv) one of (64, 64), (128, 128) and MLA's (96, 64); the rows of
+// (d, dv) one of (64, 64), (128, 128), MLA's (96, 64) and hubert's
+// (80, 80); the rows of
 // q, k and v are addressed through TMA maps, so the tensors must be
 // 16-byte aligned.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
@@ -1967,6 +2020,9 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k,
                                 causal, window, scale, s);
   if (d == 96 && dv == 64)
     return wg::launch<96, 64>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
+                              causal, window, scale, s);
+  if (d == 80 && dv == 80)
+    return wg::launch<80, 80>(q, k, v, o, lse, batch, n_q, n_k, n_heads,
                               causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
@@ -2001,8 +2057,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 }
 
 // The tensor-core backward: q, k, v, o, dout, lse, delta, dq, dk, dv as
-// for flash_attention_bwd, bfloat16 only, with one head dim d (64 or
-// 128) for q, k and v; q, k, v and dout are read through TMA maps, so
+// for flash_attention_bwd, bfloat16 only, with one head dim d (64, 80
+// or 128) for q, k and v; q, k, v and dout are read through TMA maps, so
 // they must be 16-byte aligned. Three launches on `stream`; returns the
 // first failing one's cudaError_t.
 extern "C" int flash_attention_wgmma_bwd(const void* q, const void* k,
@@ -2022,5 +2078,8 @@ extern "C" int flash_attention_wgmma_bwd(const void* q, const void* k,
     return wgb::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
                             batch, n_q, n_k, n_heads, causal, window, scale,
                             s);
+  if (d == 80)
+    return wgb::launch<80>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
+                           batch, n_q, n_k, n_heads, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,11 +8,12 @@ at the top of the source for their design and what bounds them on an
 H100. Two variants:
 
 * ``"wgmma"``: tensor cores (wgmma) fed by TMA copies, for bfloat16
-  at (dq, dv) in ``WGMMA_SHAPES``: (64, 64), (128, 128) and MLA's q/k
-  of 96 with v of 64 (minicpm3-4b's prefill);
+  at (dq, dv) in ``WGMMA_SHAPES``: (64, 64), (128, 128), MLA's q/k
+  of 96 with v of 64 (minicpm3-4b's prefill) and hubert-xlarge's (80,
+  80);
 * ``"cuda_core"``: float32 FMAs on the CUDA cores, for float32 (whose
   callers need full float32 products) and bfloat16 at any other head
-  dims.
+  dims ((80, 64) and (64, 80) among them).
 
 ``variant(dtype, dq, dv)`` picks one from the inputs' dtype and head
 dims, and nothing else picks. ``flash_attention`` checks what the
@@ -32,9 +33,9 @@ kernel a query tile), each output written by one block, no atomics, so
 two calls give the same bits. ``bwd_variant(dtype, dq, dv)`` picks its
 variant, and nothing else picks:
 
-* ``"wgmma"``: bfloat16 at (dq, dv) in ``WGMMA_BWD_SHAPES``, (64, 64)
-  and (128, 128), every product on wgmma (bf16 operands, float32 sums)
-  fed by TMA;
+* ``"wgmma"``: bfloat16 at (dq, dv) in ``WGMMA_BWD_SHAPES``, (64, 64),
+  (128, 128) and hubert-xlarge's (80, 80), every product on wgmma (bf16
+  operands, float32 sums) fed by TMA;
 * ``"cuda_core"``: float32 FMAs, for float32 (the float32 gradient
   check needs full float32 products) and every other head dim, MLA's
   (96, 64) among them: its backward on wgmma is still to come, and it
@@ -46,7 +47,9 @@ recomputing S and dP in the dQ kernel is the price of one writer an
 output. Measured by ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at
 700 W, at (2, 4096, 32, 128) bf16 causal: 2.82 ms a call through
 wgmma (4.1x its bound, 1.87x SDPA's backward), 40.61 ms through the
-CUDA cores (PERF.md). The reference has no backward
+CUDA cores; at hubert-xlarge's (2, 4096, 16, 80) non-causal 2.34 ms
+through wgmma (5.4x its bound, 1.87x SDPA's), 32.90 ms through the CUDA
+cores (PERF.md). The reference has no backward
 kernel: its Pallas kernel cannot be differentiated. ``BWD_LAUNCHES``
 counts the backward's calls, ``BWD_VARIANT_LAUNCHES`` by variant.
 """
@@ -61,8 +64,8 @@ from repro_torch.kernels import _build
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (dq, dv) of bfloat16 inputs the wgmma forward takes, and its backward
-WGMMA_SHAPES = ((64, 64), (128, 128), (96, 64))
-WGMMA_BWD_SHAPES = ((64, 64), (128, 128))
+WGMMA_SHAPES = ((64, 64), (128, 128), (96, 64), (80, 80))
+WGMMA_BWD_SHAPES = ((64, 64), (128, 128), (80, 80))
 
 #: number of times a kernel has been launched (incremented only where
 #: one is launched), in all and by variant

@@ -178,16 +178,17 @@ def test_ops_attention_takes_cpu_tensors_to_the_plain_version():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 80, "cuda_core"),
+    (torch.bfloat16, 80, "wgmma"),                  # hubert-xlarge
     (torch.bfloat16, 32, "cuda_core"),
     (torch.bfloat16, 96, "cuda_core"),
     (torch.float32, 128, "cuda_core"),
     (torch.float32, 64, "cuda_core"),
+    (torch.float32, 80, "cuda_core"),
 ])
 def test_flash_variant_from_dtype_and_head_dim(dtype, d, want):
-    """The tensor-core variant takes bfloat16 at d 64 or 128; float32
-    (full float32 products) and every other head dim take the CUDA-core
-    variant."""
+    """The tensor-core variant takes bfloat16 at dq = dv in {64, 80,
+    128}; float32 (full float32 products) and every other head dim take
+    the CUDA-core variant."""
     assert flash_attention.variant(dtype, d, d) == want
 
 
@@ -197,6 +198,8 @@ def test_flash_variant_from_dtype_and_head_dim(dtype, d, want):
     (torch.bfloat16, 64, 128, "cuda_core"),
     (torch.float32, 96, 64, "cuda_core"),
     (torch.bfloat16, 64, 64, "wgmma"),
+    (torch.bfloat16, 80, 64, "cuda_core"),
+    (torch.bfloat16, 64, 80, "cuda_core"),
 ])
 def test_flash_variant_with_dv_unlike_dq(dtype, dq, dv, want):
     """A value head dim unlike the query's takes the tensor cores only
@@ -208,13 +211,13 @@ def test_flash_variant_with_dv_unlike_dq(dtype, dq, dv, want):
 @pytest.mark.parametrize("arch,want", [
     ("qwen3-8b", "wgmma"), ("granite-34b", "wgmma"),
     ("mixtral-8x7b", "wgmma"), ("jamba-v0.1-52b", "wgmma"),
-    ("minicpm3-4b", "wgmma"), ("hubert-xlarge", "cuda_core"),
+    ("minicpm3-4b", "wgmma"), ("hubert-xlarge", "wgmma"),
 ])
 def test_flash_variant_of_each_served_config(arch, want):
     """At its own dtype and the head dims its prefill hands the kernel,
     each attention config reaches the variant the kernel note promises:
-    d = 128 and 64 and MLA's q/k of 96 with v of 64 (minicpm3-4b) the
-    tensor cores; hubert's d = 80 the CUDA cores."""
+    d = 128 and 64, MLA's q/k of 96 with v of 64 (minicpm3-4b) and
+    hubert's d = 80 the tensor cores."""
     cfg = t_get_config(arch)
     dq = dv = cfg.d_head
     if cfg.attn_type == "mla":
@@ -231,12 +234,15 @@ def test_flash_variant_of_each_served_config(arch, want):
     (torch.bfloat16, 96, 64, "cuda_core", "wgmma"),  # MLA (minicpm3-4b)
     (torch.bfloat16, 16, 16, "cuda_core", "cuda_core"),
     (torch.bfloat16, 128, 64, "cuda_core", "cuda_core"),
+    (torch.bfloat16, 80, 80, "wgmma", "wgmma"),     # hubert-xlarge
+    (torch.bfloat16, 80, 64, "cuda_core", "cuda_core"),
+    (torch.bfloat16, 64, 80, "cuda_core", "cuda_core"),
 ])
 def test_flash_bwd_variant_follows_the_forward(dtype, dq, dv, want,
                                                want_fwd):
     """The backward takes the tensor cores where the forward does at
-    dq = dv: bfloat16 at {64, 128}; float32 (the gradient check's full
-    float32 products) and every other head dim the CUDA cores. MLA's
+    dq = dv: bfloat16 at {64, 80, 128}; float32 (the gradient check's
+    full float32 products) and every other head dim the CUDA cores. MLA's
     (96, 64) is the one pair that parts them: its forward runs wgmma,
     its backward the CUDA cores (the wgmma backward at 96 is still to
     come)."""
@@ -263,11 +269,30 @@ def test_flash_wgmma_backward_refuses_mla():
                                    bwd=True)
 
 
-@pytest.mark.parametrize("dq,dv", [(96, 64), (64, 64), (128, 128)])
+def test_flash_wgmma_takes_hubert_both_ways():
+    """The private variant entries take hubert-xlarge's bfloat16 (80,
+    80) through wgmma forward and backward (and through the CUDA cores,
+    the first design kept for timing), and refuse wgmma for float32 at
+    (80, 80) and for bfloat16 at (80, 64) or (64, 80)."""
+    for bwd in (False, True):
+        for name in ("wgmma", "cuda_core"):
+            flash_attention._check_variant(name, torch.bfloat16, 80, 80,
+                                           bwd=bwd)
+        for dtype, dq, dv in ((torch.float32, 80, 80),
+                              (torch.bfloat16, 80, 64),
+                              (torch.bfloat16, 64, 80)):
+            with pytest.raises(ValueError, match="wgmma"):
+                flash_attention._check_variant("wgmma", dtype, dq, dv,
+                                               bwd=bwd)
+
+
+@pytest.mark.parametrize("dq,dv", [(96, 64), (64, 64), (128, 128),
+                                   (80, 80), (80, 64), (64, 80)])
 def test_flash_float32_takes_the_cuda_cores(dq, dv):
     """float32 (the float32 logit and gradient checks need full float32
     products) stays on the CUDA cores forward and backward at every pair
-    the wgmma kernels take in bfloat16, MLA's among them."""
+    the wgmma kernels take in bfloat16, MLA's and hubert's among them,
+    and beside hubert's d 80 paired with 64."""
     assert flash_attention.variant(torch.float32, dq, dv) == "cuda_core"
     assert flash_attention.bwd_variant(torch.float32, dq, dv) == "cuda_core"
 

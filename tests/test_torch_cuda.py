@@ -100,7 +100,7 @@ def _close(got, want, tol):
     (1, 200, 32, 128, True, 0, "bfloat16"),
     (1, 384, 32, 128, True, 128, "bfloat16"),
     (2, 100, 3, 80, False, 0, "float32"),
-    (2, 200, 16, 80, False, 0, "bfloat16"),   # hubert: the CUDA-core variant
+    (2, 200, 16, 80, False, 0, "bfloat16"),   # hubert: the wgmma variant
     (1, 128, 2, 32, False, 32, "float32"),
     (1, 64, 2, 16, True, 0, "float32"),
 ])
@@ -127,10 +127,13 @@ def test_flash_kernel_vs_plain_version(cuda, B, T, H, d, causal, window,
     (1, 128, 32, 128, False, 0),      # non-causal
     (2, 200, 8, 64, True, 0),         # d = 64
     (2, 100, 8, 64, False, 0),
+    (2, 200, 16, 80, False, 0),       # hubert's d = 80, ragged
+    (8, 512, 16, 80, False, 0),       # hubert's batched encode
+    (1, 64, 16, 80, False, 0),
 ])
 def test_flash_wgmma_variant_vs_plain_version(cuda, B, T, H, d, causal,
                                               window):
-    """bf16 at d 64 or 128 goes through the tensor-core variant (its
+    """bf16 at d 64, 80 or 128 goes through the tensor-core variant (its
     counter moves, the CUDA-core one's does not) and agrees with the
     plain version; so does the CUDA-core variant on the same inputs."""
     g = torch.Generator(device=cuda).manual_seed(2)
@@ -333,6 +336,7 @@ def _rel_err(got, want):
     (1, 200, 3, 64, True, 64, "bfloat16"),
     (2, 100, 3, 80, False, 0, "float32"),         # the CUDA-core variant
     (1, 130, 2, 96, True, 48, "float32"),
+    (2, 100, 3, 80, False, 0, "bfloat16"),        # hubert's, wgmma
 ])
 def test_flash_lse_vs_plain_version(cuda, B, T, H, d, causal, window,
                                     dtype):
@@ -358,7 +362,7 @@ def test_flash_lse_vs_plain_version(cuda, B, T, H, d, causal, window,
     (1, 200, 3, 64, 64, True, 48, "bfloat16"),    # wgmma, window, ragged
     (1, 130, 2, 128, 128, False, 0, "bfloat16"),  # wgmma, non-causal
     (1, 200, 3, 96, 64, True, 0, "bfloat16"),     # MLA's head dims
-    (2, 200, 4, 80, 80, False, 0, "bfloat16"),    # hubert's, CUDA cores
+    (2, 200, 4, 80, 80, False, 0, "bfloat16"),    # hubert's, wgmma
     (1, 130, 2, 64, 64, True, 48, "float32"),
     (2, 64, 2, 16, 16, False, 0, "float32"),
     (1, 100, 2, 128, 128, True, 0, "float32"),
@@ -398,6 +402,41 @@ def test_flash_backward_vs_plain_version(cuda, B, T, H, dq, dv, causal,
         assert got.dtype == dt and got.shape == w.shape
         assert torch.equal(got, g2), f"d{name} differs between two runs"
         assert _rel_err(got, w) <= ATTN_BWD_TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,H", [
+    (2, 200, 200, 4),       # ragged T
+    (2, 100, 160, 16),      # T != S, both ragged
+])
+@pytest.mark.parametrize("name", ["wgmma", "cuda_core"])
+def test_flash_backward_variants_at_hubert_head_dim(cuda, B, T, S, H,
+                                                    name):
+    """hubert-xlarge's bf16 d = 80, non-causal: the backward through
+    each design (the wgmma one ``bwd_variant`` picks, and the CUDA-core
+    first design on the same inputs) from the wgmma forward's output and
+    log-sum-exp, against ``ref.attention_bwd_ref``, each gradient within
+    ATTN_BWD_TOL of its largest magnitude; only the named variant's
+    count moves, and a second call gives the same bits."""
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dt)
+                   for shape in ((B, T, H, 80), (B, S, H, 80),
+                                 (B, S, H, 80), (B, T, H, 80)))
+    assert flash_attention.bwd_variant(dt, 80, 80) == "wgmma"
+    out, lse = flash_attention.flash_attention_lse(q, k, v, causal=False)
+    before = dict(flash_attention.BWD_VARIANT_LAUNCHES)
+    runs = [flash_attention._flash_attention_bwd_variant(
+        q, k, v, out, lse, do, name, causal=False) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert flash_attention.BWD_VARIANT_LAUNCHES == {
+        n: c + 2 * (n == name) for n, c in before.items()}
+    want = ref.attention_bwd_ref(q, k, v, out, ref.attention_lse_ref(
+        q, k, causal=False), do, causal=False)
+    for label, got, w, g2 in zip("qkv", runs[0], want, runs[1]):
+        assert got.dtype == dt and got.shape == w.shape
+        assert torch.equal(got, g2), f"d{label} differs between two runs"
+        assert _rel_err(got, w) <= ATTN_BWD_TOL["bfloat16"], label
 
 
 @pytest.mark.cuda

@@ -7,7 +7,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 ``--serve ARCH`` (repeatable) runs only the build and phase
 ``serve-ARCH``: copied into an unpacked earlier commit, it times that
 tree's serving path with the same code, so that two trees can run in
-turns in one call.
+turns in one call. ``--bwd-digests`` runs only the build and prints a
+sha256 of each ``FLASH_BWD_CASES`` case's flash backward (through the
+variant its inputs pick): run in two trees, it shows whether a
+redesign kept a design's bits.
 
 Phases (one line each; any failure exits non-zero and prints no result):
 
@@ -18,9 +21,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
    lcdc_switch kernel must have a stack frame of 0 bytes: its rows live
    in registers; the float64 ones' frames are printed); and the SASS
    of the flash library (cuobjdump -sass): each bf16 tensor-core kernel
-   (``WGMMA_KERNELS``: the forward at (64, 64), (128, 128), MLA's
-   (96, 64) and hubert-xlarge's (80, 80), the backward's dK/dV and dQ
-   kernels at d 64, 128 and 80) must
+   (``WGMMA_KERNELS``: the forward and the backward's dK/dV and dQ
+   kernels, each at (64, 64), (128, 128), MLA's (96, 64) and
+   hubert-xlarge's (80, 80)) must
    show wgmma (HGMMA) and TMA loads
    (UTMALDG) and compile with 0 spill bytes; their registers, any ptxas
    warning about serialised wgmma, and the wkv backward's SASS
@@ -52,9 +55,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
    backward through the variant its inputs pick (``bwd_variant``, its
    counter checked; bf16 ones also through the CUDA-core design) at
    (8, 256, 32, 128) bf16, d 64, a ragged T, non-causal with T != S, a
-   sliding window, (1, 384, 32, 128) float32, MLA's (2, 256, 40,
-   96/64) (the CUDA-core backward, its log-sum-exp from the wgmma
-   forward) and hubert-xlarge's bf16 d 80 non-causal at (2, 1024, 16)
+   sliding window, (1, 384, 32, 128) float32, MLA's bf16 (96, 64) at
+   (2, 256, 40) causal, non-causal with T != S, both ragged, at (2,
+   100, 160, 40) and with a window of 48 at (1, 200, 40) (the wgmma
+   backward and the CUDA-core one) and hubert-xlarge's bf16 d 80
+   non-causal at (2, 1024, 16)
    and with T != S, both ragged, at (2, 100, 160, 16) (the wgmma
    backward and the CUDA-core one), and the wkv backward kernel at (1,
    256), a ragged (2, 77)
@@ -150,7 +155,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
    length (no decode: ``cells_for`` skips its decode cells); internvl
    launch.serve at B = 8 of 256 patches and 256 tokens, gen 32; the
    same launch counts, warm prefill and idle shares;
-9c. ``train-qwen3-8b`` and ``train-rwkv6-7b``: the training path at
+9c. ``train-qwen3-8b``, ``train-rwkv6-7b`` and ``train-minicpm3-4b``
+   (MLA): the training path at
    full width and 8 layers (TRAIN_LAYERS; bf16, remat, AdamW): the
    gradient check (GRAD_TOL), then TRAIN_STEPS steps of B = 2 x 4,096
    tokens from ``batch_at`` through ``Trainer.run`` (no checkpoint):
@@ -159,7 +165,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
    tokens/s over the window, the model FLOPs' share of 989 TFLOP/s, peak
    memory, and exact launch counts (forward twice a layer a step with
    remat, backward once, every backward through the variant
-   ``bwd_variant`` picks: wgmma for qwen3-8b); for qwen3-8b (and
+   ``bwd_variant`` picks from the kernel's head dims: wgmma for qwen3-8b
+   and for minicpm3-4b's (96, 64)), the model FLOPs counting MLA's
+   attention over dq + dv; for qwen3-8b and minicpm3-4b (and
    hubert-xlarge, below) also the gradients of a 2-layer full-width
    bf16 model at (1,
    GRAD_SEQ) through the wgmma backward and through the CUDA-core one
@@ -201,10 +209,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
    bounds and, for flash, SDPA's backward on the same tensors and the
    CUDA-core backward (the first design, ``first_ms``), timed in turns
    in the same call (and held too; the picked design's two runs equal
-   bit for bit); then the flash backward's readings off the training
-   paths (``BWD_READINGS``: hubert's d 80 at (8, 512), MLA's (2, 4096,
-   40, 96/64) causal on the CUDA cores) beside SDPA's fused backward
-   (or the note that it refuses them) and the bound.
+   bit for bit); then the flash backward's reading off the training
+   paths (``BWD_READINGS``: hubert's d 80 at (8, 512)) beside SDPA's
+   fused backward (or the note that it refuses it) and the bound.
 
 The line before the last is a JSON object with one entry per kernel;
 the last line names the device. Imports neither JAX nor the JAX
@@ -216,6 +223,7 @@ import argparse
 import collections
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import re
@@ -223,6 +231,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1424,15 +1433,16 @@ WKV_CASES = [
     ("ragged T", 2, 100, 64, 64, "bfloat16"),
     ("float32", 1, 100, 64, 64, "float32"),
 ]
-# the flash library's bf16 kernels (the forward at each of its (dq, dv),
-# the backward at d 64, 80 and 128) must run on the tensor cores with
+# the flash library's bf16 kernels (the forward and the backward's two
+# kernels at each of their (dq, dv)) must run on the tensor cores with
 # TMA tile copies: SASS opcodes of wgmma and of TMA loads
 WGMMA_OPS = ("HGMMA",)
 ASYNC_COPY_OPS = ("UTMALDG",)
+_WGMMA_PAIRS = ((64, 64), (128, 128), (96, 64), (80, 80))
 WGMMA_KERNELS = {
-    "flash_wgmma_kernel": ((64, 64), (128, 128), (96, 64), (80, 80)),
-    "flash_bwd_wgmma_dkdv_kernel": ((64,), (128,), (80,)),
-    "flash_bwd_wgmma_dq_kernel": ((64,), (128,), (80,)),
+    "flash_wgmma_kernel": _WGMMA_PAIRS,
+    "flash_bwd_wgmma_dkdv_kernel": _WGMMA_PAIRS,
+    "flash_bwd_wgmma_dq_kernel": _WGMMA_PAIRS,
 }
 
 
@@ -2384,8 +2394,8 @@ def golden_phase(torch, S, dev, name, batch, rows, cfg, x64):
 # frames (HuBERT masks spans of 10 from ~8% of the starts); the lr at
 # make_train_step's peak (3e-4) from the first step (warm-up 1), so
 # that TRAIN_STEPS steps move the loss.
-TRAIN_ARCHS = ("qwen3-8b", "rwkv6-7b", "hubert-xlarge")
-TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 8}
+TRAIN_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "hubert-xlarge")
+TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 8, "minicpm3-4b": 8}
 MASK_SPAN, MASK_SHARE = 10, 0.5
 FRAME_WARMUP = 1
 # steps: the first (the kernels' first launches) apart, a timed window
@@ -2420,8 +2430,9 @@ WKV_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LSE_TOL = 1e-4
 # (label, B, T, S, H, dq, dv, causal, window, dtype): the wgmma
 # backward's edges (d 64, a ragged T, T != S without the causal mask, a
-# window), then the CUDA-core variant's float32 and MLA (its L from the
-# wgmma forward) cases, and hubert-xlarge's bf16 d 80 (the wgmma
+# window), then the CUDA-core variant's float32 case, MLA's bf16 (96, 64)
+# (the wgmma variant: causal, T != S with both ragged without the
+# causal mask, a window) and hubert-xlarge's bf16 d 80 (the wgmma
 # variant: non-causal, then T != S with both ragged)
 FLASH_BWD_CASES = [
     ("batched prefill", 8, 256, 256, 32, 128, 128, True, 0, "bfloat16"),
@@ -2433,6 +2444,10 @@ FLASH_BWD_CASES = [
      "bfloat16"),
     ("float32", 1, 384, 384, 32, 128, 128, True, 0, "float32"),
     ("MLA", 2, 256, 256, 40, 96, 64, True, 0, "bfloat16"),
+    ("MLA, non-causal, T != S, ragged", 2, 100, 160, 40, 96, 64, False, 0,
+     "bfloat16"),
+    ("MLA, sliding window 48", 1, 200, 200, 40, 96, 64, True, 48,
+     "bfloat16"),
     ("hubert, non-causal", 2, 1024, 1024, 16, 80, 80, False, 0, "bfloat16"),
     ("hubert, non-causal, T != S, ragged", 2, 100, 160, 16, 80, 80, False,
      0, "bfloat16"),
@@ -2440,9 +2455,8 @@ FLASH_BWD_CASES = [
 # (B, T, H, dq, dv, causal): flash backward readings off the training
 # paths, timed in phase `time` beside the CUDA-core design, SDPA's
 # backward and the bound, and not in the kernels line: hubert-xlarge's
-# d 80 at its encode's (8, 512), and minicpm3-4b's MLA at its training
-# shape, whose CUDA-core backward ranks the next redesign
-BWD_READINGS = [(8, 512, 16, 80, 80, False), (2, 4096, 40, 96, 64, True)]
+# d 80 at its encode's (8, 512)
+BWD_READINGS = [(8, 512, 16, 80, 80, False)]
 # (B, T, dtype, with a final-state gradient); H 64, dh 64
 WKV_BWD_CASES = [(1, 256, "bfloat16", False), (1, 256, "float32", True),
                  (2, 77, "bfloat16", True),
@@ -2591,6 +2605,32 @@ def check_backward_kernels(torch, dev):
     return worst
 
 
+def bwd_digests(torch, dev):
+    """Each FLASH_BWD_CASES case's gradients through the backward
+    ``bwd_variant`` picks, from the forward's output and log-sum-exp on
+    inputs drawn from the case's label: one line a case with the
+    variant and the sha256 of (dq, dk, dv)'s bytes, so that two trees'
+    runs show whether a design kept its bits."""
+    from repro_torch.kernels import flash_attention as fa
+    for label, B, T, S, H, dq, dv, causal, win, dt in FLASH_BWD_CASES:
+        g = torch.Generator(device=dev).manual_seed(zlib.crc32(
+            label.encode()))
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                       .to(getattr(torch, dt)) for shape in (
+                           (B, T, H, dq), (B, S, H, dq), (B, S, H, dv),
+                           (B, T, H, dv)))
+        out, lse = fa.flash_attention_lse(q, k, v, causal=causal,
+                                          swa_window=win)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                       swa_window=win)
+        h = hashlib.sha256()
+        for t in grads:
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        phase("bwd-digest", f"{label} {(B, T, S, H, dq, dv)} {dt}: "
+              f"{fa.bwd_variant(q.dtype, dq, dv)} {h.hexdigest()}")
+
+
 def reset_train_counts(flash_attention, rwkv6_wkv):
     reset_counts(flash_attention, rwkv6_wkv)
     flash_attention.BWD_LAUNCHES = rwkv6_wkv.BWD_LAUNCHES = 0
@@ -2602,18 +2642,19 @@ def model_flops(cfg, params, B, T, kinds):
     """Model FLOPs of one training step (forward and backward, remat's
     recompute not counted): 6 x the tokens x the weights of every matrix
     product (the layers' matrices and the head; the embedding is a
-    lookup), plus causal attention's 6 B H T^2 dh (QK^T and PV, half
-    the pairs, three passes; twice that without the causal mask) or
-    wkv's 3 x 4 B T H dh^2."""
+    lookup), plus causal attention's 3 B H T^2 (dq + dv) (QK^T over dq
+    and PV over dv, half the pairs, three passes; twice that without
+    the causal mask; dq = dv = dh but for MLA) or wkv's 3 x 4 B T H
+    dh^2."""
     from repro_torch.core.tree import paths
     mats = sum(t.numel() for p, t in paths(params["layers"])
                if t.dim() >= 2 and p[-1] not in ("maa_wkvrg", "u"))
     head = params["embed" if cfg.tie_embeddings else "head"].numel()
     flops = 6 * B * T * (mats + head)
+    H, dq, dv = attn_dims(cfg)
     for kind, _ in kinds:
         if kind == "attn":
-            flops += (6 if cfg.causal else 12) * B * cfg.n_heads * T * T \
-                * cfg.d_head
+            flops += (3 if cfg.causal else 6) * B * H * T * T * (dq + dv)
         elif kind == "rwkv":
             dh = cfg.rwkv_head_dim
             flops += 12 * B * T * (cfg.d_model // dh) * dh * dh
@@ -2810,6 +2851,7 @@ def train_phase(torch, arch, dev, card, tmp):
     kinds = M.layer_kinds(cfg)
     n_attn = sum(k == "attn" for k, _ in kinds)
     n_rwkv = sum(k == "rwkv" for k, _ in kinds)
+    H, dq, dv = attn_dims(cfg)             # the flash kernel's head dims
     t0 = time.perf_counter()
     params = M.init_params(cfg, TRAIN_SEED, device=dev)
     torch.cuda.synchronize()
@@ -2825,8 +2867,7 @@ def train_phase(torch, arch, dev, card, tmp):
           f"float32 plain versions (autograd) in a float64 model: all "
           f"{n_leaves} leaves within {worst:.3g} of their scale (worst "
           f"{at}; tol {GRAD_TOL:g})")
-    if n_attn and fa.bwd_variant(cfg.dtype, cfg.d_head,
-                                 cfg.d_head) != "cuda_core":
+    if n_attn and fa.bwd_variant(cfg.dtype, dq, dv) != "cuda_core":
         worst, at, median, n_leaves, calls = bwd_designs_reading(
             torch, cfg, params, dev)
         phase(name, f"bf16 gradients over the first {GRAD_LAYERS} layers at "
@@ -2881,10 +2922,9 @@ def train_phase(torch, arch, dev, card, tmp):
              f"{passes}x with remat)")
     if n_attn:
         check_variant(fa, got["flash_attention"], fa.variant(
-            cfg.dtype, cfg.d_head, cfg.d_head), name)
+            cfg.dtype, dq, dv), name)
         check_variant(fa, got["flash_attention_bwd"], fa.bwd_variant(
-            cfg.dtype, cfg.d_head, cfg.d_head), name,
-            "BWD_VARIANT_LAUNCHES")
+            cfg.dtype, dq, dv), name, "BWD_VARIANT_LAUNCHES")
     for m in log:
         if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
             fail(f"{name}: step {m['step']} loss {m['loss']} grad_norm "
@@ -2921,9 +2961,7 @@ def train_phase(torch, arch, dev, card, tmp):
     del state, log, run
     gc.collect()
     torch.cuda.empty_cache()
-    H = cfg.n_heads if n_attn else cfg.d_model // cfg.rwkv_head_dim
-    dh = cfg.d_head if n_attn else cfg.rwkv_head_dim
-    shape = (TRAIN_BATCH, TRAIN_SEQ, H, dh, dh, cfg.causal) if n_attn else \
+    shape = (TRAIN_BATCH, TRAIN_SEQ, H, dq, dv, cfg.causal) if n_attn else \
         (TRAIN_BATCH, TRAIN_SEQ)
     return {k: {"launches": n, "shapes": {shape: n} if n else {}}
             for k, n in got.items()}
@@ -3336,7 +3374,12 @@ def main() -> None:
     ap.add_argument("--serve", action="append", choices=SERVE_ARCHS,
                     metavar="ARCH", help="run only phase serve-ARCH "
                     "(repeatable); prints no kernels or device line")
-    serve_only = ap.parse_args().serve
+    ap.add_argument("--bwd-digests", action="store_true",
+                    help="run only the build and print a digest of each "
+                    "FLASH_BWD_CASES case's flash backward (to compare "
+                    "two trees' bits); prints no kernels or device line")
+    opts = ap.parse_args()
+    serve_only = opts.serve
     try:
         import torch
     except ImportError:
@@ -3364,6 +3407,11 @@ def main() -> None:
     phase("build", f"{len(libs)} CUDA source(s) built with nvcc for sm_90a "
           f"in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(p.name for p in libs.values()))
+    if opts.bwd_digests:
+        bwd_digests(torch, dev)
+        phase("done", f"digests in {time.perf_counter() - t_start:.0f} s; "
+              f"card {card}")
+        return
     if serve_only:
         for arch in serve_only:
             serve_phase(torch, arch, dev)

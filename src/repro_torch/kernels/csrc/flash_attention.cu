@@ -91,17 +91,22 @@
 // The price is seven 64 x 64 x d products a visible tile pair (dK/dV:
 // S^T, dV, dP^T, dK; dQ: S, dP, dQ) where FlashAttention-2/3 do five
 // and add dQ with atomics. Two variants, picked from (dtype, d, dv) as
-// the forward's but for MLA, whose backward stays on the CUDA cores (it
-// takes the wgmma forward's L as it takes its own):
+// the forward's (either takes the other forward's L as its own):
 //
-// * flash_bwd_wgmma_dkdv_kernel / flash_bwd_wgmma_dq_kernel (namespace
-//   wgb, flash_attention_wgmma_bwd), bfloat16 at d = dv in {64, 80,
-//   128}: every product on wgmma (bf16 operands, float32 sums; at d 80
-//   the d-deep products take 5 k-steps and dV, dK and dQ are m64n80k16,
-//   as the forward's; dK and dV hold 40 accumulators each). A block is a
+// * flash_bwd_wgmma_dkdv_kernel<DQK, DV> / flash_bwd_wgmma_dq_kernel<DQK,
+//   DV> (namespace wgb, flash_attention_wgmma_bwd), bfloat16 at the
+//   wgmma forward's pairs (64, 64), (128, 128), (80, 80) and MLA's (96,
+//   64): every product on wgmma (bf16 operands, float32 sums). The
+//   products over q/k's width (S^T, S) take DQK / 16 k-steps, those over
+//   v's (dP^T, dP) DV / 16; dV is m64n{DV}k16, dK and dQ m64n{DQK}k16:
+//   at 80 and 96 one product whose N-major B spans the first swizzle
+//   atom and two or four chunks of the second, so no zero column is
+//   multiplied (dK and dV hold 48 + 32 accumulators at (96, 64), 40 + 40
+//   at (80, 80)). A block is a
 //   consumer warpgroup (the tile's 64 rows are wgmma's M) and a
 //   producer warp: lane 0 brings the block's own tile pair (dK/dV: K,
-//   V; dQ: Q, dO) once and the partner tiles through a two-stage
+//   V; dQ: Q, dO; a DQK- and a DV-wide tile) once and the partner
+//   pair through a two-stage
 //   mbarrier ring with TMA over the forward's rank-4 maps (rows past T
 //   or S zero-filled, never the next sequence's), bf16 in 128-byte
 //   swizzled shared memory; the 32 lanes bring the partner tile's rows
@@ -116,7 +121,7 @@
 //   window edge or the end of T or S reaches; fully masked pairs are
 //   not visited; the grid starts with the blocks that walk the most
 //   partners (the first key tiles, the last query tiles). dK and dQ are
-//   scaled by d^-1/2 once, and the outputs staged through shared memory
+//   scaled by dq^-1/2 once, and the outputs staged through shared memory
 //   and written with 16-byte stores, as the forward's epilogue. What
 //   bounds it: the dK/dV kernel holds dK and dV (64 + 64 float32 a
 //   thread at d = 128), P^T as bf16 (16) and dP^T (32) at once: ptxas
@@ -129,10 +134,10 @@
 //   across the group that computes dP^T, for the registers; dS^T takes
 //   it as it is (the product rounds dS^T to bf16 anyway).
 // * flash_bwd_dkdv_kernel / flash_bwd_dq_kernel (namespace bwd,
-//   flash_attention_bwd), float32 at any head dims and bfloat16 at
-//   other head dims or dv != d (MLA's (96, 64) too): float32 products and
-//   sums on the CUDA cores, the tiles staged as float32; the float32
-//   gradient check of a training run needs full float32 products.
+//   flash_attention_bwd), float32 at any head dims and bfloat16 at the
+//   head dims the wgmma one does not take: float32 products and sums on
+//   the CUDA cores, the tiles staged as float32; the float32 gradient
+//   check of a training run needs full float32 products.
 // At qwen3-8b's training shape (2, 4096, 32, 128) bf16 causal the work
 // is ~0.98 TFLOP of products (0.69 TFLOP the least: ~0.70 ms at 989
 // TFLOP/s) over ~0.27 GB, so the products bound it. Measured by
@@ -142,7 +147,11 @@
 // non-causal (0.434 ms bound, operations): 2.34 ms through wgmma (dK/dV
 // 188 registers, so two blocks an SM; dQ 131), 32.90 ms on the CUDA
 // cores, SDPA's backward 1.25 ms; its forward 553 us (7,957 on the CUDA
-// cores, SDPA 415, bound 174).
+// cores, SDPA 415, bound 174). At MLA's (2, 4096, 40, 96, 64) bf16
+// causal (minicpm3-4b's training; 0.565 ms bound, operations): 3.05 ms
+// through wgmma (dK/dV<96, 64> 188 registers, two blocks an SM, 75 KB
+// of shared memory a block; dQ 139), 41.45 ms on the CUDA cores, SDPA's
+// backward 1.75 ms.
 
 #include <cuda.h>          // CUtensorMap and its enums (header only)
 #include <cuda_bf16.h>
@@ -669,6 +678,38 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 96, float32) += A (64 x 16) B (16 x 96): as wgmma_rs_n80, the
+// columns 64-95 the first four chunks of the second atom (MLA's q and k
+// rows, whose columns 96-127 are zeros and are never multiplied).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D (64 x 128, float32) += A (64 x 16) B (16 x 128): A bf16 in registers
 // (the k16 fragment), B bf16 in shared memory, N-major (transposed).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -720,18 +761,21 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 
 // D (64 x D) += A B over a 64-deep K, A the four k16 register fragments
 // `a`, B a 64-row tile in shared memory read N-major (its rows are K):
-// one product a k-step, N = D (64, 80 or 128), so an 80-wide B is never
-// multiplied past its column 80.
+// one product a k-step, N = D (64, 80, 96 or 128), so an 80- or 96-wide
+// B is never multiplied past its column 80 or 96.
 template <int D>
 __device__ __forceinline__ void wgmma_rs_tile(float (&d)[D / 2],
                                               const uint32_t (&a)[4][4],
                                               uint32_t b_tile) {
-  static_assert(D == 64 || D == 80 || D == 128, "wgmma N of 64, 80, 128");
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128,
+                "wgmma N of 64, 80, 96, 128");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t desc = desc_sw128(b_tile + kk * 16 * 128, kAtom, 1024);
     if constexpr (D == 128)
       wgmma_rs_n128(d, a[kk], desc);
+    else if constexpr (D == 96)
+      wgmma_rs_n96(d, a[kk], desc);
     else if constexpr (D == 80)
       wgmma_rs_n80(d, a[kk], desc);
     else
@@ -1487,8 +1531,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace bwd
 
 // ---------------------------------------------------------------------
-// The tensor-core backward: bfloat16 with d = dv in {64, 80, 128}, the
-// inputs the wgmma forward takes at dv = d. The same three launches and the same
+// The tensor-core backward: bfloat16 at (dq, dv) in {(64, 64), (128,
+// 128), (80, 80), (96, 64)}, every pair the wgmma forward takes. The
+// same three launches and the same
 // split as namespace bwd (D pass, then a dK/dV kernel a key tile and a
 // dQ kernel a query tile, one writer an output), with every product on
 // wgmma (bf16 operands, float32 sums) and the tiles brought in by TMA.
@@ -1500,14 +1545,20 @@ constexpr int kConsumers = 128;           // one warpgroup runs the math
 constexpr int kThreads = kConsumers + 32; // and one warp feeds it
 constexpr int kRowBytes = 2 * kB * 4;     // a tile's L and D rows (float32)
 
-// The fixed pair of tiles (dK/dV: K, V; dQ: Q, dO), the two-stage ring
-// of pairs (dK/dV: Q, dO; dQ: K, V), each tile 1024-byte aligned; the L
-// and D rows of the ring's stages (dK/dV) or of the fixed tile (dQ);
-// the barriers fixed_full, full[2], empty[2]; the slack that aligns the
-// base.
-template <int D>
+// A pair of tiles, one of DQK columns (Q or K) and one of DV (V or dO),
+// each 1024-byte aligned
+template <int DQK, int DV>
+__host__ __device__ constexpr int pair_bytes() {
+  return wg::tile_bytes<DQK>() + wg::tile_bytes<DV>();
+}
+
+// The fixed pair (dK/dV: K, V; dQ: Q, dO), the two-stage ring of pairs
+// (dK/dV: Q, dO; dQ: K, V); the L and D rows of the ring's stages
+// (dK/dV) or of the fixed tile (dQ); the barriers fixed_full, full[2],
+// empty[2]; the slack that aligns the base.
+template <int DQK, int DV>
 __host__ __device__ constexpr int smem_bytes() {
-  return 6 * wg::tile_bytes<D>() + 2 * kRowBytes + 8 * 5 + 1024;
+  return 3 * pair_bytes<DQK, DV>() + 2 * kRowBytes + 8 * 5 + 1024;
 }
 
 // Rows [row0, row0 + kB) of a (batch, head)'s L (times log2 e) and D
@@ -1601,8 +1652,9 @@ __device__ __forceinline__ int frag_col(int x, int lane) {
 // and D of each query tile that sees the key tile through a two-stage
 // ring. A query tile: S^T = K Q^T, P^T = exp2(S^T scale log2 e -
 // L[col]) in bf16, dV += P^T dO and dP^T = V dO^T in one wgmma group,
-// dS^T = P^T (dP^T - D[col]), dK += dS^T Q.
-template <int D>
+// dS^T = P^T (dP^T - D[col]), dK += dS^T Q. Q and K have DQK columns,
+// V and dO DV.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -1614,15 +1666,16 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
                             __nv_bfloat16* __restrict__ dv, int batch,
                             int n_q, int n_k, int n_heads, int causal,
                             int window, float scale, float scale_log2) {
-  constexpr int kTile = wg::tile_bytes<D>();
+  constexpr int kTile = wg::tile_bytes<DQK>();
+  constexpr int kPair = pair_bytes<DQK, DV>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = wg::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + 6 * kTile);
-  const uint32_t bars = base + 6 * kTile + 2 * kRowBytes;
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + 3 * kPair);
+  const uint32_t bars = base + 3 * kPair + 2 * kRowBytes;
   const uint32_t s_k = base, s_v = base + kTile;
-  auto s_q = [&](int s) { return base + (2 + 2 * s) * kTile; };
-  auto s_do = [&](int s) { return base + (3 + 2 * s) * kTile; };
+  auto s_q = [&](int s) { return base + (1 + s) * kPair; };
+  auto s_do = [&](int s) { return base + (1 + s) * kPair + kTile; };
   const uint32_t fixed_full = bars;
   auto full = [&](int s) { return bars + 8 * (1 + s); };
   auto empty = [&](int s) { return bars + 8 * (3 + s); };
@@ -1657,17 +1710,17 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     // L and D and arrives
     const size_t bh = (size_t)b * n_heads + h;
     if (lane == 0) {
-      wg::mbar_expect_tx(fixed_full, 2 * kTile);
-      wg::tma_tile<D>(s_k, &tk, h, k0, b, fixed_full);
-      wg::tma_tile<D>(s_v, &tv, h, k0, b, fixed_full);
+      wg::mbar_expect_tx(fixed_full, kPair);
+      wg::tma_tile<DQK>(s_k, &tk, h, k0, b, fixed_full);
+      wg::tma_tile<DV>(s_v, &tv, h, k0, b, fixed_full);
     }
     for (int t = t_begin, n = 0; t < t_end; ++t, ++n) {
       const int s = n & 1;
       if (n >= 2) wg::mbar_wait(empty(s), ((n >> 1) - 1) & 1);
       if (lane == 0) {
-        wg::mbar_expect_tx(full(s), 2 * kTile);
-        wg::tma_tile<D>(s_q(s), &tq, h, t * kB, b, full(s));
-        wg::tma_tile<D>(s_do(s), &tdo, h, t * kB, b, full(s));
+        wg::mbar_expect_tx(full(s), kPair);
+        wg::tma_tile<DQK>(s_q(s), &tq, h, t * kB, b, full(s));
+        wg::tma_tile<DV>(s_do(s), &tdo, h, t * kB, b, full(s));
       }
       load_rows(lse + bh * n_q, delta + bh * n_q, t * kB, n_q,
                 rows + s * 2 * kB, lane);
@@ -1676,9 +1729,11 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DQK / 2], dv_acc[DV / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.0f;
+  for (int e = 0; e < DQK / 2; ++e) dk_acc[e] = 0.0f;
+#pragma unroll
+  for (int e = 0; e < DV / 2; ++e) dv_acc[e] = 0.0f;
   wg::mbar_wait(fixed_full, 0);
   for (int t = t_begin, n = 0; t < t_end; ++t, ++n) {
     const int s = n & 1;
@@ -1692,7 +1747,7 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int e = 0; e < 32; ++e) sacc[e] = 0.0f;
     wg::fence_regs(sacc);
     wg::wgmma_fence();
-    wg::wgmma_ss_tile<D>(sacc, s_k, s_q(s));
+    wg::wgmma_ss_tile<DQK>(sacc, s_k, s_q(s));
     wg::wgmma_commit();
     wg::wgmma_wait_all();
     wg::fence_regs(sacc);
@@ -1729,8 +1784,8 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     wg::fence_regs(dpacc);
     wg::fence_regs(dv_acc);
     wg::wgmma_fence();
-    wg::wgmma_rs_tile<D>(dv_acc, pa, s_do(s));
-    wg::wgmma_ss_tile<D>(dpacc, s_v, s_do(s));
+    wg::wgmma_rs_tile<DV>(dv_acc, pa, s_do(s));
+    wg::wgmma_ss_tile<DV>(dpacc, s_v, s_do(s));
     wg::wgmma_commit();
     wg::wgmma_wait_all();
     wg::fence_regs(dv_acc);
@@ -1755,7 +1810,7 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
     // dK += dS^T Q (Q read N-major)
     wg::fence_regs(dk_acc);
     wg::wgmma_fence();
-    wg::wgmma_rs_tile<D>(dk_acc, da, s_q(s));
+    wg::wgmma_rs_tile<DQK>(dk_acc, da, s_q(s));
     wg::wgmma_commit();
     wg::wgmma_wait_all();
     wg::fence_regs(dk_acc);
@@ -1764,11 +1819,11 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 
   // dK scale and dV in bf16, staged in the K and V tiles (their last
   // readers, the wgmmas, are done), then 16-byte stores
-  stage_rows<D>(dk_acc, scale, s_k, warp, lane);
-  stage_rows<D>(dv_acc, 1.0f, s_v, warp, lane);
+  stage_rows<DQK>(dk_acc, scale, s_k, warp, lane);
+  stage_rows<DV>(dv_acc, 1.0f, s_v, warp, lane);
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-  store_rows<D>(s_k, dk, k0, n_k, n_heads, h, b, tid);
-  store_rows<D>(s_v, dv, k0, n_k, n_heads, h, b, tid);
+  store_rows<DQK>(s_k, dk, k0, n_k, n_heads, h, b, tid);
+  store_rows<DV>(s_v, dv, k0, n_k, n_heads, h, b, tid);
 }
 
 // One block per (64-query tile, head, batch): dQ of the tile. The
@@ -1776,8 +1831,8 @@ flash_bwd_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap tq,
 // each key tile the query tile sees through a two-stage ring. A key
 // tile: S = Q K^T and dP = dO V^T in one wgmma group, P = exp2(S scale
 // log2 e - L[row]) and dS = P (dP - D[row]) in float32, dS rounded to
-// bf16, dQ += dS K.
-template <int D>
+// bf16, dQ += dS K. Q and K have DQK columns, V and dO DV.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -1788,15 +1843,16 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
                           __nv_bfloat16* __restrict__ dq, int batch,
                           int n_q, int n_k, int n_heads, int causal,
                           int window, float scale, float scale_log2) {
-  constexpr int kTile = wg::tile_bytes<D>();
+  constexpr int kTile = wg::tile_bytes<DQK>();
+  constexpr int kPair = pair_bytes<DQK, DV>();
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t raw = wg::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + 6 * kTile);
-  const uint32_t bars = base + 6 * kTile + 2 * kRowBytes;
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + 3 * kPair);
+  const uint32_t bars = base + 3 * kPair + 2 * kRowBytes;
   const uint32_t s_q = base, s_do = base + kTile;
-  auto s_k = [&](int s) { return base + (2 + 2 * s) * kTile; };
-  auto s_v = [&](int s) { return base + (3 + 2 * s) * kTile; };
+  auto s_k = [&](int s) { return base + (1 + s) * kPair; };
+  auto s_v = [&](int s) { return base + (1 + s) * kPair + kTile; };
   const uint32_t fixed_full = bars;
   auto full = [&](int s) { return bars + 8 * (1 + s); };
   auto empty = [&](int s) { return bars + 8 * (3 + s); };
@@ -1829,9 +1885,9 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
   if (warp == kConsumers / 32) {
     const size_t bh = (size_t)b * n_heads + h;
     if (lane == 0) {
-      wg::mbar_expect_tx(fixed_full, 2 * kTile);
-      wg::tma_tile<D>(s_q, &tq, h, q0, b, fixed_full);
-      wg::tma_tile<D>(s_do, &tdo, h, q0, b, fixed_full);
+      wg::mbar_expect_tx(fixed_full, kPair);
+      wg::tma_tile<DQK>(s_q, &tq, h, q0, b, fixed_full);
+      wg::tma_tile<DV>(s_do, &tdo, h, q0, b, fixed_full);
     }
     load_rows(lse + bh * n_q, delta + bh * n_q, q0, n_q, rows, lane);
     wg::mbar_arrive(fixed_full);
@@ -1839,17 +1895,17 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
       for (int t = t_begin, n = 0; t < t_end; ++t, ++n) {
         const int s = n & 1;
         if (n >= 2) wg::mbar_wait(empty(s), ((n >> 1) - 1) & 1);
-        wg::mbar_expect_tx(full(s), 2 * kTile);
-        wg::tma_tile<D>(s_k(s), &tk, h, t * kB, b, full(s));
-        wg::tma_tile<D>(s_v(s), &tv, h, t * kB, b, full(s));
+        wg::mbar_expect_tx(full(s), kPair);
+        wg::tma_tile<DQK>(s_k(s), &tk, h, t * kB, b, full(s));
+        wg::tma_tile<DV>(s_v(s), &tv, h, t * kB, b, full(s));
       }
     }
     return;
   }
 
-  float dq_acc[D / 2];
+  float dq_acc[DQK / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dq_acc[e] = 0.0f;
+  for (int e = 0; e < DQK / 2; ++e) dq_acc[e] = 0.0f;
   wg::mbar_wait(fixed_full, 0);
   // this thread's two rows' L (times log2 e) and D
   float l2[2], dd[2];
@@ -1872,8 +1928,8 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
     wg::fence_regs(sacc);
     wg::fence_regs(dpacc);
     wg::wgmma_fence();
-    wg::wgmma_ss_tile<D>(sacc, s_q, s_k(s));
-    wg::wgmma_ss_tile<D>(dpacc, s_do, s_v(s));
+    wg::wgmma_ss_tile<DQK>(sacc, s_q, s_k(s));
+    wg::wgmma_ss_tile<DV>(dpacc, s_do, s_v(s));
     wg::wgmma_commit();
     wg::wgmma_wait_all();
     wg::fence_regs(sacc);
@@ -1906,7 +1962,7 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
     // dQ += dS K (K read N-major)
     wg::fence_regs(dq_acc);
     wg::wgmma_fence();
-    wg::wgmma_rs_tile<D>(dq_acc, da, s_k(s));
+    wg::wgmma_rs_tile<DQK>(dq_acc, da, s_k(s));
     wg::wgmma_commit();
     wg::wgmma_wait_all();
     wg::fence_regs(dq_acc);
@@ -1914,20 +1970,21 @@ flash_bwd_wgmma_dq_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   // dQ scale in bf16, staged in the Q tile, then 16-byte stores
-  stage_rows<D>(dq_acc, scale, s_q, warp, lane);
+  stage_rows<DQK>(dq_acc, scale, s_q, warp, lane);
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
-  store_rows<D>(s_q, dq, q0, n_q, n_heads, h, b, tid);
+  store_rows<DQK>(s_q, dq, q0, n_q, n_heads, h, b, tid);
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv_out, int batch, int n_q, int n_k, int n_heads,
            int causal, int window, float scale, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<DQK, DV>();
   static cudaError_t opted_kv =
-      opt_in(flash_bwd_wgmma_dkdv_kernel<D>, smem_bytes<D>());
+      opt_in(flash_bwd_wgmma_dkdv_kernel<DQK, DV>, kSmem);
   static cudaError_t opted_q =
-      opt_in(flash_bwd_wgmma_dq_kernel<D>, smem_bytes<D>());
+      opt_in(flash_bwd_wgmma_dq_kernel<DQK, DV>, kSmem);
   if (opted_kv != cudaSuccess) return (int)opted_kv;
   if (opted_q != cudaSuccess) return (int)opted_q;
   using T = __nv_bfloat16;
@@ -1935,21 +1992,21 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   bwd::flash_bwd_delta_kernel<T>
       <<<(n_rows + bwd::kWarps - 1) / bwd::kWarps, bwd::kThreads, 0,
          stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
-                   delta, n_rows, n_q, n_heads, D);
+                   delta, n_rows, n_q, n_heads, DV);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq, tk, tv, tdo;
-  err = wg::make_map(&tq, q, batch, n_q, n_heads, D);
-  if (err == cudaSuccess) err = wg::make_map(&tk, k, batch, n_k, n_heads, D);
-  if (err == cudaSuccess) err = wg::make_map(&tv, v, batch, n_k, n_heads, D);
+  err = wg::make_map(&tq, q, batch, n_q, n_heads, DQK);
   if (err == cudaSuccess)
-    err = wg::make_map(&tdo, dout, batch, n_q, n_heads, D);
+    err = wg::make_map(&tk, k, batch, n_k, n_heads, DQK);
+  if (err == cudaSuccess) err = wg::make_map(&tv, v, batch, n_k, n_heads, DV);
+  if (err == cudaSuccess)
+    err = wg::make_map(&tdo, dout, batch, n_q, n_heads, DV);
   if (err != cudaSuccess) return (int)err;
   const float scale_log2 = scale * kLog2e;
   if (n_k > 0) {
     const unsigned grid = (unsigned)((n_k + kB - 1) / kB) * n_heads * batch;
-    flash_bwd_wgmma_dkdv_kernel<D><<<grid, kThreads, smem_bytes<D>(),
-                                     stream>>>(
+    flash_bwd_wgmma_dkdv_kernel<DQK, DV><<<grid, kThreads, kSmem, stream>>>(
         tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk),
         static_cast<T*>(dv_out), batch, n_q, n_k, n_heads, causal, window,
         scale, scale_log2);
@@ -1957,7 +2014,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     if (err != cudaSuccess) return (int)err;
   }
   const unsigned grid = (unsigned)((n_q + kB - 1) / kB) * n_heads * batch;
-  flash_bwd_wgmma_dq_kernel<D><<<grid, kThreads, smem_bytes<D>(), stream>>>(
+  flash_bwd_wgmma_dq_kernel<DQK, DV><<<grid, kThreads, kSmem, stream>>>(
       tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), batch, n_q, n_k,
       n_heads, causal, window, scale, scale_log2);
   return (int)cudaGetLastError();
@@ -2057,29 +2114,36 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
 }
 
 // The tensor-core backward: q, k, v, o, dout, lse, delta, dq, dk, dv as
-// for flash_attention_bwd, bfloat16 only, with one head dim d (64, 80
-// or 128) for q, k and v; q, k, v and dout are read through TMA maps, so
-// they must be 16-byte aligned. Three launches on `stream`; returns the
-// first failing one's cudaError_t.
+// for flash_attention_bwd, bfloat16 only, (d, dv) one of the wgmma
+// forward's pairs: (64, 64), (128, 128), (80, 80) and MLA's (96, 64);
+// q, k, v and dout are read through TMA maps, so they must be 16-byte
+// aligned. Three launches on `stream`; returns the first failing one's
+// cudaError_t.
 extern "C" int flash_attention_wgmma_bwd(const void* q, const void* k,
                                          const void* v, const void* o,
                                          const void* dout, const float* lse,
                                          float* delta, void* dq, void* dk,
                                          void* dv_out, int batch, int n_q,
-                                         int n_k, int n_heads, int d,
+                                         int n_k, int n_heads, int d, int dv,
                                          int causal, int window, float scale,
                                          void* stream) {
   if (batch == 0 || n_q == 0 || n_heads == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return wgb::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
-                           batch, n_q, n_k, n_heads, causal, window, scale, s);
-  if (d == 128)
-    return wgb::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
-                            batch, n_q, n_k, n_heads, causal, window, scale,
-                            s);
-  if (d == 80)
-    return wgb::launch<80>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
-                           batch, n_q, n_k, n_heads, causal, window, scale, s);
+  if (d == 64 && dv == 64)
+    return wgb::launch<64, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
+                               batch, n_q, n_k, n_heads, causal, window,
+                               scale, s);
+  if (d == 128 && dv == 128)
+    return wgb::launch<128, 128>(q, k, v, o, dout, lse, delta, dq, dk,
+                                 dv_out, batch, n_q, n_k, n_heads, causal,
+                                 window, scale, s);
+  if (d == 80 && dv == 80)
+    return wgb::launch<80, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
+                               batch, n_q, n_k, n_heads, causal, window,
+                               scale, s);
+  if (d == 96 && dv == 64)
+    return wgb::launch<96, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv_out,
+                               batch, n_q, n_k, n_heads, causal, window,
+                               scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -33,13 +33,13 @@ kernel a query tile), each output written by one block, no atomics, so
 two calls give the same bits. ``bwd_variant(dtype, dq, dv)`` picks its
 variant, and nothing else picks:
 
-* ``"wgmma"``: bfloat16 at (dq, dv) in ``WGMMA_BWD_SHAPES``, (64, 64),
-  (128, 128) and hubert-xlarge's (80, 80), every product on wgmma (bf16
-  operands, float32 sums) fed by TMA;
+* ``"wgmma"``: bfloat16 at (dq, dv) in ``WGMMA_BWD_SHAPES``, every
+  pair the wgmma forward takes: (64, 64), (128, 128), hubert-xlarge's
+  (80, 80) and MLA's (96, 64) (minicpm3-4b's training), every product
+  on wgmma (bf16 operands, float32 sums) fed by TMA;
 * ``"cuda_core"``: float32 FMAs, for float32 (the float32 gradient
-  check needs full float32 products) and every other head dim, MLA's
-  (96, 64) among them: its backward on wgmma is still to come, and it
-  takes the wgmma forward's log-sum-exp as it takes its own.
+  check needs full float32 products) and bfloat16 at every other head
+  dim; it takes the wgmma forward's log-sum-exp as it takes its own.
 
 Seven 64 x 64 x d products a visible tile pair (dK/dV: S^T, dV, dP^T,
 dK; dQ: S, dP, dQ) where FlashAttention-2/3 do five with an atomic dQ:
@@ -49,7 +49,9 @@ output. Measured by ``chip_smoke.py`` on an NVIDIA H100 80GB HBM3 at
 wgmma (4.1x its bound, 1.87x SDPA's backward), 40.61 ms through the
 CUDA cores; at hubert-xlarge's (2, 4096, 16, 80) non-causal 2.34 ms
 through wgmma (5.4x its bound, 1.87x SDPA's), 32.90 ms through the CUDA
-cores (PERF.md). The reference has no backward
+cores; at MLA's (2, 4096, 40, 96, 64) causal 3.05 ms through wgmma
+(5.4x its bound, 1.74x SDPA's), 41.45 ms through the CUDA cores
+(PERF.md). The reference has no backward
 kernel: its Pallas kernel cannot be differentiated. ``BWD_LAUNCHES``
 counts the backward's calls, ``BWD_VARIANT_LAUNCHES`` by variant.
 """
@@ -65,7 +67,7 @@ MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (dq, dv) of bfloat16 inputs the wgmma forward takes, and its backward
 WGMMA_SHAPES = ((64, 64), (128, 128), (96, 64), (80, 80))
-WGMMA_BWD_SHAPES = ((64, 64), (128, 128), (80, 80))
+WGMMA_BWD_SHAPES = ((64, 64), (128, 128), (80, 80), (96, 64))
 
 #: number of times a kernel has been launched (incremented only where
 #: one is launched), in all and by variant
@@ -86,7 +88,7 @@ _BWD_ENTRIES = {
     "cuda_core": ("flash_attention_bwd", [ctypes.c_void_p] * 10
                   + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]),
     "wgmma": ("flash_attention_wgmma_bwd", [ctypes.c_void_p] * 10
-              + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]),
+              + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]),
 }
 
 
@@ -238,14 +240,13 @@ def _launch_bwd(name, q, k, v, out, lse, dout, causal, swa_window):
     delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     symbol, argtypes = _BWD_ENTRIES[name]
     fn = _build.function("flash_attention", symbol, argtypes)
-    # the CUDA-core entry takes the dtype and dv; the wgmma one has dv = d
-    dims = (d, dv) if name == "cuda_core" else (d,)
+    # the CUDA-core entry takes the dtype; the wgmma one is bfloat16
     dtype = (DTYPES[q.dtype],) if name == "cuda_core" else ()
     _build.launch("flash_attention_bwd", fn, dev, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(), *dtype, B, T,
-                  S, H, *dims, int(bool(causal)), int(swa_window), d ** -0.5)
+                  S, H, d, dv, int(bool(causal)), int(swa_window), d ** -0.5)
     BWD_LAUNCHES += 1
     BWD_VARIANT_LAUNCHES[name] += 1
     return dq, dk, dv_

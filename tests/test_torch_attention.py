@@ -231,7 +231,7 @@ def test_flash_variant_of_each_served_config(arch, want):
     (torch.bfloat16, 128, 128, "wgmma", "wgmma"),
     (torch.float32, 128, 128, "cuda_core", "cuda_core"),
     (torch.float32, 64, 64, "cuda_core", "cuda_core"),
-    (torch.bfloat16, 96, 64, "cuda_core", "wgmma"),  # MLA (minicpm3-4b)
+    (torch.bfloat16, 96, 64, "wgmma", "wgmma"),     # MLA (minicpm3-4b)
     (torch.bfloat16, 16, 16, "cuda_core", "cuda_core"),
     (torch.bfloat16, 128, 64, "cuda_core", "cuda_core"),
     (torch.bfloat16, 80, 80, "wgmma", "wgmma"),     # hubert-xlarge
@@ -240,33 +240,40 @@ def test_flash_variant_of_each_served_config(arch, want):
 ])
 def test_flash_bwd_variant_follows_the_forward(dtype, dq, dv, want,
                                                want_fwd):
-    """The backward takes the tensor cores where the forward does at
-    dq = dv: bfloat16 at {64, 80, 128}; float32 (the gradient check's
-    full float32 products) and every other head dim the CUDA cores. MLA's
-    (96, 64) is the one pair that parts them: its forward runs wgmma,
-    its backward the CUDA cores (the wgmma backward at 96 is still to
-    come)."""
+    """The backward takes the tensor cores wherever the forward does:
+    bfloat16 at (64, 64), (80, 80), (128, 128) and MLA's (96, 64);
+    float32 (the gradient check's full float32 products) and every other
+    head dim the CUDA cores, forward and backward alike."""
     assert flash_attention.bwd_variant(dtype, dq, dv) == want
     assert flash_attention.variant(dtype, dq, dv) == want_fwd
 
 
 def test_flash_wgmma_backward_refuses_mla():
     """The private variant entries check the pair they are asked for:
-    the wgmma forward takes MLA's bfloat16 (96, 64), the wgmma backward
-    refuses it (the CUDA-core one takes it), and neither takes it in
-    float32."""
-    flash_attention._check_variant("wgmma", torch.bfloat16, 96, 64)
-    flash_attention._check_variant("cuda_core", torch.bfloat16, 96, 64,
-                                   bwd=True)
-    with pytest.raises(ValueError, match="wgmma backward"):
-        flash_attention._check_variant("wgmma", torch.bfloat16, 96, 64,
-                                       bwd=True)
+    MLA's bfloat16 (96, 64) goes through wgmma and through the CUDA
+    cores (the first design, kept for timing), forward and backward; the
+    wgmma entries refuse MLA in float32, and bfloat16 at (64, 96) (q/k
+    and v swapped)."""
     for bwd in (False, True):
-        with pytest.raises(ValueError, match="wgmma"):
-            flash_attention._check_variant("wgmma", torch.float32, 96, 64,
+        for name in ("wgmma", "cuda_core"):
+            flash_attention._check_variant(name, torch.bfloat16, 96, 64,
                                            bwd=bwd)
-    flash_attention._check_variant("wgmma", torch.bfloat16, 128, 128,
-                                   bwd=True)
+        for dtype, dq, dv in ((torch.float32, 96, 64),
+                              (torch.bfloat16, 64, 96)):
+            with pytest.raises(ValueError, match="wgmma"):
+                flash_attention._check_variant("wgmma", dtype, dq, dv,
+                                               bwd=bwd)
+
+
+def test_flash_wgmma_backward_covers_the_forward():
+    """Every (dq, dv) the wgmma forward takes in bfloat16 has a wgmma
+    backward too, so no bfloat16 training path leaves the tensor cores
+    for its backward."""
+    assert set(flash_attention.WGMMA_BWD_SHAPES) == set(
+        flash_attention.WGMMA_SHAPES)
+    for dq, dv in flash_attention.WGMMA_SHAPES:
+        assert flash_attention.bwd_variant(torch.bfloat16, dq, dv) == \
+            flash_attention.variant(torch.bfloat16, dq, dv) == "wgmma"
 
 
 def test_flash_wgmma_takes_hubert_both_ways():

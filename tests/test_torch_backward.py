@@ -47,6 +47,8 @@ CASES = [  # (B, T, H, dq, dv, causal, window)
     (1, 24, 2, 16, 16, True, 5),          # sliding window
     (2, 16, 2, 24, 8, True, 0),           # dv != dq (MLA)
     (1, 12, 2, 8, 16, False, 0),          # bidirectional
+    (1, 80, 2, 96, 64, True, 0),          # MLA's dims, ragged over 2 tiles
+    (1, 90, 2, 96, 64, True, 48),         # MLA's dims, a window
 ]
 
 

@@ -193,37 +193,46 @@ def test_flash_kernel_dv_unlike_dq_vs_plain_version(cuda, B, T, H, dq, dv,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,causal", [(1, 200, 3, True),
-                                          (2, 100, 4, False)])
-def test_flash_mla_wgmma_forward_feeds_the_cuda_core_backward(cuda, B, T, H,
-                                                              causal):
-    """MLA's bfloat16 (96, 64) trains through the wgmma forward and the
-    CUDA-core backward: the forward's log-sum-exp is the plain one's
-    within LSE_TOL, and the gradients the backward computes from it are
-    within ATTN_BWD_TOL of ``ref.attention_bwd_ref``'s, as they are from
-    the CUDA-core forward's."""
-    g = torch.Generator(device=cuda).manual_seed(9)
+@pytest.mark.parametrize("B,T,S,H,causal,window", [
+    (1, 200, 200, 3, True, 0),      # causal, ragged T
+    (2, 100, 160, 4, False, 0),     # T != S, both ragged
+    (1, 200, 200, 3, True, 48),     # a window
+])
+@pytest.mark.parametrize("name", ["wgmma", "cuda_core"])
+def test_flash_backward_variants_at_mla_head_dims(cuda, B, T, S, H, causal,
+                                                  window, name):
+    """MLA's bf16 (96, 64) (minicpm3-4b's training): the backward through
+    each design (the wgmma one ``bwd_variant`` picks, and the CUDA-core
+    first design on the same inputs) from the wgmma forward's output and
+    log-sum-exp (within LSE_TOL of the plain one), against
+    ``ref.attention_bwd_ref``, each gradient within ATTN_BWD_TOL of its
+    largest magnitude; only the named variant's count moves, and a
+    second call gives the same bits."""
     dt = torch.bfloat16
-    q, k = (torch.randn((B, T, H, 96), generator=g, device=cuda).to(dt)
-            for _ in range(2))
-    v, do = (torch.randn((B, T, H, 64), generator=g, device=cuda).to(dt)
-             for _ in range(2))
-    before = dict(flash_attention.VARIANT_LAUNCHES)
-    bwd_before = dict(flash_attention.BWD_VARIANT_LAUNCHES)
-    out, lse = flash_attention.flash_attention_lse(q, k, v, causal=causal)
-    grads = flash_attention.flash_attention_bwd(q, k, v, out, lse, do,
-                                                causal=causal)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dt)
+                   for shape in ((B, T, H, 96), (B, S, H, 96),
+                                 (B, S, H, 64), (B, T, H, 64)))
+    assert flash_attention.variant(dt, 96, 64) == "wgmma"
+    assert flash_attention.bwd_variant(dt, 96, 64) == "wgmma"
+    out, lse = flash_attention.flash_attention_lse(q, k, v, causal=causal,
+                                                   swa_window=window)
+    before = dict(flash_attention.BWD_VARIANT_LAUNCHES)
+    runs = [flash_attention._flash_attention_bwd_variant(
+        q, k, v, out, lse, do, name, causal=causal, swa_window=window)
+        for _ in range(2)]
     torch.cuda.synchronize()
-    assert flash_attention.VARIANT_LAUNCHES == {
-        n: c + (n == "wgmma") for n, c in before.items()}
     assert flash_attention.BWD_VARIANT_LAUNCHES == {
-        n: c + (n == "cuda_core") for n, c in bwd_before.items()}
-    plain_lse = ref.attention_lse_ref(q, k, causal=causal)
+        n: c + 2 * (n == name) for n, c in before.items()}
+    plain_lse = ref.attention_lse_ref(q, k, causal=causal,
+                                      swa_window=window)
     _close(lse, plain_lse, LSE_TOL)
-    want = ref.attention_bwd_ref(q, k, v, out, plain_lse, do, causal=causal)
-    for name, got, w in zip("qkv", grads, want):
+    want = ref.attention_bwd_ref(q, k, v, out, plain_lse, do, causal=causal,
+                                 swa_window=window)
+    for label, got, w, g2 in zip("qkv", runs[0], want, runs[1]):
         assert got.dtype == dt and got.shape == w.shape
-        assert _rel_err(got, w) <= ATTN_BWD_TOL["bfloat16"], name
+        assert torch.equal(got, g2), f"d{label} differs between two runs"
+        assert _rel_err(got, w) <= ATTN_BWD_TOL["bfloat16"], label
 
 
 @pytest.mark.cuda
@@ -361,7 +370,7 @@ def test_flash_lse_vs_plain_version(cuda, B, T, H, d, causal, window,
     (2, 256, 4, 128, 128, True, 0, "bfloat16"),   # wgmma
     (1, 200, 3, 64, 64, True, 48, "bfloat16"),    # wgmma, window, ragged
     (1, 130, 2, 128, 128, False, 0, "bfloat16"),  # wgmma, non-causal
-    (1, 200, 3, 96, 64, True, 0, "bfloat16"),     # MLA's head dims
+    (1, 200, 3, 96, 64, True, 0, "bfloat16"),     # MLA's, wgmma
     (2, 200, 4, 80, 80, False, 0, "bfloat16"),    # hubert's, wgmma
     (1, 130, 2, 64, 64, True, 48, "float32"),
     (2, 64, 2, 16, 16, False, 0, "float32"),

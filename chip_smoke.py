@@ -129,8 +129,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
    ``serve-minicpm3-4b`` (MLA), ``serve-mixtral-8x7b`` (MoE, sliding
    window) and ``serve-jamba-v0.1-52b`` (Mamba + attention + MoE): the
    serving path at full width (random bf16 weights from a seed, loaded
-   one model at a time; minicpm3-4b at 16 layers, mixtral and jamba at
-   8, SERVE_LAYERS):
+   one model at a time; qwen3-8b, rwkv6-7b and minicpm3-4b at 16
+   layers, mixtral and jamba at 8, SERVE_LAYERS):
    one request's prefill logits through the kernels against the plain
    versions (float32, over the first LOGIT_LAYERS[arch] layers; and in
    bf16 at the served depth beside the effect of a small noise, for
@@ -189,6 +189,26 @@ Phases (one line each; any failure exits non-zero and prints no result):
    (8, 16) tokens, within padded_vocab) and torch_train_100m for 30 steps into a
    fresh checkpoint directory, then 35 from it (it must resume at step
    30), each through the flash kernels;
+9f. ``distributed``: the distributed layer (``DIST_DIR``): a
+   single-device process, then 4 gloo ranks sharing the card as a 2 x
+   2 ('data', 'model') mesh (their collectives staged through host
+   memory), then one NCCL rank on a (1, 1) mesh, each spawned: (a)
+   qwen3-8b float32 at full width, 2 layers, one sharded train step
+   against the single-device one (loss 2e-4, parameters 2e-3,
+   grad_norm 1e-5 relative); (b) bf16, 4 layers, B 2 x T 4,096, 3
+   steps: step ms and peak memory a rank, every flash call on wgmma,
+   the collectives a step beside the bytes the specs imply; (c)
+   mixtral's MoE layer at full width through ``moe_apply_dist`` in both
+   modes with both combines against ``moe_apply_pure`` (2e-4 of the
+   scale); (d) ``gqa_decode_sp`` at qwen3-8b width against the
+   one-device decode (1e-4 of the scale); (e) ``pipeline_apply`` against
+   the serial loop (1e-5); (f) train-qwen3-8b's shape through
+   ``make_train_step(cfg, dist)`` over NCCL against the same steps
+   without dist, bit for bit or the first differing leaf; and the MoE
+   backward run twice on one device (a full-width layer and a reduced
+   mixtral step): equal bit for bit or the first differing gradient,
+   printed (a reading). ``--distributed`` runs only the build and this
+   phase;
 10. ``time``: card time under CUDA-graph replay: switch_tiers a tick
    beside its first design (two switch_step launches and their
    glue), the plain version, the bound and an empty kernel's graph
@@ -283,10 +303,12 @@ SERVE_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "mixtral-8x7b",
 # launch.serve the phase took 231 of the script's 987 s on an NVIDIA
 # H100 80GB HBM3 (700 W) with a slow host. 16 layers keep every shape of
 # its path (the flash launches a prefill fall from 62 to 16) and the
-# script well inside its 1,200 s limit. The others serve all their
-# layers.
-SERVE_LAYERS = {"minicpm3-4b": 16, "mixtral-8x7b": 8, "jamba-v0.1-52b": 8,
-                "internvl2-76b": 8}
+# script well inside its 1,200 s limit. With phase `distributed` (216 s
+# of a 1,042 s run on a slow host) qwen3-8b (36 layers, 129 s there) and
+# rwkv6-7b (32, 67 s) are cut to 16 too: every shape of their paths
+# stays. hubert-xlarge serves all its layers.
+SERVE_LAYERS = {"qwen3-8b": 16, "rwkv6-7b": 16, "minicpm3-4b": 16,
+                "mixtral-8x7b": 8, "jamba-v0.1-52b": 8, "internvl2-76b": 8}
 SERVE_SEED = 0
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 SERVE_PROMPTS = (64, 96, 128, 200, 256, 384)
@@ -3366,6 +3388,645 @@ def time_backward_kernels(torch, dev, card, paths, worst):
     return entries
 
 
+# phase `distributed` (PR 25): the port's distributed layer on the card.
+# A 2 x 2 ('data', 'model') mesh of 4 gloo ranks sharing cuda:0 (NCCL
+# refuses two ranks on one card; gloo stages each collective's tensor
+# through host memory, so no time of theirs is a collective's speed),
+# after a single-device process and before one NCCL rank on a (1, 1)
+# mesh. Each process is spawned (torch.multiprocessing, start method
+# spawn) after the parent built the libraries, and hands its results
+# back in a file under DIST_DIR.
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"
+DIST_RANKS = 4
+DIST_SEED = 0
+# (a) float32, full width, DIST_F32_LAYERS deep, B x T = DIST_BATCH x
+# DIST_F32_SEQ, one make_train_step: the bounds of
+# tests/test_distributed.py:44-47 and grad_norm relative
+DIST_F32_LAYERS, DIST_F32_SEQ, DIST_BATCH = 2, 1024, 2
+DIST_LOSS_TOL, DIST_PARAM_TOL, DIST_GN_RTOL = 2e-4, 2e-3, 1e-5
+# ... and every rank's gradient blocks against the single-device
+# gradient's, of each leaf's largest magnitude
+DIST_GRAD_TOL = 1e-4
+# (b) bf16, full width, DIST_BF16_LAYERS deep, B x T = DIST_BATCH x
+# DIST_BF16_SEQ global, DIST_STEPS steps
+DIST_BF16_LAYERS, DIST_BF16_SEQ, DIST_STEPS = 4, 4096, 3
+# (c) mixtral's MoE layer at full width, float32, capacity factor 8 (no
+# token dropped on either side: a rank's capacity counts its own tokens)
+DIST_MOE_X, DIST_MOE_TOL = (4, 512), 2e-4
+# (d) gqa_decode_sp at qwen3-8b width, float32, (a)'s parameters
+DIST_DECODE_B, DIST_DECODE_S, DIST_DECODE_TOL = 4, 4096, 1e-4
+# (e) the pipeline at tests/test_distributed.py:128-150's sizes
+DIST_PIPE_TOL = 1e-5
+# (f) one NCCL rank, train-qwen3-8b's shape (TRAIN_LAYERS, TRAIN_BATCH x
+# TRAIN_SEQ, bf16), DIST_NCCL_STEPS steps with and without dist
+DIST_NCCL_STEPS = 2
+TRAIN_QWEN_MS = 556.4          # PERF.md section 5 (PR 24)
+
+
+def _dist_setup():
+    """A spawned process's torch on cuda:0, TF32 off (float32
+    compares); the allocator grows its segments (four ranks share the
+    card's memory)."""
+    import os
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    return torch, torch.device("cuda:0")
+
+
+def _dist_cfg(arch, layers, dtype=None, **over):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=layers,
+                               dtype=dtype or cfg.dtype, **over)
+
+
+def _dist_tokens(torch, cfg, B, T, dev):
+    import numpy as np
+    rng = np.random.default_rng(DIST_SEED)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, (B, T)),
+                               device=dev) for k in ("tokens", "targets")}
+
+
+def _dist_cache(torch, cfg, dev):
+    """(a random float32 k/v cache of DIST_DECODE_B x DIST_DECODE_S,
+    the token, its position: the last)."""
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED + 1)
+    cache = M.init_cache(cfg, DIST_DECODE_B, DIST_DECODE_S, device=dev)
+    for c in cache["layers"]:
+        for t in c.values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+    token = torch.arange(DIST_DECODE_B, device=dev)[:, None] * 7 + 3
+    pos = torch.full((DIST_DECODE_B,), DIST_DECODE_S - 1,
+                     dtype=torch.int32, device=dev)
+    return cache, token, pos
+
+
+def _moe_inputs(torch, dev, dtype):
+    import numpy as np
+    from repro_torch.models import moe
+    cfg = _dist_cfg("mixtral-8x7b", 1, dtype, capacity_factor=8.0)
+    gen = torch.Generator(device=dev).manual_seed(DIST_SEED)
+    p = moe.moe_init(gen, cfg, dtype)
+    x = np.random.default_rng(0).standard_normal(
+        DIST_MOE_X + (cfg.d_model,)).astype(np.float32)
+    return cfg, p, torch.as_tensor(x, device=dev).to(dtype)
+
+
+def _first_diff(torch, got, want):
+    """(index, max abs difference) of the first leaf pair that differs
+    in a bit, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not torch.equal(a, b.to(a.device)):
+            return i, float((a.float() - b.float().to(a.device)).abs().max())
+    return None
+
+
+def _moe_bwd_twice(torch, fn):
+    """The gradients of two runs of ``fn`` (-> flat list), and the first
+    leaf where they differ."""
+    a, b = fn(), fn()
+    return len(a), _first_diff(torch, a, b)
+
+
+def dist_single(_, out):
+    """The single-device side of phase `distributed`: (a)'s step, (d)'s
+    decode, (c)'s moe_apply_pure, and the MoE backward run twice."""
+    torch, dev = _dist_setup()
+    from repro_torch.core.tree import leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.train.steps import (_loss_and_grads, init_opt_state,
+                                         make_train_step)
+    res = {}
+    cfg = _dist_cfg("qwen3-8b", DIST_F32_LAYERS, torch.float32)
+    params = M.init_params(cfg, DIST_SEED, device=dev)
+    batch = _dist_tokens(torch, cfg, DIST_BATCH, DIST_F32_SEQ, dev)
+    fns = ops.model_kernel_fns()
+    new, opt, m = make_train_step(cfg, kernel_fns=fns)(
+        params, init_opt_state(cfg, params), batch, 0)
+    torch.save([t.cpu() for t in leaves(new)], out / "single_params.pt")
+    # AdamW's first moment after the first step: 0.1 x the gradient
+    torch.save([t.cpu() for t in leaves(opt["m"])], out / "single_m.pt")
+    res["a"] = {k: float(v) for k, v in m.items()}
+    res["a_m_scale"] = [float(t.abs().max()) for t in leaves(opt["m"])]
+    del new, opt
+    cache, token, pos = _dist_cache(torch, cfg, dev)
+    logits, _ = M.decode_step(cfg, params, cache, token, pos, fns)
+    torch.save(logits.cpu(), out / "single_logits.pt")
+    del params, cache
+    mcfg, p, x = _moe_inputs(torch, dev, torch.float32)
+    with torch.no_grad():
+        y, aux = moe.moe_apply_pure(p, mcfg, x)
+    torch.save(y.cpu(), out / "single_moe.pt")
+    res["c"] = float(aux)
+    del p, x, y
+    # the MoE backward, twice: one full-width layer (bf16, mixtral's
+    # dtype) and a reduced mixtral train step (float32)
+    mcfg, p, x = _moe_inputs(torch, dev, torch.bfloat16)
+    g_out = torch.randn(x.shape, generator=torch.Generator(
+        device=dev).manual_seed(DIST_SEED + 2), device=dev).to(x.dtype)
+
+    def layer_grads():
+        live = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xl = x.detach().requires_grad_()
+        y, aux = moe.moe_apply_pure(live, mcfg, xl)
+        gs = torch.autograd.grad((y * g_out).float().sum() + aux,
+                                 [xl] + list(live.values()))
+        return [g.detach() for g in gs]
+    res["moe_layer_bwd"] = _moe_bwd_twice(torch, layer_grads)
+    del p, x
+    from repro_torch.configs import get_config, reduced
+    rcfg = reduced(get_config("mixtral-8x7b"))
+    rp = M.init_params(rcfg, DIST_SEED, device=dev)
+    rb = _dist_tokens(torch, rcfg, 2, 16, dev)
+    res["moe_step_bwd"] = _moe_bwd_twice(
+        torch, lambda: leaves(_loss_and_grads(rcfg, rp, rb, fns)[2]))
+    (out / "single.json").write_text(json.dumps(res))
+
+
+def _dist_max(torch, dist, value):
+    from repro_torch.distributed import collectives as C
+    t = torch.tensor([float(value)], device="cpu")
+    return float(C.all_reduce_(dist, tuple(dist.mesh.mesh_dim_names), t,
+                               torch.distributed.ReduceOp.MAX)[0])
+
+
+def _in_turns(torch, rank, fn):
+    """``fn()`` on one rank at a time (a whole-model init each)."""
+    import torch.distributed as tdist
+    got = None
+    for r in range(DIST_RANKS):
+        if r == rank:
+            got = fn()
+            torch.cuda.empty_cache()
+        tdist.barrier()
+    return got
+
+
+def _implied_bytes(cfg, dist, tp_attn, tp_mlp, passes, act_bytes):
+    """The bytes a step's collectives move on this rank as the specs
+    imply them, by (op, axis): a leaf gathered at use (``passes`` uses a
+    step for a layer's, one for the top leaves) over its sharded dims
+    not kept for tensor parallelism, its gradient reduce-scattered over
+    the data dims and summed over the data axes it is replicated on;
+    the TP activations' psums (``act_bytes`` each: forward, ``passes`` a
+    step) and their copy_to's backward psums (one a step)."""
+    import math as m_
+    from repro_torch.core.tree import paths
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models.model import TP_USE
+    specs, shapes = shd.param_specs(cfg, dist)
+    sizes = C.axis_sizes(dist.mesh)
+    out = collections.Counter()
+    data = set(dist.data_axes)
+    tp = {"attn": tp_attn, "mlp": tp_mlp}
+    for (path, shape), spec in zip(paths(shapes), shd.spec_leaves(specs)):
+        part = path[-2] if len(path) > 1 else None
+        use = TP_USE[part].get(path[-1]) if tp.get(part) else None
+        uses = passes if path[0] == "layers" else 1
+        keep = "model" if use == "keep" or "moe" in path else None
+        block = list(shape.shape)
+        for i, ent in enumerate(spec):
+            block[i] //= m_.prod(sizes[a] for a in C.as_axes(ent))
+        esize = shape.element_size()
+        cur = list(block)
+        for i, ent in enumerate(spec):
+            axes = C.as_axes(ent)
+            if axes and keep not in axes:
+                out[("all_gather", "+".join(axes))] += \
+                    uses * m_.prod(cur) * esize
+                cur[i] *= m_.prod(sizes[a] for a in axes)
+        if use == "partial":
+            out[("psum", "model")] += m_.prod(cur) * esize
+        used = set()
+        for i, ent in enumerate(spec):
+            axes = C.as_axes(ent)
+            used |= set(axes)
+            if axes and keep not in axes and set(axes) <= data:
+                out[("psum_scatter", "+".join(axes))] += m_.prod(cur) * esize
+                cur[i] //= m_.prod(sizes[a] for a in axes)
+            elif axes and keep not in axes:
+                cur[i] //= m_.prod(sizes[a] for a in axes)
+        rest = [a for a in dist.data_axes if a not in used]
+        if rest:
+            out[("psum", "+".join(rest))] += m_.prod(cur) * esize
+    # a TP region's forward psum on each pass and its copy_to's backward
+    # psum, less the layer's last psum on the recompute (the
+    # checkpoint's recompute stops once it has what the backward saves)
+    regions = int(tp_attn) + int(tp_mlp)
+    out[("psum", "model")] += cfg.n_layers * act_bytes * (
+        regions * (passes + 1) - (passes - 1 if regions else 0))
+    return out
+
+
+def dist_ranks(rank, out):
+    """One of the DIST_RANKS gloo ranks of phase `distributed`, on cuda:0:
+    (a), (d), (c), (e), then (b)."""
+    torch, dev = _dist_setup()
+    import torch.distributed as tdist
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, rwkv6_wkv
+    from repro_torch.launch.mesh import dist_for, make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.train.steps import (init_opt_state, make_train_step,
+                                         opt_specs)
+    tdist.init_process_group("gloo", init_method=f"file://{out}/store_ranks",
+                             rank=rank, world_size=DIST_RANKS)
+    dist = dist_for(make_test_mesh(2, 2))
+    fns = ops.model_kernel_fns()
+    res = {"rank": rank, "s": {}}
+    t_part = [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        res["s"][name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    # (a) the float32 step against the single-device process's
+    cfg = _dist_cfg("qwen3-8b", DIST_F32_LAYERS, torch.float32)
+    specs = shd.param_specs(cfg, dist)[0]
+    blocks = M.init_params(cfg, DIST_SEED, device=dev, dist=dist)
+    batch = _dist_tokens(torch, cfg, DIST_BATCH, DIST_F32_SEQ, dev)
+    reset_train_counts(fa, rwkv6_wkv)
+    new, opt, m = make_train_step(cfg, dist, fns)(
+        blocks, init_opt_state(cfg, blocks, dist), batch, 0)
+    single = torch.load(out / "single_params.pt", mmap=True)
+    worst = max(float((a.float() - shd.block(b, s, dist).to(dev).float())
+                      .abs().max())
+                for a, b, s in zip(leaves(new), single,
+                                   shd.spec_leaves(specs)))
+    # the gradient, block by block: the first moment after one AdamW step
+    # (0.1 x the gradient) against the single-device one's block, of the
+    # whole leaf's scale (a gradient summed to the wrong block or with the
+    # wrong sign is off by its own size; a first step moves no parameter
+    # by more than the rate, far inside DIST_PARAM_TOL)
+    single = torch.load(out / "single_m.pt", mmap=True)
+    scales = json.loads((out / "single.json").read_text())["a_m_scale"]
+    m_specs = shd.spec_leaves(opt_specs(cfg, dist))
+    g_worst = max(float((a - shd.block(b, s, dist).to(dev)).abs().max())
+                  / max(sc, 1e-30)
+                  for a, b, s, sc in zip(leaves(opt["m"]), single, m_specs,
+                                         scales))
+    del new, opt, single
+    res["a"] = {"metrics": {k: float(v) for k, v in m.items()},
+                "param_err": _dist_max(torch, dist, worst),
+                "grad_err": _dist_max(torch, dist, g_worst),
+                "flash": [fa.LAUNCHES, dict(fa.VARIANT_LAUNCHES),
+                          fa.BWD_LAUNCHES, dict(fa.BWD_VARIANT_LAUNCHES)]}
+    part("a")
+
+    # (d) gqa_decode_sp on (a)'s parameters, a sequence-sharded cache
+    sp_cfg = dataclasses.replace(cfg, decode_sp=True)
+    cache, token, pos = _dist_cache(torch, cfg, dev)
+    cspecs = shd.decode_cache_specs(sp_cfg, DIST_DECODE_B, DIST_DECODE_S,
+                                    dist)
+    cache = shd.shard_tree(cache, cspecs, dist)
+    C.reset_counts()
+    logits, _ = M.decode_step(sp_cfg, blocks, cache, token, pos, fns,
+                              dist=dist)
+    want = torch.load(out / "single_logits.pt").to(dev)
+    res["d"] = {"err": float((logits - want).abs().max() / want.abs().max()),
+                "counts": {"/".join(k): v for k, v in
+                           C.COLLECTIVE_COUNTS.items()}}
+    del blocks, cache, logits
+    part("d")
+
+    # (c) moe_apply_dist, both modes, both combines
+    mcfg, p, x = _in_turns(torch, rank, lambda: _moe_inputs(
+        torch, dev, torch.float32))
+    want = torch.load(out / "single_moe.pt").to(dev)
+    data = (C.spec_entry(dist.data_axes),)
+    res["c"] = {}
+    for mode, combine in (("ep", "psum"), ("ep", "psum_scatter"),
+                          ("tp", "psum"), ("tp", "psum_scatter")):
+        c = dataclasses.replace(mcfg, expert_parallel=mode == "ep",
+                                moe_combine=combine)
+        specs_m = moe.moe_param_specs(c, dist)
+        pb = {k: shd.block(v, specs_m[k], dist).clone() for k, v in p.items()}
+        with torch.no_grad():
+            y, aux = moe.moe_apply_dist(pb, c, shd.block(x, data, dist), dist)
+            if y.shape[-1] != x.shape[-1]:
+                y = shd.unblock(y, (None, None, "model"), dist)
+            y = shd.unblock(y, data, dist)
+        res["c"][f"{moe.ep_mode(c, dist)} {combine}"] = [
+            float((y - want).abs().max() / want.abs().max()), float(aux)]
+        del pb, y
+    del p, x, want
+    part("c")
+
+    # (e) the pipeline on a 4-rank 'stage' mesh
+    from torch.distributed.device_mesh import init_device_mesh
+    import numpy as np
+    rng = np.random.default_rng(DIST_SEED)
+    Ws = torch.as_tensor((rng.standard_normal((4, 16, 16)) * 0.3)
+                         .astype(np.float32), device=dev)
+    xp = torch.as_tensor(rng.standard_normal((8, 16)).astype(np.float32),
+                         device=dev)
+    stage = init_device_mesh("cpu", (DIST_RANKS,), mesh_dim_names=("stage",))
+    got = pipeline_apply(stage, "stage", 4, lambda W, h: torch.tanh(h @ W),
+                         Ws, xp, n_micro=4)
+    serial = xp
+    for s in range(4):
+        serial = torch.tanh(serial @ Ws[s])
+    res["e"] = float((got - serial).abs().max())
+    part("e")
+
+    # (b) bf16, 4 layers, 3 steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _dist_cfg("qwen3-8b", DIST_BF16_LAYERS)
+    blocks = M.init_params(cfg, DIST_SEED, device=dev, dist=dist)
+    state = {"params": blocks, "opt": init_opt_state(cfg, blocks, dist)}
+    del blocks
+    n_state = sum(t.numel() * t.element_size() for t in leaves(state))
+    step_fn = make_train_step(cfg, dist, fns)
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=DIST_BF16_SEQ,
+                          global_batch=DIST_BATCH)
+    reset_train_counts(fa, rwkv6_wkv)
+    C.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(DIST_STEPS):
+        b = batch_at(data_cfg, i, device=dev)
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        p_, o_, m = step_fn(state["params"], state["opt"], b, i)
+        torch.cuda.synchronize()
+        steps.append([(time.perf_counter() - t0) * 1e3,
+                      float(m["loss"]), float(m["grad_norm"])])
+        state = {"params": p_, "opt": o_}
+    res["b"] = {
+        "steps": steps, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "state_gib": n_state / 2**30,
+        "flash": [fa.LAUNCHES, dict(fa.VARIANT_LAUNCHES), fa.BWD_LAUNCHES,
+                  dict(fa.BWD_VARIANT_LAUNCHES)],
+        "counts": {"/".join(k): [v[0] / DIST_STEPS, v[1] / DIST_STEPS]
+                   for k, v in C.COLLECTIVE_COUNTS.items()},
+        "staged": dict(C.HOST_STAGED),
+        "implied": {"/".join(k): v for k, v in _implied_bytes(
+            cfg, dist, cfg.n_heads % dist.model_size == 0,
+            cfg.d_ff % dist.model_size == 0, 2 if cfg.remat else 1,
+            DIST_BATCH // dist.data_size * DIST_BF16_SEQ * cfg.d_model
+            * torch.finfo(cfg.dtype).bits // 8).items()},
+        "shape": [DIST_BATCH // dist.data_size, DIST_BF16_SEQ,
+                  cfg.n_heads // dist.model_size, cfg.d_head]}
+    part("b")
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def dist_nccl(_, out):
+    """(f): one rank over NCCL, a (1, 1) mesh, train-qwen3-8b's shape:
+    DIST_NCCL_STEPS steps through make_train_step(cfg, dist) against the
+    same steps without dist."""
+    torch, dev = _dist_setup()
+    import torch.distributed as tdist
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, rwkv6_wkv
+    from repro_torch.launch.mesh import dist_for, make_test_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import init_opt_state, make_train_step
+    tdist.init_process_group("nccl", init_method=f"file://{out}/store_nccl",
+                             rank=0, world_size=1)
+    dist = dist_for(make_test_mesh(1, 1))
+    cfg = _dist_cfg("qwen3-8b", TRAIN_LAYERS["qwen3-8b"])
+    data_cfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH)
+    fns = ops.model_kernel_fns()
+    res = {"backend": tdist.get_backend()}
+    runs = {}
+    for name, d in (("plain", None), ("dist", dist)):
+        params = M.init_params(cfg, DIST_SEED, device=dev, dist=d)
+        state = {"params": params, "opt": init_opt_state(cfg, params, d)}
+        del params
+        step_fn = make_train_step(cfg, d, fns)
+        reset_train_counts(fa, rwkv6_wkv)
+        C.reset_counts()
+        log = []
+        for i in range(DIST_NCCL_STEPS):
+            b = batch_at(data_cfg, i, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p_, o_, m = step_fn(state["params"], state["opt"], b, i)
+            torch.cuda.synchronize()
+            log.append([(time.perf_counter() - t0) * 1e3,
+                        float(m["loss"]), float(m["grad_norm"])])
+            state = {"params": p_, "opt": o_}
+        res[name] = {"steps": log, "flash": [
+            fa.LAUNCHES, dict(fa.VARIANT_LAUNCHES), fa.BWD_LAUNCHES,
+            dict(fa.BWD_VARIANT_LAUNCHES)],
+            "counts": {"/".join(k): v for k, v in
+                       C.COLLECTIVE_COUNTS.items()},
+            "staged": dict(C.HOST_STAGED)}
+        runs[name] = [t.cpu() for t in leaves(state["params"])]
+        del state, p_, o_
+        gc.collect()
+        torch.cuda.empty_cache()
+    diff = _first_diff(torch, runs["dist"], runs["plain"])
+    from repro_torch.core.tree import paths
+    names = ["/".join(map(str, p)) for p, _ in paths(
+        shd.param_specs(cfg, dist)[1])]
+    res["first_diff"] = None if diff is None else [names[diff[0]], diff[1]]
+    res["losses_equal"] = [s[1] for s in res["dist"]["steps"]] == \
+        [s[1] for s in res["plain"]["steps"]]
+    (out / "nccl.json").write_text(json.dumps(res))
+    tdist.destroy_process_group()
+
+
+def _spawn(fn, n, out, what):
+    import torch.multiprocessing as mp
+    try:
+        mp.spawn(fn, args=(out,), nprocs=n, join=True)
+    except Exception as e:          # a rank failed: the phase fails
+        fail(f"distributed: {what} failed: {e}")
+
+
+def distributed_phase(torch, dev, card):
+    """Phase `distributed` (see DIST_DIR); returns the flash launches of
+    its bf16 paths by kernel and shape (rank-local shapes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    name = "distributed"
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _spawn(dist_single, 1, DIST_DIR, "the single-device process")
+    single = json.loads((DIST_DIR / "single.json").read_text())
+    phase(name, f"single-device process: (a) qwen3-8b float32, "
+          f"{DIST_F32_LAYERS} layers, B {DIST_BATCH} x T {DIST_F32_SEQ}: loss "
+          f"{single['a']['loss']:.6f}, grad_norm "
+          f"{single['a']['grad_norm']:.6g}"
+          f"; (c) mixtral MoE float32 {DIST_MOE_X} x 4096, aux "
+          f"{single['c']:.6f}")
+    for key, label in (("moe_layer_bwd", "one full-width mixtral MoE layer "
+                        f"(bf16, x {DIST_MOE_X} x d_model, seed "
+                        f"{DIST_SEED})"),
+                       ("moe_step_bwd", "a reduced mixtral train step "
+                        "(float32, B 2 x T 16, seed 0)")):
+        n, diff = single[key]
+        phase(name, f"the MoE backward run twice on one device, {label}: "
+              + (f"all {n} gradients equal bit for bit" if diff is None
+                 else f"NOT bit-reproducible: gradient {diff[0]} of {n} "
+                 f"differs first, by at most {diff[1]:.3g} (a reading: "
+                 f"ROADMAP Queue 1 item 13e)"))
+    _spawn(dist_ranks, DIST_RANKS, DIST_DIR, "the 2 x 2 gloo ranks")
+    ranks = [json.loads((DIST_DIR / f"rank{r}.json").read_text())
+             for r in range(DIST_RANKS)]
+    r0 = ranks[0]
+    a = r0["a"]
+    dl = abs(a["metrics"]["loss"] - single["a"]["loss"])
+    dg = abs(a["metrics"]["grad_norm"] - single["a"]["grad_norm"]) / \
+        abs(single["a"]["grad_norm"])
+    if not (dl <= DIST_LOSS_TOL and a["param_err"] <= DIST_PARAM_TOL
+            and dg <= DIST_GN_RTOL and a["grad_err"] <= DIST_GRAD_TOL):
+        fail(f"distributed (a): loss off by {dl:.3g} (tol {DIST_LOSS_TOL}), "
+             f"parameters by {a['param_err']:.3g} (tol {DIST_PARAM_TOL}), "
+             f"grad_norm by {dg:.3g} relative (tol {DIST_GN_RTOL}), the "
+             f"gradient blocks by {a['grad_err']:.3g} of their leaf's scale "
+             f"(tol {DIST_GRAD_TOL})")
+    phase(name, f"(a) 2 x 2 mesh, {DIST_RANKS} gloo ranks on cuda:0, "
+          f"qwen3-8b float32 full width, {DIST_F32_LAYERS} layers, B "
+          f"{DIST_BATCH} x T {DIST_F32_SEQ}, one make_train_step against the "
+          f"single-device process: loss {a['metrics']['loss']:.6f} (off by "
+          f"{dl:.3g}, tol {DIST_LOSS_TOL}), worst parameter "
+          f"{a['param_err']:.3g}"
+          f" (tol {DIST_PARAM_TOL}), grad_norm {dg:.3g} relative (tol "
+          f"{DIST_GN_RTOL}), worst gradient block (FSDP's reduce-scatter, "
+          f"TP's partial sums; AdamW's first moment) {a['grad_err']:.3g} of "
+          f"its leaf's scale (tol {DIST_GRAD_TOL}); flash (rank 0) "
+          f"{a['flash']}")
+    d = r0["d"]
+    if not d["err"] <= DIST_DECODE_TOL:
+        fail(f"distributed (d): gqa_decode_sp logits {d['err']:.3g} of their "
+             f"scale from one device's (tol {DIST_DECODE_TOL})")
+    phase(name, f"(d) gqa_decode_sp, qwen3-8b width, {DIST_F32_LAYERS} "
+          f"layers, float32, B {DIST_DECODE_B}, cache {DIST_DECODE_S} "
+          f"sequence-sharded over 'model', the last position: logits within "
+          f"{d['err']:.3g} of the one-device decode's scale (tol "
+          f"{DIST_DECODE_TOL}); collectives (calls, bytes) {d['counts']}")
+    worst_moe = max(v[0] for v in r0["c"].values())
+    aux_off = max(abs(v[1] - single["c"]) for v in r0["c"].values())
+    if not (worst_moe <= DIST_MOE_TOL and aux_off <= 1e-4
+            and len(r0["c"]) == 4):
+        fail(f"distributed (c): moe_apply_dist {r0['c']} against pure "
+             f"(tol {DIST_MOE_TOL} of the scale; aux {single['c']})")
+    phase(name, f"(c) mixtral MoE float32 full width (8 x 3 x 4096 x 14336), "
+          f"x {DIST_MOE_X} x 4096: moe_apply_dist against moe_apply_pure, "
+          "(max abs / scale, aux): " + ", ".join(
+              f"{k} {v[0]:.3g}, {v[1]:.6f}" for k, v in r0["c"].items())
+          + f" (tol {DIST_MOE_TOL}; pure's aux {single['c']:.6f})")
+    if not r0["e"] <= DIST_PIPE_TOL:
+        fail(f"distributed (e): pipeline_apply off the serial loop by "
+             f"{r0['e']:.3g} (tol {DIST_PIPE_TOL})")
+    phase(name, f"(e) pipeline_apply, 4 stages of tanh(x @ W) (16 x 16), x "
+          f"(8, 16), 4 microbatches, on cuda: {r0['e']:.3g} from the serial "
+          f"loop (tol {DIST_PIPE_TOL})")
+    cfg = _dist_cfg("qwen3-8b", DIST_BF16_LAYERS)
+    passes = 2 if cfg.remat else 1
+    want_f = passes * DIST_BF16_LAYERS * DIST_STEPS
+    want_b = DIST_BF16_LAYERS * DIST_STEPS
+    for r in ranks:
+        f = r["b"]["flash"]
+        if f[0] != want_f or f[1]["wgmma"] != want_f or f[2] != want_b \
+                or f[3]["wgmma"] != want_b:
+            fail(f"distributed (b): rank {r['rank']}'s flash launches {f}; "
+                 f"expected {want_f} forwards and {want_b} backwards, all "
+                 f"wgmma")
+        losses = [s[1:] for s in r["b"]["steps"]]
+        if not all(math.isfinite(v) for s in losses for v in s):
+            fail(f"distributed (b): rank {r['rank']}'s losses {losses}")
+    agree = all([s[1:] for s in r["b"]["steps"]] ==
+                [s[1:] for s in r0["b"]["steps"]] for r in ranks)
+    b0 = r0["b"]
+    phase(name, f"(b) 2 x 2 mesh, qwen3-8b bf16 full width, "
+          f"{DIST_BF16_LAYERS} layers, B {DIST_BATCH} x T {DIST_BF16_SEQ} "
+          f"global, {DIST_STEPS} steps (loss, grad_norm): "
+          + "; ".join(f"{s[1]:.4f}, {s[2]:.4g}" for s in b0["steps"])
+          + "; step ms by rank (4 ranks time-sharing one card; collectives "
+          f"staged through host memory: no multi-card speed): "
+          + "; ".join(f"rank {r['rank']} " + ", ".join(
+              f"{s[0]:.1f}" for s in r["b"]["steps"]) for r in ranks)
+          + "; peak GiB by rank " + ", ".join(
+              f"{r['b']['peak_gib']:.2f}" for r in ranks)
+          + f" (state blocks {b0['state_gib']:.2f} GiB a rank); the ranks' "
+          f"losses and grad_norms {'agree' if agree else 'DIFFER'}; flash "
+          "a rank"
+          f" {want_f} forwards, {want_b} backwards at (B, T, H, d) = "
+          f"{tuple(b0['shape'])}, all wgmma; rank 0's seconds by part "
+          f"{r0['s']}; card {card}")
+    phase(name, "(b) collectives a step on rank 0, (op/axis: calls, MB; the"
+          " bytes the specs imply): " + "; ".join(
+              f"{k}: {v[0]:g}, {v[1] / 1e6:.2f}; "
+              f"{b0['implied'].get(k, 0) / 1e6:.2f}"
+              for k, v in sorted(b0["counts"].items()))
+          + f"; staged through host memory ({C.HOST_STAGED_TRANSPORT}) by "
+          f"op over the {DIST_STEPS} steps: {b0['staged']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _spawn(dist_nccl, 1, DIST_DIR, "the NCCL rank")
+    nc = json.loads((DIST_DIR / "nccl.json").read_text())
+    passes_f = 2 * TRAIN_LAYERS["qwen3-8b"] * DIST_NCCL_STEPS
+    for k in ("plain", "dist"):
+        f = nc[k]["flash"]
+        if not (f[0] == f[1]["wgmma"] == passes_f
+                and f[2] == f[3]["wgmma"] == passes_f // 2):
+            fail(f"distributed (f): {k} flash launches {f}; expected "
+                 f"{passes_f} forwards and {passes_f // 2} backwards, all "
+                 f"wgmma")
+    if nc["dist"]["staged"]:
+        fail(f"distributed (f): an NCCL group staged through host memory: "
+             f"{nc['dist']['staged']}")
+    diff = nc["first_diff"]
+    phase(name, f"(f) one rank over {nc['backend']} on a (1, 1) mesh, "
+          f"qwen3-8b bf16 {TRAIN_LAYERS['qwen3-8b']} layers, B {TRAIN_BATCH} "
+          f"x T {TRAIN_SEQ}, {DIST_NCCL_STEPS} steps (ms, loss, grad_norm): "
+          "dist " + "; ".join(f"{s[0]:.1f}, {s[1]:.6f}, {s[2]:.6g}"
+                              for s in nc["dist"]["steps"])
+          + "; plain " + "; ".join(f"{s[0]:.1f}, {s[1]:.6f}, {s[2]:.6g}"
+                                   for s in nc["plain"]["steps"])
+          + f" (PERF.md section 5: {TRAIN_QWEN_MS} ms a step); losses "
+          + ("equal" if nc["losses_equal"] else "DIFFER") + ", parameters "
+          + ("equal bit for bit" if diff is None else
+             f"first differ at {diff[0]} by {diff[1]:.3g}")
+          + f"; collectives (calls, bytes) over the steps "
+          f"{nc['dist']['counts']}; card {card}")
+    H = get_config("qwen3-8b")
+    local = (DIST_BATCH // 2, DIST_BF16_SEQ, H.n_heads // 2, H.d_head,
+             H.d_head, True)
+    full = (TRAIN_BATCH, TRAIN_SEQ, H.n_heads, H.d_head, H.d_head, True)
+    # the launches each process counted on its bf16 paths, (b)'s ranks and
+    # (f)'s two runs
+    fwd = {local: sum(r["b"]["flash"][0] for r in ranks),
+           full: sum(nc[k]["flash"][0] for k in ("plain", "dist"))}
+    bwd = {local: sum(r["b"]["flash"][2] for r in ranks),
+           full: sum(nc[k]["flash"][2] for k in ("plain", "dist"))}
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return {"flash_attention": {"launches": sum(fwd.values()),
+                                "shapes": fwd},
+            "flash_attention_bwd": {"launches": sum(bwd.values()),
+                                    "shapes": bwd}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(
         description="Drive the port's main paths on one GPU and check them; "
@@ -3374,6 +4035,9 @@ def main() -> None:
     ap.add_argument("--serve", action="append", choices=SERVE_ARCHS,
                     metavar="ARCH", help="run only phase serve-ARCH "
                     "(repeatable); prints no kernels or device line")
+    ap.add_argument("--distributed", action="store_true",
+                    help="run only the build and phase distributed; prints "
+                    "no kernels or device line")
     ap.add_argument("--bwd-digests", action="store_true",
                     help="run only the build and print a digest of each "
                     "FLASH_BWD_CASES case's flash backward (to compare "
@@ -3411,6 +4075,11 @@ def main() -> None:
         bwd_digests(torch, dev)
         phase("done", f"digests in {time.perf_counter() - t_start:.0f} s; "
               f"card {card}")
+        return
+    if opts.distributed:
+        distributed_phase(torch, dev, card)
+        phase("done", f"phase distributed in "
+              f"{time.perf_counter() - t_start:.0f} s; card {card}")
         return
     if serve_only:
         for arch in serve_only:
@@ -3678,6 +4347,14 @@ def main() -> None:
     train_reduced_phase(torch, dev, card, tmp)
     examples_phase(torch, dev, card, tmp)
     shutil.rmtree(tmp, ignore_errors=True)
+
+    # 9f. the distributed layer: a single-device process, 4 gloo ranks
+    # on a 2 x 2 mesh, one NCCL rank ----------------------------------
+    for k, got in distributed_phase(torch, dev, card).items():
+        paths[k]["launches"] += got["launches"]
+        for key, n in got["shapes"].items():
+            paths[k]["shapes"][key] = paths[k]["shapes"].get(key, 0) + n
+            train_shapes.add(key)
 
     # 10. per-launch times of the serving and training kernels ----------
     kernels += time_attention_kernels(torch, dev, card, paths, worst,

@@ -14,6 +14,14 @@ manifest's ``dtypes`` and viewed back on restore. ``restore`` with no
 ``tree_like`` returns the stored tree as numpy arrays in the stored
 structure, which also reads a checkpoint the reference wrote (its
 float32 trees; ``core.convert`` carries them across).
+
+On a mesh, ``shardings=(spec tree, DistContext)`` names the layout of a
+tree of the rank's blocks (``distributed.sharding``): ``save`` gathers
+the blocks a leaf at a time (every rank calls it) and rank 0 copies
+each to the host and writes them, so a sharded run writes the same
+files as one device; ``restore`` reads the
+whole leaves and keeps this rank's block of each -- on any mesh, which
+is the elastic restart (the reference's ``restore(..., shardings=)``).
 """
 from __future__ import annotations
 
@@ -25,9 +33,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch.core.tree import (leaves, paths, parse_treedef, treedef,
                                    unflatten)
+from repro_torch.distributed import sharding as shd
 
 SHARD_BYTES = 512 * 2 ** 20
 #: written in the manifest of the port's checkpoints (the reference's
@@ -54,10 +64,31 @@ def snapshot(tree) -> tuple[str, list]:
     return treedef(tree), [_to_host(x) for x in leaves(tree)]
 
 
-def save(path, tree, step: int, keep: int = 3) -> Path:
-    """Synchronous atomic save of ``tree``. Returns the final checkpoint
-    dir."""
-    return _write(path, snapshot(tree), step, keep)
+def _snapshot(tree, shardings):
+    """(``snapshot`` of the whole tree, whether this rank writes it).
+    With ``shardings`` (spec tree, DistContext) ``tree`` holds the
+    rank's blocks: the leaves are gathered one at a time, rank 0 copies
+    each to the host and every rank frees it before the next, so the
+    whole tree is never on a device."""
+    if shardings is None:
+        return snapshot(tree), True
+    specs, dist = shardings
+    writes = tdist.get_rank() == 0
+    host = []
+    for x, s in zip(leaves(tree), shd.spec_leaves(specs)):
+        whole = shd.unblock(x, s, dist)
+        if writes:
+            host.append(_to_host(whole))
+        del whole
+    return (treedef(tree), host), writes
+
+
+def save(path, tree, step: int, keep: int = 3, shardings=None):
+    """Synchronous atomic save of ``tree`` (of blocks, gathered whole,
+    with ``shardings``). Returns the final checkpoint dir (None on a
+    rank that does not write)."""
+    snap, writes = _snapshot(tree, shardings)
+    return _write(path, snap, step, keep) if writes else None
 
 
 def _write(path, snap, step: int, keep: int) -> Path:
@@ -106,10 +137,12 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
 
-    def save_async(self, tree, step: int):
+    def save_async(self, tree, step: int, shardings=None):
         self.wait()
         # snapshot NOW, so the next step's updates cannot race the write
-        snap = snapshot(tree)
+        snap, writes = _snapshot(tree, shardings)
+        if not writes:
+            return
         self._thread = threading.Thread(
             target=_write, args=(self.path, snap, step, self.keep),
             daemon=True)
@@ -159,12 +192,14 @@ def _from_host(a, name, like=None):
     return t
 
 
-def restore(path, tree_like=None, step: int | None = None):
+def restore(path, tree_like=None, step: int | None = None, shardings=None):
     """(tree, step) of checkpoint ``step`` (the latest if None). With
     ``tree_like`` the leaves come back as tensors in its structure, on
     its leaves' devices (their count, shapes and dtypes must match);
     without, the stored structure with numpy leaves (bfloat16 ones as
-    tensors, numpy having no bfloat16)."""
+    tensors, numpy having no bfloat16). With ``shardings`` (spec tree,
+    DistContext), ``tree_like`` is a tree of this rank's blocks and each
+    stored leaf comes back cut to its block."""
     path = Path(path)
     meta = manifest(path, step)
     step = meta["step"]
@@ -183,9 +218,16 @@ def restore(path, tree_like=None, step: int | None = None):
     if len(like) != len(host):
         raise ValueError(f"checkpoint has {len(host)} leaves, target "
                          f"{len(like)}")
+    cut = [None] * len(like)
+    if shardings is not None:
+        specs, dist = shardings
+        cut = [(s, dist) for s in shd.spec_leaves(specs)]
     flat = []
-    for a, n, t in zip(host, names, like):
-        x = _from_host(a, n, t)
+    for a, n, t, c in zip(host, names, like, cut):
+        if c is not None:
+            x = shd.block(_from_host(a, n), *c).clone().to(t.device)
+        else:
+            x = _from_host(a, n, t)
         if tuple(x.shape) != tuple(t.shape) or x.dtype != t.dtype:
             raise ValueError(f"checkpoint leaf {tuple(x.shape)} {x.dtype} "
                              f"does not match {tuple(t.shape)} {t.dtype}")

@@ -1,0 +1,309 @@
+"""Declarative sharding rules for parameters, optimizer state, caches
+and batches (counterpart of ``repro/distributed/sharding.py``), and
+the cut of a whole tree into this rank's blocks and back.
+
+A spec is a plain tuple with one entry a dimension: None, an axis name
+or a tuple of names -- ``tuple(PartitionSpec(...))`` of the reference's
+spec, so a test compares the two with ``==``. Shapes come from the
+port's ``init_params`` / ``init_cache`` on the ``meta`` device, never
+from allocated tensors. Policy (the reference's):
+
+  * TP   : d_ff, attention heads, vocab (head), rwkv/mamba inner dims
+           over the 'model' axis;
+  * FSDP : the complementary dim of every large matrix over 'data';
+  * EP   : expert dims as ``moe.moe_param_specs`` lays them out;
+  * DP   : batch over ('pod', 'data') (the pod axis extends data);
+  * SP   : decode caches shard KV-seq over data when the batch does not
+           divide it, and over 'model' when the kv heads do not.
+
+MLA attention matrices stay model-replicated (minicpm3's 40 heads do
+not divide a 16-way axis). The port's parameters are per-layer dicts
+(``params["layers"][i]``, ``core/convert.py`` un-stacks the
+reference's), so the reference's leading ``stack`` entry
+(``sharding.py:122-123``, the scanned layer dim, always None) maps to
+no dimension here: a layer leaf's spec is the reference's without it.
+Where a rule reads the number of dimensions (MLA's ``P(fsdp) if ndim >=
+2``), a stacked layer's leaf counts its stack dim, as the reference's
+does, so the specs agree leaf for leaf.
+
+``shard_tree`` cuts a whole tree to this rank's blocks by its specs (no
+collective); ``unshard_tree`` gathers the blocks back into the whole
+tree on every rank (``to_shardings``'s counterpart: the port places a
+leaf by cutting it, there is no sharded array type).
+"""
+from __future__ import annotations
+
+import functools
+
+from repro_torch.core.tree import paths, unflatten
+from repro_torch.distributed import collectives as C
+from repro_torch.models.moe import DistContext, moe_param_specs
+
+
+def _leaf_spec(cfg, dist: DistContext, names: list[str], ndim: int):
+    ma = dist.model_axis
+    fsdp = "data" if (cfg.fsdp and cfg.zero >= 3) else None
+    name = names[-1]
+    parent = names[-2] if len(names) > 1 else ""
+
+    if name == "embed":
+        if cfg.tie_embeddings:
+            # the table doubles as the LM head: vocab over model so the
+            # logits come out vocab-sharded; FSDP on d_model
+            return (ma, fsdp)
+        return (fsdp, ma)
+    if name == "head":
+        return (ma, fsdp)
+    if parent == "moe":
+        return moe_param_specs(cfg, dist)[name]
+    if parent == "attn":
+        if cfg.attn_type == "mla":
+            return (fsdp,) if ndim >= 2 else ()
+        if name == "wq":
+            return (fsdp, ma)
+        if name in ("wk", "wv"):
+            # kv heads replicated over model (n_kv < model in general)
+            return (fsdp, None)
+        if name == "wo":
+            return (ma, fsdp)
+        return ()                              # q_norm / k_norm
+    if parent == "mlp":
+        if name in ("w_gate", "w_up"):
+            return (fsdp, ma)
+        return (ma, fsdp)                      # w_down
+    if parent == "rwkv":
+        if name in ("wr", "wk", "wv", "wg", "cm_wk"):
+            return (fsdp, ma)
+        if name in ("wo", "cm_wv"):
+            return (ma, fsdp)
+        if name == "cm_wr":
+            return (fsdp, None)
+        return ()                              # loras, maa, u, gn_w, w0
+    if parent == "mamba":
+        if name == "in_proj":
+            return (fsdp, ma)
+        if name == "out_proj":
+            return (ma, fsdp)
+        if name == "conv_w":
+            return (None, ma)
+        if name in ("conv_b", "D", "dt_bias"):
+            return (ma,)
+        if name == "x_proj":
+            return (ma, None)
+        if name == "dt_proj":
+            return (None, ma)
+        if name == "A_log":
+            return (ma, None)
+        return ()
+    return ()                                  # norms and other vectors
+
+
+def opt_extra_shard(cfg, dist: DistContext, spec, shape):
+    """ZeRO-2: the optimizer moments of a leaf of ``shape`` (a shape, or
+    anything with ``.shape``) are also sharded over 'data' on the first
+    dim that is unsharded and divisible (the parameters stay replicated
+    over data)."""
+    if cfg.zero != 2:
+        return spec
+    shape = tuple(getattr(shape, "shape", shape))
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (ax, n) in enumerate(zip(parts, shape)):
+        if ax is None and n % dist.data_size == 0 and n > 1:
+            parts[i] = "data" if dist.data_size == \
+                C.axis_sizes(dist.mesh)["data"] else \
+                C.spec_entry(dist.data_axes)
+            return tuple(parts)
+    return spec
+
+
+@functools.lru_cache(maxsize=16)
+def _meta_params(cfg):
+    from repro_torch.models import model as model_lib
+    return model_lib.init_params(cfg, 0, device="meta")
+
+
+def _map_with_path(fn, tree, path=()):
+    """A tree of ``fn(path, leaf)`` in ``tree``'s structure (dicts and
+    lists; the results, tuples, are leaves)."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_with_path(fn, v, path + (i,))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def param_specs(cfg, dist: DistContext):
+    """(spec tree, meta-tensor tree) matching ``init_params(cfg)``."""
+    from repro_torch.models.model import stack_plan
+    shapes = _meta_params(cfg)
+    n_prefix = stack_plan(cfg)[0]
+
+    def rule(path, leaf):
+        # a leaf of a layer the reference stacks counts its stack dim
+        stacked = path[0] == "layers" and path[1] >= n_prefix
+        return _leaf_spec(cfg, dist, [str(k) for k in path],
+                          leaf.dim() + int(stacked))
+    return _map_with_path(rule, shapes), shapes
+
+
+def _data_entry(dist):
+    return dist.data_axes if len(dist.data_axes) > 1 else "data"
+
+
+def batch_specs(cfg, shape, dist: DistContext):
+    """(specs, meta tensors) of the input batch of one shape cell."""
+    from repro_torch.configs.base import input_specs
+    specs = input_specs(cfg, shape)
+    b_ax = _data_entry(dist) if shape.global_batch % dist.data_size == 0 \
+        else None
+    return ({k: (b_ax,) + (None,) * (v.dim() - 1) for k, v in
+             specs.items()}, specs)
+
+
+def cache_specs(cfg, shape, dist: DistContext):
+    """(specs, meta tensors) of the decode cache of one shape cell:
+    batch over data when divisible, else KV-seq over data (SP); rwkv and
+    mamba states shard their head / inner dim over 'model'."""
+    from repro_torch.models import model as model_lib
+    da, ma = _data_entry(dist), dist.model_axis
+    sizes = C.axis_sizes(dist.mesh)
+    B = shape.global_batch
+    batch_ok = B % dist.data_size == 0
+    b_ax = da if batch_ok else None
+    cache = model_lib.init_cache(cfg, B, shape.seq_len, device="meta")
+
+    def seq_axes(S, kv_sharded):
+        axes = []
+        if not batch_ok:
+            axes.extend(C.as_axes(da))
+        if not kv_sharded:
+            axes.append(ma)
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        if axes and S % n == 0:
+            return C.spec_entry(axes)
+        return None
+
+    def rule(name, leaf):
+        if name == "pos_offset":
+            return (b_ax,)
+        if name in ("k", "v"):                 # (B, S, Hkv, dh)
+            S, Hkv = leaf.shape[-3], leaf.shape[-2]
+            kv_ok = Hkv % dist.model_size == 0
+            return (b_ax, seq_axes(S, kv_ok), ma if kv_ok else None, None)
+        if name in ("c_kv", "k_rope"):         # (B, S, r)
+            return (b_ax, seq_axes(leaf.shape[-2], False), None)
+        if name == "wkv":                      # (B, H, dh, dh)
+            H = leaf.shape[-3]
+            return (b_ax, ma if H % dist.model_size == 0 else None, None,
+                    None)
+        if name in ("att_shift", "cm_shift"):  # (B, d)
+            return (b_ax, None)
+        if name == "conv":                     # (B, d_conv - 1, d_in)
+            return (b_ax, None, ma)
+        if name == "h":                        # (B, d_in, N)
+            return (b_ax, ma, None)
+        return (None,) * leaf.dim()
+
+    return _map_with_path(lambda path, leaf: rule(str(path[-1]), leaf),
+                          cache), cache
+
+
+def decode_cache_specs(cfg, batch: int, cache_len: int, dist: DistContext):
+    """The layout the port's decode and prefill keep a cache in on a
+    mesh: ``cache_specs``' batch, head and state entries, the sequence
+    never sharded -- but under ``cfg.decode_sp``, where a GQA layer's
+    k/v are (batch, 'model', None, None), the layout the reference's
+    ``gqa_decode_sp`` takes (its ``shard_map`` in_specs). None without a
+    mesh."""
+    if dist is None:
+        return None
+    from repro_torch.configs.base import ShapeConfig
+    specs, _ = cache_specs(cfg, ShapeConfig("decode", cache_len, batch,
+                                            "decode"), dist)
+    sp = cfg.decode_sp and cfg.attn_type != "mla"
+    for c in specs["layers"]:
+        for k in ("k", "v"):
+            if k in c:
+                b_ax, _, h_ax, _ = c[k]
+                c[k] = (b_ax, dist.model_axis, None, None) if sp else \
+                    (b_ax, None, h_ax, None)
+        for k in ("c_kv", "k_rope"):
+            if k in c:
+                c[k] = (c[k][0], None, None)
+    return specs
+
+
+def logits_spec(cfg, dist: DistContext, global_batch: int | None = None):
+    b_ax = _data_entry(dist) if (global_batch is None or global_batch
+                                 % dist.data_size == 0) else None
+    v_ax = dist.model_axis if cfg.padded_vocab % dist.model_size == 0 \
+        else None
+    return (b_ax, v_ax)
+
+
+def block(x, spec, dist: DistContext):
+    """This rank's block of the whole tensor ``x`` laid out by ``spec``
+    (no collective; a view)."""
+    for dim, ent in enumerate(spec):
+        axes = C.as_axes(ent)
+        if not axes:
+            continue
+        n = C.axes_size(dist, axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                             f"divide over {n} ranks of {axes}")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, C.axis_index(dist, axes) * size, size)
+    return x
+
+
+def unblock(x, spec, dist: DistContext):
+    """The whole tensor from every rank's block ``x`` (all-gathers)."""
+    for dim, ent in enumerate(spec):
+        if C.as_axes(ent):
+            x = C.all_gather_(dist, ent, x, dim)
+    return x.contiguous()
+
+
+def shard_tree(tree, specs, dist: DistContext, clone=True):
+    """``tree`` cut to this rank's blocks by ``specs`` (a spec tree of
+    the same structure, the specs as leaves). ``clone`` copies each
+    block out of the whole tensor so the whole can be freed."""
+    def cut(x, s):
+        x = block(x, s, dist)
+        return x.clone() if clone else x
+    return spec_tree_map(cut, tree, specs)
+
+
+def unshard_tree(tree, specs, dist: DistContext):
+    """The whole tree from every rank's blocks (collective: every rank
+    calls it, in the same order)."""
+    return spec_tree_map(lambda x, s: unblock(x, s, dist), tree, specs)
+
+
+def spec_leaves(specs) -> list:
+    """The specs of a spec tree in leaf order (a spec is a tuple, so
+    the walk stops at tuples)."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        elif isinstance(t, list):
+            for v in t:
+                walk(v)
+        else:
+            out.append(t)
+    walk(specs)
+    return out
+
+
+def spec_tree_map(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its spec tree."""
+    return unflatten(tree, [fn(x, s) for (_, x), s in
+                            zip(paths(tree), spec_leaves(specs))])

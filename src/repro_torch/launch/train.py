@@ -2,17 +2,27 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \
       --steps 1000 --ckpt-dir /ckpts/qwen3-8b [--reduced] [--device cpu]
+  torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+      --arch qwen3-8b --steps 1000 --ckpt-dir /ckpts/qwen3-8b [--multi-pod]
 
-One process on one device, the CUDA card unless ``--device`` says
-otherwise; ``--reduced`` takes the tiny same-family config (a CPU
-smoke run). The reference builds a production mesh without
-``--reduced``; the port trains on one card, and ``--multi-pod`` waits
-for the distributed slice (ROADMAP Queue 1 item 13f).
+A plain process, or ``--reduced`` (the tiny same-family config, a CPU
+smoke run), trains on one device: the CUDA card unless ``--device``
+says otherwise. Under ``torchrun`` (``WORLD_SIZE`` set) without
+``--reduced`` each process is one rank of the production mesh, as the
+reference's launcher builds it: 16 x 16 ('data', 'model'), or with
+``--multi-pod`` 2 x 16 x 16 ('pod', 'data', 'model'); the world must
+have 256 (512) ranks, else a ``ValueError`` names its size. Ranks use
+NCCL on ``cuda:<LOCAL_RANK>``, gloo with ``--device cpu``.
 """
 import argparse
+import os
+
+import torch.distributed as tdist
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.mesh import (dist_for, make_production_mesh,
+                                     world_size)
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -28,12 +38,24 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU smoke)")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="cpu, or a CUDA device (default: the card; "
+                    "cuda:<LOCAL_RANK> under torchrun)")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: the production mesh is not ported yet (ROADMAP "
-            "Queue 1 item 13f); the port trains on one device")
+
+    dist = None
+    if not args.reduced and (args.multi_pod or "WORLD_SIZE" in os.environ):
+        need = 512 if args.multi_pod else 256
+        if world_size() != need:
+            raise ValueError(
+                f"the production mesh{' (--multi-pod)' * args.multi_pod} "
+                f"needs a world of {need} ranks; this one has "
+                f"{world_size()} (run it under torchrun)")
+        if not tdist.is_initialized():
+            tdist.init_process_group(
+                "gloo" if args.device == "cpu" else "nccl",
+                init_method="env://")
+        dist = dist_for(make_production_mesh(multi_pod=args.multi_pod))
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -44,9 +66,12 @@ def main(argv=None):
                       or (8 if args.reduced else 256))
     tcfg = TrainerConfig(ckpt_dir=args.ckpt_dir, total_steps=args.steps,
                          ckpt_every=args.ckpt_every, peak_lr=args.lr)
-    trainer = Trainer(cfg=cfg, tcfg=tcfg, data=data, device=args.device)
+    device = args.device or ("cuda" if dist is None else None)
+    trainer = Trainer(cfg=cfg, tcfg=tcfg, data=data, dist=dist,
+                      device=device)
     state, start = trainer.restore_or_init()
-    print(f"training {cfg.name} from step {start} on 1 device(s)")
+    print(f"training {cfg.name} from step {start} on "
+          f"{world_size() if dist is not None else 1} device(s)")
     trainer.run(state, start)
     print("done; losses:",
           [round(m["loss"], 4) for m in trainer.metrics_log[-5:]])

@@ -17,13 +17,17 @@ new row into the cache tensors in place and return them.
 
 MLA's prefill hands the attention kernel q/k of nope + rope dims and v
 of ``v_head_dim`` (minicpm3: 96 and 64); the kernel takes dv != dq.
-The sequence-parallel ``gqa_decode_sp`` needs the distributed slice
-(ROADMAP Queue 1 item 13f) and is not ported yet.
+
+On a mesh (``models.moe.DistContext``) ``gqa_decode_sp`` decodes one
+token against a KV cache sharded over (batch x seq), the reference's
+flash-decoding ``shard_map``; the tensor-parallel forward
+(``models.model``) runs ``gqa_forward`` on a rank's heads.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models.layers import apply_rope, init_dense, rms_norm
 
 NEG_INF = -1e30
@@ -266,3 +270,45 @@ def mla_decode(p, cfg, x, cache, pos):
     out = torch.einsum("bqhr,rhv->bqhv", o_lat, wuv.float())
     out = out.to(x.dtype).reshape(B, 1, H * dv)
     return out @ p["wo"], {"c_kv": c_kv, "k_rope": k_rope}
+
+
+# ---------------------------------------------------------------------------
+# Sequence-parallel decode (on a mesh)
+# ---------------------------------------------------------------------------
+
+def gqa_decode_sp(p, cfg, x, cache, pos, dist):
+    """One-token GQA decode with the KV cache sharded over (batch x
+    seq): the reference's ``gqa_decode_sp``. ``p``: the whole attention
+    parameters; x (B, 1, d) and pos (B,) this rank's batch rows; cache
+    k/v (B, S / model, Hkv, dh), this rank's sequence block.
+
+    The rank whose block holds ``pos`` writes the new row there (a
+    masked local write, in place); every rank computes a partial (max,
+    denominator, weighted value) over its block, and the combine is a
+    ``pmax`` and two ``psum``s over 'model' of (B, H) and (B, H, dh)
+    values: the collective volume a layer is O(B H dh), not O(cache).
+    Returns (out (B, 1, d), the cache in its sharded layout)."""
+    B = x.shape[0]
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
+    ma = dist.model_axis
+    kc, vc = cache["k"], cache["v"]
+    q, k, v = _project_qkv(p, cfg, x, pos[:, None])
+    S_loc = kc.shape[1]
+    s0 = C.axis_index(dist, ma) * S_loc
+    local = (pos >= s0) & (pos < s0 + S_loc)
+    at = torch.where(local, pos - s0, S_loc)      # past the block: no write
+    _write_row(kc, at, k[:, 0])
+    _write_row(vc, at, v[:, 0])
+
+    kf, vf = _repeat_kv(kc, H // Hkv), _repeat_kv(vc, H // Hkv)
+    s = torch.einsum("bqhd,bshd->bhqs", q.float() * dh ** -0.5, kf.float())
+    idx = torch.arange(S_loc, device=x.device)
+    valid = (s0 + idx)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    m_glob = C.pmax(s.amax(dim=-1), dist, ma)             # (B, H, 1)
+    e = torch.exp(s - m_glob[..., None])
+    l_glob = C.psum(e.sum(dim=-1), dist, ma)
+    acc = C.psum(torch.einsum("bhqs,bshd->bqhd", e, vf.float()), dist, ma)
+    out = acc / torch.clamp(l_glob, min=1e-30).transpose(1, 2)[..., None]
+    out = out.to(x.dtype).reshape(B, 1, H * dh)
+    return out @ p["wo"], {"k": kc, "v": vc}

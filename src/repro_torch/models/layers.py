@@ -102,6 +102,37 @@ class _Unembed(torch.autograd.Function):
         return g @ w, g.t() @ x
 
 
+class _Nll(torch.autograd.Function):
+    """logsumexp(logits) - logits[target] a position; the backward
+    writes the logits' gradient into one buffer (g exp(logits - lse),
+    then -g added at the targets): the ops and roundings of autograd's
+    logsumexp and gather backwards and their sum, without their three
+    logits-sized temporaries (a rank's float32 logits at full width are
+    2.5 GB)."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        lse = torch.logsumexp(logits, dim=-1)
+        idx = targets[..., None].long()
+        ctx.save_for_backward(logits, idx, lse)
+        return lse - torch.gather(logits, -1, idx)[..., 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, lse = ctx.saved_tensors
+        d = logits - lse[..., None]
+        d.exp_()
+        d.mul_(g[..., None])
+        d.scatter_add_(-1, idx, -g[..., None])
+        return d, None
+
+
+def nll(logits, targets):
+    """The negative log-likelihood of each position: float32 logits (...,
+    V), targets (...) int."""
+    return _Nll.apply(logits, targets)
+
+
 def cross_entropy(logits, targets, mask=None):
     """Mean negative log-likelihood over (optionally masked) positions;
     logits float32 (B, T, V), targets (B, T) int.
@@ -110,10 +141,8 @@ def cross_entropy(logits, targets, mask=None):
     (its reason is GSPMD sharding of the vocab); a gather picks the same
     value (the other terms of that sum are zeros) without a (B, T, V)
     mask, which at full width is as large as the logits."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    nll = logz - gold
+    nll_ = nll(logits, targets)
     if mask is not None:
         mask = mask.float()
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll)
+        return torch.sum(nll_ * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll_)

@@ -18,14 +18,25 @@ Entry points:
     init_params(cfg, seed, device="cuda")        -> params
     init_cache(cfg, batch, cache_len, device=...) -> cache
     write_cache(cache, part, rows)                -> None (in place)
-    prefill(cfg, params, batch, kernel_fns=None)  -> (last_logits, cache)
+    prefill(cfg, params, batch, kernel_fns=None, dist=None)
+                                                  -> (last_logits, cache)
         batch: tokens (B, T); hubert's features (B, T, d_model) [+ mask,
         targets]; internvl's patches (B, P, d_model) + tokens
-    decode_step(cfg, params, cache, token, pos, kernel_fns=None)
-                                                  -> (logits, cache)
-    train_loss(cfg, params, batch, kernel_fns=None)
+    decode_step(cfg, params, cache, token, pos, kernel_fns=None,
+                dist=None)                        -> (logits, cache)
+    train_loss(cfg, params, batch, kernel_fns=None, dist=None)
                                   -> (loss, {"ce_loss", "aux_loss"})
         batch: prefill's, with targets (and a frontend's loss mask)
+
+With ``dist`` (a ``models.moe.DistContext`` on a mesh) each rank holds
+its blocks of the parameters (``distributed.sharding.param_specs``)
+and of a cache (``decode_cache_specs``) and takes the global batch: the
+rows are split over the data axes (FSDP gathers each layer's blocks at
+use), GQA attention and the MLP run Megatron tensor parallelism over
+'model' where the heads / d_ff divide it, the MoE runs
+``moe_apply_dist``, and the other parts (embedding, head, MLA, Mamba,
+RWKV, norms) run alike on every rank of 'model' with their weights
+gathered whole.
 
 The batch of each cell is ``configs.input_specs``'s: the audio and
 vision frontends are stubs, as in the reference (precomputed frame or
@@ -45,6 +56,8 @@ the unit is a layer, the same arithmetic).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -52,12 +65,15 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
-from repro_torch.models.layers import (cross_entropy, embed_init, rms_norm,
-                                       swiglu_apply, swiglu_init, unembed)
+from repro_torch.models.layers import (cross_entropy, embed_init, nll,
+                                       rms_norm, swiglu_apply, swiglu_init,
+                                       unembed)
 
 
 def layer_kinds(cfg) -> list[tuple[str, str]]:
@@ -101,23 +117,48 @@ def _layer_init(gen, cfg, kind, ffn, dtype):
     return p
 
 
-def init_params(cfg, seed: int, device=None):
+class _MetaGenerator(torch.Generator):
+    """A generator the initialisers draw from on the ``meta`` device
+    (shapes and dtypes only: ``distributed.sharding``'s specs)."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def init_params(cfg, seed: int, device=None, dist=None):
     """Random parameters in ``cfg.dtype`` (the router and Mamba's
     ``A_log``/``D`` in float32, as the reference), drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device`` (CUDA unless
-    given)."""
+    given).
+
+    On a mesh (``dist``) the rank's blocks (``distributed.sharding
+    .param_specs``) of the same draws: each top-level leaf and each layer
+    is cut to its blocks as soon as it is drawn, so no more than one of
+    them is ever whole on the device."""
+    dist = moe_mod.as_dist(dist, "init_params")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _MetaGenerator() if dev.type == "meta" else \
+        torch.Generator(device=dev).manual_seed(seed)
+    specs = _param_specs(cfg, dist) if dist is not None else None
+
+    def place(x, spec):
+        return x if dist is None else shd.shard_tree(x, spec, dist)
+
     dtype = cfg.dtype
     params: dict[str, Any] = {
-        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dtype, device=dev),
+        "embed": place(embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype),
+                       specs and specs["embed"]),
+        "final_norm": place(torch.ones((cfg.d_model,), dtype=dtype,
+                                       device=dev),
+                            specs and specs["final_norm"]),
     }
     if not cfg.tie_embeddings:
-        params["head"] = embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                    dtype)
-    params["layers"] = [_layer_init(gen, cfg, kind, ffn, dtype)
-                        for kind, ffn in layer_kinds(cfg)]
+        params["head"] = place(embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                          dtype), specs and specs["head"])
+    params["layers"] = [place(_layer_init(gen, cfg, kind, ffn, dtype),
+                              specs and specs["layers"][i])
+                        for i, (kind, ffn) in enumerate(layer_kinds(cfg))]
     return params
 
 
@@ -160,15 +201,105 @@ def write_cache(cache, part, rows=slice(None)):
             dst[key][idx].copy_(leaf)
 
 
-def _attn_layer(cfg, p, h, *, positions, kernel_fns, cache, pos,
-                want_cache):
+def _use(p, specs, name, dist, **kw):
+    """Leaf ``name`` of ``p`` as a layer uses it: on one device the
+    tensor; on a mesh the rank's block gathered (``gather_param``)."""
+    if dist is None:
+        return p[name]
+    return C.gather_param(p[name], dist, specs[name], **kw)
+
+
+def _whole(p, specs, dist):
+    """Every leaf of ``p`` gathered whole (a part every rank of 'model'
+    runs alike: MLA, Mamba, RWKV, norms, a decode's attention)."""
+    if dist is None:
+        return p
+    return {k: _whole(v, specs[k], dist) if isinstance(v, dict) else
+            C.gather_param(v, dist, specs[k]) for k, v in p.items()}
+
+
+#: Megatron tensor parallelism over 'model': how a tensor-parallel part
+#: uses each leaf of its block -- "keep": the rank's 'model' block of a
+#: column- (wq, w_gate, w_up) or row-parallel (wo, w_down) product;
+#: "partial": replicated over 'model' but used by the rank for its part
+#: only (the kv heads its q heads read), its gradient summed over
+#: 'model'. Every other leaf is gathered whole at use.
+TP_USE = {"attn": {"wq": "keep", "wo": "keep", "wk": "partial",
+                   "wv": "partial", "q_norm": "partial",
+                   "k_norm": "partial"},
+          "mlp": {"w_gate": "keep", "w_up": "keep", "w_down": "keep"}}
+
+
+def _tp_leaves(p, specs, dist, part):
+    """The leaves of a tensor-parallel part (``TP_USE[part]``) as the
+    rank uses them: gathered over every axis, but 'model' kept for a
+    "keep" leaf and its gradient summed over 'model' for a "partial"
+    one."""
+    ma = dist.model_axis
+    return {k: C.gather_param(v, dist, specs[k], **{TP_USE[part][k]: ma})
+            for k, v in p.items()}
+
+
+def _tp_kv_heads(cfg, model_size, r):
+    """The kv heads rank ``r`` of 'model' computes for its q heads
+    [r H / m, (r + 1) H / m): a ``range`` when its q heads are whole
+    groups, else one kv head a q head (a group split between ranks)."""
+    H, g = cfg.n_heads, cfg.n_heads // cfg.n_kv
+    lo, hi = r * H // model_size, (r + 1) * H // model_size
+    if lo % g == 0 and (hi - lo) % g == 0:
+        return range(lo // g, hi // g)
+    return [h // g for h in range(lo, hi)]
+
+
+def _gqa_tp(cfg, p, specs, h, *, positions, kernel_fn, dist, want_cache):
+    """``attn.gqa_forward`` with its heads split over 'model' (H %
+    model == 0): the rank runs its q heads (``wq``'s column block), the
+    kv heads they read (columns of ``wk``/``wv``, replicated over
+    'model'), its ``wo`` row block, and the partial outputs are summed.
+    Returns (out, with ``want_cache`` the (k, v) rows of every kv head,
+    gathered over 'model', else None)."""
+    ma, m, dh = dist.model_axis, dist.model_size, cfg.d_head
+    w = _tp_leaves(p, specs, dist, "attn")
+    kv = _tp_kv_heads(cfg, m, C.axis_index(dist, ma))
+    cols = slice(kv[0] * dh, (kv[-1] + 1) * dh) if isinstance(kv, range) \
+        else torch.tensor([j * dh + i for j in kv for i in range(dh)],
+                          device=h.device)
+    w["wk"], w["wv"] = w["wk"][:, cols], w["wv"][:, cols]
+    local = dataclasses.replace(cfg, n_heads=cfg.n_heads // m, n_kv=len(kv))
+    out, (k, v) = attn.gqa_forward(w, local, C.copy_to(h, dist, ma),
+                                   positions=positions, kernel_fn=kernel_fn)
+    out = C.psum(out, dist, ma)
+    if not want_cache:
+        return out, None
+    # each kv head from the first rank that computed it
+    order = [j for r in range(m) for j in _tp_kv_heads(cfg, m, r)]
+    first = torch.tensor([order.index(j) for j in range(cfg.n_kv)],
+                         device=h.device)
+    return out, tuple(
+        C.all_gather(t, dist, ma, 2, replicated=True).index_select(2, first)
+        for t in (k, v))
+
+
+def _attn_layer(cfg, p, specs, h, *, positions, kernel_fns, cache, pos,
+                want_cache, dist):
     mla = cfg.attn_type == "mla"
+    sp = specs and specs["attn"]
     if cache is not None and pos is not None:                  # decode
+        pa = _whole(p["attn"], sp, dist)
+        if dist is not None and cfg.decode_sp and not mla:
+            return attn.gqa_decode_sp(pa, cfg, h, cache, pos, dist)
         decode = attn.mla_decode if mla else attn.gqa_decode
-        return decode(p["attn"], cfg, h, cache, pos)
-    forward = attn.mla_forward if mla else attn.gqa_forward
-    out, rows = forward(p["attn"], cfg, h, positions=positions,
-                        kernel_fn=kernel_fns.get("attention"))
+        return decode(pa, cfg, h, cache, pos)
+    if dist is not None and not mla and \
+            cfg.n_heads % dist.model_size == 0:
+        out, rows = _gqa_tp(cfg, p["attn"], sp, h, positions=positions,
+                            kernel_fn=kernel_fns.get("attention"),
+                            dist=dist, want_cache=want_cache)
+    else:
+        forward = attn.mla_forward if mla else attn.gqa_forward
+        out, rows = forward(_whole(p["attn"], sp, dist), cfg, h,
+                            positions=positions,
+                            kernel_fn=kernel_fns.get("attention"))
     if not want_cache:
         return out, {}
     if mla:
@@ -183,67 +314,138 @@ def _attn_layer(cfg, p, h, *, positions, kernel_fns, cache, pos,
     return out, {"k": k, "v": v}
 
 
+def _mlp(cfg, p, specs, h, dist):
+    """The dense FFN; on a mesh column-parallel ``w_gate``/``w_up`` and
+    row-parallel ``w_down`` over 'model' (their d_ff blocks), the
+    partial outputs summed (Megatron), when d_ff divides the axis."""
+    if dist is None or cfg.d_ff % dist.model_size:
+        return swiglu_apply(_whole(p, specs, dist), h)
+    ma = dist.model_axis
+    return C.psum(swiglu_apply(_tp_leaves(p, specs, dist, "mlp"),
+                               C.copy_to(h, dist, ma)), dist, ma)
+
+
 def _layer_apply(cfg, p, x, *, kind, ffn, positions, kernel_fns,
-                 cache=None, pos=None, want_cache=False):
+                 cache=None, pos=None, want_cache=False, dist=None,
+                 specs=None, split=True):
     """Returns (x, new_cache, aux): aux is the MoE FFN's auxiliary loss
-    (float32 scalar), None for other FFNs."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    (float32 scalar), None for other FFNs. On a mesh (``dist``) ``p``
+    holds the rank's blocks laid out by ``specs``, x is the rank's
+    batch rows (``split``: a block of a batch split over the data axes)
+    replicated over 'model', and a ``psum_scatter`` MoE combine leaves
+    the residual d-sharded (``_constrain_act`` gathers it)."""
+    h = rms_norm(x, _use(p, specs, "ln1", dist), cfg.norm_eps)
     if kind == "rwkv":
+        prw = _whole(p["rwkv"], specs and specs["rwkv"], dist)
         st = cache or rw.rwkv_state_init(cfg, h.shape[0], h.dtype,
                                          h.device)
-        out, att_shift, wkv = rw.time_mix(p["rwkv"], cfg, h,
+        out, att_shift, wkv = rw.time_mix(prw, cfg, h,
                                           st["att_shift"], st["wkv"],
                                           kernel_fn=kernel_fns.get("wkv"))
         x = x + out
-        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-        out2, cm_shift = rw.channel_mix(p["rwkv"], h2, st["cm_shift"])
+        h2 = rms_norm(x, _use(p, specs, "ln2", dist), cfg.norm_eps)
+        out2, cm_shift = rw.channel_mix(prw, h2, st["cm_shift"])
         x = x + out2
         if want_cache or cache is not None:
             return x, {"att_shift": att_shift, "wkv": wkv,
                        "cm_shift": cm_shift}, None
         return x, {}, None
     if kind == "attn":
-        out, new_cache = _attn_layer(cfg, p, h, positions=positions,
+        out, new_cache = _attn_layer(cfg, p, specs, h, positions=positions,
                                      kernel_fns=kernel_fns, cache=cache,
-                                     pos=pos, want_cache=want_cache)
+                                     pos=pos, want_cache=want_cache,
+                                     dist=dist)
     else:
-        out, state = mb.mamba_forward(p["mamba"], cfg, h, state=cache)
+        out, state = mb.mamba_forward(
+            _whole(p["mamba"], specs and specs["mamba"], dist), cfg, h,
+            state=cache)
         new_cache = state if (want_cache or cache is not None) else {}
     x = x + out
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h2 = rms_norm(x, _use(p, specs, "ln2", dist), cfg.norm_eps)
     aux = None
-    if ffn == "moe":
+    if ffn == "moe" and dist is not None:
+        out2, aux = moe_mod.moe_apply_dist(p["moe"], cfg, h2, dist,
+                                           split=split)
+        if out2.shape[-1] != x.shape[-1]:       # the psum_scatter combine
+            x = C.scatter(x, dist, dist.model_axis, 2)
+    elif ffn == "moe":
         out2, aux = moe_mod.moe_apply(p["moe"], cfg, h2)
     else:
-        out2 = swiglu_apply(p["mlp"], h2)
+        out2 = _mlp(cfg, p["mlp"], specs and specs["mlp"], h2, dist)
     return x + out2, new_cache, aux
 
 
+def _constrain_act(cfg, x, dist):
+    """The residual stream between layers. The reference constrains its
+    GSPMD layout here (``act_shard``: a layout, not a value); the port
+    keeps the residual whole over 'model', so this only gathers back a
+    residual a ``psum_scatter`` MoE combine left d-sharded."""
+    if dist is None or x.shape[-1] == cfg.d_model:
+        return x
+    return C.all_gather(x, dist, dist.model_axis, 2, replicated=True)
+
+
+def _sp_layer(cfg, kind, dist):
+    """Whether a decode of this layer runs ``gqa_decode_sp`` (its cache
+    stays in its sequence-sharded layout)."""
+    return dist is not None and kind == "attn" and cfg.decode_sp and \
+        cfg.attn_type != "mla"
+
+
+def _cache_whole(c, specs, dist):
+    """A layer's cache blocks gathered over every axis but the batch's."""
+    return {k: shd.unblock(t, (None,) + tuple(specs[k][1:]), dist)
+            for k, t in c.items()}
+
+
+def _cache_cut(c, specs, dist):
+    """A layer's cache of the rank's batch rows cut to its blocks."""
+    return {k: shd.block(t, (None,) + tuple(specs[k][1:]), dist)
+            .contiguous() for k, t in c.items()}
+
+
 def _run_stack(cfg, params, x, positions, kernel_fns, want_cache,
-               in_cache=None, pos=None):
-    """Applies every layer in order. Returns (x, per-layer caches)."""
+               in_cache=None, pos=None, dist=None, specs=None, split=True,
+               cspecs=None):
+    """Applies every layer in order. Returns (x, per-layer caches); on
+    a mesh the caches are the rank's blocks laid out by ``cspecs``."""
     caches = []
     for i, ((kind, ffn), p) in enumerate(zip(layer_kinds(cfg),
                                              params["layers"])):
+        c_in = in_cache[i] if in_cache else None
+        keep = _sp_layer(cfg, kind, dist) and c_in is not None
+        if dist is not None and c_in and not keep:
+            c_in = _cache_whole(c_in, cspecs[i], dist)
         x, c, _ = _layer_apply(cfg, p, x, kind=kind, ffn=ffn,
                                positions=positions,
-                               kernel_fns=kernel_fns or {},
-                               cache=in_cache[i] if in_cache else None,
-                               pos=pos, want_cache=want_cache)   # aux dropped
+                               kernel_fns=kernel_fns or {}, cache=c_in,
+                               pos=pos, want_cache=want_cache, dist=dist,
+                               specs=specs and specs["layers"][i],
+                               split=split)              # aux dropped
+        if dist is not None:
+            x = _constrain_act(cfg, x, dist)
+            if c and not keep:
+                c = _cache_cut(c, cspecs[i], dist)
         caches.append(c)
     return x, caches
 
 
-def _train_stack(cfg, params, x, positions, kernel_fns):
+def _train_stack(cfg, params, x, positions, kernel_fns, dist=None,
+                 specs=None, split=True):
     """Every layer in order for a training step, each recomputed in the
-    backward when ``cfg.remat``. Returns (x, the MoE aux losses summed
-    over the layers, float32)."""
+    backward when ``cfg.remat`` (on a mesh its parameter gathers too,
+    as the reference's remat recomputes its FSDP all-gathers). Returns
+    (x, the MoE aux losses summed over the layers, float32)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for (kind, ffn), p in zip(layer_kinds(cfg), params["layers"]):
-        def layer(x, p, kind=kind, ffn=ffn):
+    for i, ((kind, ffn), p) in enumerate(zip(layer_kinds(cfg),
+                                             params["layers"])):
+        def layer(x, p, kind=kind, ffn=ffn,
+                  sp=specs and specs["layers"][i]):
             x, _, aux = _layer_apply(cfg, p, x, kind=kind, ffn=ffn,
                                      positions=positions,
-                                     kernel_fns=kernel_fns)
+                                     kernel_fns=kernel_fns, dist=dist,
+                                     specs=sp, split=split)
+            x = _constrain_act(cfg, x, dist)
             if aux is None:
                 aux = torch.zeros((), dtype=torch.float32, device=x.device)
             return x, aux
@@ -309,49 +511,180 @@ def _embed_inputs(cfg, params, batch):
             batch.get("targets"), None)
 
 
-def _logits(cfg, params, x):
-    head = params["embed"] if cfg.tie_embeddings else params["head"]
-    return unembed(x, head)
+# ---------------------------------------------------------------------------
+# On a mesh: the entry points take the global batch (the same on every
+# rank) and the rank's parameter and cache blocks
+# ---------------------------------------------------------------------------
+
+def _local_rows(batch, dist):
+    """(split, the rank's rows of every leaf): the batch is split over
+    the data axes when its size divides them, else every rank keeps it
+    whole (the reference's replicated-batch case)."""
+    B = next(iter(batch.values())).shape[0]
+    if B % dist.data_size:
+        return False, dict(batch)
+    spec = (C.spec_entry(dist.data_axes),)
+    return True, {k: shd.block(v, spec, dist) for k, v in batch.items()}
 
 
-def prefill(cfg, params, batch, kernel_fns=None):
+def _rows_whole(t, dist, split):
+    """Every rank's rows of ``t`` gathered in batch order."""
+    return shd.unblock(t, (C.spec_entry(dist.data_axes),), dist) if split \
+        else t
+
+
+def _top(cfg, params, specs, dist):
+    """The embedding, final norm and head gathered whole (every rank of
+    'model' computes the same logits in this slice)."""
+    emb = _use(params, specs, "embed", dist)
+    head = emb if cfg.tie_embeddings else _use(params, specs, "head", dist)
+    return emb, _use(params, specs, "final_norm", dist), head
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient scaled."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def _dist_cross_entropy(logits, targets, mask, dist, split):
+    """``cross_entropy`` of the global batch from the rank's rows: the
+    mean of the ranks' means (each rank holds as many positions), or
+    under a loss mask the masked sums over every rank."""
+    if not split:
+        return cross_entropy(logits, targets, mask)
+    da = dist.data_axes
+    if mask is None:
+        return C.psum(cross_entropy(logits, targets), dist, da) / \
+            dist.data_size
+    mask = mask.float()
+    return C.psum(torch.sum(nll(logits, targets) * mask), dist, da) / \
+        torch.clamp(C.psum(torch.sum(mask), dist, da), min=1.0)
+
+
+def prefill(cfg, params, batch, kernel_fns=None, dist=None):
     """batch: ``tokens`` (B, T) int, or a frontend's inputs (see
     ``_embed_inputs``). Returns (float32 logits of the last position
     (B, padded_vocab), cache); the cache's ``pos_offset`` is the whole
-    sequence's length, patches included."""
-    x, positions, _, _ = _embed_inputs(cfg, params, batch)
-    B, T = x.shape[:2]
+    sequence's length, patches included.
+
+    On a mesh (``dist``): ``params`` are the rank's blocks
+    (``distributed.sharding.param_specs``), ``batch`` the global batch;
+    the logits come back whole on every rank, the cache as the rank's
+    blocks laid out by ``distributed.sharding.decode_cache_specs``."""
+    dist = moe_mod.as_dist(dist, "prefill")
+    specs, split, B = None, True, None
+    if dist is not None:
+        specs = _param_specs(cfg, dist)
+        B = next(iter(batch.values())).shape[0]
+        split, batch = _local_rows(batch, dist)
+    emb, final_norm, head = _top(cfg, params, specs, dist)
+    x, positions, _, _ = _embed_inputs(cfg, {"embed": emb}, batch)
+    b, T = x.shape[:2]
+    cspecs = shd.decode_cache_specs(cfg, B, T, dist)["layers"] \
+        if dist is not None else None
     x, caches = _run_stack(cfg, params, x, positions, kernel_fns,
-                           want_cache=True)
-    x = rms_norm(x[:, -1:, :], params["final_norm"], cfg.norm_eps)
-    logits = _logits(cfg, params, x)
-    pos_offset = torch.full((B,), T, dtype=torch.int32, device=x.device)
-    return logits[:, 0], {"pos_offset": pos_offset, "layers": caches}
+                           want_cache=True, dist=dist, specs=specs,
+                           split=split, cspecs=cspecs)
+    x = rms_norm(x[:, -1:, :], final_norm, cfg.norm_eps)
+    logits = unembed(x, head)[:, 0]
+    if dist is not None:
+        logits = _rows_whole(logits, dist, split)
+    pos_offset = torch.full((b,), T, dtype=torch.int32, device=x.device)
+    return logits, {"pos_offset": pos_offset, "layers": caches}
 
 
-def train_loss(cfg, params, batch, kernel_fns=None):
+def train_loss(cfg, params, batch, kernel_fns=None, dist=None):
     """The reference's ``train_loss``: a batch of ``tokens`` and
     ``targets`` (B, T) int, or a frontend's (``features``, ``mask``,
     ``targets``; ``patches``, ``tokens``, ``targets``) -> (cross
     entropy over the loss mask + 0.01 x the MoE aux loss, {"ce_loss",
     "aux_loss"}), float32 scalars. Differentiable through every layer;
     ``kernel_fns`` as ``prefill``'s (``ops.model_kernel_fns()`` runs the
-    CUDA kernels' forwards and backwards on the card)."""
-    x, positions, targets, mask = _embed_inputs(cfg, params, batch)
-    x, aux = _train_stack(cfg, params, x, positions, kernel_fns or {})
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = cross_entropy(_logits(cfg, params, x), targets, mask)
-    return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
+    CUDA kernels' forwards and backwards on the card).
+
+    On a mesh (``dist``): ``params`` are the rank's blocks, ``batch``
+    the global batch; the loss is the global batch's on every rank, and
+    the gradient of each block (autograd's, through the collectives'
+    transposes) is the block of the one-device gradient."""
+    dist = moe_mod.as_dist(dist, "train_loss")
+    specs, split = None, True
+    if dist is not None:
+        specs = _param_specs(cfg, dist)
+        split, batch = _local_rows(batch, dist)
+    emb = _use(params, specs, "embed", dist)
+    x, positions, targets, mask = _embed_inputs(cfg, {"embed": emb}, batch)
+    if not cfg.tie_embeddings:
+        emb = None         # on a mesh: the gathered table freed at once
+    x, aux = _train_stack(cfg, params, x, positions, kernel_fns or {},
+                          dist=dist, specs=specs, split=split)
+    x = rms_norm(x, _use(params, specs, "final_norm", dist), cfg.norm_eps)
+    logits = unembed(x, emb if cfg.tie_embeddings else
+                     _use(params, specs, "head", dist))
+    if dist is None:
+        loss = cross_entropy(logits, targets, mask)
+        return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
+    loss = _dist_cross_entropy(logits, targets, mask, dist, split)
+    total = loss + 0.01 * aux
+    if not split:
+        # every data rank computed the same loss on the whole batch: its
+        # gradients are summed over them, so each carries 1/n of it
+        total = _ScaleGrad.apply(total, 1.0 / dist.data_size)
+    return total, {"ce_loss": loss, "aux_loss": aux}
 
 
-def decode_step(cfg, params, cache, token, pos, kernel_fns=None):
+def _cache_len(cfg, cache, dist):
+    """The global sequence length of a mesh's decode cache."""
+    for (kind, _), c in zip(layer_kinds(cfg), cache["layers"]):
+        if "k" in c:
+            n = dist.model_size if _sp_layer(cfg, kind, dist) else 1
+            return c["k"].shape[1] * n
+        if "c_kv" in c:
+            return c["c_kv"].shape[1]
+    return 1
+
+
+def decode_step(cfg, params, cache, token, pos, kernel_fns=None,
+                dist=None):
     """token: (B,1) int; pos: (B,) absolute position of ``token``. The
     attention caches are updated in place (see ``gqa_decode`` and
-    ``mla_decode``); the recurrent states come back as new tensors."""
-    x = params["embed"][token]
+    ``mla_decode``); the recurrent states come back as new tensors.
+
+    On a mesh (``dist``): ``token`` and ``pos`` global, ``params`` and
+    ``cache`` the rank's blocks (``decode_cache_specs``); the logits
+    come back whole. Under ``cfg.decode_sp`` a GQA layer decodes with
+    ``gqa_decode_sp`` on its sequence-sharded cache; every other layer's
+    cache is gathered over 'model' for the step and cut back (what the
+    reference's GSPMD decode does to a sharded cache)."""
+    dist = moe_mod.as_dist(dist, "decode_step")
+    specs, split, cspecs = None, True, None
+    if dist is not None:
+        specs = _param_specs(cfg, dist)
+        cspecs = shd.decode_cache_specs(
+            cfg, token.shape[0], _cache_len(cfg, cache, dist),
+            dist)["layers"]
+        split, rows = _local_rows({"token": token, "pos": pos}, dist)
+        token, pos = rows["token"], rows["pos"]
+    emb, final_norm, head = _top(cfg, params, specs, dist)
+    x = emb[token]
     x, caches = _run_stack(cfg, params, x, pos[:, None], kernel_fns,
                            want_cache=False, in_cache=cache["layers"],
-                           pos=pos)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _logits(cfg, params, x)
-    return logits[:, 0], {"pos_offset": pos + 1, "layers": caches}
+                           pos=pos, dist=dist, specs=specs, split=split,
+                           cspecs=cspecs)
+    x = rms_norm(x, final_norm, cfg.norm_eps)
+    logits = unembed(x, head)[:, 0]
+    if dist is not None:
+        logits = _rows_whole(logits, dist, split)
+    return logits, {"pos_offset": pos + 1, "layers": caches}
+
+
+@functools.lru_cache(maxsize=16)
+def _param_specs(cfg, dist):
+    return shd.param_specs(cfg, dist)[0]

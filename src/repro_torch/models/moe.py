@@ -21,16 +21,72 @@ reference's semantics:
 
 Capacity comes from the token count of the call (B * T): in the
 batcher's decode the empty slots' tokens compete for it, as in the
-reference. The distributed path (``moe_apply_dist``, ``DistContext``,
-``ep_mode``, ``moe_param_specs``) comes with the distributed slice
-(ROADMAP Queue 1 item 13f).
+reference.
+
+The distributed path (``moe_apply_dist``) runs on every rank of a
+('data', 'model') mesh what the reference's ``shard_map`` body runs on
+each device, with one of two expert layouts (``ep_mode``):
+  * ``ep``: experts over the model axis (E % model == 0), their d_ff
+    FSDP-sharded over the data axes and gathered at use; a rank
+    computes its data block's tokens through its experts;
+  * ``tp``: d_ff over the model axis, d_model FSDP over 'data'; every
+    expert on every rank, a part of d_ff each.
+Either way the combine is a ``psum`` over 'model', or with
+``cfg.moe_combine == "psum_scatter"`` a reduce-scatter into a d-sharded
+output. Routing (router, gates, top-k, the aux statistics) runs on the
+rank's tokens as they are, replicated over 'model'; the gates and
+tokens enter the expert part through ``copy_to`` (their gradient is
+summed over 'model', where each rank's experts see a part). The router
+statistics are averaged over the data axes before the aux loss, so the
+loss equals one device's.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models.layers import init_dense
+
+
+@dataclass(frozen=True)
+class DistContext:
+    """Where a distributed step runs: ``mesh`` a
+    ``torch.distributed.device_mesh.DeviceMesh`` with axes ('data',
+    'model') or ('pod', 'data', 'model') (``launch.mesh``), a
+    shape-only mesh (any object whose ``.shape`` maps axis names to
+    sizes: specs only, no ranks), or None (one device)."""
+    mesh: object = None
+    data_axes: tuple = ("data",)     # ('pod', 'data') when multi-pod
+    model_axis: str = "model"
+
+    @property
+    def model_size(self) -> int:
+        return C.axis_sizes(self.mesh)[self.model_axis] if self.mesh \
+            is not None else 1
+
+    @property
+    def data_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        sizes = C.axis_sizes(self.mesh)
+        n = 1
+        for a in self.data_axes:
+            n *= sizes[a]
+        return n
+
+
+def as_dist(dist, what="dist"):
+    """None for one device (None, or a ``DistContext`` with no mesh),
+    else the ``DistContext``; another object raises ``TypeError``."""
+    if dist is None:
+        return None
+    if not isinstance(dist, DistContext):
+        raise TypeError(f"{what}: expected a DistContext or None, got "
+                        f"{type(dist).__name__}")
+    return dist if dist.mesh is not None else None
 
 
 def moe_init(gen, cfg, dtype):
@@ -131,11 +187,80 @@ def moe_apply_pure(p, cfg, x):
     return y.reshape(B, T, d), _aux_loss(me, ce)
 
 
+def ep_mode(cfg, dist: DistContext) -> str:
+    if dist.model_size > 1 and cfg.expert_parallel and \
+            cfg.n_experts % dist.model_size == 0:
+        return "ep"
+    return "tp"
+
+
+def _fsdp_axes(cfg, dist):
+    """The expert d_ff's FSDP axes: the (composite) data axes when they
+    divide it, else 'data' alone."""
+    return C.spec_entry(dist.data_axes) \
+        if cfg.d_expert % dist.data_size == 0 else "data"
+
+
+def moe_param_specs(cfg, dist: DistContext) -> dict:
+    """The layout of ``moe_apply_dist``'s parameters: one entry a
+    dimension (None, an axis or a tuple of axes), the reference's
+    PartitionSpecs as tuples."""
+    ma = dist.model_axis
+    if ep_mode(cfg, dist) == "ep":
+        fsdp = _fsdp_axes(cfg, dist)
+        return {"router": (), "w_gate": (ma, None, fsdp),
+                "w_up": (ma, None, fsdp), "w_down": (ma, fsdp, None)}
+    return {"router": (), "w_gate": (None, "data", ma),
+            "w_up": (None, "data", ma), "w_down": (None, ma, "data")}
+
+
+def moe_apply_dist(p, cfg, x, dist: DistContext, split=True):
+    """The distributed MoE on this rank. ``p``: this rank's blocks of
+    the parameters (``moe_param_specs``); ``x`` (B_loc, T, d): the
+    rank's block of a batch split over the data axes, or with ``split``
+    False the whole batch (the reference's case of a B that does not
+    divide the data axes: the tokens are replicated over them and only
+    'model' shares the work). Returns (y, aux): y (B_loc, T, d), or (B_loc, T,
+    d / model) -- this rank's block of d -- under the ``psum_scatter``
+    combine; aux the global aux loss."""
+    B, T, d = x.shape
+    mode = ep_mode(cfg, dist)
+    m = dist.model_size
+    da, ma = dist.data_axes, dist.model_axis
+    E = cfg.n_experts
+    specs = moe_param_specs(cfg, dist)
+    w = {k: C.gather_param(p[k], dist, specs[k], keep=(ma,))
+         for k in ("router", "w_gate", "w_up", "w_down")}
+    if mode == "ep":
+        n_local = E // m
+        e_lo = C.axis_index(dist, ma) * n_local
+    else:
+        n_local, e_lo = E, 0
+    S_loc = B * T
+    xf = x.reshape(S_loc, d)
+    logits = xf.float() @ w["router"]
+    gates, idx, me, ce = _top_k_gates(logits, cfg.top_k)
+    cap = _capacity(cfg, S_loc, E)
+    y = _dispatch_compute_combine(
+        C.copy_to(xf, dist, ma), C.copy_to(gates, dist, ma), idx,
+        w["w_gate"], w["w_up"], w["w_down"], e_lo, n_local, cap)
+    if cfg.moe_combine == "psum_scatter" and d % m == 0:
+        # straight into the d-sharded residual layout (half the ring
+        # traffic of an all-reduce)
+        y = C.psum_scatter(y, dist, ma, 1)
+    else:
+        y = C.psum(y, dist, ma)
+    if split:
+        me = C.pmean(me, dist, da)
+        ce = C.pmean(ce, dist, da)
+    return y.reshape(B, T, -1), _aux_loss(me, ce)
+
+
 def moe_apply(p, cfg, x, dist=None):
-    """``moe_apply_pure``; a distributed context is refused until the
-    distributed slice ports ``moe_apply_dist``."""
-    if dist is not None:
-        raise NotImplementedError(
-            "moe_apply: the distributed MoE (moe_apply_dist) is not ported "
-            "yet (ROADMAP Queue 1 item 13f)")
-    return moe_apply_pure(p, cfg, x)
+    """``moe_apply_pure`` on one device (``dist`` None, or a
+    ``DistContext`` without a mesh: the same bits), else
+    ``moe_apply_dist``."""
+    dist = as_dist(dist, "moe_apply")
+    if dist is None:
+        return moe_apply_pure(p, cfg, x)
+    return moe_apply_dist(p, cfg, x, dist)

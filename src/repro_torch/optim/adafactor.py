@@ -18,6 +18,8 @@ group (a plain tree of tensors).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.tree import get, paths, set_in, tree_map
@@ -78,9 +80,31 @@ def adafactor_init(params, plan=None):
             "v": v}
 
 
+def _mean(x, dims=None, keepdim=False, over=None):
+    """``torch.mean`` of ``x`` over its ``dims`` (all if None); with
+    ``over`` = (n, total), x is one of n blocks of a tensor along those
+    dims, and ``total`` sums over the ranks holding the others: the
+    whole tensor's mean."""
+    if over is None:
+        return torch.mean(x) if dims is None else \
+            torch.mean(x, dim=dims, keepdim=keepdim)
+    n, total = over
+    dims = tuple(range(x.dim())) if dims is None else dims
+    count = math.prod(x.shape[d] for d in dims) * n
+    return total(torch.sum(x, dim=dims, keepdim=keepdim)) / count
+
+
 def adafactor_update(grads, state, params, lr, *, decay=0.8, clip=1.0,
-                     weight_decay=0.0, eps=1e-8, plan=None):
-    """(new params, new state); ``plan`` as ``adafactor_init``'s."""
+                     weight_decay=0.0, eps=1e-8, plan=None, shards=None):
+    """(new params, new state); ``plan`` as ``adafactor_init``'s.
+
+    On a mesh the trees hold the rank's blocks and ``shards(ref, dims)``
+    gives (n, total) of the (stacked) leaf ``ref``: its dims ``dims``
+    are cut into n blocks and ``total`` sums a value over the ranks
+    holding them. The factored statistics' means and the RMS clip then
+    run over the whole leaf, the one-device arithmetic, and the state
+    holds the blocks of the whole state (``vr``: the leaf's spec but its
+    last dim; ``vc``: but its second to last)."""
     step = state["step"] + 1
     t = step.to(torch.float32)
     beta = 1.0 - t ** -decay
@@ -90,12 +114,19 @@ def adafactor_update(grads, state, params, lr, *, decay=0.8, clip=1.0,
         g = _gather(grads, ref, members)
         p = _gather(params, ref, members)
         v = get(state["v"], ref)
+        nd = g.dim()
+
+        def over(*dims, ref=ref):
+            return None if shards is None else shards(ref, dims)
         g2 = g * g + EPS1
         if _factored(g.shape):
-            vr = beta * v["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-            vc = beta * v["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
+            vr = beta * v["vr"] + (1 - beta) * _mean(g2, (-1,),
+                                                     over=over(nd - 1))
+            vc = beta * v["vc"] + (1 - beta) * _mean(g2, (-2,),
+                                                     over=over(nd - 2))
             rfac = torch.rsqrt(
-                vr / torch.clamp(torch.mean(vr, -1, keepdim=True), min=EPS1)
+                vr / torch.clamp(_mean(vr, (-1,), keepdim=True,
+                                       over=over(nd - 2)), min=EPS1)
                 + eps)
             cfac = torch.rsqrt(vc + eps)
             u = g * rfac[..., None] * cfac[..., None, :]
@@ -105,7 +136,7 @@ def adafactor_update(grads, state, params, lr, *, decay=0.8, clip=1.0,
             u = g * torch.rsqrt(nvv + eps)
             nv = {"v": nvv}
         # update clipping by RMS, over the whole (stacked) leaf
-        rms = torch.sqrt(torch.mean(u * u) + EPS1)
+        rms = torch.sqrt(_mean(u * u, over=over(*range(nd))) + EPS1)
         u = u / torch.clamp(rms / clip, min=1.0)
         if weight_decay:
             u = u + weight_decay * p

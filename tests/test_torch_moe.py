@@ -158,9 +158,16 @@ def test_capacity_comes_from_the_call():
 
 
 def test_moe_apply_refuses_a_distributed_context():
-    _, tcfg, _, tp = _moe("mixtral")
-    x = torch.zeros((1, 2, tcfg.d_model))
-    y, _ = tmoe.moe_apply(tp, tcfg, x)
-    assert torch.equal(y, tmoe.moe_apply_pure(tp, tcfg, x)[0])
-    with pytest.raises(NotImplementedError, match="item 13f"):
+    """``moe_apply`` is ``moe_apply_pure`` on one device, also under a
+    ``DistContext`` without a mesh (to the bit); a ``dist`` that is not
+    a ``DistContext`` raises ``TypeError``."""
+    cfg, tcfg, _, tp = _moe("mixtral")
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (2, 5, tcfg.d_model)).astype(np.float32))
+    y, aux = tmoe.moe_apply(tp, tcfg, x)
+    y0, aux0 = tmoe.moe_apply_pure(tp, tcfg, x)
+    assert torch.equal(y, y0) and torch.equal(aux, aux0)
+    y1, aux1 = tmoe.moe_apply(tp, tcfg, x, dist=tmoe.DistContext(mesh=None))
+    assert torch.equal(y1, y0) and torch.equal(aux1, aux0)
+    with pytest.raises(TypeError, match="DistContext"):
         tmoe.moe_apply(tp, tcfg, x, dist=object())

@@ -37,6 +37,7 @@ from repro.train import steps as JS
 from repro.train.steps import make_train_step as j_make_train_step
 from repro_torch.core.tree import leaves, unflatten
 from repro_torch.models import model as TM
+from repro_torch.models.moe import DistContext
 from repro_torch.optim import make_optimizer
 from repro_torch.train import steps as TS
 from repro_torch.train.steps import make_train_step
@@ -96,13 +97,17 @@ def test_remat_recomputes_the_same_gradients(arch):
 def test_prefill_decode_and_serve_step_vs_reference():
     """make_prefill_step, make_decode_step and serve_step against the
     reference's wrappers (the model's prefill and decode_step, as in
-    tests/test_torch_model.py's bounds); a distributed context raises."""
+    tests/test_torch_model.py's bounds); a ``DistContext`` without a
+    mesh gives the one-device results to the bit, and a ``dist`` that is
+    not a ``DistContext`` raises ``TypeError``."""
     cfg, tcfg, jp, tp = _models("qwen3-0.6b")
+    _, tb = _batch(cfg)
     B, T, max_len = 2, 8, 12
     toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, T))
     jl, jc = JS.make_prefill_step(cfg)(
         jp, {"tokens": jnp.asarray(toks, jnp.int32)})
     tl, tc = TS.make_prefill_step(tcfg)(tp, {"tokens": torch.as_tensor(toks)})
+    tl0 = tl
     _close(tl, jl)
     _assert_caches_close(tc, jc)
     jc = jax.tree.map(_merge, JM.init_cache(cfg, B, max_len,
@@ -121,11 +126,29 @@ def test_prefill_decode_and_serve_step_vs_reference():
         _close(tl, jl)
         _assert_caches_close(full, jc)
         tok = np.argmax(np.asarray(jl), -1)[:, None]
+    # a DistContext without a mesh is one device, to the bit
+    one = DistContext(mesh=None)
+    bl, bc = TS.make_prefill_step(tcfg, dist=one)(
+        tp, {"tokens": torch.as_tensor(toks)})
+    assert torch.equal(bl, tl0) and all(
+        torch.equal(a, b) for a, b in zip(leaves(bc), leaves(tc)))
+    pos = torch.full((B,), T + 2, dtype=torch.int32)
+    twin = unflatten(full, [x.clone() for x in leaves(full)])
+    dl, dc = TS.serve_step(tcfg, tp, full, torch.as_tensor(tok), pos)
+    el, ec = TS.make_decode_step(tcfg, dist=one)(
+        tp, twin, torch.as_tensor(tok), pos)
+    assert torch.equal(dl, el) and all(
+        torch.equal(a, b) for a, b in zip(leaves(dc), leaves(ec)))
+    _, _, m1 = TS.make_train_step(tcfg)(tp, make_optimizer(tcfg)[0](tp),
+                                        tb, 0)
+    _, _, m2 = TS.make_train_step(tcfg, dist=one)(
+        tp, make_optimizer(tcfg)[0](tp), tb, 0)
+    assert all(torch.equal(m1[k], m2[k]) for k in m1)
+    # another object is refused
     for make in (TS.make_train_step, TS.make_prefill_step,
                  TS.make_decode_step):
-        with pytest.raises(NotImplementedError, match="13f"):
+        with pytest.raises(TypeError, match="DistContext"):
             make(tcfg, dist=object())
-    with pytest.raises(NotImplementedError, match="13f"):
-        TS.serve_step(tcfg, tp, full, torch.as_tensor(tok),
-                      torch.full((B,), T + 2, dtype=torch.int32),
+    with pytest.raises(TypeError, match="DistContext"):
+        TS.serve_step(tcfg, tp, full, torch.as_tensor(tok), pos,
                       dist=object())

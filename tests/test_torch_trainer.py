@@ -209,6 +209,8 @@ def test_launch_train_reduced_on_the_cpu(tmp_path, capsys):
     assert out[0] == "training qwen3-0.6b from step 0 on 1 device(s)"
     assert out[1].startswith("done; losses: [")
     assert len(trainer.losses()) == 2 and latest_step(tmp_path) == 2
-    with pytest.raises(NotImplementedError, match="13f"):
+    # the 512-rank production mesh outside such a world: refused, and
+    # the message names the world's size
+    with pytest.raises(ValueError, match="512 ranks; this one has 1"):
         launch_train.main(["--arch", "qwen3-8b", "--multi-pod",
                            "--ckpt-dir", str(tmp_path)])

@@ -209,6 +209,22 @@ Phases (one line each; any failure exits non-zero and prints no result):
    mixtral step): equal bit for bit or the first differing gradient,
    printed (a reading). ``--distributed`` runs only the build and this
    phase;
+9g. ``dryrun``: the dry run (``launch.dryrun``) of DRYRUN_CELLS, rank 0
+   of the 16 x 16 production mesh on torch's fake process group, run on
+   the card (the step through the hand kernels: hubert-xlarge train_4k's
+   16 x 4,096 frames a rank through the d 80 wgmma forward and backward)
+   and on ``meta``: wall seconds, argument and peak bytes a device,
+   per-layer FLOPs, bytes and collective link bytes, the collectives by
+   op, the flash launches by variant; the card's counts must equal the
+   ``meta`` record's exactly, no op may lack a counting rule on either
+   device, its collective bytes by (op, axis) must be the bytes the
+   specs imply (``implied_bytes``), and every hubert flash call must run
+   on wgmma; then ``ici_gating.analyze_all`` on the card over the
+   records just written (each cell's collective duty and both policies'
+   savings), and the host microseconds of an ``ops.wkv`` call (the
+   ``repro_torch::wkv`` operator) beside the wrapper's at rwkv6-7b's
+   decode shape (a reading). ``--dryrun`` runs only the build and this
+   phase;
 10. ``time``: card time under CUDA-graph replay: switch_tiers a tick
    beside its first design (two switch_step launches and their
    glue), the plain version, the bound and an empty kernel's graph
@@ -3569,63 +3585,6 @@ def _in_turns(torch, rank, fn):
     return got
 
 
-def _implied_bytes(cfg, dist, tp_attn, tp_mlp, passes, act_bytes):
-    """The bytes a step's collectives move on this rank as the specs
-    imply them, by (op, axis): a leaf gathered at use (``passes`` uses a
-    step for a layer's, one for the top leaves) over its sharded dims
-    not kept for tensor parallelism, its gradient reduce-scattered over
-    the data dims and summed over the data axes it is replicated on;
-    the TP activations' psums (``act_bytes`` each: forward, ``passes`` a
-    step) and their copy_to's backward psums (one a step)."""
-    import math as m_
-    from repro_torch.core.tree import paths
-    from repro_torch.distributed import collectives as C
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.models.model import TP_USE
-    specs, shapes = shd.param_specs(cfg, dist)
-    sizes = C.axis_sizes(dist.mesh)
-    out = collections.Counter()
-    data = set(dist.data_axes)
-    tp = {"attn": tp_attn, "mlp": tp_mlp}
-    for (path, shape), spec in zip(paths(shapes), shd.spec_leaves(specs)):
-        part = path[-2] if len(path) > 1 else None
-        use = TP_USE[part].get(path[-1]) if tp.get(part) else None
-        uses = passes if path[0] == "layers" else 1
-        keep = "model" if use == "keep" or "moe" in path else None
-        block = list(shape.shape)
-        for i, ent in enumerate(spec):
-            block[i] //= m_.prod(sizes[a] for a in C.as_axes(ent))
-        esize = shape.element_size()
-        cur = list(block)
-        for i, ent in enumerate(spec):
-            axes = C.as_axes(ent)
-            if axes and keep not in axes:
-                out[("all_gather", "+".join(axes))] += \
-                    uses * m_.prod(cur) * esize
-                cur[i] *= m_.prod(sizes[a] for a in axes)
-        if use == "partial":
-            out[("psum", "model")] += m_.prod(cur) * esize
-        used = set()
-        for i, ent in enumerate(spec):
-            axes = C.as_axes(ent)
-            used |= set(axes)
-            if axes and keep not in axes and set(axes) <= data:
-                out[("psum_scatter", "+".join(axes))] += m_.prod(cur) * esize
-                cur[i] //= m_.prod(sizes[a] for a in axes)
-            elif axes and keep not in axes:
-                cur[i] //= m_.prod(sizes[a] for a in axes)
-        rest = [a for a in dist.data_axes if a not in used]
-        if rest:
-            out[("psum", "+".join(rest))] += m_.prod(cur) * esize
-    # a TP region's forward psum on each pass and its copy_to's backward
-    # psum, less the layer's last psum on the recompute (the
-    # checkpoint's recompute stops once it has what the backward saves)
-    regions = int(tp_attn) + int(tp_mlp)
-    out[("psum", "model")] += cfg.n_layers * act_bytes * (
-        regions * (passes + 1) - (passes - 1 if regions else 0))
-    return out
-
-
 def dist_ranks(rank, out):
     """One of the DIST_RANKS gloo ranks of phase `distributed`, on cuda:0:
     (a), (d), (c), (e), then (b)."""
@@ -3641,6 +3600,8 @@ def dist_ranks(rank, out):
     from repro_torch.launch.mesh import dist_for, make_test_mesh
     from repro_torch.models import model as M
     from repro_torch.models import moe
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import implied_bytes
     from repro_torch.train.steps import (init_opt_state, make_train_step,
                                          opt_specs)
     tdist.init_process_group("gloo", init_method=f"file://{out}/store_ranks",
@@ -3777,11 +3738,9 @@ def dist_ranks(rank, out):
         "counts": {"/".join(k): [v[0] / DIST_STEPS, v[1] / DIST_STEPS]
                    for k, v in C.COLLECTIVE_COUNTS.items()},
         "staged": dict(C.HOST_STAGED),
-        "implied": {"/".join(k): v for k, v in _implied_bytes(
-            cfg, dist, cfg.n_heads % dist.model_size == 0,
-            cfg.d_ff % dist.model_size == 0, 2 if cfg.remat else 1,
-            DIST_BATCH // dist.data_size * DIST_BF16_SEQ * cfg.d_model
-            * torch.finfo(cfg.dtype).bits // 8).items()},
+        "implied": {"/".join(k): v for k, v in implied_bytes(
+            cfg, dist, ShapeConfig("dist", DIST_BF16_SEQ, DIST_BATCH,
+                                   "train")).items()},
         "shape": [DIST_BATCH // dist.data_size, DIST_BF16_SEQ,
                   cfg.n_heads // dist.model_size, cfg.d_head]}
     part("b")
@@ -3974,8 +3933,12 @@ def distributed_phase(torch, dev, card):
           f" {want_f} forwards, {want_b} backwards at (B, T, H, d) = "
           f"{tuple(b0['shape'])}, all wgmma; rank 0's seconds by part "
           f"{r0['s']}; card {card}")
+    got = {k: v[1] for k, v in b0["counts"].items()}
+    if got != b0["implied"]:
+        fail(f"distributed (b): rank 0's collective bytes a step {got}; the "
+             f"specs imply {b0['implied']}")
     phase(name, "(b) collectives a step on rank 0, (op/axis: calls, MB; the"
-          " bytes the specs imply): " + "; ".join(
+          " bytes the specs imply, equal): " + "; ".join(
               f"{k}: {v[0]:g}, {v[1] / 1e6:.2f}; "
               f"{b0['implied'].get(k, 0) / 1e6:.2f}"
               for k, v in sorted(b0["counts"].items()))
@@ -4027,6 +3990,149 @@ def distributed_phase(torch, dev, card):
                                     "shapes": bwd}}
 
 
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+#: (arch, shape) of phase dryrun: a training cell through the d 80 flash
+#: forward and backward on wgmma, and a decode cell (MoE, a sliding
+#: window's cache)
+DRYRUN_CELLS = (("hubert-xlarge", "train_4k"), ("mixtral-8x7b",
+                                                "decode_32k"))
+DRYRUN_MESH = (16, 16)
+
+
+def _counted(rec):
+    """A dry-run record's counts (what must not depend on the device)."""
+    acct = rec.get("acct", {})
+    return {"cost": rec.get("cost"), "counts": rec.get("counts"),
+            "collective_bytes": rec.get("collective_bytes"),
+            "collective_link_bytes": rec.get("collective_link_bytes"),
+            "acct": {k: v for k, v in acct.items() if k not in ("L1", "L2")},
+            "acct_L": [{k: v for k, v in acct[n].items() if k != "launches"}
+                       for n in ("L1", "L2") if n in acct]}
+
+
+def dispatch_cost(torch, dev, calls=2000):
+    """Host microseconds of one eager call of ``ops.wkv`` (the
+    ``repro_torch::wkv`` operator, what the counter sees) and of the
+    kernel's wrapper called directly, at rwkv6-7b's decode shape (4, 1,
+    64, 64) bf16: ``calls`` calls then a synchronise, the two in turns,
+    three rounds; the least round of each."""
+    from repro_torch.kernels import ops, rwkv6_wkv
+    args = wkv_inputs(torch, 4, 1, 64, 64, torch.bfloat16, dev, 0)
+    best = {"operator": float("inf"), "wrapper": float("inf")}
+    for _ in range(3):
+        for name, fn in (("operator", ops.wkv), ("wrapper", rwkv6_wkv.wkv)):
+            fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(*args)
+            torch.cuda.synchronize()
+            best[name] = min(best[name],
+                             (time.perf_counter() - t0) / calls * 1e6)
+    return best
+
+
+def dryrun_phase(torch, dev, card):
+    """Phase `dryrun` (see the module docstring); returns the flash
+    launches of the card's runs by kernel and (rank-local) shape."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import ici_gating
+    from repro_torch.launch import dryrun as D
+    name = "dryrun"
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    launched = {"flash_attention": {"launches": 0, "shapes": {}},
+                "flash_attention_bwd": {"launches": 0, "shapes": {}}}
+    for arch, shape_name in DRYRUN_CELLS:
+        recs = {}
+        for where in ("cuda", "meta"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            recs[where] = D.run_cell(arch, shape_name, "single",
+                                     device=where, verbose=False,
+                                     results=DRYRUN_DIR / where)
+        rec = recs["cuda"]
+        if not rec["ok"] or "acct" not in rec:
+            fail(f"dryrun {arch} {shape_name}: the card's run failed: "
+                 f"{rec.get('error') or rec.get('acct_error')}\n"
+                 f"{rec.get('traceback', '')}")
+        for where, r in recs.items():
+            if D.unknown_ops(r):
+                fail(f"dryrun {arch} {shape_name}: ops without a counting "
+                     f"rule on {where}: {D.unknown_ops(r)}")
+        if _counted(rec) != _counted(recs["meta"]):
+            fail(f"dryrun {arch} {shape_name}: the card's counts "
+                 f"{_counted(rec)} differ from meta's "
+                 f"{_counted(recs['meta'])}")
+        got = {k: v[1] for k, v in rec["collective_bytes"].items()}
+        if got != rec["implied_bytes"]:
+            fail(f"dryrun {arch} {shape_name}: collective bytes {got}; the "
+                 f"specs imply {rec['implied_bytes']}")
+        runs = [rec["launches"]] + [rec["acct"][n]["launches"]
+                                    for n in ("L1", "L2")]
+        flash = {k: {v: sum(r[k][v] for r in runs) for v in runs[0][k]}
+                 for k in ("flash_attention", "flash_attention_bwd")}
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        if shape.kind == "train":
+            n_layers = cfg.n_layers + 1 + 2      # full depth, L1, L2
+            want = {"flash_attention": 2 * n_layers,
+                    "flash_attention_bwd": n_layers}
+            for k, n in want.items():
+                if flash[k] != {"wgmma": n, "cuda_core": 0}:
+                    fail(f"dryrun {arch} {shape_name}: {k} launches "
+                         f"{flash[k]}; expected {n}, all wgmma")
+        key = (shape.global_batch // DRYRUN_MESH[0], shape.seq_len,
+               cfg.n_heads // DRYRUN_MESH[1], cfg.d_head, cfg.d_head,
+               cfg.causal)
+        for k, by in flash.items():
+            n = sum(by.values())
+            if n:
+                launched[k]["launches"] += n
+                launched[k]["shapes"][key] = \
+                    launched[k]["shapes"].get(key, 0) + n
+        mem, acct = rec["memory"], rec["acct"]
+        args, temp = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
+        phase(name, f"{arch} {shape_name}, rank 0 of the "
+              f"{DRYRUN_MESH[0]} x {DRYRUN_MESH[1]} mesh (fake process "
+              f"group) on the card: {rec['compile_s']:.1f} s wall (the full "
+              f"depth; meta's {recs['meta']['compile_s']:.1f} s); arguments "
+              f"{args / 2**30:.3f} GiB, peak {(args + temp) / 2**30:.3f} GiB "
+              f"a device (temp {temp / 2**30:.3f}); per layer "
+              f"{acct['per_layer_flops']:.6g} FLOPs ({acct['per_layer_dot_flops']:.6g} "
+              f"in products), {acct['per_layer_bytes']:.6g} bytes, "
+              f"{acct['per_layer_coll_link_bytes']:.6g} collective link "
+              f"bytes; the step {rec['cost']['flops']:.6g} FLOPs, "
+              f"{rec['collective_link_bytes']:.6g} link bytes; collectives "
+              f"{rec['collectives']}; flash launches {flash}; counts equal "
+              f"meta's, collective bytes equal the implied "
+              f"{rec['implied_bytes']}; every op counted (no unknown op on "
+              f"either device); card {card}")
+    old_results = ici_gating.RESULTS
+    ici_gating.RESULTS = DRYRUN_DIR / "cuda"
+    try:
+        rows = ici_gating.analyze_all(device=dev)
+    finally:
+        ici_gating.RESULTS = old_results
+    if len(rows) != len(DRYRUN_CELLS):
+        fail(f"dryrun: analyze_all read {len(rows)} records, expected "
+             f"{len(DRYRUN_CELLS)}")
+    phase(name, "ici_gating.analyze_all on the card over these records "
+          "(modelled TPU v5e pod constants): " + "; ".join(
+              f"{r['arch']} {r['shape']}: collective duty "
+              f"{r['collective_duty']:.4f}, scheduled savings "
+              f"{r['scheduled']['ici_energy_savings']:.4f}, reactive "
+              f"{r['reactive']['ici_energy_savings']:.4f} at "
+              f"{r['reactive']['latency_penalty']:.4f} stall"
+              for r in rows))
+    cost = dispatch_cost(torch, dev)
+    phase(name, f"host cost of the kernel operators: ops.wkv at (4, 1, 64, "
+          f"64) bf16 {cost['operator']:.2f} us a call, the kernel's wrapper "
+          f"called directly {cost['wrapper']:.2f} us (+"
+          f"{cost['operator'] - cost['wrapper']:.2f} us a call: x 16 layers "
+          f"a serve-rwkv6-7b decode step); card {card}")
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    return launched
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(
         description="Drive the port's main paths on one GPU and check them; "
@@ -4038,6 +4144,9 @@ def main() -> None:
     ap.add_argument("--distributed", action="store_true",
                     help="run only the build and phase distributed; prints "
                     "no kernels or device line")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="run only the build and phase dryrun; prints no "
+                    "kernels or device line")
     ap.add_argument("--bwd-digests", action="store_true",
                     help="run only the build and print a digest of each "
                     "FLASH_BWD_CASES case's flash backward (to compare "
@@ -4079,6 +4188,11 @@ def main() -> None:
     if opts.distributed:
         distributed_phase(torch, dev, card)
         phase("done", f"phase distributed in "
+              f"{time.perf_counter() - t_start:.0f} s; card {card}")
+        return
+    if opts.dryrun:
+        dryrun_phase(torch, dev, card)
+        phase("done", f"phase dryrun in "
               f"{time.perf_counter() - t_start:.0f} s; card {card}")
         return
     if serve_only:
@@ -4351,6 +4465,14 @@ def main() -> None:
     # 9f. the distributed layer: a single-device process, 4 gloo ranks
     # on a 2 x 2 mesh, one NCCL rank ----------------------------------
     for k, got in distributed_phase(torch, dev, card).items():
+        paths[k]["launches"] += got["launches"]
+        for key, n in got["shapes"].items():
+            paths[k]["shapes"][key] = paths[k]["shapes"].get(key, 0) + n
+            train_shapes.add(key)
+
+    # 9g. the dry run: rank 0 of the production mesh, counted on the
+    # card and on meta ------------------------------------------------
+    for k, got in dryrun_phase(torch, dev, card).items():
         paths[k]["launches"] += got["launches"]
         for key, n in got["shapes"].items():
             paths[k]["shapes"][key] = paths[k]["shapes"].get(key, 0) + n

@@ -72,8 +72,8 @@ def main(device=None):
     print("\n=== TPU ICI fabric (beyond-paper) ===")
     rows = ici_gating.analyze_all(device=device)
     if not rows:
-        print("(no dry-run artifacts under results/dryrun; the dry-run "
-              "launcher writes them)")
+        print("(no dry-run artifacts under results/dryrun_torch; "
+              "`python -m repro_torch.launch.dryrun --all` writes them)")
         return
     for r in rows[:6]:
         print(f"{r['arch']:22s} {r['shape']:12s} "

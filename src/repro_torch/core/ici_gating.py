@@ -44,7 +44,9 @@ from repro_torch.core import constants as C
 from repro_torch.core import gating
 from repro_torch.device import resolve_device
 
-RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun"
+#: the port's dry-run records (``launch.dryrun``: its own counter, so not
+#: the reference's ``results/dryrun``)
+RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 
 @dataclass(frozen=True)
@@ -305,7 +307,7 @@ def analyze_cell(arch: str, shape: str, *, idle_frac: float = 0.0,
 
 def analyze_all(idle_frac: float = 0.0, device=None) -> list[dict]:
     """Both policies on every single-mesh dry-run record under
-    ``RESULTS`` (none until the dry-run launcher writes them), on
+    ``RESULTS`` (none until ``launch.dryrun`` writes them), on
     ``device`` (``None``: CUDA)."""
     dev = resolve_device(device)
     out = []

@@ -33,11 +33,21 @@ backward is its transpose:
 
 ``COLLECTIVE_COUNTS[(op, axis)]`` counts ``[calls, bytes]`` of every
 collective a rank launches (bytes: the tensor the rank hands to it), as
-each kernel wrapper counts ``LAUNCHES``. A gloo group cannot run most
+each kernel wrapper counts ``LAUNCHES``; ``COLLECTIVE_LOG`` keeps one
+``(op, axis, result bytes, group size)`` record a call, what
+``launch.hlo_analysis.collective_stats`` turns into the reference's
+per-op HLO statistics. A gloo group cannot run most
 collectives on CUDA tensors; there the collective's tensor is staged
 through host memory and back (transport ``HOST_STAGED_TRANSPORT``,
 counted per op in ``HOST_STAGED``): only the collective's bytes leave
 the card, and an NCCL group never takes it.
+
+While ``FAKE`` is set (torch's fake process group is the default
+group: the dry run's rank 0 of a production mesh,
+``launch.mesh.fake_world``) nothing is sent: every collective is
+counted and its result is zeros of the result's shape. Never unwritten
+memory, so no garbage reaches a router or a kernel; the same values on
+every device (the dry run reads shapes and counts, not values).
 """
 from __future__ import annotations
 
@@ -49,6 +59,11 @@ import torch.distributed as tdist
 
 #: (op, axis) -> [calls, bytes] launched by this rank
 COLLECTIVE_COUNTS: dict = {}
+#: (op, axis, result bytes, group size) of each call, in call order
+COLLECTIVE_LOG: list = []
+#: set while the default group is torch's fake one (``launch.mesh
+#: .fake_world``)
+FAKE = False
 #: op -> calls staged through host memory (gloo with CUDA tensors)
 HOST_STAGED: dict = {}
 HOST_STAGED_TRANSPORT = "_gloo_host_staged"
@@ -61,6 +76,7 @@ _reduce_scatter_single = getattr(tdist, "reduce_scatter_single", None) or \
 
 def reset_counts() -> None:
     COLLECTIVE_COUNTS.clear()
+    COLLECTIVE_LOG.clear()
     HOST_STAGED.clear()
 
 
@@ -144,6 +160,11 @@ def group(dist, axes):
     return g
 
 
+def forget_groups() -> None:
+    """Drop the multi-axis groups made so far (their world is gone)."""
+    _GROUPS.clear()
+
+
 def make_groups(dist) -> None:
     """Make the multi-axis groups this mesh's collectives use (the data
     axes together when there are several, and every axis)."""
@@ -152,11 +173,24 @@ def make_groups(dist) -> None:
     group(dist, tuple(dist.mesh.mesh_dim_names))
 
 
-def _count(op, axes, t) -> None:
+def _count(op, axes, t, n, shape):
+    """Counts one call of ``op`` over ``axes`` (``n`` ranks) handed
+    ``t``, its result of ``shape`` in ``t``'s dtype. Returns that result
+    as zeros under ``FAKE``, else None."""
     key = (op, "+".join(as_axes(axes)))
     c = COLLECTIVE_COUNTS.setdefault(key, [0, 0])
     c[0] += 1
     c[1] += t.numel() * t.element_size()
+    COLLECTIVE_LOG.append((op, key[1], math.prod(shape) * t.element_size(),
+                           n))
+    return t.new_zeros(shape) if FAKE else None
+
+
+def _resized(t, dim, n) -> list:
+    """``t``'s shape with dimension ``dim`` of size ``n``."""
+    shape = list(t.shape)
+    shape[dim] = n
+    return shape
 
 
 def _staged(g, t) -> bool:
@@ -175,10 +209,12 @@ def _host(op, g, t):
 
 def all_reduce_(dist, axes, t, op=tdist.ReduceOp.SUM):
     """Reduce ``t`` over ``axes``; returns the result (a new tensor
-    when staged, else ``t`` reduced in place)."""
+    when staged or under ``FAKE``, else ``t`` reduced in place)."""
     g = group(dist, axes)
     name = "psum" if op == tdist.ReduceOp.SUM else "pmax"
-    _count(name, axes, t)
+    fake = _count(name, axes, t, axes_size(dist, axes), t.shape)
+    if fake is not None:
+        return fake
     h = _host(name, g, t.contiguous())
     tdist.all_reduce(h, op=op, group=g)
     return h.to(t.device) if h.device != t.device else h
@@ -189,7 +225,10 @@ def all_gather_(dist, axes, t, dim):
     gradient)."""
     g = group(dist, axes)
     n = axes_size(dist, axes)
-    _count("all_gather", axes, t)
+    fake = _count("all_gather", axes, t, n,
+                  _resized(t, dim, n * t.shape[dim]))
+    if fake is not None:
+        return fake
     src = _host("all_gather", g, t.movedim(dim, 0).contiguous())
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device,
@@ -204,7 +243,10 @@ def _reduce_scatter(dist, axes, t, dim):
     if t.shape[dim] % n:
         raise ValueError(f"psum_scatter: dimension {dim} of {tuple(t.shape)}"
                          f" does not divide over {n} ranks of {axes}")
-    _count("psum_scatter", axes, t)
+    fake = _count("psum_scatter", axes, t, n,
+                  _resized(t, dim, t.shape[dim] // n))
+    if fake is not None:
+        return fake
     src = _host("psum_scatter", g, t.movedim(dim, 0).contiguous())
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device,
@@ -322,7 +364,9 @@ def scatter(x, dist, axes, dim):
 def _permute(dist, axis, t, perm):
     g = group(dist, axis)
     me = axis_index(dist, axis)
-    _count("ppermute", axis, t)
+    fake = _count("ppermute", axis, t, axes_size(dist, axis), t.shape)
+    if fake is not None:
+        return fake
     src = _host("ppermute", g, t.contiguous())
     out = torch.zeros_like(src)
     ops = []

@@ -16,12 +16,12 @@
 * attention_naive - the direct (T, S) softmax (small shapes only).
 * wkv_ref         - the sequential RWKV-6 recurrence (models/rwkv6.py),
   held against csrc/rwkv6_wkv.cu.
-* attention_lse_ref, attention_bwd_ref, wkv_bwd_ref - the training
-  side: the rows' log-sum-exp the flash forward writes, and the
-  gradients the two backward kernels compute, step by step in float32
-  (not through autograd). They serve the tests and the card's checks;
-  the training path runs the kernels (CUDA) or autograd through the
-  plain forwards (CPU).
+* attention_lse_ref, wkv_ckpt_ref, attention_bwd_ref, wkv_bwd_ref - the
+  training side: the rows' log-sum-exp the flash forward writes, the
+  states the wkv forward keeps, and the gradients the two backward
+  kernels compute, step by step in float32 (not through autograd).
+  The training path runs them on CPU tensors (``ops.attention``,
+  ``ops.wkv``), the kernels on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ from repro_torch.kernels.lcdc_switch import (CSW_SERVE_RATE,
                                              RSW_SERVE_RATE, TIER_ACC,
                                              Tiers)
 from repro_torch.models.attention import chunked_attention as attention_ref  # noqa: F401
+from repro_torch.kernels.rwkv6_wkv import CHUNK
 from repro_torch.models.rwkv6 import wkv_scan as wkv_ref  # noqa: F401
 
 BIG = 1e30
@@ -350,6 +351,19 @@ def attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, swa_window=0):
     dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
     dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
     return dq, dk, dv
+
+
+def wkv_ckpt_ref(r, k, v, w, u, state):
+    """``wkv_ref``'s (y, final state) and, as ``rwkv6_wkv.wkv_ckpt``
+    keeps for the backward, the float32 state before every chunk of
+    ``rwkv6_wkv.CHUNK`` tokens (B, H, ceil(T / CHUNK), dh, dh): the
+    recurrence run chunk by chunk, the same bits as one run."""
+    ys, ckpt, s = [], [], state.float()
+    for t0 in range(0, r.shape[1], CHUNK):
+        ckpt.append(s)
+        y, s = wkv_ref(*(a[:, t0:t0 + CHUNK] for a in (r, k, v, w)), u, s)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s, torch.stack(ckpt, dim=2)
 
 
 def wkv_bwd_ref(r, k, v, w, u, s0, dy, dsT=None):

@@ -88,11 +88,16 @@ def wkv_ckpt(r, k, v, w, u, state):
     ``CHUNK`` tokens, float32 (B, H, ceil(T / CHUNK), dh, dh): the
     forward of a training step, for ``wkv_bwd``."""
     _check(r, k, v, w, u, state)
-    B, T, H, dh = r.shape
-    ckpt = torch.empty((B, H, -(-T // CHUNK), dh, dh), dtype=torch.float32,
-                       device=r.device)
-    y, s_out = _launch(r, k, v, w, u, state, *plan(B, T, H), ckpt)
+    ckpt = torch.empty(ckpt_shape(r), dtype=torch.float32, device=r.device)
+    y, s_out = _launch(r, k, v, w, u, state, *plan(*r.shape[:3]), ckpt)
     return y, s_out, ckpt
+
+
+def ckpt_shape(r) -> tuple:
+    """(B, H, ceil(T / CHUNK), dh, dh): ``wkv_ckpt``'s states of r (B, T,
+    H, dh)."""
+    B, T, H, dh = r.shape
+    return (B, H, -(-T // CHUNK), dh, dh)
 
 
 def wkv_bwd(r, k, v, w, u, ckpt, dy, ds_out=None):

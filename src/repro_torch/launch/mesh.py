@@ -8,6 +8,12 @@ Single pod: 16 x 16 = 256 ranks ('data', 'model'). Multi-pod: 2 x 16 x
 parallelism. A mesh's device type follows the default group's backend
 (NCCL: "cuda"; gloo: "cpu", also when the ranks compute on a card: the
 mesh only names the groups, the compute device is the caller's).
+
+``fake_world(n)`` stands up torch's fake process group as the default
+group at rank 0 of a world of n ranks, in one process: the dry run's
+production mesh, whose collectives move nothing (``distributed
+.collectives`` gives zeros for their results). It refuses to start
+beside a real default group.
 """
 from __future__ import annotations
 
@@ -28,6 +34,30 @@ def world_size() -> int:
     if tdist.is_available() and tdist.is_initialized():
         return tdist.get_world_size()
     return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """Rank 0 of a world of ``n`` ranks on torch's fake process group
+    (``torch.testing._internal.distributed.fake_pg``), torn down on
+    exit; the port's collectives send nothing meanwhile
+    (``distributed.collectives.FAKE``). Raises when a default group is
+    already up: a real job's collectives are never faked."""
+    if tdist.is_initialized():
+        raise RuntimeError(
+            f"a default process group ({tdist.get_backend()}, world "
+            f"{tdist.get_world_size()}) is already up: the dry run fakes "
+            f"a world of its own and never a real job's collectives")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    tdist.init_process_group("fake", store=FakeStore(), rank=0,
+                             world_size=n)
+    C.FAKE = True
+    try:
+        yield
+    finally:
+        C.FAKE = False
+        C.forget_groups()
+        tdist.destroy_process_group()
 
 
 def _mesh(shape, axes):

@@ -69,13 +69,14 @@ def unembed(x, w):
     As the reference's ``preferred_element_type=float32``: products of
     the operands' own values summed in float32, with no float32 copy of
     the head. On the card a bf16/fp16 head goes to cuBLAS with a float32
-    output (``torch.mm(..., out_dtype=torch.float32)``); on the CPU the
-    operands are cast (the CPU runs the float32 reduced configs).
+    output (``torch.mm(..., out_dtype=torch.float32)``), and so do
+    ``meta`` tensors (the dry run's count of the card's step); on the
+    CPU the operands are cast (the CPU runs the float32 reduced configs).
     """
     B, T, d = x.shape
     if x.dtype == w.dtype and x.dtype in (torch.float32, torch.float64):
         return x @ w.t()
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         x2 = x.reshape(B * T, d)
         if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
             return _Unembed.apply(x2, w).reshape(B, T, -1)

@@ -230,6 +230,19 @@ TP_USE = {"attn": {"wq": "keep", "wo": "keep", "wk": "partial",
           "mlp": {"w_gate": "keep", "w_up": "keep", "w_down": "keep"}}
 
 
+def tp_attention(cfg, dist) -> bool:
+    """Whether an attention layer's forward (not a decode step) splits
+    its heads over 'model': GQA whose heads divide the axis."""
+    return dist is not None and cfg.attn_type != "mla" and \
+        cfg.n_heads % dist.model_size == 0
+
+
+def tp_mlp(cfg, dist) -> bool:
+    """Whether the dense FFN is tensor-parallel over 'model': d_ff
+    divides the axis."""
+    return dist is not None and cfg.d_ff % dist.model_size == 0
+
+
 def _tp_leaves(p, specs, dist, part):
     """The leaves of a tensor-parallel part (``TP_USE[part]``) as the
     rank uses them: gathered over every axis, but 'model' kept for a
@@ -240,7 +253,7 @@ def _tp_leaves(p, specs, dist, part):
             for k, v in p.items()}
 
 
-def _tp_kv_heads(cfg, model_size, r):
+def tp_kv_heads(cfg, model_size, r):
     """The kv heads rank ``r`` of 'model' computes for its q heads
     [r H / m, (r + 1) H / m): a ``range`` when its q heads are whole
     groups, else one kv head a q head (a group split between ranks)."""
@@ -260,7 +273,7 @@ def _gqa_tp(cfg, p, specs, h, *, positions, kernel_fn, dist, want_cache):
     gathered over 'model', else None)."""
     ma, m, dh = dist.model_axis, dist.model_size, cfg.d_head
     w = _tp_leaves(p, specs, dist, "attn")
-    kv = _tp_kv_heads(cfg, m, C.axis_index(dist, ma))
+    kv = tp_kv_heads(cfg, m, C.axis_index(dist, ma))
     cols = slice(kv[0] * dh, (kv[-1] + 1) * dh) if isinstance(kv, range) \
         else torch.tensor([j * dh + i for j in kv for i in range(dh)],
                           device=h.device)
@@ -272,7 +285,7 @@ def _gqa_tp(cfg, p, specs, h, *, positions, kernel_fn, dist, want_cache):
     if not want_cache:
         return out, None
     # each kv head from the first rank that computed it
-    order = [j for r in range(m) for j in _tp_kv_heads(cfg, m, r)]
+    order = [j for r in range(m) for j in tp_kv_heads(cfg, m, r)]
     first = torch.tensor([order.index(j) for j in range(cfg.n_kv)],
                          device=h.device)
     return out, tuple(
@@ -290,8 +303,7 @@ def _attn_layer(cfg, p, specs, h, *, positions, kernel_fns, cache, pos,
             return attn.gqa_decode_sp(pa, cfg, h, cache, pos, dist)
         decode = attn.mla_decode if mla else attn.gqa_decode
         return decode(pa, cfg, h, cache, pos)
-    if dist is not None and not mla and \
-            cfg.n_heads % dist.model_size == 0:
+    if tp_attention(cfg, dist):
         out, rows = _gqa_tp(cfg, p["attn"], sp, h, positions=positions,
                             kernel_fn=kernel_fns.get("attention"),
                             dist=dist, want_cache=want_cache)
@@ -318,7 +330,7 @@ def _mlp(cfg, p, specs, h, dist):
     """The dense FFN; on a mesh column-parallel ``w_gate``/``w_up`` and
     row-parallel ``w_down`` over 'model' (their d_ff blocks), the
     partial outputs summed (Megatron), when d_ff divides the axis."""
-    if dist is None or cfg.d_ff % dist.model_size:
+    if not tp_mlp(cfg, dist):
         return swiglu_apply(_whole(p, specs, dist), h)
     ma = dist.model_axis
     return C.psum(swiglu_apply(_tp_leaves(p, specs, dist, "mlp"),
@@ -385,7 +397,7 @@ def _constrain_act(cfg, x, dist):
     return C.all_gather(x, dist, dist.model_axis, 2, replicated=True)
 
 
-def _sp_layer(cfg, kind, dist):
+def sp_layer(cfg, kind, dist):
     """Whether a decode of this layer runs ``gqa_decode_sp`` (its cache
     stays in its sequence-sharded layout)."""
     return dist is not None and kind == "attn" and cfg.decode_sp and \
@@ -413,7 +425,7 @@ def _run_stack(cfg, params, x, positions, kernel_fns, want_cache,
     for i, ((kind, ffn), p) in enumerate(zip(layer_kinds(cfg),
                                              params["layers"])):
         c_in = in_cache[i] if in_cache else None
-        keep = _sp_layer(cfg, kind, dist) and c_in is not None
+        keep = sp_layer(cfg, kind, dist) and c_in is not None
         if dist is not None and c_in and not keep:
             c_in = _cache_whole(c_in, cspecs[i], dist)
         x, c, _ = _layer_apply(cfg, p, x, kind=kind, ffn=ffn,
@@ -644,7 +656,7 @@ def _cache_len(cfg, cache, dist):
     """The global sequence length of a mesh's decode cache."""
     for (kind, _), c in zip(layer_kinds(cfg), cache["layers"]):
         if "k" in c:
-            n = dist.model_size if _sp_layer(cfg, kind, dist) else 1
+            n = dist.model_size if sp_layer(cfg, kind, dist) else 1
             return c["k"].shape[1] * n
         if "c_kv" in c:
             return c["c_kv"].shape[1]

@@ -116,7 +116,10 @@ def _top_k_gates(logits, k):
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     E = logits.shape[-1]
     me = probs.mean(dim=0)
-    ce = F.one_hot(idx[:, 0], E).float().mean(dim=0)
+    # jax.nn.one_hot's compare with an iota (F.one_hot's ops differ by
+    # device, and the dry run's count must not)
+    top1 = idx[:, :1] == torch.arange(E, device=idx.device)
+    ce = top1.float().mean(dim=0)
     return gates, idx, me, ce
 
 

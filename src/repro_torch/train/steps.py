@@ -79,13 +79,13 @@ def opt_state_specs(cfg, dist):
         ms = opt_specs(cfg, dist)
         return {"step": (), "m": ms, "v": ms}
     v: dict = {}
-    for ref, spec in _stacked_specs(cfg, dist).items():
+    for ref, spec in stacked_specs(cfg, dist).items():
         set_in(v, ref, {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:]}
                if len(spec) >= 2 else {"v": spec})
     return {"step": (), "v": v}
 
 
-def _stacked_specs(cfg, dist) -> dict:
+def stacked_specs(cfg, dist) -> dict:
     """Adafactor's leaf (``optim.adafactor.groups``, the reference's
     stacked layout) -> its spec, one entry a dimension: its members'
     spec, behind None for the stack dim of a stack of layers."""
@@ -103,7 +103,7 @@ def _adafactor_shards(cfg, dist):
     """``shards(ref, dims) -> (n, total)`` for ``adafactor_update`` on a
     mesh: the blocks the dims ``dims`` of leaf ``ref`` are cut into, and
     the sum over the ranks that hold them."""
-    stacked = _stacked_specs(cfg, dist)
+    stacked = stacked_specs(cfg, dist)
     names = tuple(dist.mesh.mesh_dim_names)
 
     def shards(ref, dims):
@@ -117,7 +117,7 @@ def _adafactor_shards(cfg, dist):
     return shards
 
 
-def _extras(cfg, dist):
+def moment_shards(cfg, dist):
     """(param spec tree, the (dim, axes) of each leaf's moments' extra
     data shard or None, in leaf order)."""
     specs = shd.param_specs(cfg, dist)[0]
@@ -151,7 +151,7 @@ def init_opt_state(cfg, params, dist=None):
         return opt_init(params)
     if cfg.optimizer != "adamw":
         return opt_init(params)
-    specs, extras = _extras(cfg, dist)
+    specs, extras = moment_shards(cfg, dist)
     return opt_init(unflatten(params, [_slice(p, e, dist) for p, e in
                                        zip(leaves(params), extras)]))
 
@@ -168,7 +168,7 @@ def make_train_step(cfg, dist=None, kernel_fns=None, peak_lr=3e-4,
     dist = as_dist(dist, "make_train_step")
     _, opt_update = make_optimizer(cfg)
     if dist is not None:
-        specs, extras = _extras(cfg, dist)
+        specs, extras = moment_shards(cfg, dist)
         copies = [_replicas(dist, s) for s in shd.spec_leaves(specs)]
         every_axis = tuple(dist.mesh.mesh_dim_names)
         if cfg.optimizer != "adamw":

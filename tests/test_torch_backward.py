@@ -1,10 +1,10 @@
 """The training side of the port's kernels on the CPU: the gradients of
-``ops.attention`` and ``ops.wkv`` (autograd through the plain versions
-on CPU tensors) and the plain backward versions the backward kernels
-are held against on the card (``ref.attention_bwd_ref``,
-``ref.wkv_bwd_ref``, ``ref.attention_lse_ref``), against ``jax.vjp`` of
-the reference's ``chunked_attention`` and ``wkv_scan`` on the same numpy
-inputs.
+``ops.attention`` and ``ops.wkv`` (on CPU tensors the plain backward
+versions, which the backward kernels are also held against on the card:
+``ref.attention_bwd_ref``, ``ref.wkv_bwd_ref``, with
+``ref.attention_lse_ref``), and those versions called directly, against
+``jax.vjp`` of the reference's ``chunked_attention`` and ``wkv_scan`` on
+the same numpy inputs.
 
 Tolerances, each gradient against its largest magnitude: 1e-5 (float32
 sums in another order; they read 4.1e-7 for attention and 2.5e-7 for

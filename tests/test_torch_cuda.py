@@ -39,6 +39,11 @@ Fig 7 samplers (the mixture pick bit for bit, sizes and intervals within
 tests/test_torch_traffic.py holds the CPU against the reference) and
 ``reactive_policy`` (its CUDA-graph run equal to its eager run; the
 powered link-ticks exact against the CPU, the stall within 1e-6).
+
+The dry run (``launch.dryrun``): rank 0 of a 2 x 2 mesh on the fake
+process group, a reduced bf16 qwen3-8b train step run on the card
+through the kernels, counts (FLOPs, bytes, collectives) equal to the
+same step's on ``meta``, exactly.
 """
 import numpy as np
 import pytest
@@ -51,8 +56,11 @@ from repro_torch.core import simulator as S
 from repro_torch.core import traffic as T
 from repro_torch.core.topology import FBSite
 from repro_torch.core.traffic import TRAFFIC_SPECS
+from repro_torch.configs import ShapeConfig, get_config, reduced
 from repro_torch.kernels import (flash_attention, lcdc_switch, ops, ref,
                                  rwkv6_wkv)
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import dist_for, fake_world, make_test_mesh
 
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 WKV_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
@@ -1002,3 +1010,26 @@ def test_sweep_over_two_views_of_the_card(cuda, tmp_path, monkeypatch):
     again = S.resume_sweep(CK.latest_checkpoint(tmp_path, "v"),
                            device=cuda, shard=False)
     assert again == two
+
+
+@pytest.mark.cuda
+def test_dryrun_card_counts_equal_meta(cuda):
+    cfg = reduced(get_config("qwen3-8b"), remat=True, fsdp=True,
+                  dtype=torch.bfloat16)
+    shape = ShapeConfig("t", 64, 8, "train")
+    got = {}
+    for dev in (cuda, "meta"):
+        with fake_world(4):
+            dist = dist_for(make_test_mesh(2, 2))
+            got[str(dev)] = dryrun.lower_cell(cfg, shape, dist, dev)
+            implied = dryrun.implied_bytes(cfg, dist, shape)
+    card, meta = got[str(cuda)], got["meta"]
+    assert card["counts"] == meta["counts"]
+    assert card["unknown"] == meta["unknown"] == {}
+    assert card["log"] == meta["log"]
+    assert {k: v[1] for k, v in card["collective_bytes"].items()} == \
+        {"/".join(k): v for k, v in implied.items()}
+    fwd = card["launches"]["flash_attention"]
+    assert sum(fwd.values()) == 2 * 2          # 2 layers, remat
+    assert sum(card["launches"]["flash_attention_bwd"].values()) == 2
+    assert card["memory"]["temp_size_in_bytes"] > 0

@@ -20,7 +20,9 @@ tokens made with numpy:
   * two microbatches accumulated in the parameters' dtype against the
     reference's scan, the same bounds.
 The kernels' dispatch (``ops.model_kernel_fns()``) takes the plain
-versions on CPU tensors, and autograd differentiates those. Remat is
+versions on CPU tensors, and their plain backwards
+(``ref.attention_bwd_ref``, ``ref.wkv_bwd_ref``) differentiate them.
+Remat is
 checked by running a config with ``remat=True`` against itself without.
 """
 import dataclasses

@@ -129,8 +129,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
    ``serve-minicpm3-4b`` (MLA), ``serve-mixtral-8x7b`` (MoE, sliding
    window) and ``serve-jamba-v0.1-52b`` (Mamba + attention + MoE): the
    serving path at full width (random bf16 weights from a seed, loaded
-   one model at a time; qwen3-8b, rwkv6-7b and minicpm3-4b at 16
-   layers, mixtral and jamba at 8, SERVE_LAYERS):
+   one model at a time; rwkv6-7b at 16 layers, qwen3-8b, minicpm3-4b,
+   mixtral and jamba at 8, SERVE_LAYERS):
    one request's prefill logits through the kernels against the plain
    versions (float32, over the first LOGIT_LAYERS[arch] layers; and in
    bf16 at the served depth beside the effect of a small noise, for
@@ -204,7 +204,14 @@ Phases (one line each; any failure exits non-zero and prints no result):
    one-device decode (1e-4 of the scale); (e) ``pipeline_apply`` against
    the serial loop (1e-5); (f) train-qwen3-8b's shape through
    ``make_train_step(cfg, dist)`` over NCCL against the same steps
-   without dist, bit for bit or the first differing leaf; and the MoE
+   without dist, bit for bit or the first differing leaf; (g) rwkv6-7b
+   float32 at full width, 2 layers, RWKV tensor-parallel over 'model'
+   (the wkv kernels forward and backward on a rank's 32 heads, their
+   launches checked), one sharded step of 2 x 64 tokens against the
+   single-device one in (a)'s bands; (h) granite-34b float32 at full width, 2 layers (one kv
+   head): prefill and 4 decode steps on the cache's sequence blocks
+   over 'model', every step's logits against one device's (1e-4 of the
+   scale), a pmax over 'model' a layer a step; and the MoE
    backward run twice on one device (a full-width layer and a reduced
    mixtral step): equal bit for bit or the first differing gradient,
    printed (a reading). ``--distributed`` runs only the build and this
@@ -212,8 +219,12 @@ Phases (one line each; any failure exits non-zero and prints no result):
 9g. ``dryrun``: the dry run (``launch.dryrun``) of DRYRUN_CELLS, rank 0
    of the 16 x 16 production mesh on torch's fake process group, run on
    the card (the step through the hand kernels: hubert-xlarge train_4k's
-   16 x 4,096 frames a rank through the d 80 wgmma forward and backward)
-   and on ``meta``: wall seconds, argument and peak bytes a device,
+   16 x 4,096 frames a rank through the d 80 wgmma forward and backward;
+   qwen3-8b train_4k through the vocab-parallel head, a rank's float32
+   logits a 1/16 vocab block; internvl2-76b decode_32k on the cache's
+   sequence blocks over 'model') and on ``meta``: wall seconds, argument
+   and peak bytes a device, the rank's block of the logits or of the k/v
+   cache beside the whole,
    per-layer FLOPs, bytes and collective link bytes, the collectives by
    op, the flash launches by variant; the card's counts must equal the
    ``meta`` record's exactly, no op may lack a counting rule on either
@@ -247,7 +258,11 @@ Phases (one line each; any failure exits non-zero and prints no result):
    in the same call (and held too; the picked design's two runs equal
    bit for bit); then the flash backward's reading off the training
    paths (``BWD_READINGS``: hubert's d 80 at (8, 512)) beside SDPA's
-   fused backward (or the note that it refuses it) and the bound.
+   fused backward (or the note that it refuses it) and the bound; and
+   the wkv forward (serving's and training's) and backward at
+   ``WKV_READINGS``, rwkv6-7b train_4k's rank shape on the 16 x 16 mesh
+   (16 x 4,096, 4 heads), beside their plain versions and bounds (a
+   reading, outside the kernels line).
 
 The line before the last is a JSON object with one entry per kernel;
 the last line names the device. Imports neither JAX nor the JAX
@@ -322,8 +337,12 @@ SERVE_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "mixtral-8x7b",
 # script well inside its 1,200 s limit. With phase `distributed` (216 s
 # of a 1,042 s run on a slow host) qwen3-8b (36 layers, 129 s there) and
 # rwkv6-7b (32, 67 s) are cut to 16 too: every shape of their paths
-# stays. hubert-xlarge serves all its layers.
-SERVE_LAYERS = {"qwen3-8b": 16, "rwkv6-7b": 16, "minicpm3-4b": 16,
+# stays. With phase `distributed`'s (g) and (h) and phase `dryrun`'s two
+# more cells the script took 1,103 s of its 1,200 on an NVIDIA H100
+# 80GB HBM3 (700 W) with a slow host, qwen3-8b and minicpm3-4b at 16
+# layers taking 69.7 and 62.8 s of it: they are cut to 8, every shape
+# of their paths staying. hubert-xlarge serves all its layers.
+SERVE_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 16, "minicpm3-4b": 8,
                 "mixtral-8x7b": 8, "jamba-v0.1-52b": 8, "internvl2-76b": 8}
 SERVE_SEED = 0
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
@@ -2268,12 +2287,15 @@ def time_attention_kernels(torch, dev, card, paths, worst, train=()):
                           paths["flash_attention"]["launches"],
                           worst["flash_attention"], rows, library=True))
     rows = []
-    for (B, T), n in sorted(paths["wkv"]["shapes"].items()):
-        args = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 600)
+    for key, n in sorted(paths["wkv"]["shapes"].items()) + [
+            (r, 0) for r in WKV_READINGS]:
+        B, T, H = _wkv_key(key)
+        args = wkv_inputs(torch, B, T, H, 64, torch.bfloat16, dev, 600)
         y, s_out = rwkv6_wkv.wkv(*args)
-        layout = rwkv6_wkv.plan(B, T, 64)
-        row = {"shape": [B, T, 64, 64], "launches": n,
+        layout = rwkv6_wkv.plan(B, T, H)
+        row = {"shape": [B, T, H, 64], "launches": n,
                "groups_splits": list(layout)}
+        training = (B, T) in train or not n
         reps = 200 if T <= 1024 else 20
         fns = {
             "ms": (lambda: rwkv6_wkv.wkv(*args), reps),
@@ -2282,7 +2304,7 @@ def time_attention_kernels(torch, dev, card, paths, worst, train=()):
         if T <= 1024:
             fns["plain_ms"] = (lambda: ref.wkv_ref(*args),
                                max(2, min(50, 400 // T)))
-        if (B, T) in train:
+        if training:
             fns["ckpt_ms"] = (lambda: rwkv6_wkv.wkv_ckpt(*args), reps)
         row.update(turns(torch, fns))
         plain = {}
@@ -2290,7 +2312,7 @@ def time_attention_kernels(torch, dev, card, paths, worst, train=()):
             row["plain_ms"] = event_ms(torch, lambda: plain.__setitem__(
                 "out", ref.wkv_ref(*args)), 1)
         held = ""
-        if (B, T) in train:
+        if training:
             err = hold_train_wkv(torch, rwkv6_wkv, ref, args, y, s_out,
                                  plain)
             worst["wkv"] = max(worst["wkv"], err)
@@ -2300,16 +2322,19 @@ def time_attention_kernels(torch, dev, card, paths, worst, train=()):
                     f"bit-identical)")
         del plain
         row["bound_ms"], row["bound_by"] = wkv_bound(args, y, s_out)
-        rows.append(row)
+        if n:                   # WKV_READINGS stay out of the kernels line
+            rows.append(row)
         ck = (f" (training's, saving the states: "
               f"{row['ckpt_ms'] * 1e3:.1f} us)" if "ckpt_ms" in row else "")
-        phase("time", f"wkv ({B}, {T}, 64, 64) bf16: kernel (groups, "
+        phase("time", f"wkv ({B}, {T}, {H}, 64) bf16: kernel (groups, "
               f"splits {layout}) {row['ms'] * 1e3:.1f} us/launch{ck}, "
               f"one thread a column {row['first_ms'] * 1e3:.1f} us, plain "
               f"version {row['plain_ms'] * 1e3:.1f} us, bound "
               f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}): kernel "
-              f"{row['ms'] / row['bound_ms']:.2f}x bound; {n} launches on "
-              f"the path{held}; card {card}")
+              f"{row['ms'] / row['bound_ms']:.2f}x bound; "
+              + (f"{n} launches on the path" if n else
+                 "a reading, on no path of this script")
+              + f"{held}; card {card}")
     entries.append(_entry("wkv", "rwkv6_wkv.cu",
                           "src/repro/kernels/rwkv6_wkv.py:78",
                           paths["wkv"]["launches"], worst["wkv"], rows,
@@ -2495,6 +2520,17 @@ FLASH_BWD_CASES = [
 # backward and the bound, and not in the kernels line: hubert-xlarge's
 # d 80 at its encode's (8, 512)
 BWD_READINGS = [(8, 512, 16, 80, 80, False)]
+#: (B, T, H) of the wkv forward's and backward's readings off this
+#: script's paths: rwkv6-7b train_4k's rank shape on the 16 x 16 mesh
+#: (16 rows of 4,096 tokens, 4 of 64 heads: RWKV tensor-parallel over
+#: 'model'; the dry run's card run)
+WKV_READINGS = [(16, 4096, 4)]
+
+
+def _wkv_key(key):
+    """(B, T, H) of a wkv path key: (B, T) at rwkv6-7b's 64 heads, or
+    (B, T, H)."""
+    return tuple(key) if len(key) == 3 else tuple(key) + (64,)
 # (B, T, dtype, with a final-state gradient); H 64, dh 64
 WKV_BWD_CASES = [(1, 256, "bfloat16", False), (1, 256, "float32", True),
                  (2, 77, "bfloat16", True),
@@ -3363,11 +3399,13 @@ def time_backward_kernels(torch, dev, card, paths, worst):
                  "has no usable JVP in jax 0.9")
     entries.append(e)
     rows = []
-    for (B, T), n in sorted(paths["wkv_bwd"]["shapes"].items()):
-        args = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 820)
-        dy = wkv_inputs(torch, B, T, 64, 64, torch.bfloat16, dev, 821)[0]
+    for key, n in sorted(paths["wkv_bwd"]["shapes"].items()) + [
+            (r, 0) for r in WKV_READINGS]:
+        B, T, H = _wkv_key(key)
+        args = wkv_inputs(torch, B, T, H, 64, torch.bfloat16, dev, 820)
+        dy = wkv_inputs(torch, B, T, H, 64, torch.bfloat16, dev, 821)[0]
         _, _, ckpt = rwkv6_wkv.wkv_ckpt(*args)
-        row = {"shape": [B, T, 64, 64], "launches": n,
+        row = {"shape": [B, T, H, 64], "launches": n,
                "ms": event_ms(torch, lambda: rwkv6_wkv.wkv_bwd(
                    *args[:5], ckpt, dy), 10)}
         plain = {}
@@ -3375,21 +3413,24 @@ def time_backward_kernels(torch, dev, card, paths, worst):
             "grads", ref.wkv_bwd_ref(*args, dy)), 1)
         want = plain.pop("grads")
         got = [rwkv6_wkv.wkv_bwd(*args[:5], ckpt, dy) for _ in range(2)]
-        errs = hold_grads(torch, f"wkv_bwd ({B}, {T}, 64, 64) bf16", got[0],
+        errs = hold_grads(torch, f"wkv_bwd ({B}, {T}, {H}, 64) bf16", got[0],
                           want, WKV_BWD_TOL["bfloat16"])
         if not all(torch.equal(a, b) for a, b in zip(*got)):
-            fail(f"wkv_bwd ({B}, {T}, 64, 64) bf16: two runs differ")
+            fail(f"wkv_bwd ({B}, {T}, {H}, 64) bf16: two runs differ")
         del got
         worst["wkv_bwd"] = max(worst["wkv_bwd"], max(a for a, _ in errs))
         del want
         row["bound_ms"], row["bound_by"] = wkv_bwd_bound(args, ckpt)
-        rows.append(row)
-        phase("time", f"wkv backward ({B}, {T}, 64, 64) bf16: kernel "
+        if n:                   # WKV_READINGS stay out of the kernels line
+            rows.append(row)
+        phase("time", f"wkv backward ({B}, {T}, {H}, 64) bf16: kernel "
               f"{row['ms']:.3f} ms/launch, plain version "
               f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.3f} ms "
               f"({row['bound_by']}): kernel {row['ms'] / row['bound_ms']:.2f}"
               f"x bound; scratch {ckpt.numel() * 4 / 2**20:.0f} MiB a layer;"
-              f" {n} launches on the path; dr, dk, dv, dw, du, ds0 within "
+              + (f" {n} launches on the path" if n else
+                 " a reading, on no path of this script")
+              + "; dr, dk, dv, dw, du, ds0 within "
               + ", ".join(f"{r:.2g}" for _, r in errs)
               + " of the plain version's scales, two runs equal bit for bit"
               f" (tol {WKV_BWD_TOL['bfloat16']:g}); card {card}")
@@ -3436,6 +3477,22 @@ DIST_PIPE_TOL = 1e-5
 # (f) one NCCL rank, train-qwen3-8b's shape (TRAIN_LAYERS, TRAIN_BATCH x
 # TRAIN_SEQ, bf16), DIST_NCCL_STEPS steps with and without dist
 DIST_NCCL_STEPS = 2
+# (g) rwkv6-7b float32, full width, DIST_RWKV_LAYERS deep, B x T =
+# DIST_BATCH x DIST_RWKV_SEQ: RWKV tensor-parallel over 'model' (the wkv
+# kernels forward and backward on a rank's 32 heads), one step held to
+# the single-device one in (a)'s bands. In float64 the sharded gradient
+# equals the single-device one to ~1e-12 of a leaf's scale at T = 512;
+# in float32 the gradient of this random-init model is ill-conditioned
+# in T (the sharded one's distance from one device's, of a leaf's scale:
+# 5.9e-5 at T 64, 1.3e-4 at 128, 3.5e-3 at 256, 5e-3 at 512;
+# tools/rwkv_tp_witness.py, PERF.md), so (g) runs at T 64
+DIST_RWKV_LAYERS, DIST_RWKV_SEQ = 2, 64
+# (h) granite-34b float32 (one kv head), full width, DIST_SERVE_LAYERS
+# deep: prefill of DIST_SERVE_B x DIST_SERVE_T tokens, then
+# DIST_SERVE_NEW decode steps on the cache's sequence blocks over
+# 'model', every step's logits against one device's (DIST_DECODE_TOL of
+# their scale)
+DIST_SERVE_LAYERS, DIST_SERVE_B, DIST_SERVE_T, DIST_SERVE_NEW = 2, 4, 256, 4
 TRAIN_QWEN_MS = 556.4          # PERF.md section 5 (PR 24)
 
 
@@ -3509,29 +3566,76 @@ def _moe_bwd_twice(torch, fn):
     return len(a), _first_diff(torch, a, b)
 
 
+def _single_step(torch, cfg, T, dev, fns, out, tag, res):
+    """One make_train_step on one device from DIST_SEED's parameters and
+    a DIST_BATCH x T batch: its new parameters and AdamW's first moment
+    (0.1 x the gradient after the first step) saved under ``tag``, its
+    metrics and the moments' scales in ``res``. Returns the
+    parameters."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import init_opt_state, make_train_step
+    params = M.init_params(cfg, DIST_SEED, device=dev)
+    batch = _dist_tokens(torch, cfg, DIST_BATCH, T, dev)
+    new, opt, m = make_train_step(cfg, kernel_fns=fns)(
+        params, init_opt_state(cfg, params), batch, 0)
+    torch.save([t.cpu() for t in leaves(new)], out / f"{tag}_params.pt")
+    torch.save([t.cpu() for t in leaves(opt["m"])], out / f"{tag}_m.pt")
+    res[tag] = {k: float(v) for k, v in m.items()}
+    res[f"{tag}_m_scale"] = [float(t.abs().max()) for t in leaves(opt["m"])]
+    return params
+
+
+def _serve_steps(torch, cfg, params, dev, fns, dist=None):
+    """(h): prefill of DIST_SERVE_B x DIST_SERVE_T tokens, its cache
+    written into one of DIST_SERVE_T + DIST_SERVE_NEW rows (on a mesh
+    the rank's blocks of it, ``decode_cache_specs``), then a decode step
+    for each later token. Returns (the float32 logits of each, on the
+    host; the last decode step's COLLECTIVE_COUNTS)."""
+    import numpy as np
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    B, T, n = DIST_SERVE_B, DIST_SERVE_T, DIST_SERVE_NEW
+    toks = torch.as_tensor(np.random.default_rng(DIST_SEED + 3).integers(
+        0, cfg.vocab, (B, T + n)), device=dev)
+    with torch.no_grad():
+        logits, part = M.prefill(cfg, params, {"tokens": toks[:, :T]}, fns,
+                                 dist=dist)
+        cache = M.init_cache(cfg, B, T + n, device=dev)
+        if dist is not None:
+            part = shd.unshard_tree(part, shd.decode_cache_specs(
+                cfg, B, T, dist), dist)
+        M.write_cache(cache, part)
+        if dist is not None:
+            cache = shd.shard_tree(cache, shd.decode_cache_specs(
+                cfg, B, T + n, dist), dist)
+        del part
+        outs = [logits.float().cpu()]
+        for t in range(T, T + n):
+            C.reset_counts()
+            logits, cache = M.decode_step(
+                cfg, params, cache, toks[:, t:t + 1],
+                torch.full((B,), t, dtype=torch.int32, device=dev), fns,
+                dist=dist)
+            outs.append(logits.float().cpu())
+    return outs, {"/".join(k): v for k, v in C.COLLECTIVE_COUNTS.items()}
+
+
 def dist_single(_, out):
     """The single-device side of phase `distributed`: (a)'s step, (d)'s
-    decode, (c)'s moe_apply_pure, and the MoE backward run twice."""
+    decode, (c)'s moe_apply_pure, the MoE backward run twice, (g)'s
+    step and (h)'s prefill and decode."""
     torch, dev = _dist_setup()
     from repro_torch.core.tree import leaves
     from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models import moe
-    from repro_torch.train.steps import (_loss_and_grads, init_opt_state,
-                                         make_train_step)
+    from repro_torch.train.steps import _loss_and_grads
     res = {}
     cfg = _dist_cfg("qwen3-8b", DIST_F32_LAYERS, torch.float32)
-    params = M.init_params(cfg, DIST_SEED, device=dev)
-    batch = _dist_tokens(torch, cfg, DIST_BATCH, DIST_F32_SEQ, dev)
     fns = ops.model_kernel_fns()
-    new, opt, m = make_train_step(cfg, kernel_fns=fns)(
-        params, init_opt_state(cfg, params), batch, 0)
-    torch.save([t.cpu() for t in leaves(new)], out / "single_params.pt")
-    # AdamW's first moment after the first step: 0.1 x the gradient
-    torch.save([t.cpu() for t in leaves(opt["m"])], out / "single_m.pt")
-    res["a"] = {k: float(v) for k, v in m.items()}
-    res["a_m_scale"] = [float(t.abs().max()) for t in leaves(opt["m"])]
-    del new, opt
+    params = _single_step(torch, cfg, DIST_F32_SEQ, dev, fns, out, "a", res)
     cache, token, pos = _dist_cache(torch, cfg, dev)
     logits, _ = M.decode_step(cfg, params, cache, token, pos, fns)
     torch.save(logits.cpu(), out / "single_logits.pt")
@@ -3563,6 +3667,18 @@ def dist_single(_, out):
     rb = _dist_tokens(torch, rcfg, 2, 16, dev)
     res["moe_step_bwd"] = _moe_bwd_twice(
         torch, lambda: leaves(_loss_and_grads(rcfg, rp, rb, fns)[2]))
+    del rp
+    gc.collect()
+    torch.cuda.empty_cache()
+    _single_step(torch, _dist_cfg("rwkv6-7b", DIST_RWKV_LAYERS,
+                                  torch.float32),
+                 DIST_RWKV_SEQ, dev, fns, out, "g", res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gcfg = _dist_cfg("granite-34b", DIST_SERVE_LAYERS, torch.float32)
+    torch.save(_serve_steps(torch, gcfg, M.init_params(gcfg, DIST_SEED,
+                                                       device=dev),
+                            dev, fns)[0], out / "h_logits.pt")
     (out / "single.json").write_text(json.dumps(res))
 
 
@@ -3585,9 +3701,49 @@ def _in_turns(torch, rank, fn):
     return got
 
 
+def _held_step(torch, cfg, T, dist, dev, fns, out, tag):
+    """One sharded make_train_step on the rank's blocks of DIST_SEED's
+    parameters against the single-device step saved under ``tag``:
+    ({metrics, the worst parameter's difference, the worst gradient
+    block's difference of its leaf's scale, each over every rank}, the
+    rank's blocks)."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import (init_opt_state, make_train_step,
+                                         opt_specs)
+    specs = shd.param_specs(cfg, dist)[0]
+    blocks = M.init_params(cfg, DIST_SEED, device=dev, dist=dist)
+    batch = _dist_tokens(torch, cfg, DIST_BATCH, T, dev)
+    new, opt, m = make_train_step(cfg, dist, fns)(
+        blocks, init_opt_state(cfg, blocks, dist), batch, 0)
+    single = torch.load(out / f"{tag}_params.pt", mmap=True)
+    worst = max(float((a.float() - shd.block(b, s, dist).to(dev).float())
+                      .abs().max())
+                for a, b, s in zip(leaves(new), single,
+                                   shd.spec_leaves(specs)))
+    # the gradient, block by block: the first moment after one AdamW step
+    # (0.1 x the gradient) against the single-device one's block, of the
+    # whole leaf's scale (a gradient summed to the wrong block or with the
+    # wrong sign is off by its own size; a first step moves no parameter
+    # by more than the rate, far inside DIST_PARAM_TOL)
+    single = torch.load(out / f"{tag}_m.pt", mmap=True)
+    scales = json.loads((out / "single.json").read_text())[f"{tag}_m_scale"]
+    m_specs = shd.spec_leaves(opt_specs(cfg, dist))
+    g_worst = max(float((a - shd.block(b, s, dist).to(dev)).abs().max())
+                  / max(sc, 1e-30)
+                  for a, b, s, sc in zip(leaves(opt["m"]), single, m_specs,
+                                         scales))
+    got = {"metrics": {k: float(v) for k, v in m.items()},
+           "param_err": _dist_max(torch, dist, worst),
+           "grad_err": _dist_max(torch, dist, g_worst)}
+    del new, opt, single
+    return got, blocks
+
+
 def dist_ranks(rank, out):
     """One of the DIST_RANKS gloo ranks of phase `distributed`, on cuda:0:
-    (a), (d), (c), (e), then (b)."""
+    (a), (d), (c), (e), (g), (h), then (b)."""
     torch, dev = _dist_setup()
     import torch.distributed as tdist
     from repro_torch.core.tree import leaves
@@ -3602,8 +3758,7 @@ def dist_ranks(rank, out):
     from repro_torch.models import moe
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.dryrun import implied_bytes
-    from repro_torch.train.steps import (init_opt_state, make_train_step,
-                                         opt_specs)
+    from repro_torch.train.steps import init_opt_state, make_train_step
     tdist.init_process_group("gloo", init_method=f"file://{out}/store_ranks",
                              rank=rank, world_size=DIST_RANKS)
     dist = dist_for(make_test_mesh(2, 2))
@@ -3618,35 +3773,11 @@ def dist_ranks(rank, out):
 
     # (a) the float32 step against the single-device process's
     cfg = _dist_cfg("qwen3-8b", DIST_F32_LAYERS, torch.float32)
-    specs = shd.param_specs(cfg, dist)[0]
-    blocks = M.init_params(cfg, DIST_SEED, device=dev, dist=dist)
-    batch = _dist_tokens(torch, cfg, DIST_BATCH, DIST_F32_SEQ, dev)
     reset_train_counts(fa, rwkv6_wkv)
-    new, opt, m = make_train_step(cfg, dist, fns)(
-        blocks, init_opt_state(cfg, blocks, dist), batch, 0)
-    single = torch.load(out / "single_params.pt", mmap=True)
-    worst = max(float((a.float() - shd.block(b, s, dist).to(dev).float())
-                      .abs().max())
-                for a, b, s in zip(leaves(new), single,
-                                   shd.spec_leaves(specs)))
-    # the gradient, block by block: the first moment after one AdamW step
-    # (0.1 x the gradient) against the single-device one's block, of the
-    # whole leaf's scale (a gradient summed to the wrong block or with the
-    # wrong sign is off by its own size; a first step moves no parameter
-    # by more than the rate, far inside DIST_PARAM_TOL)
-    single = torch.load(out / "single_m.pt", mmap=True)
-    scales = json.loads((out / "single.json").read_text())["a_m_scale"]
-    m_specs = shd.spec_leaves(opt_specs(cfg, dist))
-    g_worst = max(float((a - shd.block(b, s, dist).to(dev)).abs().max())
-                  / max(sc, 1e-30)
-                  for a, b, s, sc in zip(leaves(opt["m"]), single, m_specs,
-                                         scales))
-    del new, opt, single
-    res["a"] = {"metrics": {k: float(v) for k, v in m.items()},
-                "param_err": _dist_max(torch, dist, worst),
-                "grad_err": _dist_max(torch, dist, g_worst),
-                "flash": [fa.LAUNCHES, dict(fa.VARIANT_LAUNCHES),
-                          fa.BWD_LAUNCHES, dict(fa.BWD_VARIANT_LAUNCHES)]}
+    res["a"], blocks = _held_step(torch, cfg, DIST_F32_SEQ, dist, dev, fns,
+                                  out, "a")
+    res["a"]["flash"] = [fa.LAUNCHES, dict(fa.VARIANT_LAUNCHES),
+                         fa.BWD_LAUNCHES, dict(fa.BWD_VARIANT_LAUNCHES)]
     part("a")
 
     # (d) gqa_decode_sp on (a)'s parameters, a sequence-sharded cache
@@ -3704,6 +3835,32 @@ def dist_ranks(rank, out):
         serial = torch.tanh(serial @ Ws[s])
     res["e"] = float((got - serial).abs().max())
     part("e")
+
+    # (g) rwkv6-7b tensor-parallel over 'model' against one device
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _dist_cfg("rwkv6-7b", DIST_RWKV_LAYERS, torch.float32)
+    reset_train_counts(fa, rwkv6_wkv)
+    res["g"], _ = _held_step(torch, cfg, DIST_RWKV_SEQ, dist, dev, fns,
+                             out, "g")
+    res["g"]["wkv"] = [rwkv6_wkv.LAUNCHES, rwkv6_wkv.BWD_LAUNCHES]
+    part("g")
+
+    # (h) granite-34b prefill and decode on the sequence-sharded cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = _dist_cfg("granite-34b", DIST_SERVE_LAYERS, torch.float32)
+    outs, counts = _serve_steps(torch, cfg, M.init_params(
+        cfg, DIST_SEED, device=dev, dist=dist), dev, fns, dist)
+    want = torch.load(out / "h_logits.pt")
+    res["h"] = {"errs": [float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(outs, want)],
+                "counts": counts,
+                "cache": [list(shd.decode_cache_specs(
+                    cfg, DIST_SERVE_B, DIST_SERVE_T + DIST_SERVE_NEW,
+                    dist)["layers"][0]["k"])]}
+    del outs, want
+    part("h")
 
     # (b) bf16, 4 layers, 3 steps
     gc.collect()
@@ -3900,6 +4057,50 @@ def distributed_phase(torch, dev, card):
     phase(name, f"(e) pipeline_apply, 4 stages of tanh(x @ W) (16 x 16), x "
           f"(8, 16), 4 microbatches, on cuda: {r0['e']:.3g} from the serial "
           f"loop (tol {DIST_PIPE_TOL})")
+    g = r0["g"]
+    dl = abs(g["metrics"]["loss"] - single["g"]["loss"])
+    dg = abs(g["metrics"]["grad_norm"] - single["g"]["grad_norm"]) / \
+        abs(single["g"]["grad_norm"])
+    if not (dl <= DIST_LOSS_TOL and g["param_err"] <= DIST_PARAM_TOL
+            and dg <= DIST_GN_RTOL and g["grad_err"] <= DIST_GRAD_TOL):
+        fail(f"distributed (g): rwkv6-7b loss off by {dl:.3g} (tol "
+             f"{DIST_LOSS_TOL}), parameters by {g['param_err']:.3g} (tol "
+             f"{DIST_PARAM_TOL}), grad_norm by {dg:.3g} relative (tol "
+             f"{DIST_GN_RTOL}), gradient blocks by {g['grad_err']:.3g} of "
+             f"their leaf's scale (tol {DIST_GRAD_TOL})")
+    passes = 2 if _dist_cfg("rwkv6-7b", 1).remat else 1
+    want = [passes * DIST_RWKV_LAYERS, DIST_RWKV_LAYERS]
+    for r in ranks:
+        if r["g"]["wkv"] != want:
+            fail(f"distributed (g): rank {r['rank']}'s wkv launches "
+                 f"(forward, backward) {r['g']['wkv']}; expected {want}")
+    rw = get_config("rwkv6-7b")
+    phase(name, f"(g) 2 x 2 mesh, rwkv6-7b float32 full width, "
+          f"{DIST_RWKV_LAYERS} layers, B {DIST_BATCH} x T {DIST_RWKV_SEQ}, "
+          f"RWKV tensor-parallel over 'model' (wr/wk/wv/wg and cm_wk column "
+          f"blocks, wo and cm_wv row blocks summed): loss "
+          f"{g['metrics']['loss']:.6f} (off by {dl:.3g}, tol "
+          f"{DIST_LOSS_TOL}), worst parameter {g['param_err']:.3g} (tol "
+          f"{DIST_PARAM_TOL}), grad_norm {dg:.3g} relative (tol "
+          f"{DIST_GN_RTOL}), worst gradient block {g['grad_err']:.3g} of its "
+          f"leaf's scale (tol {DIST_GRAD_TOL}); the wkv kernels on a rank's "
+          f"(B, T, H, dh) = ({DIST_BATCH // 2}, {DIST_RWKV_SEQ}, "
+          f"{rw.n_heads // 2}, {rw.rwkv_head_dim}) float32: {want[0]} "
+          f"forward and {want[1]} backward launches a rank")
+    h = r0["h"]
+    if not max(h["errs"]) <= DIST_DECODE_TOL or \
+            h["counts"].get("pmax/model", [0])[0] != DIST_SERVE_LAYERS:
+        fail(f"distributed (h): granite-34b logits {h['errs']} of their "
+             f"scale from one device's (tol {DIST_DECODE_TOL}); a decode "
+             f"step's collectives {h['counts']} (a pmax over 'model' a "
+             f"layer expected)")
+    phase(name, f"(h) 2 x 2 mesh, granite-34b float32 full width (one kv "
+          f"head), {DIST_SERVE_LAYERS} layers: prefill of {DIST_SERVE_B} x "
+          f"{DIST_SERVE_T} tokens, then {DIST_SERVE_NEW} decode steps on the "
+          f"cache laid out {h['cache'][0]} (the sequence over 'model'): "
+          f"every step's logits within {max(h['errs']):.3g} of one device's "
+          f"scale (tol {DIST_DECODE_TOL}); a decode step's collectives "
+          f"(calls, bytes) {h['counts']}")
     cfg = _dist_cfg("qwen3-8b", DIST_BF16_LAYERS)
     passes = 2 if cfg.remat else 1
     want_f = passes * DIST_BF16_LAYERS * DIST_STEPS
@@ -3992,11 +4193,46 @@ def distributed_phase(torch, dev, card):
 
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
 #: (arch, shape) of phase dryrun: a training cell through the d 80 flash
-#: forward and backward on wgmma, and a decode cell (MoE, a sliding
-#: window's cache)
+#: forward and backward on wgmma, a decode cell (MoE, a sliding window's
+#: cache), a training cell through the vocab-parallel head (qwen3-8b:
+#: each rank's float32 logits a 1/16 vocab block) and a decode cell on
+#: the sequence-sharded cache (internvl2-76b: 8 kv heads over a 16-wide
+#: 'model' axis)
 DRYRUN_CELLS = (("hubert-xlarge", "train_4k"), ("mixtral-8x7b",
-                                                "decode_32k"))
+                                                "decode_32k"),
+                ("qwen3-8b", "train_4k"), ("internvl2-76b", "decode_32k"))
 DRYRUN_MESH = (16, 16)
+
+
+def _layout_bytes(cfg, shape):
+    """(rank 0's k/v cache block bytes, the whole cache's k/v bytes) of a
+    decode cell, or (rank 0's float32 logits block bytes, the whole
+    vocab's) of a train cell, on the DRYRUN_MESH mesh (from the specs:
+    a shape-only mesh)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import DistContext
+
+    class Mesh:
+        shape = {"data": DRYRUN_MESH[0], "model": DRYRUN_MESH[1]}
+    dist = DistContext(mesh=Mesh())
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        b = B // DRYRUN_MESH[0]
+        return (b * S * (cfg.padded_vocab // DRYRUN_MESH[1]) * 4,
+                b * S * cfg.padded_vocab * 4)
+    specs = shd.decode_cache_specs(cfg, B, S, dist)["layers"]
+    whole = M.init_cache(cfg, B, S, device="meta")["layers"]
+    block = total = 0
+    for c, sp in zip(whole, specs):
+        for k in ("k", "v"):
+            if k in c:
+                t = c[k]
+                total += t.numel() * t.element_size()
+                block += t.numel() * t.element_size() // math.prod(
+                    C.axes_size(dist, e) for e in sp[k] if e)
+    return block, total
 
 
 def _counted(rec):
@@ -4091,12 +4327,16 @@ def dryrun_phase(torch, dev, card):
                     launched[k]["shapes"].get(key, 0) + n
         mem, acct = rec["memory"], rec["acct"]
         args, temp = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
+        block, whole = _layout_bytes(cfg, shape)
+        what = "float32 logits" if shape.kind == "train" else "k/v cache"
         phase(name, f"{arch} {shape_name}, rank 0 of the "
               f"{DRYRUN_MESH[0]} x {DRYRUN_MESH[1]} mesh (fake process "
               f"group) on the card: {rec['compile_s']:.1f} s wall (the full "
               f"depth; meta's {recs['meta']['compile_s']:.1f} s); arguments "
               f"{args / 2**30:.3f} GiB, peak {(args + temp) / 2**30:.3f} GiB "
-              f"a device (temp {temp / 2**30:.3f}); per layer "
+              f"a device (temp {temp / 2**30:.3f}); the rank's {what} block "
+              f"{block / 2**30:.3f} GiB of {whole / 2**30:.3f} GiB whole; "
+              f"per layer "
               f"{acct['per_layer_flops']:.6g} FLOPs ({acct['per_layer_dot_flops']:.6g} "
               f"in products), {acct['per_layer_bytes']:.6g} bytes, "
               f"{acct['per_layer_coll_link_bytes']:.6g} collective link "

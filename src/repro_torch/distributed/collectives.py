@@ -31,6 +31,12 @@ backward is its transpose:
 * ``pmax`` has no transpose (the reference's neither) and takes no
   gradient.
 
+A spec entry may be a ``Halves`` axis (Mamba's ``in_proj``, whose
+columns are ``[x | z]``): a rank's block of that dimension is its block
+of each half, side by side, so it holds the x and z columns of the same
+channels; ``block_of`` cuts it and ``all_gather_`` puts the halves back
+in order.
+
 ``COLLECTIVE_COUNTS[(op, axis)]`` counts ``[calls, bytes]`` of every
 collective a rank launches (bytes: the tensor the rank hands to it), as
 each kernel wrapper counts ``LAUNCHES``; ``COLLECTIVE_LOG`` keeps one
@@ -107,6 +113,31 @@ def spec_entry(axes):
     if not axes:
         return None
     return axes[0] if len(axes) == 1 else axes
+
+
+class Halves(str):
+    """A spec entry naming one mesh axis for a dimension of two halves
+    side by side (Mamba's ``in_proj`` columns ``[x | z]``): each half is
+    cut into blocks over the axis and a rank's block is its block of
+    each half, side by side. It equals the axis name, so a spec with it
+    compares equal to the reference's ``PartitionSpec``: only the
+    port's block of the dimension differs, a whole tensor is the
+    same."""
+
+    __slots__ = ()
+
+
+def _halves(axes) -> bool:
+    return any(isinstance(a, Halves) for a in as_axes(axes))
+
+
+def _unhalve(t, dim, n):
+    """Blocks [x_0 z_0 | x_1 z_1 | ...] of ``n`` ranks along ``dim`` ->
+    [x_0 x_1 ... | z_0 z_1 ...]."""
+    shape = list(t.shape)
+    blk = shape[dim] // (2 * n)
+    t = t.reshape(shape[:dim] + [n, 2, blk] + shape[dim + 1:])
+    return t.transpose(dim, dim + 1).reshape(shape)
 
 
 def axes_size(dist, axes) -> int:
@@ -234,7 +265,10 @@ def all_gather_(dist, axes, t, dim):
                       dtype=src.dtype, device=src.device,
                       pin_memory=src.is_pinned())
     _all_gather_single(out, src, group=g)
-    return out.to(t.device).movedim(0, dim).contiguous()
+    out = out.to(t.device).movedim(0, dim)
+    if _halves(axes):
+        out = _unhalve(out, dim, n)
+    return out.contiguous()
 
 
 def _reduce_scatter(dist, axes, t, dim):
@@ -255,10 +289,19 @@ def _reduce_scatter(dist, axes, t, dim):
     return out.to(t.device).movedim(0, dim).contiguous()
 
 
-def _block(dist, axes, t, dim):
+def block_of(dist, axes, t, dim):
+    """This rank's block of dimension ``dim`` of ``t`` over ``axes`` (a
+    view; a ``Halves`` axis: its block of each half, concatenated)."""
     n = axes_size(dist, axes)
+    i = axis_index(dist, axes)
+    if _halves(axes):
+        size = t.shape[dim] // (2 * n)
+        half = t.shape[dim] // 2
+        return torch.cat([t.narrow(dim, i * size, size),
+                          t.narrow(dim, half + i * size, size)], dim)
     size = t.shape[dim] // n
-    return t.narrow(dim, axis_index(dist, axes) * size, size)
+    return t.narrow(dim, i * size, size)
+
 
 
 class _Psum(torch.autograd.Function):
@@ -292,7 +335,7 @@ class _AllGather(torch.autograd.Function):
     def backward(ctx, g):
         dist, axes, dim, replicated = ctx.args
         if replicated:
-            return _block(dist, axes, g, dim).contiguous(), None, None, \
+            return block_of(dist, axes, g, dim).contiguous(), None, None, \
                 None, None
         return _reduce_scatter(dist, axes, g, dim), None, None, None, None
 
@@ -313,7 +356,7 @@ class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dist, axes, dim):
         ctx.args = (dist, axes, dim)
-        return _block(dist, axes, x, dim).contiguous()
+        return block_of(dist, axes, x, dim).contiguous()
 
     @staticmethod
     def backward(ctx, g):
@@ -430,7 +473,7 @@ class _GatherParam(torch.autograd.Function):
             if set(axes) <= set(data):
                 g = _reduce_scatter(dist, axes, g, dim)
             else:
-                g = _block(dist, axes, g, dim).contiguous()
+                g = block_of(dist, axes, g, dim).contiguous()
         rest = tuple(a for a in data if a not in used)
         if rest:
             g = all_reduce_(dist, rest, g.clone())

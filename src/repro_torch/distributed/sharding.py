@@ -5,8 +5,8 @@ the cut of a whole tree into this rank's blocks and back.
 A spec is a plain tuple with one entry a dimension: None, an axis name
 or a tuple of names -- ``tuple(PartitionSpec(...))`` of the reference's
 spec, so a test compares the two with ``==``. Shapes come from the
-port's ``init_params`` / ``init_cache`` on the ``meta`` device, never
-from allocated tensors. Policy (the reference's):
+port's ``init_params`` on the ``meta`` device (a cache's specs from the
+config alone), never from allocated tensors. Policy (the reference's):
 
   * TP   : d_ff, attention heads, vocab (head), rwkv/mamba inner dims
            over the 'model' axis;
@@ -15,6 +15,15 @@ from allocated tensors. Policy (the reference's):
   * DP   : batch over ('pod', 'data') (the pod axis extends data);
   * SP   : decode caches shard KV-seq over data when the batch does not
            divide it, and over 'model' when the kv heads do not.
+
+The port keeps a decode cache in that layout (``decode_cache_specs``):
+prefill hands back each rank's blocks, and a decode step attends over
+its blocks (a partial softmax combined over the sequence's axes, a
+rank's kv heads, rwkv's heads, Mamba's channels) without gathering the
+cache. Mamba's ``in_proj`` columns are ``[x | z]``: its 'model' entry is
+a ``collectives.Halves`` axis, so a rank's block holds the x and z
+columns of its channels (``block`` cuts each half, ``unblock`` puts
+them back; a whole leaf, a checkpoint's, is the reference's).
 
 MLA attention matrices stay model-replicated (minicpm3's 40 heads do
 not divide a 16-way axis). The port's parameters are per-layer dicts
@@ -81,7 +90,7 @@ def _leaf_spec(cfg, dist: DistContext, names: list[str], ndim: int):
         return ()                              # loras, maa, u, gn_w, w0
     if parent == "mamba":
         if name == "in_proj":
-            return (fsdp, ma)
+            return (fsdp, C.Halves(ma))
         if name == "out_proj":
             return (ma, fsdp)
         if name == "conv_w":
@@ -167,74 +176,85 @@ def cache_specs(cfg, shape, dist: DistContext):
     batch over data when divisible, else KV-seq over data (SP); rwkv and
     mamba states shard their head / inner dim over 'model'."""
     from repro_torch.models import model as model_lib
-    da, ma = _data_entry(dist), dist.model_axis
-    sizes = C.axis_sizes(dist.mesh)
-    B = shape.global_batch
+    return (_cache_specs(cfg, shape.global_batch, shape.seq_len, dist,
+                         kv_ok=cfg.n_kv % dist.model_size == 0),
+            model_lib.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device="meta"))
+
+
+def decode_kv_heads(cfg, dist: DistContext) -> bool:
+    """Whether ``decode_cache_specs`` keeps a rank's block of a GQA
+    layer's kv heads over 'model' (they divide it, and not
+    ``cfg.decode_sp``): its decode runs on the rank's heads."""
+    return cfg.attn_type != "mla" and not cfg.decode_sp and \
+        cfg.n_kv % dist.model_size == 0
+
+
+def _seq_axes(dist, batch_ok, kv_sharded) -> list:
+    """The axes a cache's sequence is cut over where its length divides
+    them: the data axes when the batch does not divide them, 'model'
+    when the kv heads do not."""
+    axes = [] if batch_ok else list(C.as_axes(_data_entry(dist)))
+    if not kv_sharded:
+        axes.append(dist.model_axis)
+    return axes
+
+
+def cache_seq_axes(cfg, batch: int, dist: DistContext) -> list:
+    """The axes ``decode_cache_specs`` cuts an attention layer's cache
+    sequence over (where the length divides them)."""
+    return _seq_axes(dist, batch % dist.data_size == 0,
+                     decode_kv_heads(cfg, dist))
+
+
+def _cache_specs(cfg, B, cache_len, dist, kv_ok):
+    """The spec tree of ``init_cache(cfg, B, cache_len)`` (from the
+    config alone: no tensor is made); ``kv_ok``: k/v keep their kv heads
+    over 'model', else their sequence takes it."""
+    from repro_torch.models import model as model_lib
+    ma, m = dist.model_axis, dist.model_size
     batch_ok = B % dist.data_size == 0
-    b_ax = da if batch_ok else None
-    cache = model_lib.init_cache(cfg, B, shape.seq_len, device="meta")
+    b_ax = _data_entry(dist) if batch_ok else None
+    S = min(cache_len, cfg.swa_window) if cfg.swa_window else cache_len
 
-    def seq_axes(S, kv_sharded):
-        axes = []
-        if not batch_ok:
-            axes.extend(C.as_axes(da))
-        if not kv_sharded:
-            axes.append(ma)
-        n = 1
-        for a in axes:
-            n *= sizes[a]
-        if axes and S % n == 0:
-            return C.spec_entry(axes)
-        return None
+    def seq(kv_sharded):
+        axes = _seq_axes(dist, batch_ok, kv_sharded)
+        return C.spec_entry(axes) if axes and \
+            S % C.axes_size(dist, axes) == 0 else None
 
-    def rule(name, leaf):
-        if name == "pos_offset":
-            return (b_ax,)
-        if name in ("k", "v"):                 # (B, S, Hkv, dh)
-            S, Hkv = leaf.shape[-3], leaf.shape[-2]
-            kv_ok = Hkv % dist.model_size == 0
-            return (b_ax, seq_axes(S, kv_ok), ma if kv_ok else None, None)
-        if name in ("c_kv", "k_rope"):         # (B, S, r)
-            return (b_ax, seq_axes(leaf.shape[-2], False), None)
-        if name == "wkv":                      # (B, H, dh, dh)
-            H = leaf.shape[-3]
-            return (b_ax, ma if H % dist.model_size == 0 else None, None,
-                    None)
-        if name in ("att_shift", "cm_shift"):  # (B, d)
-            return (b_ax, None)
-        if name == "conv":                     # (B, d_conv - 1, d_in)
-            return (b_ax, None, ma)
-        if name == "h":                        # (B, d_in, N)
-            return (b_ax, ma, None)
-        return (None,) * leaf.dim()
+    def layer(kind):
+        if kind == "attn" and cfg.attn_type == "mla":  # (B, S, r)
+            return {k: (b_ax, seq(False), None) for k in ("c_kv", "k_rope")}
+        if kind == "attn":                              # (B, S, Hkv, dh)
+            return {k: (b_ax, seq(kv_ok), ma if kv_ok else None, None)
+                    for k in ("k", "v")}
+        if kind == "mamba":          # (B, d_conv - 1, d_in), (B, d_in, N)
+            return {"conv": (b_ax, None, ma), "h": (b_ax, ma, None)}
+        H = cfg.d_model // cfg.rwkv_head_dim            # wkv (B, H, dh, dh)
+        return {"att_shift": (b_ax, None), "cm_shift": (b_ax, None),
+                "wkv": (b_ax, ma if H % m == 0 else None, None, None)}
 
-    return _map_with_path(lambda path, leaf: rule(str(path[-1]), leaf),
-                          cache), cache
+    return {"pos_offset": (b_ax,),
+            "layers": [layer(kind) for kind, _ in
+                       model_lib.layer_kinds(cfg)]}
 
 
 def decode_cache_specs(cfg, batch: int, cache_len: int, dist: DistContext):
-    """The layout the port's decode and prefill keep a cache in on a
-    mesh: ``cache_specs``' batch, head and state entries, the sequence
-    never sharded -- but under ``cfg.decode_sp``, where a GQA layer's
-    k/v are (batch, 'model', None, None), the layout the reference's
-    ``gqa_decode_sp`` takes (its ``shard_map`` in_specs). None without a
-    mesh."""
+    """The layout the port's prefill hands back and its decode keeps a
+    cache of ``batch`` x ``cache_len`` in on a mesh: ``cache_specs``'.
+    Under ``cfg.decode_sp`` a GQA layer's k/v take the sequence over
+    'model' whatever its kv heads (the layout the reference's
+    ``gqa_decode_sp`` takes, its ``shard_map`` in_specs). None without
+    a mesh.
+
+    A decode reads a cache block's global length as its length times
+    the product of the sizes of the sequence's axes: a mesh's decode
+    cache takes a length those axes divide (``cache_specs`` keeps any
+    other whole)."""
     if dist is None:
         return None
-    from repro_torch.configs.base import ShapeConfig
-    specs, _ = cache_specs(cfg, ShapeConfig("decode", cache_len, batch,
-                                            "decode"), dist)
-    sp = cfg.decode_sp and cfg.attn_type != "mla"
-    for c in specs["layers"]:
-        for k in ("k", "v"):
-            if k in c:
-                b_ax, _, h_ax, _ = c[k]
-                c[k] = (b_ax, dist.model_axis, None, None) if sp else \
-                    (b_ax, None, h_ax, None)
-        for k in ("c_kv", "k_rope"):
-            if k in c:
-                c[k] = (c[k][0], None, None)
-    return specs
+    return _cache_specs(cfg, batch, cache_len, dist,
+                        kv_ok=decode_kv_heads(cfg, dist))
 
 
 def logits_spec(cfg, dist: DistContext, global_batch: int | None = None):
@@ -247,17 +267,17 @@ def logits_spec(cfg, dist: DistContext, global_batch: int | None = None):
 
 def block(x, spec, dist: DistContext):
     """This rank's block of the whole tensor ``x`` laid out by ``spec``
-    (no collective; a view)."""
+    (no collective; a view, but a copy for a ``Halves`` entry)."""
     for dim, ent in enumerate(spec):
         axes = C.as_axes(ent)
         if not axes:
             continue
-        n = C.axes_size(dist, axes)
+        n = C.axes_size(dist, axes) * (2 if isinstance(ent, C.Halves)
+                                       else 1)
         if x.shape[dim] % n:
             raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
                              f"divide over {n} ranks of {axes}")
-        size = x.shape[dim] // n
-        x = x.narrow(dim, C.axis_index(dist, axes) * size, size)
+        x = C.block_of(dist, ent, x, dim)
     return x
 
 

@@ -152,12 +152,12 @@ def _wkv_meta(r, k, v, w, u, state):
 _wkv_op = _op(
     "wkv(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor state)"
     " -> (Tensor, Tensor)",
-    _wkv.wkv, _ref.wkv_ref, _wkv_meta)
+    lambda *args: _wkv.wkv(*_contiguous(*args)), _ref.wkv_ref, _wkv_meta)
 
 _wkv_ckpt_op = _op(
     "wkv_ckpt(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
     "Tensor state) -> (Tensor, Tensor, Tensor)",
-    _wkv.wkv_ckpt, _ref.wkv_ckpt_ref,
+    lambda *args: _wkv.wkv_ckpt(*_contiguous(*args)), _ref.wkv_ckpt_ref,
     lambda r, k, v, w, u, state: _wkv_meta(r, k, v, w, u, state) + (
         r.new_empty(_wkv.ckpt_shape(r), dtype=torch.float32),))
 
@@ -172,7 +172,9 @@ _wkv_bwd_op = _op(
     "wkv_bwd(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, "
     "Tensor ckpt, Tensor dy, Tensor? ds_out) -> (Tensor, Tensor, Tensor, "
     "Tensor, Tensor, Tensor)",
-    _wkv.wkv_bwd, _wkv_bwd_cpu,
+    lambda r, k, v, w, u, ckpt, dy, ds_out: _wkv.wkv_bwd(
+        *_contiguous(r, k, v, w, u), ckpt, dy, ds_out),
+    _wkv_bwd_cpu,
     lambda r, k, v, w, u, ckpt, dy, ds_out: _like(r, k, v, w, u) + (
         r.new_empty(ckpt.shape[:2] + ckpt.shape[3:], dtype=torch.float32),))
 
@@ -239,7 +241,9 @@ def wkv(r, k, v, w, u, state):
     """The RWKV-6 wkv recurrence: the CUDA kernel for CUDA tensors (with
     its backward kernel when an input requires grad; head dim 64),
     ``ref.wkv_ref`` for CPU tensors (``ref.wkv_bwd_ref`` its backward).
-    Returns (y, final state)."""
+    The kernel takes contiguous inputs: a view (a rank's columns of the
+    decays, cut from the whole width) is copied first. Returns (y, final
+    state)."""
     if _wants_grad(r, k, v, w, u, state):
         if _on_cuda("wkv", r) and r.shape[-1] not in _wkv.BWD_HEAD_DIMS:
             raise ValueError(

@@ -96,6 +96,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6_wkv
 from repro_torch.launch import hlo_analysis as hla
 from repro_torch.launch.mesh import dist_for, fake_world, make_test_mesh
+from repro_torch.models import mamba as mb
 from repro_torch.models import model as model_lib
 from repro_torch.train.steps import (init_opt_state, make_decode_step,
                                      make_prefill_step, make_train_step,
@@ -403,19 +404,23 @@ def unknown_ops(rec) -> dict:
 # The collective bytes the specs imply
 # ---------------------------------------------------------------------------
 
-def _layer_use(cfg, dist, kind, ffn, part, name, decode):
+def _layer_use(cfg, dist, part, name, decode):
     """How a layer uses leaf ``part``/``name``: (keep axes, partial
-    axes) of its ``gather_param``."""
+    axes) of its ``gather_param`` (``models.model.TP_USE`` where the
+    part runs tensor-parallel)."""
     ma = dist.model_axis
     if part == "moe":
         return (ma,), ()
-    if part == "attn" and not decode and model_lib.tp_attention(cfg, dist):
-        use = model_lib.TP_USE["attn"][name]
-    elif part == "mlp" and model_lib.tp_mlp(cfg, dist):
-        use = model_lib.TP_USE["mlp"][name]
-    else:
-        return (), ()
-    return ((ma,), ()) if use == "keep" else ((), (ma,))
+    tp = {"attn": shd.decode_kv_heads if decode else
+          model_lib.tp_attention, "mlp": model_lib.tp_mlp,
+          "rwkv": model_lib.tp_rwkv, "mamba": model_lib.tp_mamba}.get(part)
+    use = model_lib.TP_USE[part].get(name) if tp and tp(cfg, dist) \
+        else None
+    if use == "keep":
+        return (ma,), ()
+    if use == "partial":
+        return (), (ma,)
+    return (), ()
 
 
 def _gather_bytes(out, dist, spec, shape, esize, keep, partial, uses,
@@ -479,25 +484,29 @@ def _adafactor_bytes(out, cfg, dist, shapes):
         psum(spec, range(nd), 1)
 
 
-def _cache_gather_bytes(out, cfg, dist, batch, cache_len):
-    """A decode's gathers of each layer's cache blocks over every axis
-    but the batch's (``models.model._cache_whole``)."""
-    sizes = C.axis_sizes(dist.mesh)
-    specs = shd.decode_cache_specs(cfg, batch, cache_len, dist)["layers"]
-    whole = model_lib.init_cache(cfg, batch, cache_len, device="meta")
+def _decode_combine_bytes(out, cfg, dist, shape, b):
+    """A decode's attention collectives a layer: the heads path's sum of
+    the rank's partial output over 'model', and over a cache whose
+    sequence is cut the partial softmax's ``pmax`` and two ``psum``s
+    over the sequence's axes."""
+    ma, m = dist.model_axis, dist.model_size
+    specs = shd.decode_cache_specs(cfg, shape.global_batch, shape.seq_len,
+                                   dist)["layers"]
+    esize = torch.finfo(cfg.dtype).bits // 8
+    mla = cfg.attn_type == "mla"
+    heads = shd.decode_kv_heads(cfg, dist)
+    H = cfg.n_heads // m if heads else cfg.n_heads
+    dv = cfg.mla.kv_lora_rank if mla else cfg.d_head
     for i, (kind, _) in enumerate(model_lib.layer_kinds(cfg)):
-        if model_lib.sp_layer(cfg, kind, dist):
+        if kind != "attn":
             continue
-        for key, t in whole["layers"][i].items():
-            spec = specs[i][key]
-            cur = [n // math.prod(sizes[a] for a in C.as_axes(e))
-                   for n, e in zip(t.shape, spec)]
-            for d, ent in enumerate(spec[1:], start=1):
-                axes = C.as_axes(ent)
-                if axes:
-                    out[("all_gather", "+".join(axes))] += \
-                        math.prod(cur) * t.element_size()
-                    cur[d] *= math.prod(sizes[a] for a in axes)
+        if heads:
+            out[("psum", ma)] += b * cfg.d_model * esize
+        seq = specs[i]["c_kv" if mla else "k"][1]
+        if seq is not None:
+            key = "+".join(C.as_axes(seq))
+            out[("pmax", key)] += b * H * 4
+            out[("psum", key)] += b * H * 4 + b * H * dv * 4
 
 
 def implied_bytes(cfg, dist, shape) -> collections.Counter:
@@ -506,12 +515,15 @@ def implied_bytes(cfg, dist, shape) -> collections.Counter:
     the specs alone: the parameter gathers at use (every forward pass of
     a layer, a remat recompute among them) and their gradients'
     reduce-scatters and sums, the tensor-parallel activations' sums and
-    their transposes, the MoE combine and router statistics, the
-    prefill's cache rows and a decode's cache blocks, the logits' rows,
-    the loss and gradient norm, adafactor's factored statistics. A
-    remat recompute stops at the layer's last saved tensor, so the
-    collectives after it (a tensor-parallel MLP's sum, a d-sharded
-    residual's gather) run once."""
+    their transposes (attention, MLP, RWKV, Mamba), the MoE combine and
+    router statistics, the prefill's kv rows where the cache does not
+    keep the rank's kv heads, a decode's attention combine, a tied
+    table's vocab-parallel lookup, the vocab-parallel loss's ``pmax``
+    and ``psum`` and the logits' blocks and rows, the loss and gradient
+    norm, adafactor's factored statistics. A remat recompute stops at
+    the layer's last saved tensor, so the collectives after it (a
+    tensor-parallel MLP's sum, a d-sharded residual's gather) run
+    once."""
     out: collections.Counter = collections.Counter()
     train, decode = shape.kind == "train", shape.kind == "decode"
     k_mb = cfg.microbatches if train else 1
@@ -530,18 +542,20 @@ def implied_bytes(cfg, dist, shape) -> collections.Counter:
 
     # parameters
     kinds = model_lib.layer_kinds(cfg)
+    vp = model_lib.vocab_parallel(cfg, dist)
     used_top = {"final_norm", "head"}
     if cfg.frontend != "audio_frames" or cfg.tie_embeddings:
         used_top.add("embed")
     for (path, leaf), spec in zip(paths(shapes), shd.spec_leaves(specs)):
         if path[0] == "layers":
-            kind, ffn = kinds[path[1]]
             part = path[2] if len(path) > 3 else None
-            keep, partial = _layer_use(cfg, dist, kind, ffn, part, path[-1],
-                                       decode) if part else ((), ())
+            keep, partial = _layer_use(cfg, dist, part, path[-1], decode) \
+                if part else ((), ())
             uses, bwd = passes, train
         else:
-            keep, partial, uses = (), (), 1
+            vocab = path[0] == "head" or (path[0] == "embed" and
+                                          cfg.tie_embeddings)
+            keep, partial, uses = ((ma,) if vp and vocab else ()), (), 1
             bwd = train and path[0] in used_top
         _gather_bytes(body, dist, spec, leaf.shape, leaf.element_size(),
                       keep, partial, uses, bwd)
@@ -550,20 +564,29 @@ def implied_bytes(cfg, dist, shape) -> collections.Counter:
     tp_attn = not decode and model_lib.tp_attention(cfg, dist)
     tp_mlp = model_lib.tp_mlp(cfg, dist)
     n_kv0 = len(model_lib.tp_kv_heads(cfg, m, 0)) if tp_attn else 0
+    gather_kv = shape.kind == "prefill" and not shd.decode_kv_heads(cfg,
+                                                                    dist)
     for kind, ffn in kinds:
         fwd = collections.Counter()      # once a forward pass
         tail = collections.Counter()     # once: after the last saved tensor
         if kind == "attn" and tp_attn:
             fwd[("psum", ma)] += act
             body[("psum", ma)] += act if train else 0     # copy_to's
-            if shape.kind == "prefill":
+            if gather_kv:
                 fwd[("all_gather", ma)] += 2 * b * T * n_kv0 * \
                     cfg.d_head * esize
-        if kind == "attn" and decode and cfg.decode_sp and \
-                cfg.attn_type != "mla":
-            fwd[("pmax", ma)] += b * cfg.n_heads * 4
-            fwd[("psum", ma)] += b * cfg.n_heads * 4 + \
-                b * cfg.n_heads * cfg.d_head * 4
+        if kind == "rwkv" and model_lib.tp_rwkv(cfg, dist):
+            fwd[("psum", ma)] += act               # wo's sum
+            fwd[("psum_scatter", ma)] += act       # cm_wv's
+            tail[("all_gather", ma)] += act // m   # the channel blocks
+            if train:
+                body[("psum", ma)] += 2 * act      # copy_to's
+                body[("all_gather", ma)] += act // m  # psum_scatter's
+        if kind == "mamba" and model_lib.tp_mamba(cfg, dist):
+            _, dt_rank, n_state, _ = mb.mamba_dims(cfg)
+            proj = b * T * (dt_rank + 2 * n_state) * esize
+            fwd[("psum", ma)] += proj + act        # x_proj's, out_proj's
+            body[("psum", ma)] += proj + act if train else 0
         if ffn == "moe" and kind != "rwkv":
             S_loc = b * T
             scatter = cfg.moe_combine == "psum_scatter" and d % m == 0
@@ -585,18 +608,29 @@ def implied_bytes(cfg, dist, shape) -> collections.Counter:
             body[key] += passes * v
         for key, v in tail.items():
             body[key] += v
+    if decode:
+        _decode_combine_bytes(body, cfg, dist, shape, b)
 
+    # the embedding and the head
+    if vp and cfg.tie_embeddings and cfg.frontend != "audio_frames":
+        n_tok = T - (cfg.n_frontend_tokens if cfg.frontend ==
+                     "vision_patches" and not decode else 0)
+        body[("psum", ma)] += b * n_tok * d * esize      # the lookup
     if train:
+        if vp:
+            body[("psum", ma)] += act                    # copy_to's
+            body[("pmax", ma)] += b * T * 4              # the loss's
+            body[("psum", ma)] += 2 * b * T * 4
         if split:
             mask = cfg.frontend == "audio_frames" or (
                 cfg.frontend == "vision_patches")
             body[("psum", dkey)] += (2 if mask else 1) * 4
-    elif split:
-        vp = cfg.padded_vocab
-        body[("all_gather", dkey)] += b * vp * 4
-    if decode:
-        _cache_gather_bytes(body, cfg, dist, shape.global_batch,
-                            shape.seq_len)
+    else:
+        vpad = cfg.padded_vocab
+        if vp:
+            body[("all_gather", ma)] += b * (vpad // m) * 4
+        if split:
+            body[("all_gather", dkey)] += b * vpad * 4
     for key, v in body.items():
         out[key] += k_mb * v
 

@@ -19,9 +19,12 @@ MLA's prefill hands the attention kernel q/k of nope + rope dims and v
 of ``v_head_dim`` (minicpm3: 96 and 64); the kernel takes dv != dq.
 
 On a mesh (``models.moe.DistContext``) ``gqa_decode_sp`` decodes one
-token against a KV cache sharded over (batch x seq), the reference's
-flash-decoding ``shard_map``; the tensor-parallel forward
-(``models.model``) runs ``gqa_forward`` on a rank's heads.
+token against a KV cache whose sequence is cut into blocks over mesh
+axes (the reference's flash-decoding ``shard_map``, over whichever axes
+the cache's layout names, a sliding window's rolling cache among them),
+and ``mla_decode(..., dist, axes)`` does the same over MLA's latent
+rows; the tensor-parallel forward and decode (``models.model``) run
+``gqa_forward`` / ``gqa_decode`` on a rank's heads.
 """
 from __future__ import annotations
 
@@ -229,11 +232,18 @@ def mla_forward(p, cfg, x, *, positions, kernel_fn=None):
     return out, (c_kv, k_rope[:, :, 0, :])
 
 
-def mla_decode(p, cfg, x, cache, pos):
+def mla_decode(p, cfg, x, cache, pos, dist=None, axes=None):
     """Absorbed-weight MLA decode. x: (B,1,d); cache: dict(c_kv
     (B,S,kv_lora), k_rope (B,S,rope)); pos: (B,) int. Writes the new
     latent row at ``pos`` into the cache tensors in place (a row past
-    the cache is not written)."""
+    the cache is not written).
+
+    On a mesh (``dist``, ``axes``) the cache's sequence is cut into
+    blocks over ``axes``: the rank whose block holds ``pos`` writes the
+    new row, every rank scores its rows with the absorbed query, and
+    the partial softmax over the latent rows is combined as
+    ``gqa_decode_sp``'s (a ``pmax`` and two ``psum``s of (B, H) and (B,
+    H, kv_lora) values). The weights are whole, as in the reference."""
     m = cfg.mla
     B = x.shape[0]
     H = cfg.n_heads
@@ -241,6 +251,9 @@ def mla_decode(p, cfg, x, cache, pos):
                      m.v_head_dim, m.kv_lora_rank)
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     S = c_kv.shape[1]
+    s0, at = 0, pos
+    if axes:
+        s0, _, at = _seq_block(dist, axes, S, pos, False)
 
     cq = rms_norm(x @ p["wdq"], p["q_ln"], cfg.norm_eps)
     q = (cq @ p["wuq"]).reshape(B, 1, H, dn + dr)
@@ -251,8 +264,8 @@ def mla_decode(p, cfg, x, cache, pos):
     kr_new = apply_rope((x @ p["wkr"])[:, :, None, :], pos[:, None],
                         cfg.rope_theta)[:, :, 0, :]            # (B,1,dr)
 
-    _write_row(c_kv, pos, c_new[:, 0])
-    _write_row(k_rope, pos, kr_new[:, 0])
+    _write_row(c_kv, at, c_new[:, 0])
+    _write_row(k_rope, at, kr_new[:, 0])
 
     # absorb W_uk into q: q_lat[b,h,r] = sum_n q_nope[b,h,n] wuk[r,h*dn+n]
     wuk = p["wuk"].reshape(r, H, dn)
@@ -262,10 +275,15 @@ def mla_decode(p, cfg, x, cache, pos):
     s = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv32)
          + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
                         k_rope.float())) * scale
-    valid = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
+    valid = (s0 + torch.arange(S, device=x.device))[None, :] \
+        <= pos[:, None]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    prob = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhqs,bsr->bqhr", prob, ckv32)
+    if axes:
+        o_lat = _combine(s, lambda e: torch.einsum("bhqs,bsr->bqhr", e,
+                                                   ckv32), dist, axes)
+    else:
+        o_lat = torch.einsum("bhqs,bsr->bqhr", torch.softmax(s, dim=-1),
+                             ckv32)
     wuv = p["wuv"].reshape(r, H, dv)
     out = torch.einsum("bqhr,rhv->bqhv", o_lat, wuv.float())
     out = out.to(x.dtype).reshape(B, 1, H * dv)
@@ -276,27 +294,55 @@ def mla_decode(p, cfg, x, cache, pos):
 # Sequence-parallel decode (on a mesh)
 # ---------------------------------------------------------------------------
 
-def gqa_decode_sp(p, cfg, x, cache, pos, dist):
-    """One-token GQA decode with the KV cache sharded over (batch x
-    seq): the reference's ``gqa_decode_sp``. ``p``: the whole attention
-    parameters; x (B, 1, d) and pos (B,) this rank's batch rows; cache
-    k/v (B, S / model, Hkv, dh), this rank's sequence block.
+def _seq_block(dist, axes, S_loc, pos, swa):
+    """(this rank's first global row s0, the global rows S, the local
+    slot of each row's new entry -- S_loc, past the block, where
+    another rank writes it) of a cache whose sequence is cut into
+    blocks of ``S_loc`` over ``axes``; a rolling window's slot is the
+    global ``pos % S``."""
+    S = S_loc * C.axes_size(dist, axes)
+    s0 = C.axis_index(dist, axes) * S_loc
+    slot = pos % S if swa else pos
+    local = (slot >= s0) & (slot < s0 + S_loc)
+    return s0, S, torch.where(local, slot - s0, S_loc)
 
-    The rank whose block holds ``pos`` writes the new row there (a
+
+def _combine(s, weigh, dist, axes):
+    """softmax(s) applied by ``weigh`` over a sequence cut into blocks
+    over ``axes``: each rank's partial max, denominator and weighted
+    values (float32) combined by a ``pmax`` and two ``psum``s. s (B, H,
+    1, S_loc); ``weigh(e)`` -> (B, 1, H, dv), e's weights on the rank's
+    values; returns (B, 1, H, dv)."""
+    m_glob = C.pmax(s.amax(dim=-1), dist, axes)          # (B, H, 1)
+    e = torch.exp(s - m_glob[..., None])
+    l_glob = C.psum(e.sum(dim=-1), dist, axes)
+    acc = C.psum(weigh(e), dist, axes)
+    return acc / torch.clamp(l_glob, min=1e-30).transpose(1, 2)[..., None]
+
+
+def gqa_decode_sp(p, cfg, x, cache, pos, dist, axes=None):
+    """One-token GQA decode with the KV cache's sequence cut into blocks
+    over ``axes`` (the model axis when None; the data axes too where the
+    batch does not divide them): the reference's ``gqa_decode_sp``.
+    ``p``: the attention parameters the rank uses (whole, or its heads'
+    under tensor parallelism, with ``cfg`` counting those heads); x (B,
+    1, d) and pos (B,) this rank's batch rows; cache k/v (B, S_loc, Hkv,
+    dh), this rank's sequence block (a rolling window's too: slot ``pos
+    % S`` of the global S, every slot live once ``pos >= S - 1``).
+
+    The rank whose block holds the new row's slot writes it there (a
     masked local write, in place); every rank computes a partial (max,
     denominator, weighted value) over its block, and the combine is a
-    ``pmax`` and two ``psum``s over 'model' of (B, H) and (B, H, dh)
+    ``pmax`` and two ``psum``s over ``axes`` of (B, H) and (B, H, dh)
     values: the collective volume a layer is O(B H dh), not O(cache).
     Returns (out (B, 1, d), the cache in its sharded layout)."""
+    axes = axes or dist.model_axis
     B = x.shape[0]
     H, Hkv, dh = cfg.n_heads, cfg.n_kv, cfg.d_head
-    ma = dist.model_axis
     kc, vc = cache["k"], cache["v"]
     q, k, v = _project_qkv(p, cfg, x, pos[:, None])
     S_loc = kc.shape[1]
-    s0 = C.axis_index(dist, ma) * S_loc
-    local = (pos >= s0) & (pos < s0 + S_loc)
-    at = torch.where(local, pos - s0, S_loc)      # past the block: no write
+    s0, S, at = _seq_block(dist, axes, S_loc, pos, cfg.swa_window)
     _write_row(kc, at, k[:, 0])
     _write_row(vc, at, v[:, 0])
 
@@ -304,11 +350,11 @@ def gqa_decode_sp(p, cfg, x, cache, pos, dist):
     s = torch.einsum("bqhd,bshd->bhqs", q.float() * dh ** -0.5, kf.float())
     idx = torch.arange(S_loc, device=x.device)
     valid = (s0 + idx)[None, :] <= pos[:, None]
+    if cfg.swa_window:
+        valid = valid | (pos[:, None] >= S - 1)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    m_glob = C.pmax(s.amax(dim=-1), dist, ma)             # (B, H, 1)
-    e = torch.exp(s - m_glob[..., None])
-    l_glob = C.psum(e.sum(dim=-1), dist, ma)
-    acc = C.psum(torch.einsum("bhqs,bshd->bqhd", e, vf.float()), dist, ma)
-    out = acc / torch.clamp(l_glob, min=1e-30).transpose(1, 2)[..., None]
+    vf = vf.float()
+    out = _combine(s, lambda e: torch.einsum("bhqs,bshd->bqhd", e, vf),
+                   dist, axes)
     out = out.to(x.dtype).reshape(B, 1, H * dh)
     return out @ p["wo"], {"k": kc, "v": vc}

@@ -1,6 +1,7 @@
 """Common model primitives (counterpart of ``repro/models/layers.py``):
 norms, RoPE, the SwiGLU/GELU MLP, initialisers, the output head and
-the training loss (``cross_entropy``).
+the training loss (``cross_entropy``; on a mesh whose 'model' axis
+holds the vocab in blocks, ``vocab_parallel_nll``).
 
 Norms and RoPE compute in float32 and cast back to the input's dtype at
 the same places as the reference. Initialisers draw float32 normals
@@ -10,6 +11,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import collectives as C
 
 
 def init_dense(gen, d_in, d_out, dtype, scale=None):
@@ -128,10 +131,64 @@ class _Nll(torch.autograd.Function):
         return d, None
 
 
+class _VocabParallelNll(torch.autograd.Function):
+    """``_Nll`` on logits whose vocab is cut into blocks over a mesh
+    axis, a rank holding its block (..., V / m): the log-sum-exp from
+    the ranks' maxima (a ``pmax``) and their sums of exp(logits - max)
+    (a ``psum``), the gold logit from the rank's masked local pick
+    summed in the same ``psum`` (the reference's iota-compare over a
+    vocab block). The backward writes the rank's block only, in one
+    buffer: g (softmax - onehot) over the block."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, dist, axis):
+        V = logits.shape[-1]
+        idx = targets[..., None].long() - C.axis_index(dist, axis) * V
+        inside = (idx >= 0) & (idx < V)
+        idx = idx.clamp(0, V - 1)
+        m = C.pmax(logits.amax(dim=-1), dist, axis)
+        gold = torch.gather(logits, -1, idx)
+        gold = torch.where(inside, gold, torch.zeros_like(gold))[..., 0]
+        s = torch.exp(logits - m[..., None]).sum(dim=-1)
+        s, gold = C.all_reduce_(dist, axis, torch.stack([s, gold]))
+        lse = torch.log(s) + m
+        ctx.save_for_backward(logits, idx, inside, lse)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, inside, lse = ctx.saved_tensors
+        d = logits - lse[..., None]
+        d.exp_()
+        d.mul_(g[..., None])
+        gi = g[..., None]
+        d.scatter_add_(-1, idx, torch.where(inside, -gi,
+                                            torch.zeros_like(gi)))
+        return d, None, None, None
+
+
+def vocab_parallel_nll(logits, targets, dist, axis):
+    """The negative log-likelihood of each position from the rank's
+    vocab block of the float32 logits (..., V / m) over ``axis`` (block
+    r holds vocab [r V / m, (r + 1) V / m)); targets (...) int, global
+    ids. Every rank of ``axis`` gets the same values."""
+    return _VocabParallelNll.apply(logits, targets, dist, axis)
+
+
 def nll(logits, targets):
     """The negative log-likelihood of each position: float32 logits (...,
     V), targets (...) int."""
     return _Nll.apply(logits, targets)
+
+
+def masked_mean(values, mask=None):
+    """The mean of ``values`` over the positions of ``mask`` (all when
+    None): a sum over the clamped count of the mask."""
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(values * mask) / torch.clamp(torch.sum(mask),
+                                                      min=1.0)
+    return torch.mean(values)
 
 
 def cross_entropy(logits, targets, mask=None):
@@ -142,8 +199,4 @@ def cross_entropy(logits, targets, mask=None):
     (its reason is GSPMD sharding of the vocab); a gather picks the same
     value (the other terms of that sum are zeros) without a (B, T, V)
     mask, which at full width is as large as the logits."""
-    nll_ = nll(logits, targets)
-    if mask is not None:
-        mask = mask.float()
-        return torch.sum(nll_ * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    return torch.mean(nll_)
+    return masked_mean(nll(logits, targets), mask)

@@ -9,6 +9,15 @@ operations, slicing each step's inputs so that the (B, T, d_inner,
 d_state) discretised tensor is never materialised. The depthwise
 causal convolution sums its d_conv taps in the reference's order and
 dtype (Python's ``sum``, from 0, in ``x.dtype``).
+
+Tensor parallelism over a mesh's 'model' axis (``models.model``): a
+rank holds a block of the channels -- the x and z columns of
+``in_proj`` for them (``collectives.Halves``), their blocks of
+``conv_w``/``conv_b``/``dt_proj``/``dt_bias``/``A_log``/``D``, their
+rows of ``x_proj`` and ``out_proj``, their ``conv`` and ``h`` states --
+and ``mamba_forward(..., reduce=)`` sums the ranks' partial
+(dt_rank + 2 d_state) projections; the output is the rank's partial
+sum.
 """
 from __future__ import annotations
 
@@ -80,12 +89,18 @@ def ssm_scan(u, dt, Bs, Cs, A, D, h0):
     return torch.stack(ys, dim=1).to(u.dtype), h
 
 
-def mamba_forward(p, cfg, x, state=None):
+def mamba_forward(p, cfg, x, state=None, reduce=None):
     """x: (B,T,d). state: None (fresh) or dict(conv (B,d_conv-1,d_in),
     h (B,d_in,d_state)) for segment continuation. Returns (out, new
-    state), the state float32."""
+    state), the state float32.
+
+    ``reduce`` (tensor parallelism): ``p`` and the state hold a rank's
+    block of the channels (d_in = ``conv_w``'s width), ``reduce`` sums
+    the ranks' partial x_proj products, and ``out`` is the rank's
+    partial sum."""
     B, T, _ = x.shape
-    d_in, dt_rank, d_state, d_conv = mamba_dims(cfg)
+    _, dt_rank, d_state, d_conv = mamba_dims(cfg)
+    d_in = p["conv_w"].shape[1]
     xz = x @ p["in_proj"]
     xs, z = xz.chunk(2, dim=-1)
 
@@ -104,6 +119,8 @@ def mamba_forward(p, cfg, x, state=None):
                          device=x.device)
 
     proj = xs_c @ p["x_proj"]
+    if reduce is not None:
+        proj = reduce(proj)
     dt = _softplus(proj[..., :dt_rank] @ p["dt_proj"] + p["dt_bias"])
     Bs = proj[..., dt_rank:dt_rank + d_state]
     Cs = proj[..., dt_rank + d_state:]

@@ -30,13 +30,19 @@ Entry points:
 
 With ``dist`` (a ``models.moe.DistContext`` on a mesh) each rank holds
 its blocks of the parameters (``distributed.sharding.param_specs``)
-and of a cache (``decode_cache_specs``) and takes the global batch: the
-rows are split over the data axes (FSDP gathers each layer's blocks at
-use), GQA attention and the MLP run Megatron tensor parallelism over
-'model' where the heads / d_ff divide it, the MoE runs
-``moe_apply_dist``, and the other parts (embedding, head, MLA, Mamba,
-RWKV, norms) run alike on every rank of 'model' with their weights
-gathered whole.
+and of a cache (``decode_cache_specs``, the reference's
+``cache_specs``) and takes the global batch: the rows are split over
+the data axes (FSDP gathers each layer's blocks at use) and Megatron
+tensor parallelism runs over 'model' wherever the layout divides it:
+GQA attention's heads (a forward, and a decode whose cache holds the
+rank's kv heads), the MLP's d_ff, RWKV's heads, Mamba's channels, and
+the vocab of the head (and of a tied table: its lookup too); the MoE
+runs ``moe_apply_dist``. A decode attends over the rank's cache block
+as it is (its kv heads, or its sequence block with a partial softmax
+combined over the sequence's axes) and prefill hands back each rank's
+block; a part the layout does not divide runs alike on every rank of
+'model' with its weights gathered whole (MLA, a GQA layer whose heads
+do not divide the axis, the norms, an untied embedding).
 
 The batch of each cell is ``configs.input_specs``'s: the audio and
 vision frontends are stubs, as in the reference (precomputed frame or
@@ -71,9 +77,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
-from repro_torch.models.layers import (cross_entropy, embed_init, nll,
+from repro_torch.models.layers import (embed_init, masked_mean, nll,
                                        rms_norm, swiglu_apply, swiglu_init,
-                                       unembed)
+                                       unembed, vocab_parallel_nll)
 
 
 def layer_kinds(cfg) -> list[tuple[str, str]]:
@@ -211,23 +217,34 @@ def _use(p, specs, name, dist, **kw):
 
 def _whole(p, specs, dist):
     """Every leaf of ``p`` gathered whole (a part every rank of 'model'
-    runs alike: MLA, Mamba, RWKV, norms, a decode's attention)."""
+    runs alike: MLA, norms, a part the layout does not divide)."""
     if dist is None:
         return p
     return {k: _whole(v, specs[k], dist) if isinstance(v, dict) else
             C.gather_param(v, dist, specs[k]) for k, v in p.items()}
 
 
+_RWKV_PARTIAL = ("maa_x", "maa_wkvrg", "tm_w1", "tm_w2", "w0", "td_w1",
+                 "td_w2", "u", "gn_w", "cm_maa_k", "cm_maa_r", "cm_wr")
+
 #: Megatron tensor parallelism over 'model': how a tensor-parallel part
 #: uses each leaf of its block -- "keep": the rank's 'model' block of a
-#: column- (wq, w_gate, w_up) or row-parallel (wo, w_down) product;
-#: "partial": replicated over 'model' but used by the rank for its part
-#: only (the kv heads its q heads read), its gradient summed over
-#: 'model'. Every other leaf is gathered whole at use.
+#: column- (wq, w_gate, w_up, rwkv's wr, Mamba's in_proj) or row-parallel
+#: (wo, w_down, Mamba's out_proj) product, or of a per-head or
+#: per-channel leaf; "partial": replicated over 'model' but used by the
+#: rank for its part only (the kv heads its q heads read, rwkv's
+#: replicated loras feeding its heads, its columns of the channel mix's
+#: receptance), its gradient summed over 'model'.
 TP_USE = {"attn": {"wq": "keep", "wo": "keep", "wk": "partial",
                    "wv": "partial", "q_norm": "partial",
                    "k_norm": "partial"},
-          "mlp": {"w_gate": "keep", "w_up": "keep", "w_down": "keep"}}
+          "mlp": {"w_gate": "keep", "w_up": "keep", "w_down": "keep"},
+          "rwkv": dict({k: "keep" for k in ("wr", "wk", "wv", "wg", "wo",
+                                             "cm_wk", "cm_wv")},
+                       **{k: "partial" for k in _RWKV_PARTIAL}),
+          "mamba": {k: "keep" for k in ("in_proj", "conv_w", "conv_b",
+                                        "x_proj", "dt_proj", "dt_bias",
+                                        "A_log", "D", "out_proj")}}
 
 
 def tp_attention(cfg, dist) -> bool:
@@ -241,6 +258,27 @@ def tp_mlp(cfg, dist) -> bool:
     """Whether the dense FFN is tensor-parallel over 'model': d_ff
     divides the axis."""
     return dist is not None and cfg.d_ff % dist.model_size == 0
+
+
+def tp_rwkv(cfg, dist) -> bool:
+    """Whether an RWKV layer splits its heads over 'model' (the heads
+    divide the axis)."""
+    return dist is not None and \
+        (cfg.d_model // cfg.rwkv_head_dim) % dist.model_size == 0
+
+
+def tp_mamba(cfg, dist) -> bool:
+    """Whether a Mamba layer splits its channels over 'model' (d_in
+    divides the axis; its blocks exist only then)."""
+    return dist is not None and \
+        mb.mamba_dims(cfg)[0] % dist.model_size == 0
+
+
+def vocab_parallel(cfg, dist) -> bool:
+    """Whether the head (and a tied table) keep their vocab block over
+    'model' (``sharding.logits_spec``'s condition: the padded vocab
+    divides the axis): each rank computes its block of the logits."""
+    return dist is not None and cfg.padded_vocab % dist.model_size == 0
 
 
 def _tp_leaves(p, specs, dist, part):
@@ -264,26 +302,39 @@ def tp_kv_heads(cfg, model_size, r):
     return [h // g for h in range(lo, hi)]
 
 
-def _gqa_tp(cfg, p, specs, h, *, positions, kernel_fn, dist, want_cache):
-    """``attn.gqa_forward`` with its heads split over 'model' (H %
-    model == 0): the rank runs its q heads (``wq``'s column block), the
-    kv heads they read (columns of ``wk``/``wv``, replicated over
-    'model'), its ``wo`` row block, and the partial outputs are summed.
-    Returns (out, with ``want_cache`` the (k, v) rows of every kv head,
-    gathered over 'model', else None)."""
-    ma, m, dh = dist.model_axis, dist.model_size, cfg.d_head
+def _attn_tp(cfg, p, specs, dist, device):
+    """(the rank's attention weights, the config of its heads) under
+    tensor parallelism over 'model' (H % model == 0):
+    ``wq``'s column block, the columns of ``wk``/``wv`` of the kv heads
+    its q heads read (replicated over 'model'), its ``wo`` row block."""
+    m, dh = dist.model_size, cfg.d_head
     w = _tp_leaves(p, specs, dist, "attn")
-    kv = tp_kv_heads(cfg, m, C.axis_index(dist, ma))
+    kv = tp_kv_heads(cfg, m, C.axis_index(dist, dist.model_axis))
     cols = slice(kv[0] * dh, (kv[-1] + 1) * dh) if isinstance(kv, range) \
         else torch.tensor([j * dh + i for j in kv for i in range(dh)],
-                          device=h.device)
+                          device=device)
     w["wk"], w["wv"] = w["wk"][:, cols], w["wv"][:, cols]
-    local = dataclasses.replace(cfg, n_heads=cfg.n_heads // m, n_kv=len(kv))
+    return w, dataclasses.replace(cfg, n_heads=cfg.n_heads // m,
+                                  n_kv=len(kv))
+
+
+def _gqa_tp(cfg, p, specs, h, *, positions, kernel_fn, dist, want_cache,
+            kv_local):
+    """``attn.gqa_forward`` with its heads split over 'model' (H %
+    model == 0): the rank runs its q heads, the kv heads they read, its
+    ``wo`` row block, and the partial outputs are summed. Returns (out,
+    with ``want_cache`` the (k, v) rows: the rank's own kv heads with
+    ``kv_local`` (a block of 'model': n_kv divides it), else every kv
+    head, gathered over 'model'; None without)."""
+    ma, m = dist.model_axis, dist.model_size
+    w, local = _attn_tp(cfg, p, specs, dist, h.device)
     out, (k, v) = attn.gqa_forward(w, local, C.copy_to(h, dist, ma),
                                    positions=positions, kernel_fn=kernel_fn)
     out = C.psum(out, dist, ma)
     if not want_cache:
         return out, None
+    if kv_local:
+        return out, (k, v)
     # each kv head from the first rank that computed it
     order = [j for r in range(m) for j in tp_kv_heads(cfg, m, r)]
     first = torch.tensor([order.index(j) for j in range(cfg.n_kv)],
@@ -293,20 +344,55 @@ def _gqa_tp(cfg, p, specs, h, *, positions, kernel_fn, dist, want_cache):
         for t in (k, v))
 
 
+def _cut_seq(rows, cspec, dist):
+    """A prefill's cache rows (the rank's batch rows, its heads where
+    the layout keeps them) cut to the layout's sequence block."""
+    return {k: shd.block(t, (None, cspec[k][1]), dist).contiguous()
+            for k, t in rows.items()}
+
+
+def _attn_decode(cfg, p, specs, h, cache, pos, dist, cspec):
+    """One decode step of an attention layer on its cache (the rank's
+    block on a mesh, laid out by ``cspec``, ``decode_cache_specs``'),
+    never gathered: GQA on the rank's kv heads (``decode_kv_heads``: its
+    q heads, ``wo`` row block, the outputs summed over 'model') and/or
+    over its sequence block (``gqa_decode_sp`` over the sequence's
+    axes); MLA over its latent rows (``mla_decode`` over the same)."""
+    mla = cfg.attn_type == "mla"
+    if dist is None:
+        return (attn.mla_decode if mla else attn.gqa_decode)(
+            p, cfg, h, cache, pos)
+    seq = cspec["c_kv" if mla else "k"][1]
+    if mla:
+        return attn.mla_decode(_whole(p, specs, dist), cfg, h, cache, pos,
+                               dist, seq)
+    heads = cspec["k"][2] is not None
+    if heads:
+        w, local = _attn_tp(cfg, p, specs, dist, h.device)
+        h = C.copy_to(h, dist, dist.model_axis)
+    else:
+        w, local = _whole(p, specs, dist), cfg
+    if seq is None:
+        out, c = attn.gqa_decode(w, local, h, cache, pos)
+    else:
+        out, c = attn.gqa_decode_sp(w, local, h, cache, pos, dist, seq)
+    if heads:
+        out = C.psum(out, dist, dist.model_axis)
+    return out, c
+
+
 def _attn_layer(cfg, p, specs, h, *, positions, kernel_fns, cache, pos,
-                want_cache, dist):
+                want_cache, dist, cspec):
     mla = cfg.attn_type == "mla"
     sp = specs and specs["attn"]
     if cache is not None and pos is not None:                  # decode
-        pa = _whole(p["attn"], sp, dist)
-        if dist is not None and cfg.decode_sp and not mla:
-            return attn.gqa_decode_sp(pa, cfg, h, cache, pos, dist)
-        decode = attn.mla_decode if mla else attn.gqa_decode
-        return decode(pa, cfg, h, cache, pos)
+        return _attn_decode(cfg, p["attn"], sp, h, cache, pos, dist, cspec)
     if tp_attention(cfg, dist):
         out, rows = _gqa_tp(cfg, p["attn"], sp, h, positions=positions,
                             kernel_fn=kernel_fns.get("attention"),
-                            dist=dist, want_cache=want_cache)
+                            dist=dist, want_cache=want_cache,
+                            kv_local=want_cache and
+                            cspec["k"][2] is not None)
     else:
         forward = attn.mla_forward if mla else attn.gqa_forward
         out, rows = forward(_whole(p["attn"], sp, dist), cfg, h,
@@ -315,15 +401,19 @@ def _attn_layer(cfg, p, specs, h, *, positions, kernel_fns, cache, pos,
     if not want_cache:
         return out, {}
     if mla:
-        return out, dict(zip(("c_kv", "k_rope"), rows))
-    k, v = rows
-    if cfg.swa_window and k.shape[1] > cfg.swa_window:
-        # roll the tail into a window-sized cache aligned so slot
-        # (pos % window) matches gqa_decode's writes
-        T, W = k.shape[1], cfg.swa_window
-        k = torch.roll(k[:, -W:], T % W, dims=1)
-        v = torch.roll(v[:, -W:], T % W, dims=1)
-    return out, {"k": k, "v": v}
+        rows = dict(zip(("c_kv", "k_rope"), rows))
+    else:
+        k, v = rows
+        if cfg.swa_window and k.shape[1] > cfg.swa_window:
+            # roll the tail into a window-sized cache aligned so slot
+            # (pos % window) matches gqa_decode's writes
+            T, W = k.shape[1], cfg.swa_window
+            k = torch.roll(k[:, -W:], T % W, dims=1)
+            v = torch.roll(v[:, -W:], T % W, dims=1)
+        rows = {"k": k, "v": v}
+    if dist is not None:
+        rows = _cut_seq(rows, cspec, dist)
+    return out, rows
 
 
 def _mlp(cfg, p, specs, h, dist):
@@ -337,27 +427,75 @@ def _mlp(cfg, p, specs, h, dist):
                                C.copy_to(h, dist, ma)), dist, ma)
 
 
+def _rwkv_layer(cfg, p, specs, x, h, st, kernel_fn, ln2, dist):
+    """An RWKV layer's time mix and channel mix on the residual x (h its
+    normed input): on a mesh whose 'model' axis divides the heads, the
+    rank's heads (their column blocks, the wkv kernel on them, the
+    state's head block) with ``wo``'s row block summed over 'model', and
+    the channel mix's ``cm_wk`` column and ``cm_wv`` row blocks, their
+    partial sums reduce-scattered to the rank's block of d_model, its
+    columns of the receptance, the blocks gathered. Returns (x,
+    att_shift, wkv state, cm_shift)."""
+    if not tp_rwkv(cfg, dist):
+        prw = _whole(p, specs, dist)
+        st = st or rw.rwkv_state_init(cfg, h.shape[0], h.dtype, h.device)
+        out, att_shift, wkv = rw.time_mix(prw, cfg, h, st["att_shift"],
+                                          st["wkv"], kernel_fn=kernel_fn)
+        x = x + out
+        out2, cm_shift = rw.channel_mix(prw, ln2(x), st["cm_shift"])
+        return x + out2, att_shift, wkv, cm_shift
+    ma, m = dist.model_axis, dist.model_size
+    w = _tp_leaves(p, specs, dist, "rwkv")
+    n = cfg.d_model // cfg.rwkv_head_dim // m
+    r0 = C.axis_index(dist, ma) * n
+    st = st or rw.rwkv_state_init(cfg, h.shape[0], h.dtype, h.device,
+                                  n_heads=n)
+    out, att_shift, wkv = rw.time_mix(w, cfg, C.copy_to(h, dist, ma),
+                                      st["att_shift"], st["wkv"],
+                                      kernel_fn=kernel_fn,
+                                      heads=slice(r0, r0 + n))
+    x = x + C.psum(out, dist, ma)
+    d = cfg.d_model // m
+    c0 = C.axis_index(dist, ma) * d
+    out2, cm_shift = rw.channel_mix(
+        w, C.copy_to(ln2(x), dist, ma), st["cm_shift"],
+        tp=(slice(c0, c0 + d), lambda t: C.psum_scatter(t, dist, ma, 2),
+            lambda t: C.all_gather(t, dist, ma, 2, replicated=True)))
+    return x + out2, att_shift, wkv, cm_shift
+
+
+def _mamba_layer(cfg, p, specs, h, state, dist):
+    """A Mamba mixer: on a mesh the rank's channels (``tp_mamba``), the
+    x_proj partial products summed over 'model' (and their gradient,
+    which each rank's channels use), ``out_proj``'s row block summed."""
+    if not tp_mamba(cfg, dist):
+        return mb.mamba_forward(_whole(p, specs, dist), cfg, h, state=state)
+    ma = dist.model_axis
+    out, state = mb.mamba_forward(
+        _tp_leaves(p, specs, dist, "mamba"), cfg, C.copy_to(h, dist, ma),
+        state=state,
+        reduce=lambda t: C.copy_to(C.psum(t, dist, ma), dist, ma))
+    return C.psum(out, dist, ma), state
+
+
 def _layer_apply(cfg, p, x, *, kind, ffn, positions, kernel_fns,
                  cache=None, pos=None, want_cache=False, dist=None,
-                 specs=None, split=True):
+                 specs=None, split=True, cspec=None):
     """Returns (x, new_cache, aux): aux is the MoE FFN's auxiliary loss
     (float32 scalar), None for other FFNs. On a mesh (``dist``) ``p``
     holds the rank's blocks laid out by ``specs``, x is the rank's
     batch rows (``split``: a block of a batch split over the data axes)
-    replicated over 'model', and a ``psum_scatter`` MoE combine leaves
-    the residual d-sharded (``_constrain_act`` gathers it)."""
+    replicated over 'model', the cache is the rank's block laid out by
+    ``cspec`` (and so is the new cache), and a ``psum_scatter`` MoE
+    combine leaves the residual d-sharded (``_constrain_act`` gathers
+    it)."""
     h = rms_norm(x, _use(p, specs, "ln1", dist), cfg.norm_eps)
     if kind == "rwkv":
-        prw = _whole(p["rwkv"], specs and specs["rwkv"], dist)
-        st = cache or rw.rwkv_state_init(cfg, h.shape[0], h.dtype,
-                                         h.device)
-        out, att_shift, wkv = rw.time_mix(prw, cfg, h,
-                                          st["att_shift"], st["wkv"],
-                                          kernel_fn=kernel_fns.get("wkv"))
-        x = x + out
-        h2 = rms_norm(x, _use(p, specs, "ln2", dist), cfg.norm_eps)
-        out2, cm_shift = rw.channel_mix(prw, h2, st["cm_shift"])
-        x = x + out2
+        def ln2(y):
+            return rms_norm(y, _use(p, specs, "ln2", dist), cfg.norm_eps)
+        x, att_shift, wkv, cm_shift = _rwkv_layer(
+            cfg, p["rwkv"], specs and specs["rwkv"], x, h, cache,
+            kernel_fns.get("wkv"), ln2, dist)
         if want_cache or cache is not None:
             return x, {"att_shift": att_shift, "wkv": wkv,
                        "cm_shift": cm_shift}, None
@@ -366,11 +504,10 @@ def _layer_apply(cfg, p, x, *, kind, ffn, positions, kernel_fns,
         out, new_cache = _attn_layer(cfg, p, specs, h, positions=positions,
                                      kernel_fns=kernel_fns, cache=cache,
                                      pos=pos, want_cache=want_cache,
-                                     dist=dist)
+                                     dist=dist, cspec=cspec)
     else:
-        out, state = mb.mamba_forward(
-            _whole(p["mamba"], specs and specs["mamba"], dist), cfg, h,
-            state=cache)
+        out, state = _mamba_layer(cfg, p["mamba"], specs and specs["mamba"],
+                                  h, cache, dist)
         new_cache = state if (want_cache or cache is not None) else {}
     x = x + out
     h2 = rms_norm(x, _use(p, specs, "ln2", dist), cfg.norm_eps)
@@ -397,25 +534,6 @@ def _constrain_act(cfg, x, dist):
     return C.all_gather(x, dist, dist.model_axis, 2, replicated=True)
 
 
-def sp_layer(cfg, kind, dist):
-    """Whether a decode of this layer runs ``gqa_decode_sp`` (its cache
-    stays in its sequence-sharded layout)."""
-    return dist is not None and kind == "attn" and cfg.decode_sp and \
-        cfg.attn_type != "mla"
-
-
-def _cache_whole(c, specs, dist):
-    """A layer's cache blocks gathered over every axis but the batch's."""
-    return {k: shd.unblock(t, (None,) + tuple(specs[k][1:]), dist)
-            for k, t in c.items()}
-
-
-def _cache_cut(c, specs, dist):
-    """A layer's cache of the rank's batch rows cut to its blocks."""
-    return {k: shd.block(t, (None,) + tuple(specs[k][1:]), dist)
-            .contiguous() for k, t in c.items()}
-
-
 def _run_stack(cfg, params, x, positions, kernel_fns, want_cache,
                in_cache=None, pos=None, dist=None, specs=None, split=True,
                cspecs=None):
@@ -424,20 +542,16 @@ def _run_stack(cfg, params, x, positions, kernel_fns, want_cache,
     caches = []
     for i, ((kind, ffn), p) in enumerate(zip(layer_kinds(cfg),
                                              params["layers"])):
-        c_in = in_cache[i] if in_cache else None
-        keep = sp_layer(cfg, kind, dist) and c_in is not None
-        if dist is not None and c_in and not keep:
-            c_in = _cache_whole(c_in, cspecs[i], dist)
         x, c, _ = _layer_apply(cfg, p, x, kind=kind, ffn=ffn,
                                positions=positions,
-                               kernel_fns=kernel_fns or {}, cache=c_in,
+                               kernel_fns=kernel_fns or {},
+                               cache=in_cache[i] if in_cache else None,
                                pos=pos, want_cache=want_cache, dist=dist,
                                specs=specs and specs["layers"][i],
-                               split=split)              # aux dropped
+                               split=split,
+                               cspec=cspecs and cspecs[i])   # aux dropped
         if dist is not None:
             x = _constrain_act(cfg, x, dist)
-            if c and not keep:
-                c = _cache_cut(c, cspecs[i], dist)
         caches.append(c)
     return x, caches
 
@@ -471,9 +585,10 @@ def _train_stack(cfg, params, x, positions, kernel_fns, dist=None,
     return x, aux_total
 
 
-def _embed_inputs(cfg, params, batch):
+def _embed_inputs(cfg, embed, batch):
     """(x, positions, targets, loss mask) of a batch, the reference's
-    ``_embed_inputs`` branch for branch:
+    ``_embed_inputs`` branch for branch (``embed``: token ids -> their
+    embeddings, ``_lookup``):
 
     * ``audio_frames``: x is ``batch["features"]`` (B, T, d_model) as
       given, in ``cfg.dtype`` (``configs.input_specs``); targets and
@@ -485,7 +600,6 @@ def _embed_inputs(cfg, params, batch):
     * otherwise the tokens' embeddings (``F.embedding``: the same rows
       as indexing; its backward on the card sums a token's rows in a
       fixed order, so a training resume is bit-exact)."""
-    emb = params["embed"]
     if cfg.frontend == "audio_frames":
         if "features" not in batch:
             raise ValueError(f"{cfg.name}: an audio_frames batch needs "
@@ -509,7 +623,7 @@ def _embed_inputs(cfg, params, batch):
             raise ValueError(f"{cfg.name}: patches must be (B, {P}, "
                              f"{cfg.d_model}) (n_frontend_tokens = {P}), "
                              f"got {tuple(patches.shape)}")
-        tok_emb = F.embedding(batch["tokens"], emb)
+        tok_emb = embed(batch["tokens"])
         x = torch.cat([patches.to(tok_emb.dtype), tok_emb], dim=1)
         B, T = x.shape[:2]
         positions = torch.arange(T, device=x.device)[None, :]
@@ -518,7 +632,7 @@ def _embed_inputs(cfg, params, batch):
             tgt = torch.cat([tgt.new_zeros((B, P)), tgt], dim=1)
             mask = (positions >= P).expand(B, T)
         return x, positions, tgt, mask
-    x = F.embedding(batch["tokens"], emb)
+    x = embed(batch["tokens"])
     return (x, torch.arange(x.shape[1], device=x.device)[None, :],
             batch.get("targets"), None)
 
@@ -545,12 +659,52 @@ def _rows_whole(t, dist, split):
         else t
 
 
+def _table(cfg, params, specs, dist, name):
+    """The embedding table or head (``name``) as the rank uses it: its
+    vocab block over 'model' where ``vocab_parallel`` (the head, and
+    the table when tied), else gathered whole."""
+    if (name == "head" or cfg.tie_embeddings) and \
+            vocab_parallel(cfg, dist):
+        return C.gather_param(params[name], dist, specs[name],
+                              keep=dist.model_axis)
+    return _use(params, specs, name, dist)
+
+
+def _lookup(cfg, table, tokens, dist):
+    """The embeddings of ``tokens`` from the rank's table: on a tied
+    vocab-parallel table (the rank's vocab block) the rows of its block,
+    zeros elsewhere, summed over 'model' (its gradient reaches the rows
+    of each rank's block)."""
+    if not (cfg.tie_embeddings and vocab_parallel(cfg, dist)):
+        return F.embedding(tokens, table)
+    V = table.shape[0]
+    ids = tokens - C.axis_index(dist, dist.model_axis) * V
+    inside = (ids >= 0) & (ids < V)
+    x = F.embedding(ids.clamp(0, V - 1), table)
+    return C.psum(x.masked_fill(~inside[..., None], 0), dist,
+                  dist.model_axis)
+
+
 def _top(cfg, params, specs, dist):
-    """The embedding, final norm and head gathered whole (every rank of
-    'model' computes the same logits in this slice)."""
-    emb = _use(params, specs, "embed", dist)
-    head = emb if cfg.tie_embeddings else _use(params, specs, "head", dist)
+    """(embedding table, final norm, head) as the rank uses them
+    (``_table``)."""
+    emb = _table(cfg, params, specs, dist, "embed")
+    head = emb if cfg.tie_embeddings else \
+        _table(cfg, params, specs, dist, "head")
     return emb, _use(params, specs, "final_norm", dist), head
+
+
+def _last_logits(cfg, x, head, dist, split):
+    """Float32 logits (B, padded_vocab) of x (b, 1, d), the last
+    position, whole on every rank: a vocab-parallel head's blocks
+    gathered over 'model', the rows over the data axes."""
+    logits = unembed(x, head)[:, 0]
+    if dist is None:
+        return logits
+    if vocab_parallel(cfg, dist):
+        logits = C.all_gather(logits, dist, dist.model_axis, 1,
+                              replicated=True)
+    return _rows_whole(logits, dist, split)
 
 
 class _ScaleGrad(torch.autograd.Function):
@@ -566,18 +720,18 @@ class _ScaleGrad(torch.autograd.Function):
         return g * ctx.scale, None
 
 
-def _dist_cross_entropy(logits, targets, mask, dist, split):
-    """``cross_entropy`` of the global batch from the rank's rows: the
-    mean of the ranks' means (each rank holds as many positions), or
-    under a loss mask the masked sums over every rank."""
+def _dist_cross_entropy(nll_, mask, dist, split):
+    """The mean of the positions' negative log-likelihoods ``nll_`` over
+    the global batch from the rank's rows: the mean of the ranks' means
+    (each rank holds as many positions), or under a loss mask the masked
+    sums over every rank."""
     if not split:
-        return cross_entropy(logits, targets, mask)
+        return masked_mean(nll_, mask)
     da = dist.data_axes
     if mask is None:
-        return C.psum(cross_entropy(logits, targets), dist, da) / \
-            dist.data_size
+        return C.psum(torch.mean(nll_), dist, da) / dist.data_size
     mask = mask.float()
-    return C.psum(torch.sum(nll(logits, targets) * mask), dist, da) / \
+    return C.psum(torch.sum(nll_ * mask), dist, da) / \
         torch.clamp(C.psum(torch.sum(mask), dist, da), min=1.0)
 
 
@@ -589,8 +743,10 @@ def prefill(cfg, params, batch, kernel_fns=None, dist=None):
 
     On a mesh (``dist``): ``params`` are the rank's blocks
     (``distributed.sharding.param_specs``), ``batch`` the global batch;
-    the logits come back whole on every rank, the cache as the rank's
-    blocks laid out by ``distributed.sharding.decode_cache_specs``."""
+    the logits come back whole on every rank (a vocab-parallel head's
+    blocks gathered), the cache as the rank's blocks laid out by
+    ``distributed.sharding.decode_cache_specs`` (a layer's rows are
+    whole only while they are cut)."""
     dist = moe_mod.as_dist(dist, "prefill")
     specs, split, B = None, True, None
     if dist is not None:
@@ -598,7 +754,8 @@ def prefill(cfg, params, batch, kernel_fns=None, dist=None):
         B = next(iter(batch.values())).shape[0]
         split, batch = _local_rows(batch, dist)
     emb, final_norm, head = _top(cfg, params, specs, dist)
-    x, positions, _, _ = _embed_inputs(cfg, {"embed": emb}, batch)
+    x, positions, _, _ = _embed_inputs(
+        cfg, lambda t: _lookup(cfg, emb, t, dist), batch)
     b, T = x.shape[:2]
     cspecs = shd.decode_cache_specs(cfg, B, T, dist)["layers"] \
         if dist is not None else None
@@ -606,9 +763,7 @@ def prefill(cfg, params, batch, kernel_fns=None, dist=None):
                            want_cache=True, dist=dist, specs=specs,
                            split=split, cspecs=cspecs)
     x = rms_norm(x[:, -1:, :], final_norm, cfg.norm_eps)
-    logits = unembed(x, head)[:, 0]
-    if dist is not None:
-        logits = _rows_whole(logits, dist, split)
+    logits = _last_logits(cfg, x, head, dist, split)
     pos_offset = torch.full((b,), T, dtype=torch.int32, device=x.device)
     return logits, {"pos_offset": pos_offset, "layers": caches}
 
@@ -625,25 +780,35 @@ def train_loss(cfg, params, batch, kernel_fns=None, dist=None):
     On a mesh (``dist``): ``params`` are the rank's blocks, ``batch``
     the global batch; the loss is the global batch's on every rank, and
     the gradient of each block (autograd's, through the collectives'
-    transposes) is the block of the one-device gradient."""
+    transposes) is the block of the one-device gradient. A
+    vocab-parallel head (``vocab_parallel``) gives each rank its block
+    of the logits, (b, T, V / m), and the loss is
+    ``layers.vocab_parallel_nll``'s."""
     dist = moe_mod.as_dist(dist, "train_loss")
     specs, split = None, True
     if dist is not None:
         specs = _param_specs(cfg, dist)
         split, batch = _local_rows(batch, dist)
-    emb = _use(params, specs, "embed", dist)
-    x, positions, targets, mask = _embed_inputs(cfg, {"embed": emb}, batch)
+    emb = _table(cfg, params, specs, dist, "embed")
+    x, positions, targets, mask = _embed_inputs(
+        cfg, lambda t: _lookup(cfg, emb, t, dist), batch)
     if not cfg.tie_embeddings:
         emb = None         # on a mesh: the gathered table freed at once
     x, aux = _train_stack(cfg, params, x, positions, kernel_fns or {},
                           dist=dist, specs=specs, split=split)
     x = rms_norm(x, _use(params, specs, "final_norm", dist), cfg.norm_eps)
-    logits = unembed(x, emb if cfg.tie_embeddings else
-                     _use(params, specs, "head", dist))
+    head = emb if cfg.tie_embeddings else \
+        _table(cfg, params, specs, dist, "head")
     if dist is None:
-        loss = cross_entropy(logits, targets, mask)
+        loss = masked_mean(nll(unembed(x, head), targets), mask)
         return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
-    loss = _dist_cross_entropy(logits, targets, mask, dist, split)
+    if vocab_parallel(cfg, dist):
+        ma = dist.model_axis
+        nll_ = vocab_parallel_nll(unembed(C.copy_to(x, dist, ma), head),
+                                  targets, dist, ma)
+    else:
+        nll_ = nll(unembed(x, head), targets)
+    loss = _dist_cross_entropy(nll_, mask, dist, split)
     total = loss + 0.01 * aux
     if not split:
         # every data rank computed the same loss on the whole batch: its
@@ -652,14 +817,15 @@ def train_loss(cfg, params, batch, kernel_fns=None, dist=None):
     return total, {"ce_loss": loss, "aux_loss": aux}
 
 
-def _cache_len(cfg, cache, dist):
-    """The global sequence length of a mesh's decode cache."""
-    for (kind, _), c in zip(layer_kinds(cfg), cache["layers"]):
-        if "k" in c:
-            n = dist.model_size if sp_layer(cfg, kind, dist) else 1
-            return c["k"].shape[1] * n
-        if "c_kv" in c:
-            return c["c_kv"].shape[1]
+def _cache_len(cfg, cache, batch, dist):
+    """The global sequence length of a mesh's decode cache: its first
+    attention layer's block length times the sizes of the axes its
+    layout cuts the sequence over (``sharding.cache_seq_axes``)."""
+    for c in cache["layers"]:
+        for key in ("k", "c_kv"):
+            if key in c:
+                axes = shd.cache_seq_axes(cfg, batch, dist)
+                return c[key].shape[1] * C.axes_size(dist, axes)
     return 1
 
 
@@ -670,30 +836,29 @@ def decode_step(cfg, params, cache, token, pos, kernel_fns=None,
     ``mla_decode``); the recurrent states come back as new tensors.
 
     On a mesh (``dist``): ``token`` and ``pos`` global, ``params`` and
-    ``cache`` the rank's blocks (``decode_cache_specs``); the logits
-    come back whole. Under ``cfg.decode_sp`` a GQA layer decodes with
-    ``gqa_decode_sp`` on its sequence-sharded cache; every other layer's
-    cache is gathered over 'model' for the step and cut back (what the
-    reference's GSPMD decode does to a sharded cache)."""
+    ``cache`` the rank's blocks (``decode_cache_specs``; a cache whose
+    sequence is cut takes a length its axes divide); the logits come
+    back whole. No layer's cache is gathered: a GQA layer decodes on its
+    kv heads and/or its sequence block (``gqa_decode_sp``), MLA on its
+    latent rows (``mla_decode``), RWKV and Mamba on their heads' and
+    channels' states."""
     dist = moe_mod.as_dist(dist, "decode_step")
     specs, split, cspecs = None, True, None
     if dist is not None:
         specs = _param_specs(cfg, dist)
+        B = token.shape[0]
         cspecs = shd.decode_cache_specs(
-            cfg, token.shape[0], _cache_len(cfg, cache, dist),
-            dist)["layers"]
+            cfg, B, _cache_len(cfg, cache, B, dist), dist)["layers"]
         split, rows = _local_rows({"token": token, "pos": pos}, dist)
         token, pos = rows["token"], rows["pos"]
     emb, final_norm, head = _top(cfg, params, specs, dist)
-    x = emb[token]
+    x = _lookup(cfg, emb, token, dist)
     x, caches = _run_stack(cfg, params, x, pos[:, None], kernel_fns,
                            want_cache=False, in_cache=cache["layers"],
                            pos=pos, dist=dist, specs=specs, split=split,
                            cspecs=cspecs)
     x = rms_norm(x, final_norm, cfg.norm_eps)
-    logits = unembed(x, head)[:, 0]
-    if dist is not None:
-        logits = _rows_whole(logits, dist, split)
+    logits = _last_logits(cfg, x, head, dist, split)
     return logits, {"pos_offset": pos + 1, "layers": caches}
 
 

@@ -10,6 +10,16 @@ RMSNorm, as in the reference.
 float32 state. It is the plain version the CUDA wkv kernel is held
 against (``kernels/ref.py``); ``time_mix`` takes the kernel through
 ``kernel_fn``.
+
+Tensor parallelism over a mesh's 'model' axis (``models.model`` drives
+it where the heads divide the axis): ``time_mix(..., heads=)`` runs a
+rank's block of heads -- its column blocks of ``wr``/``wk``/``wv``/
+``wg``, the decay from the replicated lora at d_model width cut to its
+columns, its rows of ``u`` and ``gn_w`` -- and returns its partial
+product with its row block of ``wo``; ``channel_mix(..., tp=)`` takes
+the rank's column block of ``cm_wk`` and row block of ``cm_wv``, sums
+the partial products into the rank's block of the channels, applies its
+columns of the receptance there and gathers the blocks.
 """
 from __future__ import annotations
 
@@ -104,43 +114,67 @@ def _shifted(x, shift_state):
     return torch.cat([shift_state[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def time_mix(p, cfg, x, shift_state, wkv_state, kernel_fn=None):
+def time_mix(p, cfg, x, shift_state, wkv_state, kernel_fn=None,
+             heads=None):
     """x: (B,T,d). shift_state: (B,d) (last token of the previous
-    segment). Returns (out, new_shift_state, new_wkv_state)."""
+    segment). Returns (out, new_shift_state, new_wkv_state).
+
+    ``heads`` (a slice of the heads): ``p`` holds the column blocks of
+    ``wr``/``wk``/``wv``/``wg`` and the row block of ``wo`` of those
+    heads, the rest whole; wkv_state is theirs, and ``out`` is their
+    partial sum of the output."""
     B, T, d = x.shape
     dh = cfg.rwkv_head_dim
-    H = d // dh
     sx = _shifted(x, shift_state) - x
     xw, xk, xv, xr, xg = _ddlerp(p, x, sx)
 
-    r = (xr @ p["wr"]).reshape(B, T, H, dh)
+    r = (xr @ p["wr"]).reshape(B, T, -1, dh)
+    H = r.shape[2]
     k = (xk @ p["wk"]).reshape(B, T, H, dh)
     v = (xv @ p["wv"]).reshape(B, T, H, dh)
     g = F.silu(xg @ p["wg"])
-    w = torch.exp(-torch.exp((p["w0"] + torch.tanh(xw @ p["td_w1"])
-                              @ p["td_w2"]).float())).reshape(B, T, H, dh)
+    w = p["w0"] + torch.tanh(xw @ p["td_w1"]) @ p["td_w2"]
+    u, gn_w = p["u"], p["gn_w"]
+    if heads is not None:
+        cols = slice(heads.start * dh, heads.stop * dh)
+        w, u, gn_w = w[..., cols], u[heads], gn_w[cols]
+    w = torch.exp(-torch.exp(w.float())).reshape(B, T, H, dh)
 
     wkv = kernel_fn or wkv_scan
     # the decays reach the recurrence in r's dtype, as in the reference
-    y, wkv_state = wkv(r, k, v, w.to(r.dtype), p["u"], wkv_state)
-    y = _group_norm(y.reshape(B, T, d), p["gn_w"], H)
+    y, wkv_state = wkv(r, k, v, w.to(r.dtype), u, wkv_state)
+    y = _group_norm(y.reshape(B, T, H * dh), gn_w, H)
     out = (y * g) @ p["wo"]
-    return out, x[:, -1, :], wkv_state
+    # the shift states are copies: a view would keep x's (B, T, d) alive
+    return out, x[:, -1, :].clone(), wkv_state
 
 
-def channel_mix(p, x, shift_state):
+def channel_mix(p, x, shift_state, tp=None):
+    """The squared-ReLU channel mix. ``tp`` (tensor parallelism over a
+    mesh axis): (the rank's block of the channels, a slice of d_model;
+    ``scatter``, the ranks' partial (..., d) sums -> the rank's block of
+    their sum; ``gather``, the ranks' blocks -> the whole): ``p`` holds
+    the column block of ``cm_wk`` and the row block of ``cm_wv``, and
+    the receptance runs on the rank's columns of ``cm_wr``."""
     sx = _shifted(x, shift_state) - x
     xk = x + sx * p["cm_maa_k"]
     xr = x + sx * p["cm_maa_r"]
     k = torch.square(torch.relu(xk @ p["cm_wk"]))
-    return torch.sigmoid(xr @ p["cm_wr"]) * (k @ p["cm_wv"]), x[:, -1, :]
+    if tp is None:
+        out = torch.sigmoid(xr @ p["cm_wr"]) * (k @ p["cm_wv"])
+    else:
+        cols, scatter, gather = tp
+        out = gather(torch.sigmoid(xr @ p["cm_wr"][:, cols])
+                     * scatter(k @ p["cm_wv"]))
+    return out, x[:, -1, :].clone()
 
 
-def rwkv_state_init(cfg, batch, dtype=None, device="cuda"):
-    """Per-layer recurrent state. Token-shift states are in the model
-    dtype (they join the activations); the wkv state stays float32."""
+def rwkv_state_init(cfg, batch, dtype=None, device="cuda", n_heads=None):
+    """Per-layer recurrent state (``n_heads``: a rank's block of the
+    wkv heads). Token-shift states are in the model dtype (they join the
+    activations); the wkv state stays float32."""
     d, dh = cfg.d_model, cfg.rwkv_head_dim
-    H = d // dh
+    H = n_heads or d // dh
     dtype = dtype or cfg.dtype
     return {
         "att_shift": torch.zeros((batch, d), dtype=dtype, device=device),

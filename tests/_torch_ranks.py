@@ -249,3 +249,89 @@ def body_elastic(rank, pl):
             "opt_step": int(state["opt"]["step"]),
             "whole_b": shd.unshard_tree(new, specs_b, dist_b),
             "m_b": {k: float(v) for k, v in m_b.items()}}
+
+
+def _max_over_ranks(value):
+    """The largest of every rank's float ``value``."""
+    t = torch.tensor([float(value)])
+    tdist.all_reduce(t, op=tdist.ReduceOp.MAX)
+    return float(t[0])
+
+
+def _of_scale(got, want) -> float:
+    """The largest difference of ``got`` from ``want`` over want's
+    largest magnitude (inf for another shape or dtype)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    want = want.double()
+    return float((got.double() - want).abs().max()) / \
+        max(float(want.abs().max()), 1e-30)
+
+
+def _prefill_decode(cfg, dist, params, tokens, T, cache_len, one_prefill):
+    """prefill of ``tokens[:, :T]`` on the rank's blocks, then a decode
+    step for each later token: (the logits of each, the whole cache at
+    the end, the largest difference of a rank's prefill cache block from
+    the block ``cache_specs`` lays out of the one-device prefill's cache
+    over that block's scale,
+    whether every decode kept the blocks' shapes and dtypes, the
+    COLLECTIVE_COUNTS of the last step and of that step on a cache twice
+    as long)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    B = tokens.shape[0]
+    pb = shd.shard_tree(params, shd.param_specs(cfg, dist)[0], dist)
+    logits, cache = M.prefill(cfg, pb, {"tokens": tokens[:, :T]}, dist=dist)
+    lay = shd.cache_specs(cfg, ShapeConfig("p", T, B, "decode"), dist)[0]
+    layout = _max_over_ranks(max(
+        _of_scale(a, shd.block(b, s, dist)) for a, b, s in
+        zip(leaves(cache), leaves(one_prefill), shd.spec_leaves(lay))))
+    cspecs = shd.decode_cache_specs(cfg, B, cache_len, dist)
+    if cache_len != T:                  # room for the new tokens
+        full = M.init_cache(cfg, B, cache_len, device="cpu")
+        M.write_cache(full, shd.unshard_tree(
+            cache, shd.decode_cache_specs(cfg, B, T, dist), dist))
+        cache = shd.shard_tree(full, cspecs, dist)
+    before = [(x.shape, x.dtype) for x in leaves(cache)]
+    outs, kept = [logits], True
+
+    def step(cache, t):
+        C.reset_counts()
+        out = M.decode_step(cfg, pb, cache, tokens[:, t:t + 1],
+                            torch.full((B,), t, dtype=torch.int32),
+                            dist=dist)
+        return out + ({k: tuple(v) for k, v in
+                       C.COLLECTIVE_COUNTS.items()},)
+    for t in range(T, tokens.shape[1]):
+        logits, cache, counts = step(cache, t)
+        kept &= before == [(x.shape, x.dtype) for x in leaves(cache)]
+        outs.append(logits)
+    # the last step again on a zero cache twice as long
+    longer = shd.shard_tree(M.init_cache(cfg, B, 2 * cache_len, device="cpu"),
+                            shd.decode_cache_specs(cfg, B, 2 * cache_len,
+                                                   dist), dist)
+    counts = (counts, step(longer, tokens.shape[1] - 1)[2])
+    return (outs, shd.unshard_tree(cache, cspecs, dist), layout, kept,
+            counts)
+
+
+def body_tp(rank, pl):
+    """Every case of tests/test_torch_dist_tp.py on one 2 x 2 mesh: the
+    train steps (the whole new parameters, the metrics, the whole
+    gradient from the blocks') and the prefill-and-decode runs."""
+    dist = _dist()
+    out = {"train": {}, "decode": {}}
+    for name, c in pl["train"].items():
+        cfg = _cfg(c["arch"], **c["over"])
+        whole, m = _train(cfg, dist, c["params"], c["batch"], c["step"])[:2]
+        out["train"][name] = (whole, m, _grads(cfg, dist, c["params"],
+                                               c["batch"]))
+    for name, c in pl["decode"].items():
+        cfg = _cfg(c["arch"], **c["over"])
+        out["decode"][name] = _prefill_decode(
+            cfg, dist, c["params"], c["tokens"], c["T"], c["cache_len"],
+            c["prefill_cache"])
+    return out

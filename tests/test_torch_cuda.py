@@ -1012,11 +1012,7 @@ def test_sweep_over_two_views_of_the_card(cuda, tmp_path, monkeypatch):
     assert again == two
 
 
-@pytest.mark.cuda
-def test_dryrun_card_counts_equal_meta(cuda):
-    cfg = reduced(get_config("qwen3-8b"), remat=True, fsdp=True,
-                  dtype=torch.bfloat16)
-    shape = ShapeConfig("t", 64, 8, "train")
+def _card_and_meta(cuda, cfg, shape):
     got = {}
     for dev in (cuda, "meta"):
         with fake_world(4):
@@ -1029,7 +1025,22 @@ def test_dryrun_card_counts_equal_meta(cuda):
     assert card["log"] == meta["log"]
     assert {k: v[1] for k, v in card["collective_bytes"].items()} == \
         {"/".join(k): v for k, v in implied.items()}
+    assert card["memory"]["temp_size_in_bytes"] > 0
+    return card
+
+
+@pytest.mark.cuda
+def test_dryrun_card_counts_equal_meta(cuda):
+    """A reduced train cell (remat, FSDP, the flash kernels) and a
+    reduced decode cell on the sequence-sharded cache (granite-34b, one
+    kv head: the partial softmax combined over 'model'): the card's
+    counts equal meta's, the collective bytes the specs'."""
+    cfg = reduced(get_config("qwen3-8b"), remat=True, fsdp=True,
+                  dtype=torch.bfloat16)
+    card = _card_and_meta(cuda, cfg, ShapeConfig("t", 64, 8, "train"))
     fwd = card["launches"]["flash_attention"]
     assert sum(fwd.values()) == 2 * 2          # 2 layers, remat
     assert sum(card["launches"]["flash_attention_bwd"].values()) == 2
-    assert card["memory"]["temp_size_in_bytes"] > 0
+    cfg = reduced(get_config("granite-34b"), dtype=torch.bfloat16)
+    card = _card_and_meta(cuda, cfg, ShapeConfig("d", 64, 8, "decode"))
+    assert card["collective_bytes"]["pmax/model"][0] == cfg.n_layers

@@ -19,7 +19,9 @@ against the reference's (``repro.launch.dryrun``).
 * (f) Each reduced cell's collective bytes by (op, axis) equal
   ``implied_bytes`` (remat, FSDP, ZeRO-2, microbatches, the
   psum_scatter MoE combine, decode_sp, adafactor and the pod axis among
-  them).
+  them; the vocab-parallel head and a tied table's lookup, RWKV's and
+  Mamba's tensor-parallel sums, and a decode's combine over a
+  sequence-sharded GQA or MLA cache).
 * (g) ``ici_gating.analyze_all(device="cpu")`` over the port's records
   equals the reference's ``analyze_all`` over the same files.
 * (h) The dry run refuses to run beside a real (gloo) default group;
@@ -267,6 +269,9 @@ CELLS = [
     ("hubert-xlarge", "train", 16, 8, {"remat": True, "fsdp": True},
      (2, 2)),
     ("internvl2-76b", "prefill", 16, 8, {}, (2, 2)),
+    ("qwen3-0.6b", "train", 16, 8, {"remat": True, "fsdp": True}, (2, 2)),
+    ("granite-34b", "decode", 16, 8, {}, (2, 2)),
+    ("minicpm3-4b", "decode", 16, 8, {}, (2, 2)),
 ]
 
 

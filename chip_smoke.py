@@ -125,6 +125,22 @@ Phases (one line each; any failure exits non-zero and prints no result):
    kernel launching every tick, within 1e-6), and a permanent one giving
    structured error entries and a salvage checkpoint that
    ``resume_sweep`` finishes on the card, equal to the clean bucket;
+7b. ``analysis``: the contract tooling (``repro_torch.analysis``):
+   ``--check --device cuda`` (the lint, and the artifact audit of the
+   sweep tick, run_sim's tick and the ICI timeline in x32 and x64 on the
+   card: each case's counted FLOPs and bytes, its captured graph's node
+   kinds and copies (no host node, no device-to-host copy), its peak
+   live bytes beside the case's budget, the carry written in place),
+   then the same audit on the CPU, whose counts must equal the card's
+   in every case; then the sync sanitizer (``sweep_sanitizer``:
+   ``set_sync_debug_mode("error")``, the capture watcher and ledger)
+   armed around a graph run of the golden site with ``validate=True``,
+   the same run eagerly, one checkpointing every chunk and a pipelined
+   two-bucket ``run_sweep_planned``: zero implicit syncs, the launches,
+   captures and fold fetches counted, one capture per bucket by the
+   ledger, the three single runs equal; and an ``.item()`` injected at
+   a chunk boundary must trip it. ``--analysis`` runs only the build
+   and this phase;
 8. ``serve-qwen3-8b``, 9. ``serve-rwkv6-7b`` and 9b.
    ``serve-minicpm3-4b`` (MLA), ``serve-mixtral-8x7b`` (MoE, sliding
    window) and ``serve-jamba-v0.1-52b`` (Mamba + attention + MoE): the
@@ -1452,6 +1468,179 @@ def bucket_fault_phase(torch, S, dev):
           f"{len(bad)} structured error entries (stage dispatch, retried) "
           f"and a salvage checkpoint; resume_sweep finished it on {dev} "
           f"equal to the bucket's clean run; bucket 1 intact")
+
+ANALYSIS_DIR = ROOT / "build" / "chip_smoke_analysis"
+ANALYSIS_TICKS, ANALYSIS_CHUNK = 200, 50
+
+
+def golden_runs(S):
+    """The golden capture's runs (tests/data/preflow_golden.json) on
+    its site, FAULT_SITE."""
+    from repro_torch.core.topology import FBSite
+    from repro_torch.core.traffic import TRAFFIC_SPECS
+    site = FBSite(**FAULT_SITE)
+
+    def params(spec, **kw):
+        return S.SimParams(spec=TRAFFIC_SPECS[spec], site=site, **kw)
+
+    return [(params("fb_hadoop", gating_enabled=True, rate_scale=1.6), 8),
+            (params("fb_hadoop", gating_enabled=False, rate_scale=1.6), 9),
+            (params("fb_web", gating_enabled=True), 3)]
+
+
+def audit_phase(torch, dev, card):
+    """``python -m repro_torch.analysis --check --device cuda`` (the lint
+    and the artifact audit on the card), then the same audit on the CPU:
+    every case's counts must be equal."""
+    from repro_torch.analysis import artifact, cli
+    from repro_torch.analysis.registry import load_config
+    shutil.rmtree(ANALYSIS_DIR, ignore_errors=True)
+    report = ANALYSIS_DIR / "analysis_report.json"
+    t0 = time.perf_counter()
+    rc = cli.main(["--check", "--device", "cuda", "--json", str(report),
+                   "--root", str(ROOT)])
+    t_card = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"analysis: python -m repro_torch.analysis --check --device "
+             f"cuda exited {rc}")
+    card_units = json.loads(report.read_text())["artifact"]["units"]
+    t0 = time.perf_counter()
+    findings, cpu = artifact.run_audit(ROOT, load_config(ROOT),
+                                       device="cpu")
+    t_cpu = time.perf_counter() - t0
+    if findings:
+        fail(f"analysis: the CPU audit: {[f.format() for f in findings]}")
+    budgets = {(u["name"], c["tag"], mode):
+               c.get(f"peak_bytes_budget_{mode}", 0)
+               for u in artifact.load_contracts(ROOT)["artifact"]["unit"]
+               for c in u.get("case", []) for mode in artifact.MODES}
+    cpu_cases = {(u, c["tag"], c["mode"]): c for u, p in cpu["units"].items()
+                 for c in p["cases"]}
+    n = 0
+    for u, p in card_units.items():
+        for c in p["cases"]:
+            key = (u, c["tag"], c["mode"])
+            if c["measured"] != cpu_cases[key]["measured"]:
+                fail(f"analysis: {key} counts on the card "
+                     f"{c['measured']} differ from the CPU's "
+                     f"{cpu_cases[key]['measured']}")
+            n += 1
+            m = c["measured"]
+            line = (f"{u} {c['tag']} {c['mode']}: "
+                    f"{m['flops_per_tick_scen']:.0f} FLOPs, "
+                    f"{m['bytes_per_tick_scen']:.0f} B a tick a scenario "
+                    f"(card = CPU)")
+            if isinstance(c["memory"], dict):
+                line += (f"; peak {c['memory']['peak']} B live, budget "
+                         f"{budgets[key]} B, graph pool "
+                         f"{c['memory']['reserved']} B reserved; nodes "
+                         f"{c['graph']['kinds']}, copies "
+                         f"{c['graph']['copies'] or 'none'}; switch_tiers "
+                         f"launches a replay {c['launches_per_replay']}; "
+                         f"carry in place {c['leaves_in_place']}")
+            phase("analysis", line)
+    phase("analysis", f"--check on the card: lint clean, {n} audit cases "
+          f"(x32 and x64) clean in {t_card:.1f} s; the CPU's counts equal "
+          f"the card's in every case (its audit {t_cpu:.1f} s); card {card}")
+
+
+def analysis_phase(torch, S, dev, card):
+    """The contract tooling on the card: the audit (``audit_phase``),
+    then the sync sanitizer armed around a graph, an eager, a
+    checkpointed and a planned sweep (zero implicit syncs, one capture
+    per bucket by the ledger, the fold fetches and launches counted),
+    and an ``.item()`` injected at a chunk boundary tripping it."""
+    import tempfile
+    from repro_torch.analysis import sanitizer
+    from repro_torch.core import checkpoint as CK
+    from repro_torch.core.topology import FBSite, full_site_tag
+    from repro_torch.core.traffic import TRAFFIC_SPECS
+    from repro_torch.kernels import lcdc_switch
+    audit_phase(torch, dev, card)
+
+    batch = S.make_batch(golden_runs(S))
+    tag = full_site_tag(batch.hull)
+    N, CH = ANALYSIS_TICKS, ANALYSIS_CHUNK
+    n_ckpt = -(-N // CH) - 1
+    a = FBSite(**FAULT_SITE)
+    b = FBSite(**dict(FAULT_SITE, racks_per_cluster=4))
+    spec = TRAFFIC_SPECS["fb_hadoop"]
+    mixed = [(S.SimParams(spec=spec, site=a), 0),
+             (S.SimParams(spec=spec, site=b), 1),
+             (S.SimParams(spec=spec, site=a, gating_enabled=False), 2)]
+    lines, first = [], None
+    with tempfile.TemporaryDirectory() as d, \
+            sanitizer.sweep_sanitizer() as ss:
+        if torch.cuda.get_sync_debug_mode() != 2:
+            fail("analysis: the sync sanitizer did not arm the error mode")
+        for name, kw, want in (
+                ("graph, validate=True", dict(validate=True), (N, 1, 1)),
+                ("eager (graph=False)", dict(graph=False), (N, 0, 1)),
+                ("graph, checkpoint every chunk",
+                 dict(checkpoint=CK.CheckpointSpec(directory=d, tag="an")),
+                 (N, 1, 1 + n_ckpt))):
+            zero_counts(S, lcdc_switch)
+            k0 = len(ss.ledger.sites)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = S.run_sweep(batch, N, chunk_ticks=CH, device=dev, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts(S, lcdc_switch)
+            if got != want:
+                fail(f"analysis: {name}: switch_tiers launches, captures, "
+                     f"fold fetches {got}; expected {want}")
+            if ss.ledger.tags[k0:] != [tag]:
+                fail(f"analysis: {name}: ledger {ss.ledger.tags[k0:]}")
+            first = first or res
+            if res != first:
+                fail(f"analysis: {name}: results differ from the graph "
+                     f"run's")
+            lines.append(f"{name} {wall:.2f} s (launches, captures, "
+                         f"fetches {got})")
+        ss.ledger.sites.clear()
+        ss.watcher.events.clear()
+        zero_counts(S, lcdc_switch)
+        t0 = time.perf_counter()
+        res, plan = S.run_sweep_planned(mixed, N, chunk_ticks=CH,
+                                        max_compiles=2, pipeline=True,
+                                        return_plan=True, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ss.assert_one_capture_per_bucket(plan)
+        got = counts(S, lcdc_switch)
+        nb = plan["n_buckets"]
+        if (nb != 2 or got != (N * nb, nb, nb)
+                or any("error" in r for r in res)
+                or ss.watcher.programs_of("_TickGraph.run") != nb
+                or ss.watcher.programs_of("make_sim_step") != nb):
+            fail(f"analysis: planned: {nb} buckets, counts {got}, watcher "
+                 f"{ss.watcher.events}, errors "
+                 f"{[r['error'] for r in res if 'error' in r]}")
+        lines.append(f"planned pipelined {wall:.2f} s, {nb} buckets "
+                     + ", ".join(ss.ledger.tags)
+                     + f" one capture each (launches, captures, fetches "
+                     f"{got})")
+    phase("analysis", f"sync sanitizer armed (set_sync_debug_mode error) "
+          f"over {len(lines)} sweeps of {N} ticks (chunk {CH}) on "
+          f"{dev}, zero implicit syncs: " + "; ".join(lines)
+          + "; the graph, eager and checkpointed runs equal")
+
+    probe = torch.ones(1, device=dev)
+    S.CHUNK_HOOK = lambda ci: ci == 1 and probe.sum().item()
+    try:
+        with sanitizer.sync_sanitizer():
+            S.run_sweep(batch, N, chunk_ticks=CH, device=dev)
+        fail("analysis: an .item() injected at chunk 1 did not trip the "
+             "sync sanitizer")
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        tripped = str(e).splitlines()[0]
+    finally:
+        S.CHUNK_HOOK = None
+    phase("analysis", f"an .item() injected at chunk 1 trips it: "
+          f"{tripped!r}")
 
 # (label, B, T, H, d, causal, window, dtype): the qwen3-8b serve shapes,
 # then ragged, non-causal and d = 64 (minicpm3's head dim) bf16 cases,
@@ -4387,6 +4576,9 @@ def main() -> None:
     ap.add_argument("--dryrun", action="store_true",
                     help="run only the build and phase dryrun; prints no "
                     "kernels or device line")
+    ap.add_argument("--analysis", action="store_true",
+                    help="run only the build and phase analysis; prints "
+                    "no kernels or device line")
     ap.add_argument("--bwd-digests", action="store_true",
                     help="run only the build and print a digest of each "
                     "FLASH_BWD_CASES case's flash backward (to compare "
@@ -4403,7 +4595,6 @@ def main() -> None:
     try:
         from repro_torch.core import simulator as S
         from repro_torch.core.topology import FBSite
-        from repro_torch.core.traffic import TRAFFIC_SPECS
         from repro_torch.kernels import _build, lcdc_switch, ref
     except ImportError as e:
         fail(f"the port (src/repro_torch) is not importable here: {e}")
@@ -4433,6 +4624,11 @@ def main() -> None:
     if opts.dryrun:
         dryrun_phase(torch, dev, card)
         phase("done", f"phase dryrun in "
+              f"{time.perf_counter() - t_start:.0f} s; card {card}")
+        return
+    if opts.analysis:
+        analysis_phase(torch, S, dev, card)
+        phase("done", f"phase analysis in "
               f"{time.perf_counter() - t_start:.0f} s; card {card}")
         return
     if serve_only:
@@ -4545,17 +4741,7 @@ def main() -> None:
     # 3. golden on the card, the tick from a CUDA graph and eagerly ------
     golden = json.loads(GOLDEN.read_text())
     cfg = golden["config"]
-    site = FBSite(n_clusters=2, racks_per_cluster=8, servers_per_rack=8,
-                  csw_per_cluster=2, n_fc=2, csw_ring_links=4,
-                  fc_ring_links=8)
-
-    def params(spec, **kw):
-        return S.SimParams(spec=TRAFFIC_SPECS[spec], site=site, **kw)
-
-    runs = [(params("fb_hadoop", gating_enabled=True, rate_scale=1.6), 8),
-            (params("fb_hadoop", gating_enabled=False, rate_scale=1.6), 9),
-            (params("fb_web", gating_enabled=True), 3)]
-    batch = S.make_batch(runs)
+    batch = S.make_batch(golden_runs(S))
     rows = golden["results"]
     if [r["label"] for r in rows] != list(batch.labels):
         fail("golden labels do not match the golden runs")
@@ -4671,10 +4857,12 @@ def main() -> None:
     sharded_phase(torch, S, dev, card, batch, main["short"],
                   MAIN_EAGER_TICKS, MAIN_EAGER_CHUNK)
 
-    # 5-7. the planner's, the durable and the isolating paths ----------
+    # 5-7b. the planner's, the durable and the isolating paths, then the
+    # contract tooling ------------------------------------------------
     planned_phase(torch, S, dev, card)
     durable_phase(torch, S, dev, card)
     bucket_fault_phase(torch, S, dev)
+    analysis_phase(torch, S, dev, card)
 
     # 8-9b. the serving paths at full width, one model at a time -------
     paths = {"flash_attention": {"launches": 0, "shapes": {}},

@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.core import constants as C
 from repro_torch.core import gating
-from repro_torch.device import resolve_device
+from repro_torch.device import fetch_point, resolve_device, upload
 
 #: the port's dry-run records (``launch.dryrun``: its own counter, so not
 #: the reference's ``results/dryrun``)
@@ -154,7 +154,8 @@ def _replay(tick_into, n: int, device) -> None:
                 tick_into()
             for _ in range(n - 1):
                 graph.replay()
-        torch.cuda.synchronize(device)
+        with fetch_point():
+            torch.cuda.synchronize(device)
 
 
 def _reactive_program(links: int, bw_link_tick: float, tick_us: float,
@@ -162,7 +163,8 @@ def _reactive_program(links: int, bw_link_tick: float, tick_us: float,
                       x64: bool = False, graph: bool = False):
     """The watermark-controller timeline ``reactive_policy`` runs:
     ``run(demand) -> (powered_sum, stall_us)``, 0-d tensors on
-    ``device``, one tick of ``gating.gate_step`` on (1, ``links``)
+    ``device`` (``demand`` a sequence of numbers, or already a 1-D
+    tensor of the run's float type on ``device``), one tick of ``gating.gate_step`` on (1, ``links``)
     tensors per entry of ``demand``. With ``graph`` (a CUDA device) one
     tick is captured as a CUDA graph and replayed for the others, the
     tick reading its demand through a counter on the device; without
@@ -181,7 +183,7 @@ def _reactive_program(links: int, bw_link_tick: float, tick_us: float,
     dt = torch.float64 if x64 else torch.float32
 
     def const(v, dtype=dt):
-        return torch.tensor(v, dtype=dtype, device=device)
+        return upload(torch.tensor(v, dtype=dtype), device)
 
     one = np.float64 if x64 else np.float32
     scale = one(one(one(1.0) / one(cap_q)) * one(C.QUEUE_CAP_PKTS)) \
@@ -205,8 +207,8 @@ def _reactive_program(links: int, bw_link_tick: float, tick_us: float,
         return state, queue, stall, powered + torch.sum(state.powered)
 
     def run(demand):
-        d_all = torch.as_tensor(np.asarray(demand, dtype=one),
-                                device=device)
+        d_all = demand if isinstance(demand, torch.Tensor) \
+            else upload(np.asarray(demand, dtype=one), device)
         carry = (gating.gate_init(1, links, device),
                  torch.zeros((), dtype=dt, device=device),
                  torch.zeros((), dtype=dt, device=device),
@@ -270,14 +272,16 @@ def reactive_policy(ph: StepPhases, *, idle_frac: float = 0.0,
     run = _reactive_program(links, bw_link_tick, tick_us, cap_q,
                             up_delay, device=dev, x64=x64, graph=graph)
     powered_sum, stall_us = run(demand)
-    on_frac = float(powered_sum) / (n_ticks * links)
+    with fetch_point():
+        powered_sum, stall_us = float(powered_sum), float(stall_us)
+    on_frac = powered_sum / (n_ticks * links)
     return {
         "policy": "reactive",
         "step_us": step_us,
         "tick_us": tick_us,
         "link_on_frac": on_frac,
         "ici_energy_savings": 1.0 - on_frac,
-        "latency_penalty": float(stall_us) / max(step_us, 1e-9),
+        "latency_penalty": stall_us / max(step_us, 1e-9),
     }
 
 

@@ -46,10 +46,13 @@ waste is ``1 - ideal/padded`` where ideal charges each scenario its own
 site's cost. These are the padding-waste stats surfaced per bucket in
 the plan report.
 
-Only ``cost_model="model"`` is ported: the reference's ``"hlo"`` mode
-reads the JAX package's blessed XLA cost measurements (its artifact
-contracts), which have no counterpart here yet (ROADMAP Queue 1 item
-14); asking for it raises ``ValueError``.
+``cost_model="hlo"`` buckets by measured cost instead: the blessed
+per-hull FLOPs of one tick per scenario in the port's artifact
+contracts (``analysis/artifact_contracts.toml``, counted by
+``launch.hlo_analysis.CostCounter``; ``analysis.artifact
+.hlo_cost_table``), as the reference's mode reads its blessed XLA
+``cost_analysis()``. A hull the table has no entry for costs
+``site_cost`` scaled by the table's geometric-mean counted/model ratio.
 
 Algorithm
 ---------
@@ -77,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -207,27 +211,61 @@ class SweepPlan:
         }
 
 
+def hlo_cost_fn(cost_table: dict | None = None):
+    """Cost function backed by the blessed measurements.
+
+    ``cost_table`` is ``repro_torch.analysis.artifact.hlo_cost_table()``
+    output (read from the committed contract file when omitted):
+    ``full_site_tag -> {"flops_per_tick_scen", "site"}``. Exact hull
+    hits return the measured FLOPs; anything unmeasured falls back to
+    ``site_cost`` scaled by the table's geometric-mean measured/model
+    ratio, so exact and fallback costs share one unit system. An empty
+    table degenerates to plain ``site_cost`` (ratio 1).
+    """
+    if cost_table is None:
+        # lazily: the planner stays importable without the analysis
+        # package
+        from repro_torch.analysis.artifact import hlo_cost_table
+        cost_table = hlo_cost_table()
+    log_sum, n = 0.0, 0
+    for entry in cost_table.values():
+        model = site_cost(entry["site"])
+        if model > 0.0 and entry["flops_per_tick_scen"] > 0.0:
+            log_sum += math.log(entry["flops_per_tick_scen"] / model)
+            n += 1
+    ratio = math.exp(log_sum / n) if n else 1.0
+
+    def cost(site: FBSite) -> float:
+        entry = cost_table.get(full_site_tag(site))
+        if entry is not None:
+            return float(entry["flops_per_tick_scen"])
+        return ratio * site_cost(site)
+
+    return cost
+
+
 def plan_sites(sites: Sequence[FBSite], max_compiles: int = 4, *,
-               cost_model: str = "model") -> SweepPlan:
+               cost_model: str = "model",
+               cost_table: dict | None = None) -> SweepPlan:
     """Partition scenario sites into <= ``max_compiles`` hull buckets.
 
     ``sites[i]`` is scenario i's FBSite (caller order). Every index
     lands in exactly one bucket.
 
     ``cost_model`` selects the bucketing cost function: ``"model"``
-    (the only one ported) is the hand model ``site_cost``. The
-    reference's ``"hlo"`` mode reads JAX artifact contracts and raises
-    ``ValueError`` here (ROADMAP Queue 1 item 14).
+    (default) is the hand model ``site_cost``, bit-identical to the
+    planner before ``cost_model``, and ``"hlo"`` uses the blessed
+    measurements via ``hlo_cost_fn(cost_table)`` (``cost_table``
+    defaults to the committed contract file; pass one explicitly to
+    avoid the file read or to test synthetic tables).
     """
-    if cost_model == "hlo":
-        raise ValueError(
-            "cost_model='hlo' reads the JAX package's HLO artifact "
-            "contracts, which the port does not have (ROADMAP Queue 1 "
-            "item 14); use cost_model='model'")
-    if cost_model != "model":
+    if cost_model == "model":
+        cost = site_cost
+    elif cost_model == "hlo":
+        cost = hlo_cost_fn(cost_table)
+    else:
         raise ValueError(
             f"cost_model must be 'model' or 'hlo', got {cost_model!r}")
-    cost = site_cost
     sites = list(sites)
     if not sites:
         raise ValueError("plan_sites: empty site list")

@@ -39,6 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import upload
 from repro_torch.kernels.ref import fma as _fma
 from repro_torch.kernels.ref import fma64_finite, veltkamp_split
 
@@ -76,9 +77,8 @@ def key(seed, device=None, x64: bool = False):
     complement (-1 -> (4294967295, 4294967295), 2**32 + 5 -> (1, 5)). A
     sequence of seeds gives a ``(B, 2)`` batch of keys."""
     s = np.asarray(seed, dtype=np.int64)
-    lo = torch.as_tensor(s & MASK32, device=device)
-    hi = torch.as_tensor((s >> 32) & MASK32 if x64 else np.zeros_like(s),
-                         device=device)
+    lo = upload(s & MASK32, device)
+    hi = upload((s >> 32) & MASK32 if x64 else np.zeros_like(s), device)
     return torch.stack([hi, lo], dim=-1)
 
 

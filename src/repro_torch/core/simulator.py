@@ -79,7 +79,7 @@ from repro_torch.core.topology import (FBSite, full_site_tag, pad_hull,
 from repro_torch.core.traffic import (TRAFFIC_SPECS, TrafficSpec,
                                       flow_arrival_rate_per_tick,
                                       rack_flow_rate_per_tick, stack_specs)
-from repro_torch.device import resolve_device
+from repro_torch.device import fetch_point, resolve_device, upload
 from repro_torch.kernels import lcdc_switch, ops
 from repro_torch.kernels.ref import fma
 
@@ -108,6 +108,15 @@ HOST_TRANSFER_COUNT = 0
 #: run_sweep on a CUDA device (remainder chunk included), none on the CPU
 #: or with graph=False
 CAPTURE_COUNT = 0
+
+#: optional per-program attribution seam: when set to a callable it is
+#: called with the static ``site`` hull once for each tick program a run
+#: builds, the CUDA-graph capture of ``_TickGraph.run`` on the card and
+#: the eagerly stepped tick (``_split_blocks``) on the CPU or with
+#: ``graph=False``, so it means the same thing on both devices. The
+#: runtime sanitizer (``analysis.sanitizer.CaptureLedger``) uses it to
+#: pin the planner pipeline's one-capture-per-bucket contract per hull.
+CAPTURE_HOOK = None
 
 #: scalar metrics two runs of the same scenarios must agree on (the
 #: reference's parity contract)
@@ -424,6 +433,12 @@ class ScenarioBatch:
 
     def __len__(self) -> int:
         return len(self.labels)
+
+    @property
+    def flows(self) -> bool:
+        """Whether a scenario of the batch runs the flow engine, read
+        from the host's scenarios (``make_sim_step``'s ``flows``)."""
+        return bool((self.scen.flow_mode > 0).any())
 
 
 def _run_label(p: SimParams, seed: int, *, tag_site: bool) -> str:
@@ -781,8 +796,7 @@ class _DrawPlan:
         dev = rack_uid.device
         B = rack_uid.shape[0]
         W = MAX_FAULT_LINKS
-        self.branches = torch.tensor(_BRANCHES, dtype=torch.int64,
-                                     device=dev)
+        self.branches = upload(np.asarray(_BRANCHES, np.int64), dev)
         # level 3: (index into [k_u, k_z, fr, fc, pr, pc, fa, fs], ids)
         segs = [(0, rack_uid), (1, rack_uid), (2, rack_uid),
                 (3, csw_uid), (4, torch.arange(NCL, device=dev)
@@ -860,7 +874,8 @@ def _unflat_gate(g, B: int):
 
 
 def make_sim_step(hull: FBSite, scen: Scenario, *,
-                  threefry_partitionable: bool = True, x64: bool = False):
+                  flows: bool, threefry_partitionable: bool = True,
+                  x64: bool = False):
     """One tick for every scenario of ``scen`` (leaves (B,), on the
     device the step runs on) on the static padded ``hull``: returns
     ``step(state) -> state``. Everything derived from the scenarios
@@ -872,7 +887,11 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
     ``JAX_ENABLE_X64=1``: float64 draws, and float64 wherever they or
     the float64 leaves meet float32 operands (PyTorch promotes a
     float32 and a float64 tensor with dims as JAX does; no operand
-    here is a 0-d tensor, whose type PyTorch would not promote)."""
+    here is a 0-d tensor, whose type PyTorch would not promote).
+    ``flows`` says whether a scenario of ``scen`` runs the flow engine
+    (``flow_mode > 0``), read by the caller on the host
+    (``ScenarioBatch.flows``), so building the step never waits for
+    the device."""
     s = hull
     NCL, RPC = s.n_clusters, s.racks_per_cluster
     P = s.csw_per_cluster     # plane axis: RSW uplink c IS cluster-CSW c
@@ -943,13 +962,13 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
     # fractional rates over the FT table slots, and they feed the
     # queues: a batch with the flow engine on sums them in the
     # reference's order, one slot after another (FT - 1 more small ops
-    # a tick; the set-up reads the knob once). In another order their
-    # last bits differ, and under heavy faults the queues' watermark
-    # decisions amplify that over a run (ROADMAP Queue 3). The
+    # a tick; the caller reads the knob on the host once, ``flows``). In
+    # another order their last bits differ, and under heavy faults the
+    # queues' watermark decisions amplify that over a run (ROADMAP
+    # Queue 3). The
     # tick's other float32 sums over racks go to accumulators only; the
     # reference's compiled code vectorizes those in shape-dependent
     # orders (tests/test_torch_x64.py says which).
-    ordered = bool(torch.any(scen.flow_mode > 0))
 
     def col(x):
         return x[:, None]
@@ -1042,7 +1061,7 @@ def make_sim_step(hull: FBSite, scen: Scenario, *,
         emit_f = torch.where(ft_live, torch.minimum(ft_rem, ft_cwnd), 0.0)
         ft_rem = ft_rem - emit_f
         done = ft_live & (ft_rem <= 0.0)                        # (B,R,FT)
-        if ordered:
+        if flows:
             per_dest = torch.stack([torch.where(ft_dst == d, emit_f, 0.0)
                                     for d in (0, 1, 2)], dim=2)  # (B,R,3,FT)
             by_dest = torch.where(flow_on[:, None, None],
@@ -1428,10 +1447,15 @@ class _TickGraph:
     are done (freeing the pool earlier would hand memory they still
     write to other work). Everything runs on the state's device, made
     the current one for the call, whichever device was current before.
+    ``site`` is the hull the capture reports to ``CAPTURE_HOOK``;
+    ``keep_graph`` keeps the captured ``cudaGraph_t`` readable
+    (``graph.raw_cuda_graph()``, for the artifact audit's node count).
     """
 
-    def __init__(self, step, static: SimState):
-        self.step, self.static = step, static
+    def __init__(self, step, static: SimState, site: FBSite | None = None,
+                 keep_graph: bool = False):
+        self.step, self.static, self.site = step, static, site
+        self.keep_graph = keep_graph
         self.graph = None
         self.launches = 0          # switch kernel launches per replay
 
@@ -1447,12 +1471,16 @@ class _TickGraph:
                 with torch.cuda.stream(side):
                     step_into(self.step, self.static)
                 torch.cuda.current_stream(dev).wait_stream(side)
-                self.graph = torch.cuda.CUDAGraph()
+                self.graph = torch.cuda.CUDAGraph(keep_graph=self.keep_graph)
                 before = lcdc_switch.CAPTURED
                 with torch.cuda.graph(self.graph):
                     step_into(self.step, self.static)
+                if self.keep_graph:
+                    self.graph.instantiate()
                 self.launches = lcdc_switch.CAPTURED - before
                 CAPTURE_COUNT += 1
+                if CAPTURE_HOOK is not None:
+                    CAPTURE_HOOK(self.site)
                 n -= 1
             for _ in range(n):
                 self.graph.replay()
@@ -1642,22 +1670,31 @@ class _Block:
 
 
 def _split_blocks(hull: FBSite, scen: Scenario, state: SimState, dev_fold,
-                  guard, devices, *, graph: bool,
+                  guard, devices, flows, *, graph: bool,
                   threefry_partitionable: bool, x64: bool) -> list:
     """The run's rows as one contiguous block per device (the first rows
-    on the first device), each with its own tick and tick graph."""
+    on the first device), each with its own tick and tick graph.
+    ``flows`` is the host's (B,) ``flow_mode > 0`` of the padded rows
+    (read there, not from the device). Reports each eagerly stepped
+    tick to ``CAPTURE_HOOK`` (a tick graph reports its capture)."""
     n = scen.ncl.shape[0] // len(devices)
     blocks = []
     for i, d in enumerate(devices):
-        def part(t, rows=slice(i * n, (i + 1) * n), d=d):
+        rows = slice(i * n, (i + 1) * n)
+
+        def part(t, rows=rows, d=d):
             return None if t is None else t[rows].to(d)
         sc = Scenario(*(part(t) for t in scen))
         st = _map_carry(state, lambda _, t: part(t))
         step = make_sim_step(hull, sc, x64=x64,
-                             threefry_partitionable=threefry_partitionable)
+                             threefry_partitionable=threefry_partitionable,
+                             flows=bool(flows[rows].any()))
+        if not graph and CAPTURE_HOOK is not None:
+            CAPTURE_HOOK(hull)
         blocks.append(_Block(
             sc, st, None if dev_fold is None else tuple(map(part, dev_fold)),
-            part(guard), step, _TickGraph(step, st) if graph else None))
+            part(guard), step,
+            _TickGraph(step, st, site=hull) if graph else None))
     return blocks
 
 
@@ -1750,7 +1787,8 @@ def _fetch_stash(snap: _Stash) -> dict:
         with torch.cuda.stream(side):
             host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                     .copy_(t, non_blocking=True) for t in ts]
-        side.synchronize()
+        with fetch_point():
+            side.synchronize()
     return {n: h.numpy() for n, h in zip(snap.tensors, host)}
 
 
@@ -1820,7 +1858,8 @@ class _PendingSweep:
 def _release(blocks) -> None:
     for b in blocks:
         if b.ticks is not None:
-            torch.cuda.synchronize(b.state.key.device)
+            with fetch_point():
+                torch.cuda.synchronize(b.state.key.device)
             b.ticks = None
 
 
@@ -1839,7 +1878,8 @@ def _prepare_sweep_args(batch: ScenarioBatch, dev: torch.device, *,
     out to the devices."""
     _, n_pad = _layout(len(batch), shard, dev)
     seeds = list(batch.seeds) + [batch.seeds[0]] * (n_pad - len(batch))
-    scen = _pad_rows(Scenario(*(x.to(dev) for x in batch.scen)), n_pad)
+    scen = _pad_rows(Scenario(*(upload(x, dev) for x in batch.scen)),
+                     n_pad)
     state = _init_state(batch.hull, scen,
                         prng.key(seeds, device=dev, x64=x64), x64)
     dev_fold = None
@@ -1946,8 +1986,9 @@ def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
     """
     global HOST_TRANSFER_COUNT
     n_real = len(batch)
+    flows = _pad_rows(batch.scen.flow_mode > 0, scen.ncl.shape[0])
     blocks = _split_blocks(batch.hull, scen, state, dev_fold, guard,
-                           devices, graph=graph,
+                           devices, flows, graph=graph,
                            threefry_partitionable=threefry_partitionable,
                            x64=x64)
     acc64 = guard_h = None
@@ -1966,7 +2007,8 @@ def _dispatch_chunks(batch: ScenarioBatch, scen: Scenario, state: SimState,
                 if validate:
                     flats = [torch.cat([f, _guard_column(b.guard, f)], dim=1)
                              for f, b in zip(flats, blocks)]
-                host = _gather(flats, n_real).cpu().numpy()
+                with fetch_point():
+                    host = _gather(flats, n_real).cpu().numpy()
                 HOST_TRANSFER_COUNT += 1
                 N = host.shape[1] - validate
                 if acc64 is None:
@@ -2059,7 +2101,8 @@ def _finish_sweep(p: _PendingSweep, return_state: bool = False):
             if b.guard is not None:
                 cols.append(_guard_column(b.guard, fsum))
             parts.append(torch.cat(cols, dim=1))
-        host = _gather(parts, n_real).cpu().numpy()
+        with fetch_point():
+            host = _gather(parts, n_real).cpu().numpy()
         HOST_TRANSFER_COUNT += 1
         acc64 = host[:, :N].astype(np.float64) \
             - host[:, N:2 * N].astype(np.float64)
@@ -2082,7 +2125,8 @@ def _finish_sweep(p: _PendingSweep, return_state: bool = False):
         for i in range(n_real)
     ]
     if return_state:
-        return res, _to_cpu(_gather_carry(blocks, n_real)[0])
+        with fetch_point():
+            return res, _to_cpu(_gather_carry(blocks, n_real)[0])
     return res
 
 
@@ -2262,13 +2306,13 @@ def resume_sweep(path, *, return_state: bool = False,
             reject("state_schema", f"carry array {name!r} missing")
         a = arrays[name]
         want = np.dtype(np.uint32) if name == "state.key" \
-            else torch.empty((), dtype=t.dtype).numpy().dtype
+            else np.dtype(str(t.dtype).removeprefix("torch."))
         if tuple(a.shape) != tuple(t.shape) or a.dtype != want:
             reject("state_schema",
                    f"carry array {name!r} is {a.dtype}{a.shape}, this "
                    f"engine expects {want}{tuple(t.shape)}")
-        return torch.as_tensor(a.astype(np.int64) if name == "state.key"
-                               else a).to(dev)
+        return upload(a.astype(np.int64) if name == "state.key" else a,
+                      dev)
 
     state = _map_carry(tmpl, load)
     folded = []
@@ -2281,15 +2325,14 @@ def resume_sweep(path, *, return_state: bool = False,
             if tuple(arrays[name].shape) != (len(batch),) + shp:
                 reject("state_schema",
                        f"fold buffer {name!r} is {arrays[name].shape}")
-            parts[k] = torch.as_tensor(
-                arrays[name].astype(fold_dtype)).to(dev)
+            parts[k] = upload(arrays[name].astype(fold_dtype), dev)
         folded.append(_fold_flat(parts))
     dev_fold = tuple(folded)
     tol = None
     if validate:
         if "guard" not in arrays:
             reject("state_schema", "validate guard array missing")
-        guard = torch.as_tensor(arrays["guard"].astype(np.int32)).to(dev)
+        guard = upload(arrays["guard"].astype(np.int32), dev)
         tol = float(np.float32(meta["validate_tol"]))
 
     # pad and spread for THIS call's layout (pad rows: copies of row 0)

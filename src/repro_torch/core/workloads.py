@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import constants as C
+from repro_torch.device import upload
 
 #: distribution names in CDF table order; the Scenario ``flow_dist``
 #: knob is an index into this tuple
@@ -63,8 +64,8 @@ def cdf_tables(dist, device=None):
     int, or a (B,) tensor of per-scenario indices) as float32 tensors
     of shape ``dist.shape + (P,)`` on ``device``."""
     idx = torch.as_tensor(dist, dtype=torch.long, device=device)
-    sizes = torch.as_tensor(CDF_SIZE_PKTS, device=idx.device)
-    probs = torch.as_tensor(CDF_PROB, device=idx.device)
+    sizes = upload(CDF_SIZE_PKTS, idx.device)
+    probs = upload(CDF_PROB, idx.device)
     return sizes[idx], probs[idx]
 
 

@@ -15,13 +15,15 @@ plain backward (``ref.attention_bwd_ref``, ``ref.wkv_bwd_ref``); when
 none does, the forward launches exactly as serving's (nothing written
 or saved beside the output).
 
-Each of those forwards and backwards is one operator of the
-``repro_torch`` library (``torch.ops.repro_torch.attention``,
-``attention_lse``, ``attention_bwd``, ``wkv``, ``wkv_ckpt``,
-``wkv_bwd``): its CUDA implementation the kernel's wrapper, its CPU
-one the plain version, its Meta one the output shapes. So a
-``TorchDispatchMode`` sees a call as one op, whatever the device (the
-dry run's counter, ``launch.hlo_analysis``, counts it by name).
+Each of those forwards and backwards, and the simulator's switch
+datapath, is one operator of the ``repro_torch`` library
+(``torch.ops.repro_torch.switch_tiers``, ``switch_step``,
+``attention``, ``attention_lse``, ``attention_bwd``, ``wkv``,
+``wkv_ckpt``, ``wkv_bwd``): its CUDA implementation the kernel's
+wrapper, its CPU one the plain version, its Meta one the output shapes.
+So a ``TorchDispatchMode`` sees a call as one op, whatever the device
+(``launch.hlo_analysis.CostCounter`` counts it by name, for the dry run
+and for the artifact audit of the sweep tick).
 """
 from __future__ import annotations
 
@@ -41,37 +43,8 @@ def _on_cuda(kernel, t) -> bool:
     raise ValueError(f"{kernel}: no kernel for device {t.device}")
 
 
-def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
-                cap=20.0, hi=0.75, lo=0.22, serve_rate=1.0):
-    """One LC/DC switch tick (the simulator's datapath): the CUDA kernel
-    for CUDA tensors, ``ref.switch_step_ref`` for CPU tensors. See
-    ``ref.switch_step_ref`` for the argument and return contract."""
-    kw = dict(valid=valid, cap=cap, hi=hi, lo=lo, serve_rate=serve_rate)
-    if _on_cuda("switch_step", queues):
-        return _sw.switch_step(queues, stage, arrivals, draining, **kw)
-    return _ref.switch_step_ref(queues, stage, arrivals, draining, **kw)
-
-
-def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
-                 rsw_arrivals, csw_q, csw_stage, csw_draining, csw_timer,
-                 csw_valid, cap, acc):
-    """Both switch tiers of one simulator tick: the CUDA kernel (one
-    launch) for CUDA tensors, ``ref.switch_tiers_ref`` for CPU tensors.
-    See ``ref.switch_tiers_ref`` for the argument and return contract."""
-    args = (rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
-            rsw_arrivals, csw_q, csw_stage, csw_draining, csw_timer,
-            csw_valid, cap, acc)
-    if _on_cuda("switch_tiers", rsw_q):
-        return _sw.switch_tiers(*args)
-    return _ref.switch_tiers_ref(*args)
-
-
-def _wants_grad(*ts) -> bool:
-    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
-
-
 # ---------------------------------------------------------------------------
-# attention and wkv as operators: CUDA the kernel, CPU the plain version,
+# the kernels as operators: CUDA the kernel, CPU the plain version,
 # Meta the shapes
 # ---------------------------------------------------------------------------
 
@@ -95,6 +68,102 @@ def _like(*ts):
     wrappers allocate theirs, whatever the inputs' strides)."""
     return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
                  for t in ts)
+
+
+def _switch_step_impl(fn):
+    def impl(queues, stage, arrivals, draining, valid, cap_t, cap, hi_t,
+             hi, lo_t, lo, serve_rate):
+        return fn(queues, stage, arrivals, draining, valid=valid,
+                  cap=cap if cap_t is None else cap_t,
+                  hi=hi if hi_t is None else hi_t,
+                  lo=lo if lo_t is None else lo_t, serve_rate=serve_rate)
+    return impl
+
+
+def _switch_step_meta(queues, stage, arrivals, draining, valid, cap_t, cap,
+                      hi_t, hi, lo_t, lo, serve_rate):
+    S = queues.shape[0]
+    return (queues.new_empty(queues.shape), queues.new_empty(queues.shape),
+            stage.new_empty((S,)), stage.new_empty((S,)),
+            *(queues.new_empty((S,)) for _ in range(4)))
+
+
+#: operator name -> its implementation by the plain version (its CPU
+#: kernel), which ``launch.hlo_analysis.KERNEL_COST`` counts op by op
+PLAIN = {"switch_step": _switch_step_impl(_ref.switch_step_ref)}
+
+_switch_step_op = _op(
+    "switch_step(Tensor queues, Tensor stage, Tensor arrivals, "
+    "Tensor? draining, Tensor? valid, Tensor? cap_t, float cap, "
+    "Tensor? hi_t, float hi, Tensor? lo_t, float lo, float serve_rate) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)",
+    _switch_step_impl(_sw.switch_step), PLAIN["switch_step"],
+    _switch_step_meta)
+
+
+def _tiers_impl(fn):
+    """A ``Tiers`` function as the operator's implementation: the
+    TIER_ACC accumulators a list in and out."""
+    def impl(*args):
+        *head, acc = args
+        t = fn(*head, dict(zip(_sw.TIER_ACC, acc)))
+        return (*t[:6], [t.acc[n] for n in _sw.TIER_ACC])
+    return impl
+
+
+def _tiers_meta(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
+                rsw_arrivals, csw_q, csw_stage, csw_draining, csw_timer,
+                csw_valid, cap, acc):
+    B, R, P, _ = rsw_q.shape
+    NC, CUP = csw_q.shape[1:]
+    new = rsw_q.new_empty
+    return (new(rsw_q.shape), new((B, R)), new((B, NC // P, P, 2)),
+            new(csw_q.shape), new((B, NC)), new((B, CUP)),
+            [a.new_empty(a.shape) for a in acc])
+
+
+PLAIN["switch_tiers"] = _tiers_impl(_ref.switch_tiers_ref)
+_switch_tiers_op = _op(
+    "switch_tiers(Tensor rsw_q, Tensor rsw_stage, Tensor rsw_draining, "
+    "Tensor rsw_timer, Tensor rack_valid, Tensor rsw_arrivals, "
+    "Tensor csw_q, Tensor csw_stage, Tensor csw_draining, "
+    "Tensor csw_timer, Tensor csw_valid, Tensor cap, Tensor[] acc) -> "
+    "(Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor[])",
+    _tiers_impl(_sw.switch_tiers), PLAIN["switch_tiers"], _tiers_meta)
+
+
+def _knob(v):
+    """A switch knob as the operator takes it: a per-switch tensor, or
+    a Python number kept as it is (the plain version computes with it
+    in the queues' type)."""
+    return (v, 0.0) if isinstance(v, torch.Tensor) else (None, float(v))
+
+
+def switch_step(queues, stage, arrivals, draining=None, *, valid=None,
+                cap=20.0, hi=0.75, lo=0.22, serve_rate=1.0):
+    """One LC/DC switch tick (the simulator's datapath): the CUDA kernel
+    for CUDA tensors, ``ref.switch_step_ref`` for CPU tensors, as the
+    operator ``torch.ops.repro_torch.switch_step``. See
+    ``ref.switch_step_ref`` for the argument and return contract."""
+    _on_cuda("switch_step", queues)
+    return _switch_step_op(queues, stage, arrivals, draining, valid,
+                           *_knob(cap), *_knob(hi), *_knob(lo),
+                           float(serve_rate))
+
+
+def switch_tiers(rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid,
+                 rsw_arrivals, csw_q, csw_stage, csw_draining, csw_timer,
+                 csw_valid, cap, acc):
+    """Both switch tiers of one simulator tick: the CUDA kernel (one
+    launch) for CUDA tensors, ``ref.switch_tiers_ref`` for CPU tensors,
+    as the operator ``torch.ops.repro_torch.switch_tiers``. See
+    ``ref.switch_tiers_ref`` for the argument and return contract."""
+    _on_cuda("switch_tiers", rsw_q)
+    *out, tier_acc = _switch_tiers_op(
+        rsw_q, rsw_stage, rsw_draining, rsw_timer, rack_valid, rsw_arrivals,
+        csw_q, csw_stage, csw_draining, csw_timer, csw_valid, cap,
+        [acc[n] for n in _sw.TIER_ACC])
+    return _sw.Tiers(*out, dict(zip(_sw.TIER_ACC, tier_acc)))
 
 
 def _attention_meta(q, k, v, causal, swa_window):

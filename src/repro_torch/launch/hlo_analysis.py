@@ -33,11 +33,14 @@ counts what it does:
   ``new_zeros`` of its shape, counted as its written bytes.
 * The hand kernels' calls are operators of their own
   (``torch.ops.repro_torch.attention``, ``attention_lse``,
-  ``attention_bwd``, ``wkv``, ``wkv_ckpt``, ``wkv_bwd``; see
-  ``kernels.ops``), one op on every device, counted by name from
-  ``KERNEL_COST`` whatever computes them (the kernel on the card, the
-  plain version on the CPU, shapes on ``meta``), so a record does not
-  depend on the device. Attention is counted over the whole T x S score
+  ``attention_bwd``, ``wkv``, ``wkv_ckpt``, ``wkv_bwd``, and the sweep
+  tick's ``switch_tiers`` and ``switch_step``; see ``kernels.ops``), one
+  op on every device, counted by name from ``KERNEL_COST`` whatever
+  computes them (the kernel on the card, the plain version on the CPU,
+  shapes on ``meta``), so a record does not depend on the device. The
+  switch datapath is counted as what this counter counts of its plain
+  version at the call's shapes (``kernels.ops.PLAIN``, run once a
+  signature on ``meta`` copies of the arguments). Attention is counted over the whole T x S score
   matrix whether causal or not, as the reference's accounting pass
   computes it at one chunk (the wgmma kernel visits only the blocks a
   causal or windowed mask leaves, about half of a causal T x S, so it
@@ -214,6 +217,13 @@ _ELEMENTWISE = {
     "reciprocal": 1, "sign": 1, "sgn": 1, "floor": 1, "ceil": 1, "round": 1,
     "trunc": 1, "remainder": 1, "fmod": 1, "masked_fill": 1, "addcmul": 2,
     "addcdiv": 2, "lerp": 3, "square": 1,
+    # the operator forms (``a & b``, ``a << 3``; names lose their
+    # trailing underscores), the threefry hash's among them
+    "__and": 1, "__iand": 1, "__or": 1, "__ior": 1, "__xor": 1,
+    "__ixor": 1, "__lshift": 1, "__ilshift": 1, "__rshift": 1,
+    "__irshift": 1, "bitwise_left_shift": 1, "bitwise_right_shift": 1,
+    "isfinite": 1, "isnan": 1, "isinf": 1, "signbit": 1, "nextafter": 1,
+    "copysign": 1, "fmin": 1, "fmax": 1,
 }
 #: (FLOPs, transcendentals) an output element
 _TRANSCENDENTAL = {
@@ -262,13 +272,15 @@ _MOVE = {
     "_unsafe_view", "view_copy", "expand_copy", "t_copy", "transpose_copy",
     "permute_copy", "narrow_copy", "unfold_copy", "_reshape_copy",
     "_copy_from", "_copy_from_and_resize", "linspace", "diag_embed",
-    "expand_as", "contiguous", "record_stream",
+    "expand_as", "contiguous", "record_stream", "_foreach_copy",
+    "_foreach_zero",
 }
 #: ops that read and write nothing (an allocation, an alias, a scalar)
 _NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty",
              "new_empty_strided", "_local_scalar_dense", "_unsafe_view",
              "detach", "alias", "lift_fresh", "set", "resize", "is_pinned",
-             "_has_compatible_shallow_copy_type", "record_stream"}
+             "_has_compatible_shallow_copy_type", "record_stream",
+             "promote_types"}
 #: collectives: counted from their own log, not here
 _SKIP_NAMESPACES = {"c10d", "_c10d_functional", "_dtensor", "profiler"}
 
@@ -327,6 +339,44 @@ def _wkv_bwd_cost(r, *_):
     return 2 * f, 0, 0
 
 
+def _as_meta(x):
+    if isinstance(x, torch.Tensor):
+        return torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
+                                   device="meta")
+    if isinstance(x, (list, tuple)):
+        return type(x)(_as_meta(y) for y in x)
+    return x
+
+
+def _signature(x):
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.stride(), x.dtype)
+    if isinstance(x, (list, tuple)):
+        return tuple(_signature(y) for y in x)
+    return type(x).__name__
+
+
+def _plain_cost(name):
+    """The rule of operator ``name`` whose plain version
+    (``kernels.ops.PLAIN[name]``) this counter counts op by op: that
+    count at the call's shapes, made once a signature on ``meta`` copies
+    of the arguments (shapes, strides and types kept)."""
+    cache = {}
+
+    def cost(*args):
+        key = _signature(args)
+        if key not in cache:
+            from repro_torch.kernels import ops
+            with CostCounter() as cc:
+                ops.PLAIN[name](*_as_meta(args))
+            if cc.unknown:
+                raise ValueError(f"{name}: its plain version runs ops "
+                                 f"without a cost rule: {dict(cc.unknown)}")
+            cache[key] = (cc.flops, cc.dot_flops, cc.transcendentals)
+        return cache[key]
+    return cost
+
+
 #: ``repro_torch`` operator (``kernels.ops``) -> its (FLOPs, product
 #: FLOPs, transcendentals) from its arguments; its bytes are its
 #: operands' and results', as every op's
@@ -334,7 +384,9 @@ KERNEL_COST = {"attention": _attention_cost,
                "attention_lse": _attention_cost,
                "attention_bwd": _attention_bwd_cost,
                "wkv": _wkv_cost, "wkv_ckpt": _wkv_cost,
-               "wkv_bwd": _wkv_bwd_cost}
+               "wkv_bwd": _wkv_bwd_cost,
+               "switch_tiers": _plain_cost("switch_tiers"),
+               "switch_step": _plain_cost("switch_step")}
 
 
 class CostCounter(TorchDispatchMode):

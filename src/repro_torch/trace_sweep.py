@@ -26,8 +26,7 @@ rows out, pad rows included), both replayed from CUDA graphs, and
 compares every state leaf after every tick, for up to ``--ticks``
 ticks. It prints the first tick at which a leaf differs, which leaves,
 and by how much, and the same for the first leaf outside the
-accumulators (the carry the next tick reads), or that none did. Needs
-a CUDA device.
+accumulators (the carry the next tick reads), or that none did.
 """
 from __future__ import annotations
 
@@ -45,25 +44,34 @@ from repro_torch.kernels import lcdc_switch
 def first_divergence(dev, batch, views: int, ticks: int, x64: bool) -> dict:
     """The first tick at which the grid laid over ``views`` views of
     ``dev`` leaves the one-device run, leaf by leaf; and the first tick
-    at which a leaf outside the accumulators does."""
+    at which a leaf outside the accumulators does. On the card both
+    replay CUDA graphs, as a sharded ``run_sweep`` does; elsewhere both
+    step eagerly."""
+    graph = dev.type == "cuda"
     scen, state, _, _, _ = S._prepare_sweep_args(batch, dev, fold="host",
                                                  shard=False, x64=x64)
     n_pad = len(batch) + (-len(batch)) % views
     copy = S._map_carry(S._pad_rows(state, n_pad), lambda _, t: t.clone())
     blocks = S._split_blocks(batch.hull, S._pad_rows(scen, n_pad), copy,
-                             None, None, [dev] * views, graph=True,
-                             threefry_partitionable=True, x64=x64)
-    one = S._TickGraph(S.make_sim_step(batch.hull, scen, x64=x64), state)
+                             None, None, [dev] * views,
+                             S._pad_rows(batch.scen.flow_mode > 0, n_pad),
+                             graph=graph, threefry_partitionable=True,
+                             x64=x64)
+    step = S.make_sim_step(batch.hull, scen, flows=batch.flows, x64=x64)
+    one = S._Block(scen, state, None, None, step,
+                   S._TickGraph(step, state) if graph else None)
     out = {}
     for tick in range(1, ticks + 1):
         out["ticks_compared"] = tick
-        one.run(1)
-        for b in blocks:
-            b.ticks.run(1)
+        for blk in (one, *blocks):
+            if blk.ticks is None:
+                S.step_into(blk.step, blk.state)
+            else:
+                blk.ticks.run(1)
         got = S._carry_tensors(S._gather_carry(blocks, len(batch))[0],
                                None, None)
         diff = {}
-        for name, want in S._carry_tensors(one.static, None, None).items():
+        for name, want in S._carry_tensors(state, None, None).items():
             g = got[name]
             if torch.equal(g, want):
                 continue
@@ -111,7 +119,7 @@ def main() -> None:
     state = S._init_state(batch.hull, scen,
                           prng.key(batch.seeds, device=dev, x64=args.x64),
                           x64=args.x64)
-    step = S.make_sim_step(batch.hull, scen, x64=args.x64)
+    step = S.make_sim_step(batch.hull, scen, flows=batch.flows, x64=args.x64)
     for _ in range(args.warmup):
         state = step(state)
     if args.graph:

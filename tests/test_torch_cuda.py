@@ -1044,3 +1044,81 @@ def test_dryrun_card_counts_equal_meta(cuda):
     cfg = reduced(get_config("granite-34b"), dtype=torch.bfloat16)
     card = _card_and_meta(cuda, cfg, ShapeConfig("d", 64, 8, "decode"))
     assert card["collective_bytes"]["pmax/model"][0] == cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_sync_sanitizer_trips_on_an_injected_item(cuda, monkeypatch):
+    """Under the sync sanitizer a sweep on the card runs its blessed
+    fetches (the fold fetch, a checkpoint's snapshot) with zero implicit
+    syncs, graph or eager; an ``.item()`` injected at a chunk boundary
+    raises."""
+    from repro_torch.analysis.sanitizer import sync_sanitizer
+    batch = _golden_batch()
+    with sync_sanitizer():
+        ref = S.run_sweep(batch, 64, chunk_ticks=16, device=cuda,
+                          validate=True)
+        assert S.run_sweep(batch, 64, chunk_ticks=16, device=cuda,
+                           graph=False) == ref
+        spec = CK.CheckpointSpec(directory=str(CK.DEFAULT_DIR / "san"),
+                                 tag="san")
+        assert S.run_sweep(batch, 64, chunk_ticks=16, device=cuda,
+                           checkpoint=spec) == ref
+    probe = torch.ones(1, device=cuda)
+    monkeypatch.setattr(S, "CHUNK_HOOK",
+                        lambda ci: ci == 2 and probe.sum().item())
+    with sync_sanitizer(), pytest.raises(RuntimeError, match="synchroniz"):
+        S.run_sweep(batch, 64, chunk_ticks=16, device=cuda)
+
+
+@pytest.mark.cuda
+def test_audit_card_counts_equal_the_cpus(cuda):
+    """The artifact audit of the 2x2c2f2 tick on the card: clean, the
+    counts equal the CPU's in both modes, the captured graph without a
+    host node, its pool measured, the carry written in place."""
+    from pathlib import Path
+
+    from repro_torch.analysis import artifact as A
+    from repro_torch.analysis.registry import load_config
+    root = Path(__file__).resolve().parents[1]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        findings, payload = A.run_audit(root, load_config(root),
+                                        units=["sweep_tick"], device=dev)
+        assert findings == [], [f.format() for f in findings]
+        got[dev] = {(c["tag"], c["mode"]): c
+                    for c in payload["units"]["sweep_tick"]["cases"]}
+    for key, card in got["cuda"].items():
+        assert card["measured"] == got["cpu"][key]["measured"], key
+        assert card["graph"]["kinds"].get("host", 0) == 0
+        assert 0 < card["memory"]["peak"] <= card["memory"]["reserved"]
+        assert card["launches_per_replay"] == 1
+        assert card["leaves_in_place"]
+
+
+@pytest.mark.cuda
+def test_audit_peak_budget_trips_on_a_grown_tick(cuda, monkeypatch):
+    """A tick that holds 256 KiB more across its ops than the shipped
+    one breaks every sweep_tick case's peak budget on the card (RL007),
+    in both modes; nothing else fires."""
+    from pathlib import Path
+
+    from repro_torch.analysis import artifact as A
+    from repro_torch.analysis.registry import load_config
+    root = Path(__file__).resolve().parents[1]
+    make = S.make_sim_step
+
+    def grown(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def tick(state):
+            pad = torch.ones(64 * 1024, device=state.key.device)
+            out = step(state)
+            pad.add_(1.0)
+            return out
+        return tick
+    monkeypatch.setattr(S, "make_sim_step", grown)
+    findings, _ = A.run_audit(root, load_config(root),
+                              units=["sweep_tick"], device="cuda")
+    assert {f.rule for f in findings} == {"RL007"}
+    assert len(findings) == 8, [f.format() for f in findings]
+    assert all("live at its peak" in f.message for f in findings)

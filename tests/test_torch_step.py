@@ -139,7 +139,7 @@ def test_one_tick_from_shared_state(case):
         assert np.asarray(shared.rsw_fault.timer).any(), "no fault struck"
     want = _leaves(jax.device_get(jstep(scen, state)))
     tscen = convert.scenario_from_numpy(jax.device_get(scen))
-    step = TS.make_sim_step(tb.hull, tscen)
+    step = TS.make_sim_step(tb.hull, tscen, flows=tb.flows)
     got = convert.state_to_numpy(step(convert.state_from_numpy(shared)))
     _assert_state_close(want, got)
 
@@ -159,7 +159,7 @@ def test_step_runs_on_explicit_device_only():
     nothing is created on another device behind the caller's back."""
     _, tb = _batches("rate")
     state = TS._init_state(tb.hull, tb.scen, prng.key(tb.seeds))
-    out = TS.make_sim_step(tb.hull, tb.scen)(state)
+    out = TS.make_sim_step(tb.hull, tb.scen, flows=tb.flows)(state)
     leaves = convert.state_to_numpy(out)
     assert all(isinstance(v, np.ndarray) for v in leaves.values())
     assert out.rsw_q.device == torch.device("cpu")

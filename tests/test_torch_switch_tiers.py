@@ -209,7 +209,7 @@ def test_step_into_matches_the_functional_step(partitionable):
                           gating_enabled=False, **HARSH), 3)]
     batch = TS.make_batch(runs)
     scen = batch.scen
-    step = TS.make_sim_step(batch.hull, scen,
+    step = TS.make_sim_step(batch.hull, scen, flows=batch.flows,
                             threefry_partitionable=partitionable)
     state = TS._init_state(batch.hull, scen, prng.key(batch.seeds))
     static = TS._init_state(batch.hull, scen, prng.key(batch.seeds))

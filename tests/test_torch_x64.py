@@ -521,7 +521,7 @@ def test_one_x64_tick_from_shared_state(reference, case):
     want = convert.state_to_numpy(convert.state_from_numpy(nxt))
     batch = TS.make_batch(_port_runs(_rows(case)))
     step = TS.make_sim_step(batch.hull, convert.scenario_from_numpy(scen),
-                            x64=True)
+                            flows=batch.flows, x64=True)
     got = convert.state_to_numpy(step(convert.state_from_numpy(shared)))
     if case == "flows":
         assert np.asarray(shared.ft_rem).any(), "flow table never filled"

@@ -145,8 +145,8 @@ Phases (one line each; any failure exits non-zero and prints no result):
    ``serve-minicpm3-4b`` (MLA), ``serve-mixtral-8x7b`` (MoE, sliding
    window) and ``serve-jamba-v0.1-52b`` (Mamba + attention + MoE): the
    serving path at full width (random bf16 weights from a seed, loaded
-   one model at a time; rwkv6-7b at 16 layers, qwen3-8b, minicpm3-4b,
-   mixtral and jamba at 8, SERVE_LAYERS):
+   one model at a time; qwen3-8b, rwkv6-7b, minicpm3-4b, mixtral and
+   jamba at 8 layers, SERVE_LAYERS):
    one request's prefill logits through the kernels against the plain
    versions (float32, over the first LOGIT_LAYERS[arch] layers; and in
    bf16 at the served depth beside the effect of a small noise, for
@@ -208,7 +208,10 @@ Phases (one line each; any failure exits non-zero and prints no result):
 9f. ``distributed``: the distributed layer (``DIST_DIR``): a
    single-device process, then 4 gloo ranks sharing the card as a 2 x
    2 ('data', 'model') mesh (their collectives staged through host
-   memory), then one NCCL rank on a (1, 1) mesh, each spawned: (a)
+   memory), then one NCCL rank on a (1, 1) mesh, each spawned; every
+   model runs with its residual between layers in the reference's
+   ``act_shard`` layout (``sharding.act_spec``: a rank's block of d
+   under the default ``"dmodel"``): (a)
    qwen3-8b float32 at full width, 2 layers, one sharded train step
    against the single-device one (loss 2e-4, parameters 2e-3,
    grad_norm 1e-5 relative); (b) bf16, 4 layers, B 2 x T 4,096, 3
@@ -238,15 +241,19 @@ Phases (one line each; any failure exits non-zero and prints no result):
    16 x 4,096 frames a rank through the d 80 wgmma forward and backward;
    qwen3-8b train_4k through the vocab-parallel head, a rank's float32
    logits a 1/16 vocab block; internvl2-76b decode_32k on the cache's
-   sequence blocks over 'model') and on ``meta``: wall seconds, argument
-   and peak bytes a device, the rank's block of the logits or of the k/v
-   cache beside the whole,
+   sequence blocks over 'model'; granite-34b train_4k, which ran out of
+   memory while a rank kept each layer's whole residual for remat: 88
+   layers of 16 x 4,096 tokens, now each its 1/16 block of d, its flash
+   calls at the rank shape (16, 4096, 3, 128) all on wgmma) and on
+   ``meta``: wall seconds, argument and peak bytes a device, the rank's
+   block of the logits or of the k/v cache beside the whole, a train
+   cell's residual blocks remat keeps beside the whole residuals,
    per-layer FLOPs, bytes and collective link bytes, the collectives by
    op, the flash launches by variant; the card's counts must equal the
    ``meta`` record's exactly, no op may lack a counting rule on either
    device, its collective bytes by (op, axis) must be the bytes the
-   specs imply (``implied_bytes``), and every hubert flash call must run
-   on wgmma; then ``ici_gating.analyze_all`` on the card over the
+   specs imply (``implied_bytes``), and every flash call of a train
+   cell must run on wgmma; then ``ici_gating.analyze_all`` on the card over the
    records just written (each cell's collective duty and both policies'
    savings), and the host microseconds of an ``ops.wkv`` call (the
    ``repro_torch::wkv`` operator) beside the wrapper's at rwkv6-7b's
@@ -357,8 +364,10 @@ SERVE_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "mixtral-8x7b",
 # more cells the script took 1,103 s of its 1,200 on an NVIDIA H100
 # 80GB HBM3 (700 W) with a slow host, qwen3-8b and minicpm3-4b at 16
 # layers taking 69.7 and 62.8 s of it: they are cut to 8, every shape
-# of their paths staying. hubert-xlarge serves all its layers.
-SERVE_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 16, "minicpm3-4b": 8,
+# of their paths staying. Phase `dryrun`'s granite-34b train_4k added
+# ~22 s to scripts of 974-1,034 s: rwkv6-7b (16 layers, 37.9-41.1 s)
+# is cut to 8 too. hubert-xlarge serves all its layers.
+SERVE_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 8, "minicpm3-4b": 8,
                 "mixtral-8x7b": 8, "jamba-v0.1-52b": 8, "internvl2-76b": 8}
 SERVE_SEED = 0
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
@@ -4384,12 +4393,14 @@ DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
 #: (arch, shape) of phase dryrun: a training cell through the d 80 flash
 #: forward and backward on wgmma, a decode cell (MoE, a sliding window's
 #: cache), a training cell through the vocab-parallel head (qwen3-8b:
-#: each rank's float32 logits a 1/16 vocab block) and a decode cell on
+#: each rank's float32 logits a 1/16 vocab block), a decode cell on
 #: the sequence-sharded cache (internvl2-76b: 8 kv heads over a 16-wide
-#: 'model' axis)
+#: 'model' axis) and a training cell that fits only with the residual
+#: kept as the rank's block of d between layers (granite-34b: 88 layers)
 DRYRUN_CELLS = (("hubert-xlarge", "train_4k"), ("mixtral-8x7b",
                                                 "decode_32k"),
-                ("qwen3-8b", "train_4k"), ("internvl2-76b", "decode_32k"))
+                ("qwen3-8b", "train_4k"), ("internvl2-76b", "decode_32k"),
+                ("granite-34b", "train_4k"))
 DRYRUN_MESH = (16, 16)
 
 
@@ -4518,6 +4529,13 @@ def dryrun_phase(torch, dev, card):
         args, temp = mem["argument_size_in_bytes"], mem["temp_size_in_bytes"]
         block, whole = _layout_bytes(cfg, shape)
         what = "float32 logits" if shape.kind == "train" else "k/v cache"
+        kept = rec["remat_residuals"]
+        if kept is not None:
+            what = (f"residual blocks remat keeps ({kept['layers']} layers "
+                    f"x {kept['block_bytes'] / 2**20:.0f} MiB) "
+                    f"{kept['saved'] / 2**30:.3f} GiB of "
+                    f"{kept['whole'] / 2**30:.3f} GiB whole; the rank's "
+                    + what)
         phase(name, f"{arch} {shape_name}, rank 0 of the "
               f"{DRYRUN_MESH[0]} x {DRYRUN_MESH[1]} mesh (fake process "
               f"group) on the card: {rec['compile_s']:.1f} s wall (the full "
@@ -4556,7 +4574,8 @@ def dryrun_phase(torch, dev, card):
     phase(name, f"host cost of the kernel operators: ops.wkv at (4, 1, 64, "
           f"64) bf16 {cost['operator']:.2f} us a call, the kernel's wrapper "
           f"called directly {cost['wrapper']:.2f} us (+"
-          f"{cost['operator'] - cost['wrapper']:.2f} us a call: x 16 layers "
+          f"{cost['operator'] - cost['wrapper']:.2f} us a call: x "
+          f"{SERVE_LAYERS['rwkv6-7b']} layers "
           f"a serve-rwkv6-7b decode step); card {card}")
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     return launched

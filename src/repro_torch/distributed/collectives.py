@@ -271,7 +271,9 @@ def all_gather_(dist, axes, t, dim):
     return out.contiguous()
 
 
-def _reduce_scatter(dist, axes, t, dim):
+def reduce_scatter_(dist, axes, t, dim):
+    """Sum ``t`` over ``axes`` and keep this rank's block of ``dim`` (no
+    gradient)."""
     g = group(dist, axes)
     n = axes_size(dist, axes)
     if t.shape[dim] % n:
@@ -337,14 +339,14 @@ class _AllGather(torch.autograd.Function):
         if replicated:
             return block_of(dist, axes, g, dim).contiguous(), None, None, \
                 None, None
-        return _reduce_scatter(dist, axes, g, dim), None, None, None, None
+        return reduce_scatter_(dist, axes, g, dim), None, None, None, None
 
 
 class _PsumScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dist, axes, dim):
         ctx.args = (dist, axes, dim)
-        return _reduce_scatter(dist, axes, x, dim)
+        return reduce_scatter_(dist, axes, x, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -471,7 +473,7 @@ class _GatherParam(torch.autograd.Function):
             if not axes or set(axes) <= keep:
                 continue
             if set(axes) <= set(data):
-                g = _reduce_scatter(dist, axes, g, dim)
+                g = reduce_scatter_(dist, axes, g, dim)
             else:
                 g = block_of(dist, axes, g, dim).contiguous()
         rest = tuple(a for a in data if a not in used)

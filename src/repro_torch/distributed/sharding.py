@@ -25,6 +25,10 @@ a ``collectives.Halves`` axis, so a rank's block holds the x and z
 columns of its channels (``block`` cuts each half, ``unblock`` puts
 them back; a whole leaf, a checkpoint's, is the reference's).
 
+The residual stream between layers is laid out by ``act_spec`` (the
+reference's ``_constrain_act``): under the default ``act_shard ==
+"dmodel"`` a rank keeps its 1/m block of d, which is what remat saves.
+
 MLA attention matrices stay model-replicated (minicpm3's 40 heads do
 not divide a 16-way axis). The port's parameters are per-layer dicts
 (``params["layers"][i]``, ``core/convert.py`` un-stacks the
@@ -255,6 +259,24 @@ def decode_cache_specs(cfg, batch: int, cache_len: int, dist: DistContext):
         return None
     return _cache_specs(cfg, batch, cache_len, dist,
                         kv_ok=decode_kv_heads(cfg, dist))
+
+
+def act_spec(cfg, dist: DistContext, shape):
+    """The layout of the residual stream between layers, global
+    ``shape`` (B, T, d): the reference's ``_constrain_act`` condition for
+    condition -- the batch over the data axes when B divides them; then
+    'model' on the sequence under ``act_shard == "seq"`` when T divides
+    the axis, or on d under ``"dmodel"`` (every config's default) when d
+    divides it; else whole over 'model' (``"none"``, a decode's T of 1
+    under ``"seq"``, a length the axis does not divide)."""
+    B, T, d = shape
+    b_ax = _data_entry(dist) if B % dist.data_size == 0 else None
+    ma, m = dist.model_axis, dist.model_size
+    if cfg.act_shard == "seq" and T % m == 0:
+        return (b_ax, ma, None)
+    if cfg.act_shard == "dmodel" and d % m == 0:
+        return (b_ax, None, ma)
+    return (b_ax, None, None)
 
 
 def logits_spec(cfg, dist: DistContext, global_batch: int | None = None):

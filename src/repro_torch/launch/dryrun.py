@@ -63,7 +63,11 @@ How the count differs from XLA's:
 
 ``implied_bytes`` derives the bytes a cell's collectives move on rank 0
 by (op, axis) from the specs alone; a run's ``collective_bytes`` is
-held to it (tests and ``chip_smoke.py``).
+held to it (tests and ``chip_smoke.py``). A train record's
+``remat_residuals`` states what remat keeps rank 0 between layers: a
+layer's input each, the rank's block of the residual
+(``sharding.act_spec``; ``remat_residual_bytes``), beside what the
+whole residual would take.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k \\
@@ -98,6 +102,7 @@ from repro_torch.launch import hlo_analysis as hla
 from repro_torch.launch.mesh import dist_for, fake_world, make_test_mesh
 from repro_torch.models import mamba as mb
 from repro_torch.models import model as model_lib
+from repro_torch.models import moe as moe_mod
 from repro_torch.train.steps import (init_opt_state, make_decode_step,
                                      make_prefill_step, make_train_step,
                                      moment_shards, stacked_specs)
@@ -306,6 +311,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *, device="cuda",
         dist = dist_for(make_test_mesh(*dims[-2:], pod=dims[0]
                                        if len(dims) == 3 else 0))
         sizes = C.axis_sizes(dist.mesh)
+        rec["remat_residuals"] = remat_residual_bytes(cfg, dist, shape)
         t0 = time.time()
         try:
             res = lower_cell(cfg, shape, dist, dev)
@@ -381,11 +387,14 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *, device="cuda",
     if verbose:
         mem = rec.get("memory", {})
         temp = mem.get("temp_size_in_bytes")
+        kept = rec["remat_residuals"]
         print(f"[{rec['compile_s']:7.1f}s] {arch:22s} {shape_name:12s} "
               f"{mesh_kind:6s} {dev.type:4s} ok={rec['ok']} temp/dev="
               + ("n/a" if temp is None else f"{temp / 2**30:.2f}GiB")
               + f" args/dev={mem.get('argument_size_in_bytes', 0) / 2**30:.2f}"
-              f"GiB", flush=True)
+              f"GiB" + ("" if kept is None else
+                        f" remat residuals={kept['saved'] / 2**30:.2f}GiB "
+                        f"(whole {kept['whole'] / 2**30:.2f})"), flush=True)
         if not rec["ok"]:
             print("  ERROR:", rec["error"], flush=True)
         if unknown_ops(rec):
@@ -485,23 +494,18 @@ def _adafactor_bytes(out, cfg, dist, shapes):
 
 
 def _decode_combine_bytes(out, cfg, dist, shape, b):
-    """A decode's attention collectives a layer: the heads path's sum of
-    the rank's partial output over 'model', and over a cache whose
-    sequence is cut the partial softmax's ``pmax`` and two ``psum``s
-    over the sequence's axes."""
-    ma, m = dist.model_axis, dist.model_size
+    """A decode's attention combine a layer over a cache whose sequence
+    is cut: the partial softmax's ``pmax`` and two ``psum``s over the
+    sequence's axes."""
+    m = dist.model_size
     specs = shd.decode_cache_specs(cfg, shape.global_batch, shape.seq_len,
                                    dist)["layers"]
-    esize = torch.finfo(cfg.dtype).bits // 8
     mla = cfg.attn_type == "mla"
-    heads = shd.decode_kv_heads(cfg, dist)
-    H = cfg.n_heads // m if heads else cfg.n_heads
+    H = cfg.n_heads // m if shd.decode_kv_heads(cfg, dist) else cfg.n_heads
     dv = cfg.mla.kv_lora_rank if mla else cfg.d_head
     for i, (kind, _) in enumerate(model_lib.layer_kinds(cfg)):
         if kind != "attn":
             continue
-        if heads:
-            out[("psum", ma)] += b * cfg.d_model * esize
         seq = specs[i]["c_kv" if mla else "k"][1]
         if seq is not None:
             key = "+".join(C.as_axes(seq))
@@ -509,21 +513,43 @@ def _decode_combine_bytes(out, cfg, dist, shape, b):
             out[("psum", key)] += b * H * 4 + b * H * dv * 4
 
 
+def remat_residual_bytes(cfg, dist, shape) -> dict:
+    """What remat keeps a rank between layers in one (micro)batch of a
+    train cell: a layer's input each, the rank's block of the residual
+    (``sharding.act_spec``): {"layers", "block_bytes" (one), "saved"
+    (layers x block), "whole" (layers x the rank's whole residual, what
+    a layout without ``act_shard`` would keep)}; None for other cells
+    and without remat."""
+    if shape.kind != "train" or not cfg.remat:
+        return None
+    B = shape.global_batch // cfg.microbatches
+    b = B // dist.data_size if B % dist.data_size == 0 else B
+    whole = b * shape.seq_len * cfg.d_model * \
+        (torch.finfo(cfg.dtype).bits // 8)
+    act_dim = model_lib.act_dim(cfg, dist, (B, shape.seq_len,
+                                             cfg.d_model))
+    block = whole // (dist.model_size if act_dim is not None else 1)
+    return {"layers": cfg.n_layers, "block_bytes": block,
+            "saved": cfg.n_layers * block, "whole": cfg.n_layers * whole}
+
+
 def implied_bytes(cfg, dist, shape) -> collections.Counter:
     """The bytes rank 0 hands to each collective of one step of
     ``shape`` (its kind, global batch and sequence) by (op, axis), from
     the specs alone: the parameter gathers at use (every forward pass of
     a layer, a remat recompute among them) and their gradients'
-    reduce-scatters and sums, the tensor-parallel activations' sums and
-    their transposes (attention, MLP, RWKV, Mamba), the MoE combine and
-    router statistics, the prefill's kv rows where the cache does not
-    keep the rank's kv heads, a decode's attention combine, a tied
+    reduce-scatters and sums, the residual's layout (``act_spec``: the
+    embedding cut to the block, each sublayer's gather of it before its
+    norm and its output's reduce-scatter into it, or under ``"none"``
+    the tensor-parallel sums, with their transposes), the MoE combine
+    and router statistics, the prefill's kv rows where the cache does
+    not keep the rank's kv heads, a decode's attention combine, a tied
     table's vocab-parallel lookup, the vocab-parallel loss's ``pmax``
     and ``psum`` and the logits' blocks and rows, the loss and gradient
     norm, adafactor's factored statistics. A remat recompute stops at
     the layer's last saved tensor, so the collectives after it (a
-    tensor-parallel MLP's sum, a d-sharded residual's gather) run
-    once."""
+    layer's last output laid out: an MLP's reduce-scatter, a gathered
+    d-block) run once."""
     out: collections.Counter = collections.Counter()
     train, decode = shape.kind == "train", shape.kind == "decode"
     k_mb = cfg.microbatches if train else 1
@@ -537,12 +563,13 @@ def implied_bytes(cfg, dist, shape) -> collections.Counter:
     remat = train and cfg.remat
     passes = 2 if remat else 1
     act = b * T * d * esize
+    act_dim = model_lib.act_dim(cfg, dist, (B, T, d))
+    act_blk = act // m
     specs, shapes = shd.param_specs(cfg, dist)
     body: collections.Counter = collections.Counter()
+    vp = model_lib.vocab_parallel(cfg, dist)
 
     # parameters
-    kinds = model_lib.layer_kinds(cfg)
-    vp = model_lib.vocab_parallel(cfg, dist)
     used_top = {"final_norm", "head"}
     if cfg.frontend != "audio_frames" or cfg.tie_embeddings:
         used_top.add("embed")
@@ -560,50 +587,81 @@ def implied_bytes(cfg, dist, shape) -> collections.Counter:
         _gather_bytes(body, dist, spec, leaf.shape, leaf.element_size(),
                       keep, partial, uses, bwd)
 
+    # the residual's layout (models.model._norm_in, _out, _from_d_block)
+    def enter(tp, where, size=act_blk):
+        if act_dim is None:
+            if tp and train:
+                body[("psum", ma)] += act              # copy_to's
+            return
+        where[("all_gather", ma)] += size
+        if tp and train:      # layers.gathered_rms_norm's backward
+            body[("psum_scatter", ma)] += act
+            if act_dim == 2:                           # row sums, gain
+                body[("psum", ma)] += b * T * 4
+                body[("all_gather", ma)] += d // m * 4
+            else:
+                body[("psum", ma)] += d * 4
+
+    def leave(tp, where):
+        if act_dim is None:
+            if tp:
+                where[("psum", ma)] += act
+            return
+        if tp:
+            where[("psum_scatter", ma)] += act
+        if train:
+            body[("all_gather", ma)] += act_blk        # its transpose
+
+    def from_d_block(where):
+        if act_dim != 2:
+            where[("all_gather", ma)] += act_blk
+            leave(False, where)
+
     # activations, layer by layer
     tp_attn = not decode and model_lib.tp_attention(cfg, dist)
-    tp_mlp = model_lib.tp_mlp(cfg, dist)
     n_kv0 = len(model_lib.tp_kv_heads(cfg, m, 0)) if tp_attn else 0
     gather_kv = shape.kind == "prefill" and not shd.decode_kv_heads(cfg,
                                                                     dist)
-    for kind, ffn in kinds:
+    for kind, ffn in model_lib.layer_kinds(cfg):
+        # whether the mixer and the FFN are tensor-parallel (RWKV's
+        # channel mix runs on the mixer's heads)
+        tp1 = model_lib.tp_mixer(cfg, dist, kind, decode)
+        tp2 = tp1 if kind == "rwkv" else \
+            ffn == "mlp" and model_lib.tp_mlp(cfg, dist)
         fwd = collections.Counter()      # once a forward pass
         tail = collections.Counter()     # once: after the last saved tensor
-        if kind == "attn" and tp_attn:
-            fwd[("psum", ma)] += act
-            body[("psum", ma)] += act if train else 0     # copy_to's
-            if gather_kv:
-                fwd[("all_gather", ma)] += 2 * b * T * n_kv0 * \
-                    cfg.d_head * esize
-        if kind == "rwkv" and model_lib.tp_rwkv(cfg, dist):
-            fwd[("psum", ma)] += act               # wo's sum
-            fwd[("psum_scatter", ma)] += act       # cm_wv's
-            tail[("all_gather", ma)] += act // m   # the channel blocks
-            if train:
-                body[("psum", ma)] += 2 * act      # copy_to's
-                body[("all_gather", ma)] += act // m  # psum_scatter's
-        if kind == "mamba" and model_lib.tp_mamba(cfg, dist):
+        enter(tp1, fwd)
+        leave(tp1, fwd)
+        if kind == "attn" and gather_kv and tp_attn:
+            fwd[("all_gather", ma)] += 2 * b * T * n_kv0 * cfg.d_head * esize
+        if kind == "mamba" and tp1:
             _, dt_rank, n_state, _ = mb.mamba_dims(cfg)
             proj = b * T * (dt_rank + 2 * n_state) * esize
-            fwd[("psum", ma)] += proj + act        # x_proj's, out_proj's
-            body[("psum", ma)] += proj + act if train else 0
-        if ffn == "moe" and kind != "rwkv":
-            S_loc = b * T
-            scatter = cfg.moe_combine == "psum_scatter" and d % m == 0
-            fwd[("psum_scatter" if scatter else "psum", ma)] += \
-                S_loc * d * esize
+            fwd[("psum", ma)] += proj              # x_proj's partial sums
+            body[("psum", ma)] += proj if train else 0    # their copy_to
+        enter(tp2, fwd)
+        if kind == "rwkv" and tp1:
+            fwd[("psum_scatter", ma)] += act       # cm_wv's
+            if train:
+                body[("all_gather", ma)] += act_blk    # its transpose
+            from_d_block(tail)
+        elif kind == "rwkv":
+            leave(False, tail)
+        elif ffn == "moe":
+            scatter = moe_mod.combine_scatters(cfg, dist)
+            fwd[("psum_scatter" if scatter else "psum", ma)] += act
             if split:
                 fwd[("psum", dkey)] += 2 * cfg.n_experts * 4
-            if scatter:
-                tail[("all_gather", ma)] += act // m      # _constrain_act
             if train:
-                body[("psum", ma)] += S_loc * d * esize + \
-                    S_loc * cfg.top_k * 4                # copy_to's
-                if scatter:
-                    body[("all_gather", ma)] += 2 * (act // m)
-        elif kind != "rwkv" and tp_mlp:
-            tail[("psum", ma)] += act
-            body[("psum", ma)] += act if train else 0
+                body[("psum", ma)] += act + b * T * cfg.top_k * 4  # copy_to's
+            if scatter:
+                if train:
+                    body[("all_gather", ma)] += act_blk   # its transpose
+                from_d_block(tail)
+            else:
+                leave(False, tail)
+        else:
+            leave(tp2, tail)
         for key, v in fwd.items():
             body[key] += passes * v
         for key, v in tail.items():
@@ -616,9 +674,11 @@ def implied_bytes(cfg, dist, shape) -> collections.Counter:
         n_tok = T - (cfg.n_frontend_tokens if cfg.frontend ==
                      "vision_patches" and not decode else 0)
         body[("psum", ma)] += b * n_tok * d * esize      # the lookup
+    if act_dim is not None and train and cfg.frontend != "audio_frames":
+        body[("all_gather", ma)] += act_blk  # _constrain_act's transpose
     if train:
+        enter(vp, body)                          # the final norm's input
         if vp:
-            body[("psum", ma)] += act                    # copy_to's
             body[("pmax", ma)] += b * T * 4              # the loss's
             body[("psum", ma)] += 2 * b * T * 4
         if split:
@@ -626,6 +686,7 @@ def implied_bytes(cfg, dist, shape) -> collections.Counter:
                 cfg.frontend == "vision_patches")
             body[("psum", dkey)] += (2 if mask else 1) * 4
     else:
+        enter(False, body, act_blk if act_dim == 1 else b * d // m * esize)
         vpad = cfg.padded_vocab
         if vp:
             body[("all_gather", ma)] += b * (vpad // m) * 4

@@ -28,6 +28,56 @@ def rms_norm(x, gamma, eps=1e-5):
     return (x * gamma.float()).to(dt)
 
 
+class _GatheredRmsNorm(torch.autograd.Function):
+    """``rms_norm`` of a residual gathered whole over a mesh axis from
+    the rank's block (dimension ``dim``: 1 the sequence, 2 d), for a
+    consumer each rank uses for its share of the output (a
+    tensor-parallel part): the gradient reaching the norm is then a
+    partial sum on each rank. The backward reduce-scatters it into the
+    block first -- the sum one device's norm backward starts from -- and
+    runs autograd's rms_norm backward on the block: a row's sum over d
+    summed over the axis when d is cut, the gain's gradient gathered
+    from the ranks' column blocks (or summed over their row blocks)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, eps, dist, axis, dim):
+        xf = C.all_gather_(dist, axis, x, dim).float()
+        r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        ctx.args = (dist, axis, dim, xf.shape[-1])
+        ctx.save_for_backward(x, gamma, r if dim == 2 else
+                              C.block_of(dist, axis, r, dim).contiguous())
+        return (xf * r * gamma.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, r = ctx.saved_tensors
+        dist, axis, dim, d = ctx.args
+        g = C.reduce_scatter_(dist, axis, g.contiguous(), dim).float()
+        xf, gf = x.float(), gamma.float()
+        if dim == 2:
+            gf = C.block_of(dist, axis, gf, 0)
+        dxn = g * gf
+        dgamma = (g * (xf * r)).sum(dim=(0, 1))
+        dr = (dxn * xf).sum(dim=-1, keepdim=True)
+        if dim == 2:
+            dr = C.all_reduce_(dist, axis, dr)
+            dgamma = C.all_gather_(dist, axis, dgamma, 0)
+        else:
+            dgamma = C.all_reduce_(dist, axis, dgamma)
+        dsq = -0.5 * dr * r.pow(3) / d
+        dx = dxn * r + (dsq * xf + dsq * xf)
+        return dx.to(x.dtype), dgamma.to(gamma.dtype), None, None, None, \
+            None
+
+
+def gathered_rms_norm(x, gamma, eps, dist, axis, dim):
+    """``rms_norm`` of the whole residual from the rank's block ``x``
+    (dimension ``dim`` cut over ``axis``), for a tensor-parallel
+    consumer (``_GatheredRmsNorm``): an all-gather forward, a
+    reduce-scatter backward."""
+    return _GatheredRmsNorm.apply(x, gamma, eps, dist, axis, dim)
+
+
 def rope_freqs(d_rot: int, theta: float, device=None):
     return 1.0 / (theta ** (torch.arange(0, d_rot, 2, dtype=torch.float32,
                                          device=device) / d_rot))

@@ -44,6 +44,15 @@ block; a part the layout does not divide runs alike on every rank of
 'model' with its weights gathered whole (MLA, a GQA layer whose heads
 do not divide the axis, the norms, an untied embedding).
 
+Between layers the residual stream is the rank's block of
+``distributed.sharding.act_spec`` (the reference's ``_constrain_act``):
+under ``act_shard == "dmodel"`` (every config's default) its 1/m block of
+d, under ``"seq"`` of the sequence, under ``"none"`` whole. Each
+sublayer gathers it whole before its norm (``_norm_in``) and hands its
+output back in that layout (``_out``): a tensor-parallel part's partial
+sums reduce-scattered into the block (summed whole under ``"none"``), a
+whole output cut to it. With remat a layer saves its input, the block.
+
 The batch of each cell is ``configs.input_specs``'s: the audio and
 vision frontends are stubs, as in the reference (precomputed frame or
 patch embeddings); ``decode_step`` embeds a token whatever the
@@ -77,9 +86,10 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
-from repro_torch.models.layers import (embed_init, masked_mean, nll,
-                                       rms_norm, swiglu_apply, swiglu_init,
-                                       unembed, vocab_parallel_nll)
+from repro_torch.models.layers import (embed_init, gathered_rms_norm,
+                                       masked_mean, nll, rms_norm,
+                                       swiglu_apply, swiglu_init, unembed,
+                                       vocab_parallel_nll)
 
 
 def layer_kinds(cfg) -> list[tuple[str, str]]:
@@ -321,16 +331,15 @@ def _attn_tp(cfg, p, specs, dist, device):
 def _gqa_tp(cfg, p, specs, h, *, positions, kernel_fn, dist, want_cache,
             kv_local):
     """``attn.gqa_forward`` with its heads split over 'model' (H %
-    model == 0): the rank runs its q heads, the kv heads they read, its
-    ``wo`` row block, and the partial outputs are summed. Returns (out,
-    with ``want_cache`` the (k, v) rows: the rank's own kv heads with
-    ``kv_local`` (a block of 'model': n_kv divides it), else every kv
-    head, gathered over 'model'; None without)."""
+    model == 0): the rank runs its q heads, the kv heads they read and
+    its ``wo`` row block. Returns (its partial output (``_out`` sums
+    it), with ``want_cache`` the (k, v) rows: the rank's own kv heads
+    with ``kv_local`` (a block of 'model': n_kv divides it), else every
+    kv head, gathered over 'model'; None without)."""
     ma, m = dist.model_axis, dist.model_size
     w, local = _attn_tp(cfg, p, specs, dist, h.device)
-    out, (k, v) = attn.gqa_forward(w, local, C.copy_to(h, dist, ma),
-                                   positions=positions, kernel_fn=kernel_fn)
-    out = C.psum(out, dist, ma)
+    out, (k, v) = attn.gqa_forward(w, local, h, positions=positions,
+                                   kernel_fn=kernel_fn)
     if not want_cache:
         return out, None
     if kv_local:
@@ -355,9 +364,9 @@ def _attn_decode(cfg, p, specs, h, cache, pos, dist, cspec):
     """One decode step of an attention layer on its cache (the rank's
     block on a mesh, laid out by ``cspec``, ``decode_cache_specs``'),
     never gathered: GQA on the rank's kv heads (``decode_kv_heads``: its
-    q heads, ``wo`` row block, the outputs summed over 'model') and/or
-    over its sequence block (``gqa_decode_sp`` over the sequence's
-    axes); MLA over its latent rows (``mla_decode`` over the same)."""
+    q heads and ``wo`` row block, a partial output) and/or over its
+    sequence block (``gqa_decode_sp`` over the sequence's axes); MLA
+    over its latent rows (``mla_decode`` over the same)."""
     mla = cfg.attn_type == "mla"
     if dist is None:
         return (attn.mla_decode if mla else attn.gqa_decode)(
@@ -366,19 +375,13 @@ def _attn_decode(cfg, p, specs, h, cache, pos, dist, cspec):
     if mla:
         return attn.mla_decode(_whole(p, specs, dist), cfg, h, cache, pos,
                                dist, seq)
-    heads = cspec["k"][2] is not None
-    if heads:
+    if cspec["k"][2] is not None:                   # the rank's kv heads
         w, local = _attn_tp(cfg, p, specs, dist, h.device)
-        h = C.copy_to(h, dist, dist.model_axis)
     else:
         w, local = _whole(p, specs, dist), cfg
     if seq is None:
-        out, c = attn.gqa_decode(w, local, h, cache, pos)
-    else:
-        out, c = attn.gqa_decode_sp(w, local, h, cache, pos, dist, seq)
-    if heads:
-        out = C.psum(out, dist, dist.model_axis)
-    return out, c
+        return attn.gqa_decode(w, local, h, cache, pos)
+    return attn.gqa_decode_sp(w, local, h, cache, pos, dist, seq)
 
 
 def _attn_layer(cfg, p, specs, h, *, positions, kernel_fns, cache, pos,
@@ -418,84 +421,162 @@ def _attn_layer(cfg, p, specs, h, *, positions, kernel_fns, cache, pos,
 
 def _mlp(cfg, p, specs, h, dist):
     """The dense FFN; on a mesh column-parallel ``w_gate``/``w_up`` and
-    row-parallel ``w_down`` over 'model' (their d_ff blocks), the
-    partial outputs summed (Megatron), when d_ff divides the axis."""
+    row-parallel ``w_down`` over 'model' (their d_ff blocks), a partial
+    output (Megatron), when d_ff divides the axis."""
     if not tp_mlp(cfg, dist):
         return swiglu_apply(_whole(p, specs, dist), h)
-    ma = dist.model_axis
-    return C.psum(swiglu_apply(_tp_leaves(p, specs, dist, "mlp"),
-                               C.copy_to(h, dist, ma)), dist, ma)
+    return swiglu_apply(_tp_leaves(p, specs, dist, "mlp"), h)
 
 
-def _rwkv_layer(cfg, p, specs, x, h, st, kernel_fn, ln2, dist):
-    """An RWKV layer's time mix and channel mix on the residual x (h its
-    normed input): on a mesh whose 'model' axis divides the heads, the
+def _rwkv_layer(cfg, p, specs, x, h, st, kernel_fn, norm2, dist, act):
+    """An RWKV layer's time mix and channel mix on the residual x (h the
+    time mix's normed input, ``norm2`` the channel mix's from a
+    residual): on a mesh whose 'model' axis divides the heads, the
     rank's heads (their column blocks, the wkv kernel on them, the
-    state's head block) with ``wo``'s row block summed over 'model', and
+    state's head block) with ``wo``'s row block (a partial output), and
     the channel mix's ``cm_wk`` column and ``cm_wv`` row blocks, their
     partial sums reduce-scattered to the rank's block of d_model, its
-    columns of the receptance, the blocks gathered. Returns (x,
-    att_shift, wkv state, cm_shift)."""
+    columns of the receptance (``_from_d_block`` lays that block out).
+    Returns (x, att_shift, wkv state, cm_shift)."""
     if not tp_rwkv(cfg, dist):
         prw = _whole(p, specs, dist)
         st = st or rw.rwkv_state_init(cfg, h.shape[0], h.dtype, h.device)
         out, att_shift, wkv = rw.time_mix(prw, cfg, h, st["att_shift"],
                                           st["wkv"], kernel_fn=kernel_fn)
-        x = x + out
-        out2, cm_shift = rw.channel_mix(prw, ln2(x), st["cm_shift"])
-        return x + out2, att_shift, wkv, cm_shift
+        x = x + _out(out, dist, act, False)
+        out2, cm_shift = rw.channel_mix(prw, norm2(x), st["cm_shift"])
+        return x + _out(out2, dist, act, False), att_shift, wkv, cm_shift
     ma, m = dist.model_axis, dist.model_size
     w = _tp_leaves(p, specs, dist, "rwkv")
     n = cfg.d_model // cfg.rwkv_head_dim // m
     r0 = C.axis_index(dist, ma) * n
     st = st or rw.rwkv_state_init(cfg, h.shape[0], h.dtype, h.device,
                                   n_heads=n)
-    out, att_shift, wkv = rw.time_mix(w, cfg, C.copy_to(h, dist, ma),
-                                      st["att_shift"], st["wkv"],
+    out, att_shift, wkv = rw.time_mix(w, cfg, h, st["att_shift"], st["wkv"],
                                       kernel_fn=kernel_fn,
                                       heads=slice(r0, r0 + n))
-    x = x + C.psum(out, dist, ma)
+    x = x + _out(out, dist, act, True)
     d = cfg.d_model // m
     c0 = C.axis_index(dist, ma) * d
     out2, cm_shift = rw.channel_mix(
-        w, C.copy_to(ln2(x), dist, ma), st["cm_shift"],
+        w, norm2(x), st["cm_shift"],
         tp=(slice(c0, c0 + d), lambda t: C.psum_scatter(t, dist, ma, 2),
-            lambda t: C.all_gather(t, dist, ma, 2, replicated=True)))
+            lambda t: _from_d_block(t, dist, act)))
     return x + out2, att_shift, wkv, cm_shift
 
 
 def _mamba_layer(cfg, p, specs, h, state, dist):
     """A Mamba mixer: on a mesh the rank's channels (``tp_mamba``), the
     x_proj partial products summed over 'model' (and their gradient,
-    which each rank's channels use), ``out_proj``'s row block summed."""
+    which each rank's channels use), ``out_proj``'s row block (a partial
+    output)."""
     if not tp_mamba(cfg, dist):
         return mb.mamba_forward(_whole(p, specs, dist), cfg, h, state=state)
     ma = dist.model_axis
-    out, state = mb.mamba_forward(
-        _tp_leaves(p, specs, dist, "mamba"), cfg, C.copy_to(h, dist, ma),
-        state=state,
+    return mb.mamba_forward(
+        _tp_leaves(p, specs, dist, "mamba"), cfg, h, state=state,
         reduce=lambda t: C.copy_to(C.psum(t, dist, ma), dist, ma))
-    return C.psum(out, dist, ma), state
+
+
+def act_dim(cfg, dist, shape):
+    """The dimension of the residual (global ``shape`` (B, T, d)) that
+    'model' cuts between layers (``sharding.act_spec``): 1 under
+    ``"seq"``, 2 under ``"dmodel"``, None whole (and without a mesh, or
+    on a 'model' axis of one rank, whose block is the whole)."""
+    if dist is None or dist.model_size == 1:
+        return None
+    spec = shd.act_spec(cfg, dist, shape)
+    return next((i for i in (1, 2) if spec[i] is not None), None)
+
+
+def _norm_in(cfg, p, specs, name, x, dist, act, tp):
+    """A sublayer's normed input (norm ``name`` of ``p``) from the
+    residual x. On a mesh x is the rank's block of dimension ``act``
+    over 'model', gathered whole first, as GSPMD gathers before the
+    norm. Its transpose depends on the consumer: a tensor-parallel part
+    (``tp``: each rank computes its share of the output from it) hands
+    back a different partial gradient on each rank, which the backward
+    reduce-scatters into the block before the norm's
+    (``layers.gathered_rms_norm``); a part every rank computes alike
+    takes its block of the gradient. With the residual whole (``act``
+    None) a tensor-parallel part's input is ``copy_to``'s (Megatron's
+    f)."""
+    if dist is None:
+        return rms_norm(x, p[name], cfg.norm_eps)
+    ma, gain = dist.model_axis, _use(p, specs, name, dist)
+    if act is None:
+        h = rms_norm(x, gain, cfg.norm_eps)
+        return C.copy_to(h, dist, ma) if tp else h
+    if tp:
+        return gathered_rms_norm(x, gain, cfg.norm_eps, dist, ma, act)
+    return rms_norm(_gathered(x, dist, act), gain, cfg.norm_eps)
+
+
+def _out(y, dist, act, tp):
+    """A sublayer's output in the residual's layout: a tensor-parallel
+    part's partial output (``tp``) reduce-scattered into the rank's
+    block of dimension ``act`` (summed whole when ``act`` is None,
+    Megatron's g); a whole output (every rank computed it alike) cut to
+    the block."""
+    if dist is None:
+        return y
+    ma = dist.model_axis
+    if act is None:
+        return C.psum(y, dist, ma) if tp else y
+    return C.psum_scatter(y, dist, ma, act) if tp else \
+        C.scatter(y, dist, ma, act)
+
+
+def _gathered(x, dist, act):
+    """The whole residual from the rank's block (every rank then holds
+    it alike)."""
+    if act is None:
+        return x
+    return C.all_gather(x, dist, dist.model_axis, act, replicated=True)
+
+
+def _from_d_block(y, dist, act):
+    """An output already summed into the rank's block of d (the
+    ``psum_scatter`` MoE combine, RWKV's channel mix) in the residual's
+    layout: that block under ``"dmodel"``, else gathered and laid out
+    as ``_out`` lays a whole output."""
+    if act == 2:
+        return y
+    return _out(_gathered(y, dist, 2), dist, act, False)
+
+
+def tp_mixer(cfg, dist, kind, decode) -> bool:
+    """Whether a layer's mixer is tensor-parallel over 'model' (its
+    output a partial sum): attention's heads (a decode's: the cache's kv
+    heads, ``decode_kv_heads``), RWKV's heads, Mamba's channels."""
+    if dist is None:
+        return False
+    if kind == "attn":
+        return shd.decode_kv_heads(cfg, dist) if decode else \
+            tp_attention(cfg, dist)
+    return (tp_rwkv if kind == "rwkv" else tp_mamba)(cfg, dist)
 
 
 def _layer_apply(cfg, p, x, *, kind, ffn, positions, kernel_fns,
                  cache=None, pos=None, want_cache=False, dist=None,
-                 specs=None, split=True, cspec=None):
+                 specs=None, split=True, cspec=None, act=None):
     """Returns (x, new_cache, aux): aux is the MoE FFN's auxiliary loss
     (float32 scalar), None for other FFNs. On a mesh (``dist``) ``p``
-    holds the rank's blocks laid out by ``specs``, x is the rank's
-    batch rows (``split``: a block of a batch split over the data axes)
-    replicated over 'model', the cache is the rank's block laid out by
-    ``cspec`` (and so is the new cache), and a ``psum_scatter`` MoE
-    combine leaves the residual d-sharded (``_constrain_act`` gathers
-    it)."""
-    h = rms_norm(x, _use(p, specs, "ln1", dist), cfg.norm_eps)
+    holds the rank's blocks laid out by ``specs``; x, in and out, is the
+    rank's block of the residual: its batch rows (``split``: a block of
+    a batch split over the data axes), cut over 'model' on dimension
+    ``act`` (``act_dim``; None: whole). Each sublayer gathers it whole
+    before its norm (``_norm_in``) and adds its output in the same
+    layout (``_out``); the cache is the rank's block laid out by
+    ``cspec`` (and so is the new cache)."""
+    tp = tp_mixer(cfg, dist, kind, cache is not None and pos is not None)
+    h = _norm_in(cfg, p, specs, "ln1", x, dist, act, tp)
     if kind == "rwkv":
-        def ln2(y):
-            return rms_norm(y, _use(p, specs, "ln2", dist), cfg.norm_eps)
         x, att_shift, wkv, cm_shift = _rwkv_layer(
             cfg, p["rwkv"], specs and specs["rwkv"], x, h, cache,
-            kernel_fns.get("wkv"), ln2, dist)
+            kernel_fns.get("wkv"),
+            lambda y: _norm_in(cfg, p, specs, "ln2", y, dist, act, tp),
+            dist, act)
         if want_cache or cache is not None:
             return x, {"att_shift": att_shift, "wkv": wkv,
                        "cm_shift": cm_shift}, None
@@ -509,35 +590,38 @@ def _layer_apply(cfg, p, x, *, kind, ffn, positions, kernel_fns,
         out, state = _mamba_layer(cfg, p["mamba"], specs and specs["mamba"],
                                   h, cache, dist)
         new_cache = state if (want_cache or cache is not None) else {}
-    x = x + out
-    h2 = rms_norm(x, _use(p, specs, "ln2", dist), cfg.norm_eps)
+    x = x + _out(out, dist, act, tp)
+    tp = ffn == "mlp" and tp_mlp(cfg, dist)
+    h2 = _norm_in(cfg, p, specs, "ln2", x, dist, act, tp)
     aux = None
     if ffn == "moe" and dist is not None:
         out2, aux = moe_mod.moe_apply_dist(p["moe"], cfg, h2, dist,
                                            split=split)
-        if out2.shape[-1] != x.shape[-1]:       # the psum_scatter combine
-            x = C.scatter(x, dist, dist.model_axis, 2)
+        out2 = _from_d_block(out2, dist, act) if \
+            moe_mod.combine_scatters(cfg, dist) else \
+            _out(out2, dist, act, False)
     elif ffn == "moe":
         out2, aux = moe_mod.moe_apply(p["moe"], cfg, h2)
     else:
-        out2 = _mlp(cfg, p["mlp"], specs and specs["mlp"], h2, dist)
+        out2 = _out(_mlp(cfg, p["mlp"], specs and specs["mlp"], h2, dist),
+                    dist, act, tp)
     return x + out2, new_cache, aux
 
 
-def _constrain_act(cfg, x, dist):
-    """The residual stream between layers. The reference constrains its
-    GSPMD layout here (``act_shard``: a layout, not a value); the port
-    keeps the residual whole over 'model', so this only gathers back a
-    residual a ``psum_scatter`` MoE combine left d-sharded."""
-    if dist is None or x.shape[-1] == cfg.d_model:
-        return x
-    return C.all_gather(x, dist, dist.model_axis, 2, replicated=True)
+def _constrain_act(x, dist, act):
+    """The residual stream as the reference constrains it between layers
+    (``_constrain_act``, ``sharding.act_spec``): the rank's block over
+    'model' of dimension ``act`` of an x every rank of 'model' holds
+    alike (the embedding's output), laid out as ``_out`` lays a whole
+    output. The layers take and return that block."""
+    return _out(x, dist, act, False)
 
 
 def _run_stack(cfg, params, x, positions, kernel_fns, want_cache,
                in_cache=None, pos=None, dist=None, specs=None, split=True,
-               cspecs=None):
-    """Applies every layer in order. Returns (x, per-layer caches); on
+               cspecs=None, act=None):
+    """Applies every layer in order to the residual (on a mesh the
+    rank's block, ``_layer_apply``). Returns (x, per-layer caches); on
     a mesh the caches are the rank's blocks laid out by ``cspecs``."""
     caches = []
     for i, ((kind, ffn), p) in enumerate(zip(layer_kinds(cfg),
@@ -548,20 +632,20 @@ def _run_stack(cfg, params, x, positions, kernel_fns, want_cache,
                                cache=in_cache[i] if in_cache else None,
                                pos=pos, want_cache=want_cache, dist=dist,
                                specs=specs and specs["layers"][i],
-                               split=split,
-                               cspec=cspecs and cspecs[i])   # aux dropped
-        if dist is not None:
-            x = _constrain_act(cfg, x, dist)
+                               split=split, cspec=cspecs and cspecs[i],
+                               act=act)                     # aux dropped
         caches.append(c)
     return x, caches
 
 
 def _train_stack(cfg, params, x, positions, kernel_fns, dist=None,
-                 specs=None, split=True):
+                 specs=None, split=True, act=None):
     """Every layer in order for a training step, each recomputed in the
-    backward when ``cfg.remat`` (on a mesh its parameter gathers too,
-    as the reference's remat recomputes its FSDP all-gathers). Returns
-    (x, the MoE aux losses summed over the layers, float32)."""
+    backward when ``cfg.remat`` (on a mesh its parameter gathers and its
+    residual's gathers too, as the reference's remat recomputes its
+    FSDP all-gathers): what a layer keeps for the backward is its input,
+    on a mesh the rank's block of the residual. Returns (x, the MoE aux
+    losses summed over the layers, float32)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, ((kind, ffn), p) in enumerate(zip(layer_kinds(cfg),
                                              params["layers"])):
@@ -570,8 +654,7 @@ def _train_stack(cfg, params, x, positions, kernel_fns, dist=None,
             x, _, aux = _layer_apply(cfg, p, x, kind=kind, ffn=ffn,
                                      positions=positions,
                                      kernel_fns=kernel_fns, dist=dist,
-                                     specs=sp, split=split)
-            x = _constrain_act(cfg, x, dist)
+                                     specs=sp, split=split, act=act)
             if aux is None:
                 aux = torch.zeros((), dtype=torch.float32, device=x.device)
             return x, aux
@@ -694,6 +777,16 @@ def _top(cfg, params, specs, dist):
     return emb, _use(params, specs, "final_norm", dist), head
 
 
+def _last_normed(cfg, x, final_norm, dist, act):
+    """The last position of the residual (on a mesh the rank's block,
+    gathered: under ``"dmodel"`` only that position's block), normed:
+    (b, 1, d)."""
+    if act != 1:
+        x = x[:, -1:]
+    return rms_norm(_gathered(x, dist, act)[:, -1:], final_norm,
+                    cfg.norm_eps)
+
+
 def _last_logits(cfg, x, head, dist, split):
     """Float32 logits (B, padded_vocab) of x (b, 1, d), the last
     position, whole on every rank: a vocab-parallel head's blocks
@@ -759,10 +852,12 @@ def prefill(cfg, params, batch, kernel_fns=None, dist=None):
     b, T = x.shape[:2]
     cspecs = shd.decode_cache_specs(cfg, B, T, dist)["layers"] \
         if dist is not None else None
-    x, caches = _run_stack(cfg, params, x, positions, kernel_fns,
-                           want_cache=True, dist=dist, specs=specs,
-                           split=split, cspecs=cspecs)
-    x = rms_norm(x[:, -1:, :], final_norm, cfg.norm_eps)
+    act = act_dim(cfg, dist, (B, T, x.shape[2]))
+    x, caches = _run_stack(cfg, params, _constrain_act(x, dist, act),
+                           positions, kernel_fns, want_cache=True,
+                           dist=dist, specs=specs, split=split,
+                           cspecs=cspecs, act=act)
+    x = _last_normed(cfg, x, final_norm, dist, act)
     logits = _last_logits(cfg, x, head, dist, split)
     pos_offset = torch.full((b,), T, dtype=torch.int32, device=x.device)
     return logits, {"pos_offset": pos_offset, "layers": caches}
@@ -785,27 +880,30 @@ def train_loss(cfg, params, batch, kernel_fns=None, dist=None):
     of the logits, (b, T, V / m), and the loss is
     ``layers.vocab_parallel_nll``'s."""
     dist = moe_mod.as_dist(dist, "train_loss")
-    specs, split = None, True
+    specs, split, B = None, True, None
     if dist is not None:
         specs = _param_specs(cfg, dist)
+        B = next(iter(batch.values())).shape[0]
         split, batch = _local_rows(batch, dist)
     emb = _table(cfg, params, specs, dist, "embed")
     x, positions, targets, mask = _embed_inputs(
         cfg, lambda t: _lookup(cfg, emb, t, dist), batch)
     if not cfg.tie_embeddings:
         emb = None         # on a mesh: the gathered table freed at once
-    x, aux = _train_stack(cfg, params, x, positions, kernel_fns or {},
-                          dist=dist, specs=specs, split=split)
-    x = rms_norm(x, _use(params, specs, "final_norm", dist), cfg.norm_eps)
+    act = act_dim(cfg, dist, (B,) + tuple(x.shape[1:]))
+    x, aux = _train_stack(cfg, params, _constrain_act(x, dist, act),
+                          positions, kernel_fns or {}, dist=dist,
+                          specs=specs, split=split, act=act)
+    vp = vocab_parallel(cfg, dist)
+    x = _norm_in(cfg, params, specs, "final_norm", x, dist, act, vp)
     head = emb if cfg.tie_embeddings else \
         _table(cfg, params, specs, dist, "head")
     if dist is None:
         loss = masked_mean(nll(unembed(x, head), targets), mask)
         return loss + 0.01 * aux, {"ce_loss": loss, "aux_loss": aux}
-    if vocab_parallel(cfg, dist):
-        ma = dist.model_axis
-        nll_ = vocab_parallel_nll(unembed(C.copy_to(x, dist, ma), head),
-                                  targets, dist, ma)
+    if vp:
+        nll_ = vocab_parallel_nll(unembed(x, head), targets, dist,
+                                  dist.model_axis)
     else:
         nll_ = nll(unembed(x, head), targets)
     loss = _dist_cross_entropy(nll_, mask, dist, split)
@@ -843,21 +941,21 @@ def decode_step(cfg, params, cache, token, pos, kernel_fns=None,
     latent rows (``mla_decode``), RWKV and Mamba on their heads' and
     channels' states."""
     dist = moe_mod.as_dist(dist, "decode_step")
-    specs, split, cspecs = None, True, None
+    specs, split, cspecs, B = None, True, None, token.shape[0]
     if dist is not None:
         specs = _param_specs(cfg, dist)
-        B = token.shape[0]
         cspecs = shd.decode_cache_specs(
             cfg, B, _cache_len(cfg, cache, B, dist), dist)["layers"]
         split, rows = _local_rows({"token": token, "pos": pos}, dist)
         token, pos = rows["token"], rows["pos"]
     emb, final_norm, head = _top(cfg, params, specs, dist)
     x = _lookup(cfg, emb, token, dist)
-    x, caches = _run_stack(cfg, params, x, pos[:, None], kernel_fns,
-                           want_cache=False, in_cache=cache["layers"],
-                           pos=pos, dist=dist, specs=specs, split=split,
-                           cspecs=cspecs)
-    x = rms_norm(x, final_norm, cfg.norm_eps)
+    act = act_dim(cfg, dist, (B, 1, x.shape[2]))
+    x, caches = _run_stack(cfg, params, _constrain_act(x, dist, act),
+                           pos[:, None], kernel_fns, want_cache=False,
+                           in_cache=cache["layers"], pos=pos, dist=dist,
+                           specs=specs, split=split, cspecs=cspecs, act=act)
+    x = _last_normed(cfg, x, final_norm, dist, act)
     logits = _last_logits(cfg, x, head, dist, split)
     return logits, {"pos_offset": pos + 1, "layers": caches}
 

@@ -217,15 +217,26 @@ def moe_param_specs(cfg, dist: DistContext) -> dict:
             "w_up": (None, "data", ma), "w_down": (None, ma, "data")}
 
 
+def combine_scatters(cfg, dist: DistContext) -> bool:
+    """Whether ``moe_apply_dist`` combines with ``psum_scatter`` (the
+    config asks for it and d divides 'model'): its output is then the
+    rank's block of d, the residual's layout under ``act_shard ==
+    "dmodel"`` (``distributed.sharding.act_spec``)."""
+    return cfg.moe_combine == "psum_scatter" and \
+        cfg.d_model % dist.model_size == 0
+
+
 def moe_apply_dist(p, cfg, x, dist: DistContext, split=True):
     """The distributed MoE on this rank. ``p``: this rank's blocks of
     the parameters (``moe_param_specs``); ``x`` (B_loc, T, d): the
     rank's block of a batch split over the data axes, or with ``split``
     False the whole batch (the reference's case of a B that does not
     divide the data axes: the tokens are replicated over them and only
-    'model' shares the work). Returns (y, aux): y (B_loc, T, d), or (B_loc, T,
-    d / model) -- this rank's block of d -- under the ``psum_scatter``
-    combine; aux the global aux loss."""
+    'model' shares the work). Returns (y, aux): y (B_loc, T, d) summed
+    over 'model' (the ``psum`` combine), or (B_loc, T, d / model) under
+    the ``psum_scatter`` combine (``combine_scatters``): this rank's
+    block of d, the residual's ``"dmodel"`` block, which the model keeps
+    as it is; aux the global aux loss."""
     B, T, d = x.shape
     mode = ep_mode(cfg, dist)
     m = dist.model_size
@@ -247,7 +258,7 @@ def moe_apply_dist(p, cfg, x, dist: DistContext, split=True):
     y = _dispatch_compute_combine(
         C.copy_to(xf, dist, ma), C.copy_to(gates, dist, ma), idx,
         w["w_gate"], w["w_up"], w["w_down"], e_lo, n_local, cap)
-    if cfg.moe_combine == "psum_scatter" and d % m == 0:
+    if combine_scatters(cfg, dist):
         # straight into the d-sharded residual layout (half the ring
         # traffic of an all-reduce)
         y = C.psum_scatter(y, dist, ma, 1)

@@ -1,5 +1,6 @@
 """Rank groups on the CPU for the distributed tests of the port
-(tests/test_torch_distributed.py, tests/test_torch_dist_elastic.py):
+(tests/test_torch_distributed.py, tests/test_torch_dist_elastic.py,
+tests/test_torch_dist_tp.py, tests/test_torch_act_shard.py):
 ``torch.multiprocessing.spawn`` starts the ranks, a ``file://`` store
 under the test's temporary directory joins them over gloo (the
 counterpart of tests/_subproc.py's fake devices). The rank bodies live
@@ -335,3 +336,77 @@ def body_tp(rank, pl):
             cfg, dist, c["params"], c["tokens"], c["T"], c["cache_len"],
             c["prefill_cache"])
     return out
+
+
+def _layer_inputs(fn):
+    """(``fn()``, the residual each layer took: what the model handed
+    ``torch.utils.checkpoint.checkpoint`` as x, remat on)."""
+    import torch.utils.checkpoint as ckpt
+    seen, plain = [], ckpt.checkpoint
+
+    def spy(f, x, *args, **kw):
+        seen.append(x)
+        return plain(f, x, *args, **kw)
+    ckpt.checkpoint = spy
+    try:
+        return fn(), seen
+    finally:
+        ckpt.checkpoint = plain
+
+
+def _saved_residuals(cfg, dist, params, batch):
+    """train_loss and its backward on the rank's blocks: (the shape of
+    the residual each layer took, the bytes of those residuals autograd
+    saved for the backward, read with ``saved_tensors_hooks``)."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    blocks = shd.shard_tree(params, shd.param_specs(cfg, dist)[0], dist)
+    for t in leaves(blocks):
+        t.requires_grad_()
+    packed = {}
+
+    def pack(t):
+        packed[(t.data_ptr(), tuple(t.shape))] = t.numel() * t.element_size()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        (loss, _), xs = _layer_inputs(
+            lambda: M.train_loss(cfg, blocks, batch, dist=dist))
+    loss.backward()
+    return ([tuple(x.shape) for x in xs],
+            sum(packed.get((x.data_ptr(), tuple(x.shape)), 0) for x in xs))
+
+
+def body_act_shard(rank, pl):
+    """Every case of tests/test_torch_act_shard.py on one 2 x 2 mesh,
+    under each ``act_shard``: reduced qwen3-8b's train step (the whole
+    new parameters, the metrics), its prefill and two decode steps, the
+    residual each layer took and what remat saved of it (also at T =
+    15), and the whole gradient of the other cases."""
+    dist = _dist()
+    out = {}
+    q = pl["qwen"]
+    for mode in pl["modes"]:
+        cfg = _cfg("qwen3-8b", remat=True, act_shard=mode)
+        out[mode] = {
+            "train": _train(cfg, dist, q["params"], q["batch"],
+                            q["step"])[:2],
+            "serve": _serve(cfg, dist, q["params"], q["prompt"], 2),
+            "saved": _saved_residuals(cfg, dist, q["params"], q["batch"]),
+            "saved15": _saved_residuals(cfg, dist, q["params"],
+                                        q["batch15"]),
+            "grads": {name: _loss_grads(_cfg(c["arch"], act_shard=mode,
+                                             **c["over"]),
+                                        dist, c["params"], c["batch"])
+                      for name, c in pl["grads"].items()}}
+    return out
+
+
+def _loss_grads(cfg, dist, params, batch):
+    """(the loss, the whole gradient gathered from the blocks')."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.steps import _loss_and_grads
+    specs = shd.param_specs(cfg, dist)[0]
+    loss, _, grads = _loss_and_grads(cfg, shd.shard_tree(params, specs, dist),
+                                     batch, None, dist)
+    return float(loss), shd.unshard_tree(grads, specs, dist)

@@ -4,7 +4,10 @@ JAX reference and against the port's one-device result on the same
 numpy inputs (the reference's own multi-device tests,
 tests/test_distributed.py and tests/test_perf_paths.py, hold its
 sharded runs to its single-device ones; here the reference runs on one
-device in this process). One rank group for the whole file.
+device in this process). One rank group for the whole file. The model
+keeps its residual between layers as the reference's default
+``act_shard="dmodel"`` lays it out: each rank its block of d
+(tests/test_torch_act_shard.py holds every ``act_shard``).
 
 * The sharded train step (reduced qwen3-8b, 4 heads over 2 kv heads:
   tensor parallelism over 'model', the batch over 'data') from the
@@ -25,9 +28,11 @@ device in this process). One rank group for the whole file.
   (its bound) and 1e-5 of the one-device decode's scale; the cache's
   local leaves keep their shapes and dtypes, the whole new cache equals
   the one-device one; one step's collective bytes are the same at two
-  cache lengths (O(B H d_head) a layer, not O(cache)).
+  cache lengths (O(B H d_head) a layer, not O(cache)): a layer's pmax
+  and two psums of the partial softmax, its MLP's partial output
+  reduce-scattered into the residual's block.
 * prefill and two decode steps on the mesh (``decode_sp`` off: the
-  cache gathered over 'model' for a step) against one device (1e-5).
+  cache's kv heads over 'model') against one device (1e-5).
 * ``pipeline_apply`` on a 4-rank 'stage' mesh against the serial loop
   (1e-5).
 * ``Trainer(dist=...)``: 2 steps, a checkpoint (gathered, rank 0
@@ -272,9 +277,11 @@ def test_decode_sp_collectives_do_not_grow_with_the_cache(run):
     _, got = run
     short, long = got["decode_bytes"]
     assert short == long
-    # the combine: a pmax and two psums over 'model' a layer
+    # the combine: a pmax and two psums over 'model' a layer; the MLP's
+    # partial output reduce-scattered into the residual's block of d
     assert short[("pmax", "model")][0] == 2
-    assert short[("psum", "model")][0] == 2 * 2 + 2      # + the MLP's
+    assert short[("psum", "model")][0] == 2 * 2
+    assert short[("psum_scatter", "model")][0] == 2
 
 
 def test_prefill_and_decode_on_the_mesh_match_one_device(run):

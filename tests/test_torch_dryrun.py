@@ -21,7 +21,9 @@ against the reference's (``repro.launch.dryrun``).
   psum_scatter MoE combine, decode_sp, adafactor and the pod axis among
   them; the vocab-parallel head and a tied table's lookup, RWKV's and
   Mamba's tensor-parallel sums, and a decode's combine over a
-  sequence-sharded GQA or MLA cache).
+  sequence-sharded GQA or MLA cache), under each ``act_shard`` (the
+  residual between layers cut over d, the default, over the sequence,
+  or whole).
 * (g) ``ici_gating.analyze_all(device="cpu")`` over the port's records
   equals the reference's ``analyze_all`` over the same files.
 * (h) The dry run refuses to run beside a real (gloo) default group;
@@ -282,9 +284,9 @@ def _cell_id(c):
                     + ["x".join(map(str, mesh))])
 
 
-def _lower(cell, device):
+def _lower(cell, device, **act):
     arch, kind, T, B, over, dims = cell
-    cfg = _cfg(arch, **over)
+    cfg = _cfg(arch, **over, **act)
     shape = ShapeConfig("t", T, B, kind)
     pod = dims[0] if len(dims) == 3 else 0
     with fake_world(int(torch.tensor(dims).prod())):
@@ -306,6 +308,19 @@ def test_meta_counts_equal_cpu_and_collectives_equal_implied(cell):
         assert cpu["memory"][k] == meta["memory"][k], k
     got = {k: v[1] for k, v in cpu["collective_bytes"].items()}
     assert got == cpu["implied"]
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=[_cell_id(c) for c in CELLS])
+@pytest.mark.parametrize("act_shard", ["none", "seq"])
+def test_collectives_equal_implied_under_each_act_shard(cell, act_shard):
+    """The residual stream whole over 'model' (``"none"``) or cut over
+    the sequence (``"seq"``; a decode's T of 1 falls back to whole): the
+    counted collective bytes still equal ``implied_bytes``; the
+    default, ``"dmodel"``, is the test above."""
+    res = _lower(cell, "cpu", act_shard=act_shard)
+    assert res["unknown"] == {}
+    assert {k: v[1] for k, v in res["collective_bytes"].items()} == \
+        res["implied"]
 
 
 # (g) ------------------------------------------------------------------------

@@ -7,7 +7,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 ``--serve ARCH`` (repeatable) runs only the build and phase
 ``serve-ARCH``: copied into an unpacked earlier commit, it times that
 tree's serving path with the same code, so that two trees can run in
-turns in one call. ``--bwd-digests`` runs only the build and prints a
+turns in one call; ``--train ARCH`` likewise runs only phase
+``train-ARCH``. ``--bwd-digests`` runs only the build and prints a
 sha256 of each ``FLASH_BWD_CASES`` case's flash backward (through the
 variant its inputs pick): run in two trees, it shows whether a
 redesign kept a design's bits.
@@ -157,7 +158,9 @@ Phases (one line each; any failure exits non-zero and prints no result):
    through the variant the prefill's head dims pick: wgmma at d = 128
    and at MLA's (96, 64); wkv once an rwkv layer a prefill
    and a decode step); prefill and decode tokens/s and the device's
-   idle share (torch.profiler); then the batched prefill alone, warm
+   idle share (torch.profiler, recording the device alone, over a
+   launch.serve of SERVE_PROFILE_GEN tokens); then the batched prefill
+   alone, warm
    (the median of PREFILL_REPS calls; one more under torch.profiler:
    device busy, idle share);
 9x. ``serve-hubert-xlarge`` (audio frames, all 48 layers, bidirectional
@@ -189,7 +192,16 @@ Phases (one line each; any failure exits non-zero and prints no result):
    GRAD_SEQ) through the wgmma backward and through the CUDA-core one
    (``kernel_fns``
    built here), each leaf's difference as a share of its scale (a
-   reading, not a gate); ``train-hubert-xlarge``: all 48 layers, the
+   reading, not a gate); ``train-mixtral-8x7b`` (2 of 32 layers, both
+   attention + MoE, 8 experts top 2) and ``train-jamba-v0.1-52b`` (2
+   layers, TRAIN_PERIOD: Mamba + MLP, then attention + MoE, 16 experts
+   top 2; B = 8 x T = 1,024, TRAIN_SHAPE, as the Mamba scan is a loop
+   over T): the same gradient check over every layer of the cut (the
+   plain pass's float64 gradients held in host memory meanwhile; its
+   peak printed), the bf16 reading of the two backward designs, the 5
+   steps, launches and readings, the model FLOPs counting an MoE
+   layer's experts at their active share top_k / n_experts;
+   ``train-hubert-xlarge``: all 48 layers, the
    same gradient check (its features float64) and step accounting
    through ``make_train_step`` on one batch of B = 2 clips of 4,096
    frames with a span loss mask over about half of them (the loss must
@@ -373,6 +385,12 @@ SERVE_SEED = 0
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 512, 32
 SERVE_PROMPTS = (64, 96, 128, 200, 256, 384)
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 256, 32
+# the launch.serve pass under torch.profiler generates SERVE_PROFILE_GEN
+# tokens (the timed and counted pass SERVE_GEN): the profiler's
+# post-processing takes ~0.3 ms a kernel launch, and a decode step of
+# mixtral or jamba at 8 layers launches ~1,400 kernels (NVIDIA H100
+# 80GB HBM3, 700 W)
+SERVE_PROFILE_GEN = 8
 # the frontends (stubs, as in the reference: precomputed embeddings,
 # standard normal from a numpy generator, in the model's dtype):
 # hubert-xlarge encodes ENCODE_BATCH clips of ENCODE_FRAMES frames (~10 s
@@ -434,6 +452,10 @@ def phase(name: str, msg: str) -> None:
     PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - _LAST_LINE[0]
     _LAST_LINE[0] = now
     print(f"[{name}] {msg}", flush=True)
+
+
+def phase_seconds() -> str:
+    return ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
 
 
 def card_line() -> str:
@@ -1790,11 +1812,14 @@ def weighted(entries, key):
 def profile_busy(torch, fn, kernel_name):
     """(wall s, device-busy s, kernel launches, {kernel: ms} of the
     kernels whose names hold ``kernel_name``, top kernels) of ``fn``
-    under torch.profiler; busy is the sum of kernel times."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    under torch.profiler; busy is the sum of kernel times. The profiler
+    records the device's activity alone: recording every host op too
+    slowed the host under it, and its post-processing took ~1 ms a
+    kernel launch (55.0 s for one of jamba's ~57,000-launch training
+    steps on an NVIDIA H100 80GB HBM3 at 700 W; 16.6 s without)."""
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1802,6 +1827,8 @@ def profile_busy(torch, fn, kernel_name):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
+    if not events:
+        fail("torch.profiler recorded no kernel on the card")
     busy = sum(e.self_device_time_total for e in events) / 1e6
     launches = sum(e.count for e in events)
     own = {}
@@ -2168,8 +2195,8 @@ def serve_phase(torch, arch, dev):
         batch = request_batch(torch, cfg, T, dev, rng, SERVE_BATCH)
         reset_counts(flash_attention, rwkv6_wkv)
 
-        def generate():
-            return serve.generate(cfg, params, batch["tokens"], SERVE_GEN,
+        def generate(n=SERVE_GEN):
+            return serve.generate(cfg, params, batch["tokens"], n,
                                   kernel_fns=fns,
                                   patches=batch.get("patches"))
         res = generate()
@@ -2185,8 +2212,8 @@ def serve_phase(torch, arch, dev):
             n_attn)
         add("wkv", (SERVE_BATCH, T), n_rwkv)
         add("wkv", (SERVE_BATCH, 1), n_rwkv * (SERVE_GEN - 1))
-        wall, busy, n_launch, own_ms, top = profile_busy(torch, generate,
-                                                         own)
+        wall, busy, n_launch, own_ms, top = profile_busy(
+            torch, lambda: generate(SERVE_PROFILE_GEN), own)
         own_ms = sum(own_ms.values())
         launched = "; ".join(f"{k} launches {n}" for k, n in got.items()
                              if n)
@@ -2195,10 +2222,11 @@ def serve_phase(torch, arch, dev):
               + f") gen {SERVE_GEN}: prefill {res['prefill_tok_s']:.1f} "
               f"positions/s ({res['prefill_s'] * 1e3:.1f} ms), decode "
               f"{res['decode_tok_s']:.1f} tok/s ({res['decode_s'] * 1e3:.1f}"
-              f" ms for {SERVE_GEN - 1} steps); {launched}{variants}; under "
-              f"torch.profiler: {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} "
-              f"ms device busy, idle share {1 - busy / wall:.3f}, {n_launch} "
-              f"kernel launches ({n_launch / SERVE_GEN:.0f} a step), {own} "
+              f" ms for {SERVE_GEN - 1} steps); {launched}{variants}; gen "
+              f"{SERVE_PROFILE_GEN} under torch.profiler: {wall * 1e3:.1f} ms "
+              f"wall, {busy * 1e3:.1f} ms device busy, idle share "
+              f"{1 - busy / wall:.3f}, {n_launch} kernel launches ("
+              f"{n_launch / SERVE_PROFILE_GEN:.0f} a token), {own} "
               f"{own_ms:.1f} ms of the device time; top kernels (name, "
               f"calls, ms): {top}")
     time_prefill(torch, name, cfg, params, batch, fns, own)
@@ -2380,12 +2408,15 @@ def sensitivity(torch, cfg, params, batch, dev):
 
 
 def _cast(tree, dtype):
-    """A copy of a parameter tree with every tensor cast to ``dtype``."""
+    """A copy of a parameter tree with every tensor cast to ``dtype``
+    but the float32 ones (the MoE router, Mamba's A_log and D), which
+    the model computes with in float32 whatever its dtype."""
+    import torch
     if isinstance(tree, dict):
         return {k: _cast(v, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_cast(v, dtype) for v in tree]
-    return tree.to(dtype)
+    return tree if tree.dtype == torch.float32 else tree.to(dtype)
 
 
 def _leaves(tree):
@@ -2655,13 +2686,29 @@ def golden_phase(torch, S, dev, name, batch, rows, cfg, x64):
 # frames (HuBERT masks spans of 10 from ~8% of the starts); the lr at
 # make_train_step's peak (3e-4) from the first step (warm-up 1), so
 # that TRAIN_STEPS steps move the loss.
-TRAIN_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "hubert-xlarge")
-TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 8, "minicpm3-4b": 8}
+# mixtral-8x7b (arXiv:2401.04088) trains 2 of its 32 layers, both
+# attention (GQA 32 / 8, window 4,096: inert at T = 4,096) + MoE (8
+# experts, top 2): 3.17 B parameters (embedding and head 2 x 32,256 x
+# 4,096, a layer 41.9 M of attention and 8 x 176.2 M of experts), ~38 GB
+# with AdamW's float32 moments. jamba-v0.1-52b (arXiv:2403.19887) trains
+# the two layers tests/_train_ref.py's OVERRIDES give it (TRAIN_PERIOD):
+# Mamba + MLP, then attention (no rope) + MoE (16 experts, top 2): 3.68 B
+# parameters, ~44 GB. Its batch (TRAIN_SHAPE) is B = 8 x T = 1,024, the
+# same 8,192 tokens a step: the Mamba scan is a Python loop over T
+# (models/mamba.py::ssm_scan, as the reference's lax.scan), whose ops a
+# step grow with T and whose saved float32 states (~8 MB a token at B =
+# 8) remat holds for one layer at a time.
+TRAIN_ARCHS = ("qwen3-8b", "rwkv6-7b", "minicpm3-4b", "hubert-xlarge",
+               "mixtral-8x7b", "jamba-v0.1-52b")
+TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-7b": 8, "minicpm3-4b": 8,
+                "mixtral-8x7b": 2, "jamba-v0.1-52b": 2}
+TRAIN_PERIOD = {"jamba-v0.1-52b": dict(attn_period=2, attn_offset=1)}
 MASK_SPAN, MASK_SHARE = 10, 0.5
 FRAME_WARMUP = 1
 # steps: the first (the kernels' first launches) apart, a timed window
 # of TRAIN_WINDOW, then one under torch.profiler
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WINDOW = 2, 4096, 3
+TRAIN_SHAPE = {"jamba-v0.1-52b": (8, 1024)}
 TRAIN_STEPS = TRAIN_WINDOW + 2
 TRAIN_SEED = 0
 # the gradient check: the float32 kernels (forward and backward) against
@@ -2741,11 +2788,14 @@ REDUCED_STEPS, REDUCED_FALL = 30, 0.5
 
 
 def rel_errs(torch, got, want):
-    """max |got - want| and that over max |want|, per pair."""
+    """max |got - want| and that over max |want|, per pair (a leaf in
+    host memory brought to the other's device one at a time)."""
     out = []
     for g, w in zip(got, want):
-        d = float((g.double() - w.double()).abs().max())
-        out.append((d, d / max(float(w.double().abs().max()), 1e-30)))
+        dev = w.device if g.device.type == "cpu" else g.device
+        g, w = g.to(dev), w.to(dev)
+        d = float((g.double() - w.double()).abs_().max())
+        out.append((d, d / max(float(w.abs().max()), 1e-30)))
     return out
 
 
@@ -2914,12 +2964,22 @@ def model_flops(cfg, params, B, T, kinds):
     """Model FLOPs of one training step (forward and backward, remat's
     recompute not counted): 6 x the tokens x the weights of every matrix
     product (the layers' matrices and the head; the embedding is a
-    lookup), plus causal attention's 3 B H T^2 (dq + dv) (QK^T over dq
-    and PV over dv, half the pairs, three passes; twice that without
-    the causal mask; dq = dv = dh but for MLA) or wkv's 3 x 4 B T H
-    dh^2."""
+    lookup), an MoE layer's experts (``w_gate``, ``w_up``, ``w_down``)
+    at their active share top_k / n_experts (each token runs through
+    top_k of them; the router whole), plus causal attention's 3 B H T^2
+    (dq + dv) (QK^T over dq and PV over dv, half the pairs, three
+    passes; twice that without the causal mask; dq = dv = dh but for
+    MLA) or wkv's 3 x 4 B T H dh^2. A Mamba layer counts its 2-D leaves
+    as matrices: its projections, and for the scan's elementwise work
+    (not counted otherwise) its ``A_log`` (d_in, d_state) and ``conv_w``
+    (d_conv, d_in)."""
     from repro_torch.core.tree import paths
-    mats = sum(t.numel() for p, t in paths(params["layers"])
+
+    def weights(p, t):
+        if "moe" in p and p[-1] != "router":      # (E, ., .): top_k active
+            return t.numel() // cfg.n_experts * cfg.top_k
+        return t.numel()
+    mats = sum(weights(p, t) for p, t in paths(params["layers"])
                if t.dim() >= 2 and p[-1] not in ("maa_wkvrg", "u"))
     head = params["embed" if cfg.tie_embeddings else "head"].numel()
     flops = 6 * B * T * (mats + head)
@@ -2975,7 +3035,11 @@ def head_grads(torch, cfg, params, dev, seed, fns, dtype=None):
     norm and head) at (1, GRAD_SEQ), once through each of ``fns``
     ({label: kernel_fns}), the model's weights and frames cast to
     ``dtype`` where given; a token batch from ``seed``, or hubert's
-    frame batch. Returns ({label: gradients}, the leaves' names)."""
+    frame batch. Every pass's gradients but the last's go to host
+    memory as soon as they are made, so that the card holds one pass's
+    at a time (a float64 copy of mixtral's or jamba's two layers is 25
+    to 29 GB, and so is its gradient). Returns ({label: gradients},
+    the leaves' names)."""
     from repro_torch.core.tree import leaves, paths, unflatten
     from repro_torch.models import model as M
     if cfg.frontend == "audio_frames":
@@ -2989,28 +3053,35 @@ def head_grads(torch, cfg, params, dev, seed, fns, dtype=None):
     if dtype is not None:
         head = _cast(head, dtype)
         cfg2 = dataclasses.replace(cfg2, dtype=dtype)
-    out = {}
-    for label, kf in fns.items():
-        live = [t.detach().requires_grad_() for t in leaves(head)]
+    out, flat = {}, leaves(head)
+    for i, (label, kf) in enumerate(fns.items()):
+        live = [t.detach().requires_grad_() for t in flat]
         loss, _ = M.train_loss(cfg2, unflatten(head, live), batch,
                                kernel_fns=kf)
         # hubert's embedding is on no path of its (frame) batch: zeros
-        grads = torch.autograd.grad(loss, live, allow_unused=True)
-        out[label] = [torch.zeros_like(t) if g is None else g
-                      for g, t in zip(grads, live)]
+        grads = list(torch.autograd.grad(loss, live, allow_unused=True))
+        last = i == len(fns) - 1
+        for j, t in enumerate(grads):
+            t = torch.zeros_like(flat[j]) if t is None else t
+            grads[j] = t if last else t.cpu()
+        out[label] = grads
     return out, [".".join(map(str, p)) for p, _ in paths(head)]
 
 
 def grad_check(torch, cfg, params, dev, name):
     """The gradient check: the kernel path against the plain path over
-    the first GRAD_LAYERS layers at (1, GRAD_SEQ), in a float64 model.
-    Returns (worst share, its leaf, leaves)."""
+    the first GRAD_LAYERS layers at (1, GRAD_SEQ), in a float64 model
+    (the plain pass's gradients held in host memory meanwhile). Returns
+    (worst share, its leaf, leaves, the card's peak GiB, seconds)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     out, names = head_grads(torch, cfg, params, dev, 1, {
-        "kernels": f32_kernel_fns(), "plain": None}, torch.float64)
+        "plain": None, "kernels": f32_kernel_fns()}, torch.float64)
     torch.cuda.synchronize()
-    errs = [r for (_, r) in rel_errs(torch, out["kernels"], out["plain"])]
     if not all(bool(torch.isfinite(a).all()) for a in out["kernels"]):
         fail(f"{name}: non-finite gradients through the kernels")
+    errs = [r for (_, r) in rel_errs(torch, out["kernels"], out["plain"])]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     r, leaf = max(zip(errs, names))
     del out
     gc.collect()
@@ -3019,7 +3090,7 @@ def grad_check(torch, cfg, params, dev, name):
         fail(f"{name}: gradient leaf {leaf} through the float32 kernels "
              f"differs from the plain versions' by {r:.3g} of its scale "
              f"(tol {GRAD_TOL:g})")
-    return r, leaf, len(names)
+    return r, leaf, len(names), peak, time.perf_counter() - t0
 
 
 def cuda_core_bwd_fns(torch):
@@ -3101,11 +3172,13 @@ def frame_steps(torch, cfg, state, batch):
 
 def train_phase(torch, arch, dev, card, tmp):
     """The training path of ``arch`` at full width, TRAIN_LAYERS[arch]
-    deep (all its layers where it has none): the float32 gradient check,
-    then TRAIN_STEPS AdamW steps (a warm-up step, a timed window of
-    TRAIN_WINDOW, one under torch.profiler) through Trainer.run on
-    batch_at's tokens, or for hubert's frames through make_train_step.
-    Returns the kernel launches it made, by kernel and shape."""
+    deep (all its layers where it has none; jamba's hybrid period as
+    TRAIN_PERIOD sets it): the float32 gradient check, then TRAIN_STEPS
+    AdamW steps (a warm-up step, a timed window of TRAIN_WINDOW, one
+    under torch.profiler) of B x T (TRAIN_SHAPE, else TRAIN_BATCH x
+    TRAIN_SEQ) through Trainer.run on batch_at's tokens, or for hubert's
+    frames through make_train_step. Returns the kernel launches it
+    made, by kernel and shape."""
     from repro_torch.configs import get_config
     from repro_torch.core.tree import leaves
     from repro_torch.data.pipeline import DataConfig
@@ -3118,7 +3191,8 @@ def train_phase(torch, arch, dev, card, tmp):
     name = f"train-{arch}"
     full = get_config(arch)
     cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS.get(
-        arch, full.n_layers))
+        arch, full.n_layers), **TRAIN_PERIOD.get(arch, {}))
+    B, T = TRAIN_SHAPE.get(arch, (TRAIN_BATCH, TRAIN_SEQ))
     frames = cfg.frontend == "audio_frames"
     kinds = M.layer_kinds(cfg)
     n_attn = sum(k == "attn" for k, _ in kinds)
@@ -3133,12 +3207,14 @@ def train_phase(torch, arch, dev, card, tmp):
           f"in {cfg.dtype} (seed {TRAIN_SEED}), remat {cfg.remat}, "
           f"optimizer {cfg.optimizer}, causal {cfg.causal}, in "
           f"{time.perf_counter() - t0:.1f} s")
-    worst, at, n_leaves = grad_check(torch, cfg, params, dev, name)
+    worst, at, n_leaves, peak, secs = grad_check(torch, cfg, params, dev,
+                                                 name)
     phase(name, f"gradients over the first {GRAD_LAYERS} layers at (1, "
           f"{GRAD_SEQ}), the float32 kernels (forward and backward) vs the "
           f"float32 plain versions (autograd) in a float64 model: all "
           f"{n_leaves} leaves within {worst:.3g} of their scale (worst "
-          f"{at}; tol {GRAD_TOL:g})")
+          f"{at}; tol {GRAD_TOL:g}); the check's peak {peak:.1f} GiB on the "
+          f"card (the plain pass's gradients in host memory), {secs:.1f} s")
     if n_attn and fa.bwd_variant(cfg.dtype, dq, dv) != "cuda_core":
         worst, at, median, n_leaves, calls = bwd_designs_reading(
             torch, cfg, params, dev)
@@ -3151,15 +3227,13 @@ def train_phase(torch, arch, dev, card, tmp):
     opt_init, _ = make_optimizer(cfg)
     state = {"params": params, "opt": opt_init(params)}
     del params
-    flops = model_flops(cfg, state["params"], TRAIN_BATCH, TRAIN_SEQ, kinds)
+    flops = model_flops(cfg, state["params"], B, T, kinds)
     if frames:
-        batch = frame_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, dev,
-                            TRAIN_SEED)
+        batch = frame_batch(torch, cfg, B, T, dev, TRAIN_SEED)
         masked = float(batch["mask"].float().mean())
         run, log = frame_steps(torch, cfg, state, batch)
     else:
-        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                          global_batch=TRAIN_BATCH)
+        data = DataConfig(vocab=cfg.vocab, seq_len=T, global_batch=B)
         tcfg = TrainerConfig(ckpt_dir=str(tmp / name), total_steps=1,
                              ckpt_every=0, seed=TRAIN_SEED)
         trainer = Trainer(cfg=cfg, tcfg=tcfg, data=data, device=dev)
@@ -3177,8 +3251,10 @@ def train_phase(torch, arch, dev, card, tmp):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / TRAIN_WINDOW
     own = "flash_bwd" if n_attn else "wkv_bwd_kernel"
+    t0 = time.perf_counter()
     wall, busy, n_launch, own_ms, top = profile_busy(
         torch, lambda: run(TRAIN_STEPS - 1, TRAIN_STEPS), own)
+    prof_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     passes = 2 if cfg.remat else 1
     want = {"flash_attention": passes * n_attn * TRAIN_STEPS,
@@ -3210,21 +3286,24 @@ def train_phase(torch, arch, dev, card, tmp):
                 f"of the frames (spans of {MASK_SPAN}): the loss fell "
                 f"{log[0]['loss']:.4f} -> {log[-1]['loss']:.4f}")
     unit = "frames" if frames else "tokens"
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = B * T
     phase(name, "steps (loss, grad_norm, ms): " + "; ".join(
         f"{m['step']}: {m['loss']:.4f}, {m['grad_norm']:.4g}, "
         f"{m['step_time_s'] * 1e3:.1f}" for m in log)
         + " (the first with the kernels' first launches, the last under "
         f"torch.profiler){fell}")
-    phase(name, f"B={TRAIN_BATCH} T={TRAIN_SEQ} ({tokens} {unit} a step): "
+    active = (f" (experts at their active share {cfg.top_k}/"
+              f"{cfg.n_experts})" if cfg.n_experts else "")
+    phase(name, f"B={B} T={T} ({tokens} {unit} a step): "
           f"{step_s * 1e3:.1f} ms a step (the wall time of steps 1-"
           f"{TRAIN_WINDOW} over {TRAIN_WINDOW}), {tokens / step_s:.0f}"
-          f" {unit}/s; model FLOPs {flops / 1e12:.1f} T a step, "
+          f" {unit}/s; model FLOPs{active} {flops / 1e12:.1f} T a step, "
           f"{flops / step_s / 1e12:.1f} TFLOP/s = "
           f"{flops / step_s / BF16_OPS_PER_S:.3f} of 989 TFLOP/s; peak "
           f"memory {peak:.1f} GiB; launches {got}, the backward's by "
           f"variant {dict(fa.BWD_VARIANT_LAUNCHES)}; the last step under "
-          f"torch.profiler: {wall * 1e3:.1f} ms wall, {busy * 1e3:.1f} ms "
+          f"torch.profiler: {wall * 1e3:.1f} ms wall ({prof_s:.1f} s with "
+          f"the profiler's post-processing), {busy * 1e3:.1f} ms "
           f"device busy, idle share {1 - busy / wall:.3f}, {n_launch} kernel"
           f" launches, {own} {sum(own_ms.values()):.1f} ms ("
           + ", ".join(f"{k} {v:.1f}" for k, v in own_ms.items())
@@ -3233,8 +3312,7 @@ def train_phase(torch, arch, dev, card, tmp):
     del state, log, run
     gc.collect()
     torch.cuda.empty_cache()
-    shape = (TRAIN_BATCH, TRAIN_SEQ, H, dq, dv, cfg.causal) if n_attn else \
-        (TRAIN_BATCH, TRAIN_SEQ)
+    shape = (B, T, H, dq, dv, cfg.causal) if n_attn else (B, T)
     return {k: {"launches": n, "shapes": {shape: n} if n else {}}
             for k, n in got.items()}
 
@@ -4589,6 +4667,9 @@ def main() -> None:
     ap.add_argument("--serve", action="append", choices=SERVE_ARCHS,
                     metavar="ARCH", help="run only phase serve-ARCH "
                     "(repeatable); prints no kernels or device line")
+    ap.add_argument("--train", action="append", choices=TRAIN_ARCHS,
+                    metavar="ARCH", help="run only phase train-ARCH "
+                    "(repeatable); prints no kernels or device line")
     ap.add_argument("--distributed", action="store_true",
                     help="run only the build and phase distributed; prints "
                     "no kernels or device line")
@@ -4603,7 +4684,6 @@ def main() -> None:
                     "FLASH_BWD_CASES case's flash backward (to compare "
                     "two trees' bits); prints no kernels or device line")
     opts = ap.parse_args()
-    serve_only = opts.serve
     try:
         import torch
     except ImportError:
@@ -4650,11 +4730,17 @@ def main() -> None:
         phase("done", f"phase analysis in "
               f"{time.perf_counter() - t_start:.0f} s; card {card}")
         return
-    if serve_only:
-        for arch in serve_only:
+    tmp = ROOT / "build" / "chip_smoke_train"
+    if opts.serve or opts.train:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for arch in opts.serve or ():
             serve_phase(torch, arch, dev)
-        phase("done", f"serve phases {', '.join(serve_only)} passed in "
-              f"{time.perf_counter() - t_start:.0f} s; card {card}")
+        for arch in opts.train or ():
+            train_phase(torch, arch, dev, card, tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
+        phase("done", "phases " + ", ".join(PHASE_SECONDS) + " passed in "
+              f"{time.perf_counter() - t_start:.0f} s; seconds by phase: "
+              f"{phase_seconds()}; card {card}")
         return
     build_report(libs)
 
@@ -4896,7 +4982,6 @@ def main() -> None:
     # reduced run and the failure/resume round trip ------------------
     for k in ("flash_attention_bwd", "wkv_bwd"):
         paths[k] = {"launches": 0, "shapes": {}}
-    tmp = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(tmp, ignore_errors=True)
     train_shapes = set()
     for arch in TRAIN_ARCHS:
@@ -4930,8 +5015,7 @@ def main() -> None:
                                       train_shapes)
     kernels += time_backward_kernels(torch, dev, card, paths, worst_bwd)
     phase("done", f"every phase passed in {time.perf_counter() - t_start:.0f} s "
-          f"(the build included); seconds by phase: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
+          f"(the build included); seconds by phase: {phase_seconds()}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

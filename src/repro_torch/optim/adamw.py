@@ -5,7 +5,12 @@ operations, the update as ``(p.float() - lr * u).to(p.dtype)``.
 The moments are updated in place (each step would otherwise hold two
 float32 copies of them: 22 GB at qwen3-8b's 8-layer card run); the
 returned state holds the same tensors. The parameters come back as new
-tensors.
+tensors. A leaf's update runs the formula's operations in its order,
+in place on two float32 scratch tensors of the leaf's size (an
+operation rounds the same in place as not), where the formula written
+out holds up to five: 18.8 GB for one of jamba-v0.1-52b's (16, 4096,
+14336) expert leaves, more than its training step on an 80 GB card
+has to spare.
 """
 from __future__ import annotations
 
@@ -34,11 +39,15 @@ def adamw_update(grads, state, params, lr, *, b1=0.9, b2=0.95, eps=1e-8,
 
     def upd(g, m, v, p):
         g = g.float()
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * g * g)
-        u = (m / c1) / (torch.sqrt(v / c2) + eps)
-        u = u + weight_decay * p.float()
-        return (p.float() - lr * u).to(p.dtype)
+        s = torch.mul(g, 1 - b1)                          # (1 - b1) g
+        m.mul_(b1).add_(s)
+        torch.mul(g, 1 - b2, out=s).mul_(g)               # (1 - b2) g g
+        del g
+        v.mul_(b2).add_(s)
+        torch.div(v, c2, out=s).sqrt_().add_(eps)         # sqrt(v/c2) + eps
+        u = torch.div(m, c1).div_(s)
+        u.add_(s.copy_(p).mul_(weight_decay))             # + wd p
+        return s.copy_(p).sub_(u.mul_(lr)).to(p.dtype)    # p - lr u
 
     new_params = tree_map(upd, grads, state["m"], state["v"], params)
     return new_params, {"step": step, "m": state["m"], "v": state["v"]}

@@ -191,3 +191,49 @@ def test_cosine_warmup_shape():
     assert lrs[0] < lrs[9] <= 1.0
     assert np.argmax(lrs) <= 12
     assert lrs[-1] < 0.2
+
+
+def _adamw_formula(grads, m, v, params, lr, step, b1=0.9, b2=0.95, eps=1e-8,
+                   weight_decay=0.1):
+    """AdamW's leaf update written out, one new tensor an operation."""
+    t = torch.tensor(float(step), dtype=torch.float32)
+    c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+    out = {}
+    for k, p in params.items():
+        g = grads[k].float()
+        m[k] = b1 * m[k] + (1 - b1) * g
+        v[k] = b2 * v[k] + (1 - b2) * g * g
+        u = (m[k] / c1) / (torch.sqrt(v[k] / c2) + eps)
+        u = u + weight_decay * p.float()
+        out[k] = (p.float() - lr * u).to(p.dtype)
+    return out
+
+
+@pytest.mark.parametrize("lr", [3e-4, "tensor"])
+def test_adamw_in_place_update_equals_the_formula(lr):
+    """adamw_update computes a leaf's update in place on two scratch
+    tensors: bit for bit the formula's, over three steps, for bf16 and
+    float32 leaves (the moments updated in the state's own tensors)."""
+    gen = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn((64, 48), generator=gen).to(torch.bfloat16),
+              "router": torch.randn((48, 8), generator=gen),
+              "g": torch.randn((48,), generator=gen).to(torch.bfloat16)}
+    lr = torch.tensor(3e-4) if lr == "tensor" else lr
+    state = adamw_init(params)
+    moments = [state["m"]["w"], state["v"]["w"]]
+    want, m, v = dict(params), {}, {}
+    for k, p in params.items():
+        m[k] = torch.zeros(p.shape)
+        v[k] = torch.zeros(p.shape)
+    got = params
+    for step in range(1, 4):
+        grads = {k: torch.randn(p.shape, generator=gen).to(p.dtype)
+                 for k, p in params.items()}
+        got, state = adamw_update(grads, state, got, lr)
+        want = _adamw_formula(grads, m, v, want, lr, step)
+        for k in params:
+            assert got[k].dtype == params[k].dtype
+            assert torch.equal(got[k], want[k]), (k, step)
+            assert torch.equal(state["m"][k], m[k])
+            assert torch.equal(state["v"][k], v[k])
+    assert state["m"]["w"] is moments[0] and state["v"]["w"] is moments[1]

@@ -43,9 +43,10 @@ from repro_torch.models.moe import DistContext
 from repro_torch.optim import make_optimizer
 from repro_torch.train import steps as TS
 from repro_torch.train.steps import make_train_step
-from tests._train_ref import (GRAD_TOL, LOSS_RTOL, _batch, _models, _rel,
-                              _trees_close, check_loss_and_grads,
-                              check_train_step, one_thread)  # noqa: F401
+from tests._train_ref import (GRAD_TOL, LOSS_RTOL, OVERRIDES, _batch,
+                              _models, _rel, _trees_close,
+                              check_loss_and_grads, check_train_step,
+                              one_thread)  # noqa: F401
 from tests.test_torch_model import _assert_caches_close, _close, _merge
 
 ARCHS = ["qwen3-0.6b", "qwen3-8b", "rwkv6-7b", "granite-34b"]
@@ -76,12 +77,15 @@ def test_microbatch_accumulation_vs_reference():
     _trees_close(t_new, j_new)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b", "mixtral-8x7b",
+                                  "jamba-v0.1-52b"])
 def test_remat_recomputes_the_same_gradients(arch):
     """``remat=True`` (each layer recomputed in the backward through
-    torch.utils.checkpoint) gives the gradients of the plain run, bit
-    for bit."""
-    _, tcfg, _, tp = _models(arch)
+    torch.utils.checkpoint) gives the loss and gradients of the plain
+    run, bit for bit: for mixtral and jamba with the MoE aux loss coming
+    out of a checkpointed layer, and for jamba (OVERRIDES' Mamba + MLP,
+    then attention + MoE) through Mamba's scan loop."""
+    _, tcfg, _, tp = _models(arch, **OVERRIDES.get(arch, {}))
     _, tb = _batch(tcfg)
     out = []
     for remat in (False, True):
